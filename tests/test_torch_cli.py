@@ -72,3 +72,27 @@ def test_cli_argument_errors(tmp_path, fmi):
     # the default device is cuda, with no fallback to the CPU
     with pytest.raises(RuntimeError, match="cuda"):
         torch_cli.main(["search", str(path), str(qry), "24", "8"])
+
+
+@pytest.mark.parametrize("lut", [0, 4])
+def test_engine_pallas_res_byte_identical(tmp_path, fmi, lut):
+    codes, path = fmi
+    qry = _qry(tmp_path, codes, 24, 64, seed=7)
+    args = ["search", str(path), str(qry), "24", "64", "--iterations", "1",
+            "--lut", str(lut), "--engine", "pallas"]
+    jax_cli.main(args + ["--output", str(tmp_path / "jax.res")])
+    run = torch_cli.main(args + ["--device", "cpu", "--output", str(tmp_path / "torch.res")])
+    assert (tmp_path / "torch.res").read_bytes() == (tmp_path / "jax.res").read_bytes()
+    assert (run.results[:, 1] > run.results[:, 0]).all()
+
+
+def test_engine_pallas_refuses_a_tail(tmp_path, fmi):
+    codes, path = fmi
+    qry = _qry(tmp_path, codes, 25, 8, seed=9)  # 25 % 2: needs the k=1 tail
+    args = ["search", str(path), str(qry), "25", "8", "--engine", "pallas"]
+    with pytest.raises(SystemExit) as jax_exit:
+        jax_cli.main(args)
+    with pytest.raises(SystemExit) as torch_exit:
+        torch_cli.main(args + ["--device", "cpu"])
+    assert "pad reads to a multiple of k for pallas" in str(torch_exit.value.code)
+    assert torch_exit.value.code == jax_exit.value.code

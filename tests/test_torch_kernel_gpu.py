@@ -1,13 +1,16 @@
-"""The port's CUDA kernel on the card (marker ``gpu``; skips without one).
+"""The port's CUDA kernels on the card (marker ``gpu``; skips without one).
 
 It imports neither jax nor tpufm, so that it runs on a machine with a GPU
 and no JAX:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernel_gpu.py
 
-The LF round kernel must equal its plain PyTorch version on the same CUDA
-tensors, and the engine's search on the card must equal the plain path and
-the numpy oracle. Intervals are integers and compare exactly (tolerance 0).
+The LF round kernel (both entries: its own rows, and rows gathered
+beforehand) and the row gather kernel (both copy paths: 16-byte units and
+4-byte words) must equal their plain PyTorch versions on the same CUDA
+tensors, and the engine's searches on the card (fixed length on both gather
+paths, and variable length) must equal the plain path and the numpy oracle.
+Intervals and table words are integers and compare exactly (tolerance 0).
 """
 
 import numpy as np
@@ -16,6 +19,7 @@ import torch
 
 from tpufm_torch import SearchEngine
 from tpufm_torch.engine import lf_round as lf_mod
+from tpufm_torch.engine import row_gather as rg_mod
 from tpufm_torch.engine.tables import tables_from_index
 from tpufm_torch.host.index import IndexConfig, build_index, derive_tail
 from tpufm_torch.host.oracle import search_oracle
@@ -26,7 +30,7 @@ pytestmark = pytest.mark.gpu
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU: the LF round kernel has no CPU mode")
+        pytest.skip("needs a CUDA GPU: the port's kernels have no CPU mode")
     return torch.device("cuda")
 
 
@@ -56,14 +60,86 @@ def test_lf_round_kernel_matches_plain(cuda, k, d, n):
     assert torch.equal(got, lf_mod.lf_round_reference(*args, k, d))
 
 
+@pytest.mark.parametrize("path", ["vector", "words"])
+@pytest.mark.parametrize("W", [6, 100, 128])
+@pytest.mark.parametrize("n", [1, 31, 4099])
+def test_row_gather_kernel_matches_plain(cuda, n, W, path):
+    E = 1000
+    rng = np.random.default_rng(n * W)
+    # one word of slack: the "words" table starts 4 B past a 16-byte boundary
+    flat = torch.from_numpy(rng.integers(-(2**31), 2**31, size=E * W + 1, dtype=np.int64).astype(np.int32)).to(cuda)
+    table = (flat[:-1] if path == "vector" else flat[1:]).view(E, W)
+    idx = rng.integers(0, E, size=n)
+    idx[: min(n, 3)] = [E + 5, E, -1][: min(n, 3)]  # clamped into the table
+    idx = torch.from_numpy(idx).to(cuda)
+    out = torch.empty((n, W), dtype=torch.int32, device=cuda)
+    assert rg_mod.vector_path(table, out) == (path == "vector" and W % 4 == 0)
+    before = rg_mod.LAUNCHES
+    got = rg_mod.row_gather(table, idx, out=out)
+    torch.cuda.synchronize()
+    assert got is out and rg_mod.LAUNCHES == before + 1
+    assert torch.equal(got, rg_mod.row_gather_reference(table, idx))
+    assert torch.equal(rg_mod.row_gather(table, idx), got)
+
+
+@pytest.mark.parametrize("n", [1, 31, 4099])
+@pytest.mark.parametrize("k,d,W", [(1, 32, 6), (3, 192, 100), (3, 192, 128)])
+def test_lf_round_rows_kernel_matches_plain(cuda, k, d, W, n):
+    _, index = _index(k, d, 7 * d - 1)
+    rng = np.random.default_rng(n + W)
+    iv = rng.integers(0, index.bwtsize + 1, size=n)
+    iv[0] = index.bwtsize
+    code = rng.integers(0, 4**k, size=n)
+    t = tables_from_index(index)
+    entries = np.zeros((t.entries.shape[0], W), dtype=np.uint32)  # W - width zero words
+    entries[:, : t.entries.shape[1]] = t.entries
+    entries, iv, code, dollar = (
+        torch.from_numpy(a).to(cuda)
+        for a in (entries.view(np.int32), iv, code, t.dollar.astype(np.int64))
+    )
+    rows = rg_mod.row_gather_reference(entries, iv // d)
+    before = lf_mod.ROWS_LAUNCHES
+    got = lf_mod.lf_round_rows(rows, iv, code, dollar, k, d)
+    torch.cuda.synchronize()
+    assert lf_mod.ROWS_LAUNCHES == before + 1
+    assert torch.equal(got, lf_mod.lf_round_rows_reference(rows, iv, code, dollar, k, d))
+    assert torch.equal(got, lf_mod.lf_round_reference(entries, iv, code, dollar, k, d))
+
+
+@pytest.mark.parametrize("gather", ["fused", "dma"])
 @pytest.mark.parametrize("L,lut_m", [(24, 0), (24, 6), (31, 6)])
-def test_search_on_card_matches_plain_and_oracle(cuda, L, lut_m):
+def test_search_on_card_matches_plain_and_oracle(cuda, L, lut_m, gather):
     codes, index = _index(3, 192, 3000)
     tail = derive_tail(index) if L % 3 else None
     rng = np.random.default_rng(L + lut_m)
     starts = rng.integers(0, len(codes) - L, size=100)
     queries = np.stack([codes[s : s + L] for s in starts])
-    engine = SearchEngine(index, cuda, lut_m=lut_m, tail_index=tail)
+    engine = SearchEngine(index, cuda, lut_m=lut_m, tail_index=tail, gather=gather)
+    before = rg_mod.LAUNCHES, lf_mod.ROWS_LAUNCHES
     got = engine.search(queries, wave=32)
+    rounds = 4 * ((L - lut_m) // 3)  # four waves
+    want = (rounds, rounds) if gather == "dma" else (0, 0)
+    assert (rg_mod.LAUNCHES - before[0], lf_mod.ROWS_LAUNCHES - before[1]) == want
     np.testing.assert_array_equal(got, engine.search(queries, step=lf_mod.lf_round_reference))
     np.testing.assert_array_equal(got, search_oracle(index, queries, tail_index=tail))
+
+
+@pytest.mark.parametrize("gather", ["fused", "dma"])
+@pytest.mark.parametrize("lut_m", [0, 6])
+def test_search_varlen_on_card_matches_plain_and_oracle(cuda, lut_m, gather):
+    codes, index = _index(3, 192, 3000)
+    tail = derive_tail(index)
+    rng = np.random.default_rng(lut_m)
+    lengths = rng.integers(6, 41, size=100)
+    batch = np.full((100, 40), 0xFF, dtype=np.uint8)
+    reads = []
+    for i, L in enumerate(lengths):
+        s = int(rng.integers(0, len(codes) - L))
+        reads.append(codes[s : s + L])
+        batch[i, 40 - L :] = reads[-1]
+    engine = SearchEngine(index, cuda, lut_m=lut_m, tail_index=tail, gather=gather)
+    got = engine.search_varlen(batch, wave=32)
+    np.testing.assert_array_equal(got, engine.search_varlen(batch, step=lf_mod.lf_round_reference))
+    want = np.stack([search_oracle(index, r[None], tail_index=tail)[0] for r in reads])
+    np.testing.assert_array_equal(got, want)
+    assert (got[:, 1] > got[:, 0]).all()

@@ -1,7 +1,8 @@
 """The port and its smoke script stand alone: a child interpreter blocks every
 import of jax and of the JAX package tpufm, then imports tpufm_torch, its
-CLI, its kernel loader and chip_smoke, builds an index with the port's own
-host side, runs a small CPU search and checks it against the port's numpy
+CLI, its kernel loader, every engine module and chip_smoke, builds an index
+with the port's own host side, runs a small CPU search on both gather paths
+and a variable-length one, and checks them against the port's numpy
 oracle; the parent holds the result against tpufm's builder and oracle.
 chip_smoke itself refuses to run without a GPU, or without the repo around
 it. Intervals are integers and compare exactly (tolerance 0)."""
@@ -37,8 +38,9 @@ sys.meta_path.insert(0, Blocked())
 import numpy as np
 import chip_smoke
 import tpufm_torch, tpufm_torch.cli, tpufm_torch.kernels
+import tpufm_torch.engine.lf_round, tpufm_torch.engine.row_gather
 from tpufm_torch import SearchEngine
-from tpufm_torch.host.index import IndexConfig, build_index
+from tpufm_torch.host.index import IndexConfig, build_index, derive_tail
 from tpufm_torch.host.oracle import search_oracle
 
 rng = np.random.default_rng(7)
@@ -47,6 +49,12 @@ index = build_index(codes, IndexConfig(k=3, d=64), sa_method=sys.argv[1])
 queries = np.stack([codes[s : s + 24] for s in rng.integers(0, 976, size=20)])
 res = SearchEngine(index, "cpu", lut_m=6).search(queries)
 assert np.array_equal(res, search_oracle(index, queries))
+assert np.array_equal(SearchEngine(index, "cpu", lut_m=6, gather="dma").search(queries), res)
+tail = derive_tail(index)
+batch = queries.copy()
+batch[:, :5] = 0xFF  # 19 bp reads, right-aligned
+got = SearchEngine(index, "cpu", lut_m=6, tail_index=tail).search_varlen(batch)
+assert np.array_equal(got, search_oracle(index, queries[:, 5:], tail_index=tail))
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpufm")]
 print(json.dumps(res.tolist()))
 """

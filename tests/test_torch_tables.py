@@ -57,10 +57,50 @@ def test_tables_from_jax_give_identical_results(rng, k):
     np.testing.assert_array_equal(engine.search(queries), jax_engine.search(queries))
 
 
-def test_tables_from_jax_rejects_padded_rows(rng):
+@pytest.mark.parametrize(
+    "engine_kw,given_d",
+    [
+        ({"pad_words": 128}, False),
+        ({"pad_words": 128}, True),
+        ({"gather": "dma", "lut_m": 4}, False),
+        ({"gather": "dma", "lut_m": 4}, True),
+    ],
+)
+def test_tables_from_jax_rejects_padded_rows(rng, engine_kw, given_d):
+    """Padded rows (pad_words, or gather="dma"'s 128-word rows) are refused
+    without the sample distance, and with it give the JAX engine's results
+    on both of the port's gather paths."""
+    codes, index = _mk(rng, 2, 64)
+    tail = derive_tail(index)
+    jax_engine = XLAEngine(index, tail_index=tail, **engine_kw)
+    assert jax_engine.tables["entries"].shape[1] == 128
+    if not given_d:
+        with pytest.raises(ValueError, match="pass d"):
+            tables_from_jax(jax_engine.tables)
+        return
+    t = tables_from_jax(jax_engine.tables, d=64)
+    own = tables_from_index(index, tail)
+    assert (t.k, t.d, t.bwtsize, t.tail_d) == (own.k, own.d, own.bwtsize, own.tail_d)
+    np.testing.assert_array_equal(t.entries, own.entries)
+    queries = _queries(rng, codes, 25)  # 25 % 2: one k=1 tail round
+    want = jax_engine.search(queries)
+    np.testing.assert_array_equal(want, search_oracle(index, queries, tail_index=tail))
+    for gather in ("fused", "dma"):
+        engine = SearchEngine(t, "cpu", gather=gather)
+        assert engine.lut_m == engine_kw.get("lut_m", 0)
+        np.testing.assert_array_equal(engine.search(queries), want)
+
+
+def test_tables_from_jax_checks_the_padding(rng):
     _, index = _mk(rng, 2, 64)
-    with pytest.raises(ValueError):
-        tables_from_jax(XLAEngine(index, pad_words=128).tables)
+    tables = dict(XLAEngine(index, pad_words=128).tables)
+    with pytest.raises(ValueError, match="cannot hold"):
+        tables_from_jax(tables, d=960)  # 2k*30 + 16 = 136 words
+    entries = np.asarray(tables["entries"]).copy()
+    entries[3, 100] = 1
+    tables["entries"] = entries
+    with pytest.raises(ValueError, match="non-zero words"):
+        tables_from_jax(tables, d=64)
 
 
 @pytest.mark.parametrize("k,m", [(1, 3), (2, 4), (3, 6)])

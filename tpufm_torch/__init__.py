@@ -8,10 +8,15 @@ own host side (index construction, file formats, read I/O, numpy oracle).
 Layers:
   tpufm_torch.cli               — ``python -m tpufm_torch.cli search ...``
   tpufm_torch.engine.search     — SearchEngine: tables on the device, waves,
-                                  prefix LUT, k-step and k=1 tail rounds
-  tpufm_torch.engine.lf_round   — one LF round: the CUDA kernel on the card,
-                                  its plain PyTorch version on the CPU
-  tpufm_torch.kernels           — nvcc build + ctypes binding of csrc/*.cu
+                                  prefix LUT, k-step and k=1 tail rounds,
+                                  fixed and variable length, gather "fused"
+                                  or "dma"
+  tpufm_torch.engine.lf_round   — one LF round (K1): on its own rows or on
+                                  rows gathered beforehand; the CUDA kernel
+                                  on the card, its plain version on the CPU
+  tpufm_torch.engine.row_gather — the row gather (K3) of gather="dma"
+  tpufm_torch.kernels           — nvcc build (one library per csrc/*.cu,
+                                  all at once) + ctypes binding
   tpufm_torch.host              — index build (SA-IS in csrc/sais.cpp), index
                                   files, reads and results, the numpy oracle
 """

@@ -2,9 +2,13 @@
 
     python -m tpufm_torch.cli search INDEX QUERIES L N [--lut M] [--tail PATH]
         [--rc] [--iterations I] [--output OUT] [--device cuda|cpu]
+        [--engine xla|pallas]
 
 Counterpart of ``tpufm search`` (``cmd_search``, tpufm/cli.py:338-387) with
-its default single-chip engine: it reads the same index files (.fmi, .npz,
+its single-chip engines: ``--engine xla`` (the default; K1 loads its own
+rows) and ``--engine pallas`` (``PallasEngine``, cli.py:444-447: torch
+indexing gathers every end's row, then K1 computes on the gathered rows;
+fixed lengths that k divides after the LUT only). It reads the same index files (.fmi, .npz,
 .tpufm), derives the k=1 tail the same way, shares the ``<index>.lut<M>.npz``
 LUT cache, prints the same ``TIME:`` line (mean seconds per pass after one
 warm-up pass) and writes byte-identical ``.res`` files. ``--device`` defaults
@@ -22,6 +26,7 @@ import time
 import numpy as np
 
 from tpufm_torch.device import resolve_device
+from tpufm_torch.engine.lf_round import lf_round_indexed
 from tpufm_torch.engine.search import SearchEngine
 from tpufm_torch.host.formats import load_npz, load_store, read_fmi
 from tpufm_torch.host.index import AltCountersIndex, KStepFMIndex, derive_tail
@@ -77,6 +82,13 @@ def cmd_search(args) -> SearchRun:
         load_queries(args.queries, args.qrysize, args.numqueries), np.uint8, ["C", "W"]
     )
     tail = load_tail(index, args.index, args.qrysize, args.tail)
+    if tail is not None and args.engine == "pallas":
+        sys.exit(
+            "any-length queries (tail index) are supported by --engine "
+            "xla/xla-paired (single-chip, --mesh N, or --sharded); pad "
+            "reads to a multiple of k for pallas/xla-ac"
+        )
+    step = lf_round_indexed if args.engine == "pallas" else None
     engine = SearchEngine(
         index,
         device,
@@ -90,10 +102,10 @@ def cmd_search(args) -> SearchRun:
     if args.rc:
         # both strands in one pass; minus-strand intervals go to <out>.rc
         queries = np.concatenate([queries, reverse_complement(queries)])
-    res = engine.search(queries)  # warm-up
+    res = engine.search(queries, step=step)  # warm-up
     t0 = time.perf_counter()
     for _ in range(args.iterations):
-        res = engine.search(queries)
+        res = engine.search(queries, step=step)
     dt = (time.perf_counter() - t0) / args.iterations
     print(f"TIME: \t {dt}")
 
@@ -134,6 +146,9 @@ def main(argv=None):
     s.add_argument("--device", default="cuda",
                    help="torch device: cuda (the kernels) or cpu (the "
                         "plain PyTorch path)")
+    s.add_argument("--engine", default="xla", choices=["xla", "pallas"],
+                   help="xla: K1 loads its own rows; pallas: rows gathered "
+                        "by torch indexing, then K1 on the gathered rows")
     s.set_defaults(fn=cmd_search)
     args = p.parse_args(argv)
     return args.fn(args)

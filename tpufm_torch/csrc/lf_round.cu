@@ -20,6 +20,13 @@
 // prefix mask covers, and ONE counter by index: the TPU's binary-tree
 // counter pick was a lane-select workaround and is not ported.
 //
+// Two entries share one round body (lf_round_end). tpufm_lf_round is the
+// fused path above. tpufm_lf_round_rows keeps the Pallas contract: row j
+// was gathered beforehand (by K3, row_gather.cu, or by torch indexing) and
+// may carry padding past the counters, as XLAEngine(gather="dma") rows do.
+// It serves the gathered-row engines, which pay a [n, row_words] buffer
+// written and read back through HBM every round.
+//
 // Bound. Dependent random row loads: at most (2k*nb + 1) * 4 B per end per
 // round, 148 B at k=3 d=192. At 10 Mbase the 21 MB fused table fits the
 // H100's 50 MB L2; at genome scale it does not and each row comes from HBM.
@@ -37,24 +44,17 @@ namespace {
 
 constexpr int kThreads = 256;
 
+// The round of one end on its row r (row_words >= 2k*nb + 4^k; words past
+// the 4^k counters, e.g. alignment padding, are never read). block = v / d
+// comes from the interval itself, never from which row r is: the '$'
+// correction compares it with dollar_block exactly as _lf_round_kernel does
+// (pallas_kernel.py:56, :92-97).
 template <int K>
-__global__ void lf_round_kernel(const uint32_t* __restrict__ entries,
-                                long long nrows, int row_words, int nb,
-                                const long long* __restrict__ iv,
-                                const long long* __restrict__ code,
-                                const long long* __restrict__ dollar,
-                                long long* __restrict__ out, long long n) {
-  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n) return;
-  const uint32_t v = (uint32_t)iv[j];
-  const uint32_t c = (uint32_t)code[j];
-  const uint32_t d = 32u * (uint32_t)nb;
-  const uint32_t block = v / d;
-  const unsigned long long row =
-      min((unsigned long long)block, (unsigned long long)(nrows - 1));
-  const uint32_t* r = entries + row * (unsigned long long)row_words;
+__device__ __forceinline__ uint32_t lf_round_end(const uint32_t* __restrict__ r,
+                                                 int nb, uint32_t v, uint32_t c,
+                                                 uint32_t block, uint32_t d,
+                                                 const long long* __restrict__ dollar) {
   const int shift = (int)(v - block * d);  // v % d, in [0, d)
-
   uint32_t count = 0;
   for (int w = 0; w < nb; ++w) {
     // cov = clip(shift - 32w, 0, 32) bases of window w lie before iv.
@@ -79,7 +79,43 @@ __global__ void lf_round_kernel(const uint32_t* __restrict__ entries,
                      c == (uint32_t)dollar[K + i] && v > (uint32_t)dollar[i];
     count -= hit ? 1u : 0u;
   }
-  out[j] = (long long)(cnt + count);
+  return cnt + count;
+}
+
+// K1 as the engine's fused path runs it: each end loads its own row.
+template <int K>
+__global__ void lf_round_kernel(const uint32_t* __restrict__ entries,
+                                long long nrows, int row_words, int nb,
+                                const long long* __restrict__ iv,
+                                const long long* __restrict__ code,
+                                const long long* __restrict__ dollar,
+                                long long* __restrict__ out, long long n) {
+  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= n) return;
+  const uint32_t v = (uint32_t)iv[j];
+  const uint32_t d = 32u * (uint32_t)nb;
+  const uint32_t block = v / d;
+  const unsigned long long row =
+      min((unsigned long long)block, (unsigned long long)(nrows - 1));
+  out[j] = (long long)lf_round_end<K>(entries + row * (unsigned long long)row_words,
+                                      nb, v, (uint32_t)code[j], block, d, dollar);
+}
+
+// K1 with the Pallas contract: end j's row was gathered beforehand into
+// rows[j] (by K3, row_gather.cu, or by torch indexing).
+template <int K>
+__global__ void lf_round_rows_kernel(const uint32_t* __restrict__ rows,
+                                     int row_words, int nb,
+                                     const long long* __restrict__ iv,
+                                     const long long* __restrict__ code,
+                                     const long long* __restrict__ dollar,
+                                     long long* __restrict__ out, long long n) {
+  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= n) return;
+  const uint32_t v = (uint32_t)iv[j];
+  const uint32_t d = 32u * (uint32_t)nb;
+  out[j] = (long long)lf_round_end<K>(rows + j * (unsigned long long)row_words,
+                                      nb, v, (uint32_t)code[j], v / d, d, dollar);
 }
 
 template <int K>
@@ -94,6 +130,23 @@ int launch(const void* entries, long long nrows, int row_words, int nb,
   return (int)cudaGetLastError();
 }
 
+template <int K>
+int launch_rows(const void* rows, int row_words, int nb, const void* iv,
+                const void* code, const void* dollar, void* out, long long n,
+                cudaStream_t stream) {
+  const long long blocks = (n + kThreads - 1) / kThreads;
+  lf_round_rows_kernel<K><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      static_cast<const uint32_t*>(rows), row_words, nb,
+      static_cast<const long long*>(iv), static_cast<const long long*>(code),
+      static_cast<const long long*>(dollar), static_cast<long long*>(out), n);
+  return (int)cudaGetLastError();
+}
+
+bool bad_shape(int row_words, int k, int nb, long long n) {
+  return nb <= 0 || k < 1 || k > 8 || row_words < 2 * k * nb + (1 << (2 * k)) ||
+         (n + kThreads - 1) / kThreads > 0x7FFFFFFFLL;
+}
+
 }  // namespace
 
 // Launches K1 on `stream` and returns cudaGetLastError() (0 on success).
@@ -104,10 +157,7 @@ extern "C" int tpufm_lf_round(const void* entries, long long nrows,
                               const void* code, const void* dollar, void* out,
                               long long n, void* stream) {
   if (n <= 0) return 0;
-  if (nrows <= 0 || nb <= 0 || k < 1 || k > 8 ||
-      row_words < 2 * k * nb + (1 << (2 * k)) ||
-      (n + kThreads - 1) / kThreads > 0x7FFFFFFFLL)
-    return (int)cudaErrorInvalidValue;
+  if (nrows <= 0 || bad_shape(row_words, k, nb, n)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (k) {
     case 1: return launch<1>(entries, nrows, row_words, nb, iv, code, dollar, out, n, s);
@@ -118,6 +168,28 @@ extern "C" int tpufm_lf_round(const void* entries, long long nrows,
     case 6: return launch<6>(entries, nrows, row_words, nb, iv, code, dollar, out, n, s);
     case 7: return launch<7>(entries, nrows, row_words, nb, iv, code, dollar, out, n, s);
     default: return launch<8>(entries, nrows, row_words, nb, iv, code, dollar, out, n, s);
+  }
+}
+
+// Launches K1 on rows gathered beforehand, the Pallas contract
+// make_lf_round(k, d)(rows, iv, code, dollar): rows: uint32 [n, row_words],
+// row j belonging to end j; otherwise as tpufm_lf_round.
+extern "C" int tpufm_lf_round_rows(const void* rows, int row_words, int k,
+                                   int nb, const void* iv, const void* code,
+                                   const void* dollar, void* out, long long n,
+                                   void* stream) {
+  if (n <= 0) return 0;
+  if (bad_shape(row_words, k, nb, n)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (k) {
+    case 1: return launch_rows<1>(rows, row_words, nb, iv, code, dollar, out, n, s);
+    case 2: return launch_rows<2>(rows, row_words, nb, iv, code, dollar, out, n, s);
+    case 3: return launch_rows<3>(rows, row_words, nb, iv, code, dollar, out, n, s);
+    case 4: return launch_rows<4>(rows, row_words, nb, iv, code, dollar, out, n, s);
+    case 5: return launch_rows<5>(rows, row_words, nb, iv, code, dollar, out, n, s);
+    case 6: return launch_rows<6>(rows, row_words, nb, iv, code, dollar, out, n, s);
+    case 7: return launch_rows<7>(rows, row_words, nb, iv, code, dollar, out, n, s);
+    default: return launch_rows<8>(rows, row_words, nb, iv, code, dollar, out, n, s);
   }
 }
 

@@ -2,10 +2,18 @@
 
 Counterpart of the fused branch of ``make_search_fn``
 (tpufm/engine/xla.py:505-546), ``_tail_scan`` (:279), ``build_prefix_lut``
-(:909) and the fused path of ``XLAEngine`` (:549-746, :833). A batch starts
-from the m-mer prefix LUT (or the full interval), takes (L - m) / k rounds
-on the k-step table and L mod k rounds on the k=1 tail table; every round is
-one ``lf_round`` over both interval ends of every read.
+(:909), ``make_search_varlen_fn`` (:312-392) and the fused path of
+``XLAEngine`` (:549-797, :833). A batch starts from the m-mer prefix LUT (or
+the full interval), takes (L - m) / k rounds on the k-step table and L mod k
+rounds on the k=1 tail table; every round is one LF round over both interval
+ends of every read. A variable-length batch is right-aligned and masks each
+round per read.
+
+The k-step rounds run one of two ways (``gather``): "fused", K1 loading its
+own rows (``lf_round``); or "dma", the counterpart of
+``XLAEngine(gather="dma")``: K3 (``row_gather``) gathers every end's row into
+one buffer, then K1 computes on the gathered rows (``lf_round_rows``). The
+LUT build and the k=1 tail rounds always take ``lf_round``, as in JAX.
 """
 
 from __future__ import annotations
@@ -22,7 +30,8 @@ from tpufm_torch.engine.codes import (
     fuse_prefix_codes,
     fuse_round_codes,
 )
-from tpufm_torch.engine.lf_round import lf_round
+from tpufm_torch.engine.lf_round import lf_round, lf_round_rows
+from tpufm_torch.engine.row_gather import row_gather
 from tpufm_torch.engine.tables import (
     Tables,
     load_lut_cache,
@@ -31,6 +40,7 @@ from tpufm_torch.engine.tables import (
     tables_from_index,
 )
 from tpufm_torch.host.index import AltCountersIndex, KStepFMIndex
+from tpufm_torch.host.seqio import VARLEN_PAD
 
 
 def _words(a: np.ndarray | None, device: torch.device) -> torch.Tensor | None:
@@ -47,11 +57,13 @@ def _int64(a: np.ndarray | None, device: torch.device) -> torch.Tensor | None:
     return None if a is None else torch.from_numpy(a.astype(np.int64)).to(device)
 
 
-def _rounds(iv, codes, entries, dollar, k: int, d: int, step):
-    """Apply one LF round per row of ``codes`` [rounds, B] to ``iv`` [B, 2]."""
-    for code in codes:
-        iv = step(entries, iv.reshape(-1), code.repeat_interleave(2), dollar, k, d)
-        iv = iv.view(-1, 2)
+def _rounds(iv, codes, entries, dollar, k: int, d: int, step, keep=None):
+    """Apply one LF round per row of ``codes`` [rounds, B] to ``iv`` [B, 2];
+    where ``keep`` [rounds, B] is False a read keeps its interval."""
+    for j, code in enumerate(codes):
+        new = step(entries, iv.reshape(-1), code.repeat_interleave(2), dollar, k, d)
+        new = new.view(-1, 2)
+        iv = new if keep is None else torch.where(keep[j, :, None], new, iv)
     return iv
 
 
@@ -65,7 +77,13 @@ class SearchEngine(torch.nn.Module):
     loaded from ``lut_cache`` (an .npz shared with the JAX engine) when it
     matches the index, else built on the device with this engine's own
     rounds. tail_index: a k=1 index over the same text, for reads whose
-    length leaves L mod k characters.
+    length leaves L mod k characters. gather: how the k-step rounds reach
+    their rows, "fused" (K1 loads them) or "dma" (K3 gathers them into a
+    buffer first; see the module docstring).
+
+    ``step`` of the search methods: None runs this engine's own kernels; a
+    round function ``step(entries, iv, code, dollar, k, d)``, such as the
+    plain ``lf_round_reference``, replaces every round.
     """
 
     #: reads per wave of ``search`` (the JAX engine's wave; not tuned here)
@@ -78,8 +96,12 @@ class SearchEngine(torch.nn.Module):
         lut_m: int = 0,
         lut_cache: str | None = None,
         tail_index: KStepFMIndex | None = None,
+        gather: str = "fused",
     ):
         super().__init__()
+        if gather not in ("fused", "dma"):
+            raise ValueError(f"unknown gather {gather!r} (use 'fused' or 'dma')")
+        self.gather = gather
         device = resolve_device(device)
         #: seconds the device LUT build took (None: no LUT built here)
         self.lut_build_seconds = None
@@ -147,15 +169,32 @@ class SearchEngine(torch.nn.Module):
             lut[start:start + wave] = to_u32_bits(iv)
         return lut
 
-    def search_device(self, queries: torch.Tensor, step=lf_round) -> torch.Tensor:
-        """uint8 [B, L] 2-bit codes on this engine's device -> int64 [B, 2]
-        SA intervals (L, R), left on the device. ``step`` is the round
-        function: the kernel wrapper, or ``lf_round_reference`` to run the
-        plain version over the same tables."""
+    def _kstep(self, step, n: int):
+        """The k-step round function for ``n`` interval ends: ``step`` when
+        given, else K1 on its own rows ("fused"), or K3 into one [n, W] row
+        buffer that every round of the call reuses, then K1 on the rows
+        ("dma")."""
+        if step is not None:
+            return step
+        if self.gather == "fused":
+            return lf_round
+        rows = torch.empty((n, self.entries.shape[1]), dtype=torch.int32, device=self.device)
+
+        def gathered(entries, iv, code, dollar, k, d):
+            return lf_round_rows(row_gather(entries, iv // d, out=rows), iv, code, dollar, k, d)
+
+        return gathered
+
+    def _check_queries(self, queries: torch.Tensor) -> None:
         if queries.dtype != torch.uint8 or queries.dim() != 2:
             raise ValueError(f"queries must be uint8 [B, L], got {queries.dtype} {tuple(queries.shape)}")
         if queries.device != self.device:
             raise ValueError(f"queries on {queries.device}, engine on {self.device}")
+
+    def search_device(self, queries: torch.Tensor, step=None) -> torch.Tensor:
+        """uint8 [B, L] 2-bit codes on this engine's device -> int64 [B, 2]
+        SA intervals (L, R), left on the device."""
+        self._check_queries(queries)
         L = queries.shape[1]
         k, m = self.k, self.lut_m
         r = (L - m) % k if m else L % k
@@ -175,16 +214,69 @@ class SearchEngine(torch.nn.Module):
             iv = self._full_interval(queries.shape[0])
         if body.shape[1]:
             iv = _rounds(iv, fuse_round_codes(body, k), self.entries, self.dollar,
-                         k, self.d, step)
+                         k, self.d, self._kstep(step, 2 * queries.shape[0]))
         if r:
             # the leftover leading characters, right to left, one per round
             tail_codes = head.flip(1).to(torch.int64).T.contiguous()
             iv = _rounds(iv, tail_codes, self.tail_entries, self.tail_dollar,
-                         1, self.tail_d, step)
+                         1, self.tail_d, step or lf_round)
         return iv
 
-    def search(self, queries, wave: int | None = None, step=lf_round) -> np.ndarray:
-        """uint8 [B, L] host queries -> uint32 [B, 2] host intervals, streamed
+    def _need_varlen_tail(self) -> None:
+        if self.k > 1 and self.tail_d is None:
+            raise ValueError(
+                "variable-length search needs a tail_index (k=1) — every "
+                "length mix has reads with L mod k != 0"
+            )
+
+    def search_varlen_device(self, queries: torch.Tensor, step=None) -> torch.Tensor:
+        """uint8 [B, L] reads right-aligned, ``VARLEN_PAD`` on the left, on
+        this engine's device -> int64 [B, 2] SA intervals, each read searched
+        at its own length (its non-pad count).
+
+        k-step round j of a read is real iff (j+1)*k <= len - lut_m, so each
+        round is masked per read; the (len - lut_m) mod k leftover leading
+        characters finish as up to k-1 masked rounds on the k=1 tail table,
+        each reading its own column. An empty read, or one shorter than
+        lut_m, raises (one device-to-host read of the shortest length)."""
+        self._check_queries(queries)
+        self._need_varlen_tail()
+        k, m = self.k, self.lut_m
+        B = queries.shape[0]
+        # left-pad so that the k-step rounds tile the non-LUT columns exactly
+        pad = -(queries.shape[1] - m) % k
+        q = torch.cat([queries.new_full((B, pad), VARLEN_PAD), queries], dim=1)
+        Lp = q.shape[1]
+        is_pad = q == VARLEN_PAD
+        lengths = (~is_pad).sum(dim=1)
+        shortest = int(lengths.min()) if B else None
+        if shortest == 0:
+            raise ValueError("empty read in variable-length batch")
+        if shortest is not None and shortest < m:
+            raise ValueError(
+                f"shortest read ({shortest}) is below "
+                f"lut_m={m}; rebuild the engine with a smaller LUT"
+            )
+        qc = q.masked_fill(is_pad, 0)
+        iv = from_u32_bits(self.lut[fuse_prefix_codes(qc, m)]) if m else self._full_interval(B)
+        left = lengths - m  # characters left after the LUT start
+        if Lp > m:
+            codes = fuse_round_codes(qc[:, : Lp - m], k)
+            ends = k * torch.arange(1, codes.shape[0] + 1, device=self.device)
+            iv = _rounds(iv, codes, self.entries, self.dollar, k, self.d,
+                         self._kstep(step, 2 * B), ends[:, None] <= left)
+        if k > 1:
+            rem = left % k
+            t = torch.arange(k - 1, device=self.device)[:, None]
+            # clipped: a lane masked off by t >= rem may point left of column 0
+            col = (Lp - lengths + rem - 1 - t).clamp(0, Lp - 1)
+            chars = qc.gather(1, col.T).T.to(torch.int64).contiguous()
+            iv = _rounds(iv, chars, self.tail_entries, self.tail_dollar, 1,
+                         self.tail_d, step or lf_round, t < rem)
+        return iv
+
+    def _stream(self, queries, wave: int | None, fn) -> np.ndarray:
+        """uint32 [B, 2] host intervals of ``fn`` over host queries streamed
         through the device in waves of ``wave`` reads, the next wave queued
         before the previous one is copied back."""
         # torch.from_numpy wants a writable buffer (read-only ones are copied)
@@ -195,11 +287,22 @@ class SearchEngine(torch.nn.Module):
         out = np.empty((queries.shape[0], 2), dtype=np.uint32)
         pending = None
         for start in range(0, queries.shape[0], wave):
-            q = torch.from_numpy(queries[start:start + wave]).to(self.device)
-            iv = self.search_device(q, step)
+            iv = fn(torch.from_numpy(queries[start:start + wave]).to(self.device))
             if pending is not None:
                 out[pending[0]:start] = pending[1].cpu().numpy()
             pending = (start, iv)
         if pending is not None:
             out[pending[0]:] = pending[1].cpu().numpy()
         return out
+
+    def search(self, queries, wave: int | None = None, step=None) -> np.ndarray:
+        """uint8 [B, L] host queries -> uint32 [B, 2] host intervals, in
+        waves of ``wave`` reads."""
+        return self._stream(queries, wave, lambda q: self.search_device(q, step))
+
+    def search_varlen(self, queries, wave: int | None = None, step=None) -> np.ndarray:
+        """Right-aligned ``VARLEN_PAD``-padded host reads (the shape
+        ``load_queries_varlen`` gives) -> uint32 [B, 2] host intervals, each
+        read searched at its own length, in waves of ``wave`` reads."""
+        self._need_varlen_tail()
+        return self._stream(queries, wave, lambda q: self.search_varlen_device(q, step))

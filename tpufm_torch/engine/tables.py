@@ -96,25 +96,39 @@ def _shape_of(entries: np.ndarray, k: int) -> int:
     if bmw <= 0 or bmw % (2 * k):
         raise ValueError(
             f"fused rows of {entries.shape[1]} words do not hold k={k} "
-            "(padded rows are not supported)"
+            "(for padded rows pass d)"
         )
     return 32 * (bmw // (2 * k))
 
 
-def tables_from_jax(tables: dict) -> Tables:
-    """Port the JAX engine's state (``XLAEngine(...).tables``, fused layout,
-    unpadded rows) to the port's tables, including an already-built ``lut``
-    and tail table, so that both engines compute on identical state.
+def tables_from_jax(tables: dict, d: int | None = None) -> Tables:
+    """Port the JAX engine's state (``XLAEngine(...).tables``, fused layout)
+    to the port's tables, including an already-built ``lut`` and tail table,
+    so that both engines compute on identical state.
 
-    k is the number of '$' levels and d follows from the row width. bwtsize
-    is the sentinel row's last counter: that counter is C[4^k - 1] plus the
-    whole text's count of the last k-mer, i.e. every position except the k
-    '$' positions, plus one '$' increment per level.
+    k is the number of '$' levels. Without ``d``, d follows from the row
+    width, which must then be unpadded. With the sample distance ``d``, rows
+    padded past 2k*nb + 4^k words (``pad_words``, or ``gather="dma"``'s
+    128-word rows, xla.py:612-618) are accepted: the padding must be zeros,
+    as ``build_fused_entries`` writes it (xla.py:1413-1417), and is dropped.
+    bwtsize is the sentinel row's last counter: that counter is C[4^k - 1]
+    plus the whole text's count of the last k-mer, i.e. every position
+    except the k '$' positions, plus one '$' increment per level.
     """
     arr = {name: np.asarray(v) for name, v in tables.items()}
     k = int(arr["dollar_pos"].shape[0])
     entries = arr["entries"].astype(np.uint32, copy=False)
-    d = _shape_of(entries, k)
+    if d is None:
+        d = _shape_of(entries, k)
+    else:
+        if d <= 0 or d % 32:
+            raise ValueError(f"d must be a positive multiple of 32, got {d}")
+        width = 2 * k * (d // 32) + 4**k
+        if entries.shape[1] < width:
+            raise ValueError(f"fused rows of {entries.shape[1]} words cannot hold k={k} d={d} ({width} words)")
+        if entries[:, width:].any():
+            raise ValueError(f"fused rows carry non-zero words past the {width} of k={k} d={d}")
+        entries = entries[:, :width]
     out = Tables(
         k=k,
         d=d,
@@ -129,7 +143,7 @@ def tables_from_jax(tables: dict) -> Tables:
     ):
         raise ValueError(
             f"tables do not fit k={k} d={d} (row count or dollar_block); "
-            "padded rows are not supported"
+            "for padded rows pass d"
         )
     if "tail_entries" in arr:
         out.tail_entries = arr["tail_entries"].astype(np.uint32, copy=False)

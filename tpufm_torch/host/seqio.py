@@ -2,8 +2,9 @@
 
 Counterparts of tpufm/utils/encoding.py (2-bit codes A=0 C=1 G=2 T=3),
 tpufm/io/fasta.py (``read_reference`` :37, ``write_reference`` :65,
-``load_queries`` :125), tpufm/io/genreads.py (``generate_reads`` :13,
-``write_reads_fasta`` :92) and tpufm/io/results.py (``write_results`` :10).
+``load_queries`` :125, ``load_queries_varlen`` :154), tpufm/io/genreads.py
+(``generate_reads`` :13, ``write_reads_fasta`` :92) and tpufm/io/results.py
+(``write_results`` :10).
 """
 
 from __future__ import annotations
@@ -19,6 +20,10 @@ _b = np.arange(256, dtype=np.uint32)
 _ENCODE = (((_b & 4) | np.where(_b & 4, (_b & 2) ^ 2, _b & 2)) >> 1).astype(np.uint8).tobytes()
 _DECODE = bytes(b"ACGT"[i & 3] for i in range(256))
 _LINE = 70
+
+#: pad byte on the left of right-aligned variable-length reads, outside the
+#: 0-3 code alphabet (tpufm/engine/xla.py:309)
+VARLEN_PAD = 0xFF
 
 
 def encode_bases(seq) -> np.ndarray:
@@ -82,10 +87,12 @@ def write_reference(path, seq: bytes | str) -> None:
         fp.write(b"\n")
 
 
-def load_queries(path, query_len: int, num_queries: int | None = None) -> np.ndarray:
-    """uint8 codes [num_queries, query_len] from a .qry/FASTA file (every
+def _reads(path, num_queries: int | None, query_len: int | None = None):
+    """The stripped non-empty sequence lines of a .qry/FASTA file (every
     non-empty non-header line is one read) or a FASTQ file (4-line records,
-    detected by a leading '@'), either optionally gzipped."""
+    detected by a leading '@'), either optionally gzipped: at most
+    ``num_queries`` of them, and exactly that many, each ``query_len`` long
+    when given, or ValueError."""
     reads = []
     with _open(path) as fp:
         fastq = fp.read(1) == b"@"
@@ -103,12 +110,36 @@ def load_queries(path, query_len: int, num_queries: int | None = None) -> np.nda
             seq = line.strip()
             if not seq:
                 continue
-            if len(seq) != query_len:
+            if query_len is not None and len(seq) != query_len:
                 raise ValueError(f"{path}: read of length {len(seq)}, expected {query_len}")
             reads.append(seq)
     if num_queries is not None and len(reads) < num_queries:
         raise ValueError(f"{path}: only {len(reads)} reads, need {num_queries}")
+    return reads
+
+
+def load_queries(path, query_len: int, num_queries: int | None = None) -> np.ndarray:
+    """uint8 codes [num_queries, query_len] from a .qry/FASTA or FASTQ file,
+    either optionally gzipped."""
+    reads = _reads(path, num_queries, query_len)
     return encode_bases(b"".join(reads)).reshape(len(reads), query_len)
+
+
+def load_queries_varlen(path, num_queries: int | None = None) -> np.ndarray:
+    """uint8 codes [num_queries, max_len] of a mixed-length .qry/FASTA or
+    FASTQ file, either optionally gzipped: each read right-aligned with
+    ``VARLEN_PAD`` on the left, the shape ``SearchEngine.search_varlen``
+    takes (backward search reads from the end, so every read's suffix sits
+    in the same columns)."""
+    reads = _reads(path, num_queries)
+    if not reads:
+        raise ValueError(f"{path}: no reads found")
+    lens = np.fromiter(map(len, reads), np.int64, len(reads))
+    max_len = int(lens.max())
+    out = np.full((len(reads), max_len), VARLEN_PAD, dtype=np.uint8)
+    # the mask enumerates cells row-major, in the joined reads' order
+    out[np.arange(max_len)[None, :] >= max_len - lens[:, None]] = encode_bases(b"".join(reads))
+    return out
 
 
 def generate_reads(codes: np.ndarray, length: int, num: int, seed: int = 0,

@@ -21,7 +21,7 @@ from pathlib import Path
 
 import numpy as np
 
-from tpufm_torch.kernels import compile_library
+from tpufm_torch.kernels import compile_libraries
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc" / "sais.cpp"
 CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-shared"]
@@ -34,7 +34,7 @@ def _library() -> ctypes.CDLL:
     current source and flags exists."""
     global _sais
     if _sais is None:
-        lib = compile_library(os.environ.get("CXX", "g++"), CXX_FLAGS, [CSRC], "libsais")
+        lib, = compile_libraries(os.environ.get("CXX", "g++"), CXX_FLAGS, [([CSRC], "libsais")])
         _sais = ctypes.CDLL(str(lib))
         _sais.tpufm_sais_u8.restype = ctypes.c_int
         _sais.tpufm_sais_u8.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]

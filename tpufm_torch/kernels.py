@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-The .cu sources in tpufm_torch/csrc/ compile at first use with nvcc for
-Hopper (sm_90a) into one shared library with a plain C interface, placed in
-tpufm_torch/_build/ under a name that hashes the sources and flags, and are
-bound with ctypes. ``compile_library`` also builds the host side's C++
-(csrc/sais.cpp). Nothing compiles when this module is imported.
+Each .cu source in tpufm_torch/csrc/ compiles at first use with nvcc for
+Hopper (sm_90a) into its own shared library with a plain C interface, all
+sources at once (one nvcc process each), placed in tpufm_torch/_build/ under
+a name that hashes the source and flags, and bound with ctypes.
+``compile_libraries`` also builds the host side's C++ (csrc/sais.cpp).
+Nothing compiles when this module is imported.
 """
 
 from __future__ import annotations
@@ -23,7 +24,23 @@ NVCC_FLAGS = [
     "-Xptxas", "-v",
 ]
 
-_library = None
+#: argument types of each exported launcher, by source: c_void_p for every
+#: pointer and the stream (ctypes would cut a pointer passed as an int)
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+SIGNATURES = {
+    "lf_round": {
+        # entries, nrows, row_words, k, nb, iv, code, dollar, out, n, stream
+        "tpufm_lf_round": [_P, _LL, _I, _I, _I, _P, _P, _P, _P, _LL, _P],
+        # rows, row_words, k, nb, iv, code, dollar, out, n, stream
+        "tpufm_lf_round_rows": [_P, _I, _I, _I, _P, _P, _P, _P, _LL, _P],
+    },
+    "row_gather": {
+        # table, nrows, row_words, idx, out, n, vec, stream
+        "tpufm_row_gather": [_P, _LL, _I, _P, _P, _LL, _I, _P],
+    },
+}
+
+_libraries: dict[str, ctypes.CDLL] = {}
 
 
 def sources() -> list[Path]:
@@ -41,68 +58,65 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def compile_library(compiler: str, flags: list[str], srcs: list[Path], stem: str) -> Path:
-    """Compile ``srcs`` into ``_build/<stem>_<hash of sources and flags>.so``
-    unless that library exists; return its path. The compiler's output is
-    kept beside the library as ``<name>.log``. Raises RuntimeError if the
+def compile_libraries(compiler: str, flags: list[str], jobs: list[tuple[list[Path], str]]) -> list[Path]:
+    """Compile each job (sources, stem) into ``_build/<stem>_<hash of
+    sources and flags>.so`` unless that library exists, one compiler process
+    per job, all running at once; return the paths. The compiler's output is
+    kept beside each library as ``<name>.log``. Raises RuntimeError if a
     compiler fails."""
-    h = hashlib.sha256(" ".join(flags).encode())
-    for src in srcs:
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    lib = BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}.so"
-    if lib.exists():
-        return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [compiler, *flags, "-o", str(tmp), *map(str, srcs)],
-        capture_output=True,
-        text=True,
-    )
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"{compiler} failed ({proc.returncode}) on {[s.name for s in srcs]}:\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
-    return lib
+    libs, running = [], []
+    for srcs, stem in jobs:
+        h = hashlib.sha256(" ".join(flags).encode())
+        for src in srcs:
+            h.update(src.name.encode())
+            h.update(src.read_bytes())
+        lib = BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}.so"
+        libs.append(lib)
+        if not lib.exists():
+            tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+            proc = subprocess.Popen(
+                [compiler, *flags, "-o", str(tmp), *map(str, srcs)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            running.append((proc, srcs, lib, tmp))
+    failed = []
+    for proc, srcs, lib, tmp in running:
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"{compiler} failed ({proc.returncode}) on {[s.name for s in srcs]}:\n{log}")
+            continue
+        lib.with_suffix(".log").write_text(log)
+        os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return libs
 
 
-def build() -> Path:
-    """The CUDA kernel library, compiled with nvcc unless already built;
-    its log holds ptxas's register and spill counts."""
-    return compile_library(_nvcc(), NVCC_FLAGS, sources(), "libtpufm_torch")
+def build() -> dict[str, Path]:
+    """The CUDA kernel libraries by source name (``lf_round``, ...), each
+    compiled with nvcc unless already built; each log holds ptxas's register
+    and spill counts."""
+    srcs = sources()
+    libs = compile_libraries(_nvcc(), NVCC_FLAGS, [([s], f"libtpufm_{s.stem}") for s in srcs])
+    return {s.stem: lib for s, lib in zip(srcs, libs)}
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call), with argument types
-    declared: c_void_p for every pointer and the stream."""
-    global _library
-    if _library is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.tpufm_lf_round
-        fn.argtypes = [
-            ctypes.c_void_p,    # entries
-            ctypes.c_longlong,  # nrows
-            ctypes.c_int,       # row_words
-            ctypes.c_int,       # k
-            ctypes.c_int,       # nb
-            ctypes.c_void_p,    # iv
-            ctypes.c_void_p,    # code
-            ctypes.c_void_p,    # dollar
-            ctypes.c_void_p,    # out
-            ctypes.c_longlong,  # n
-            ctypes.c_void_p,    # stream
-        ]
-        fn.restype = ctypes.c_int
-        lib.tpufm_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.tpufm_cuda_error_string.restype = ctypes.c_char_p
-        _library = lib
-    return _library
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu (every kernel library is built
+    on the first call), with the argument types of its launchers declared."""
+    if not _libraries:
+        for stem, path in build().items():
+            lib = ctypes.CDLL(str(path))
+            for fn, argtypes in SIGNATURES[stem].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            lib.tpufm_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.tpufm_cuda_error_string.restype = ctypes.c_char_p
+            _libraries[stem] = lib
+    return _libraries[name]
 
 
-def error_string(err: int) -> str:
-    return f"{library().tpufm_cuda_error_string(err).decode()} (cudaError {err})"
+def error_string(name: str, err: int) -> str:
+    return f"{library(name).tpufm_cuda_error_string(err).decode()} (cudaError {err})"
