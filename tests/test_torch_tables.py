@@ -11,8 +11,10 @@ import pytest
 from tpufm.config import IndexConfig
 from tpufm.engine import xla
 from tpufm.engine.oracle import search_oracle
-from tpufm.engine.xla import XLAEngine
+from tpufm.engine.xla import SearchLocateEngine, XLAEngine, build_locate_tables
 from tpufm.index.builder import build_index, derive_tail
+from tpufm.index.locate import build_locate
+from tpufm.index.suffix_array import suffix_array
 from tpufm_torch import SearchEngine, tables_from_index, tables_from_jax
 from tpufm_torch.engine import tables as tables_mod
 
@@ -89,6 +91,34 @@ def test_tables_from_jax_rejects_padded_rows(rng, engine_kw, given_d):
         engine = SearchEngine(t, "cpu", gather=gather)
         assert engine.lut_m == engine_kw.get("lut_m", 0)
         np.testing.assert_array_equal(engine.search(queries), want)
+
+
+@pytest.mark.parametrize("loc_d", [32, 64, 96])
+def test_tables_from_jax_takes_the_locate_rows_tail(loc_d):
+    """The JAX search+locate state carries the fused locate rows (3*nb + 5
+    words) as its k=1 tail table (xla.py:1183-1189). Read by width alone
+    they pass for plain k=1 rows of another d (d=32 as 64, d=96 as 160):
+    the row count refuses that, and tail_d takes the rows whole, giving the
+    JAX engine's intervals through one tail round on the locate rows."""
+    rng = np.random.default_rng(5)
+    codes = rng.integers(0, 4, size=2000, dtype=np.uint8)
+    sa = suffix_array(codes, method="doubling")
+    index = build_index(codes, IndexConfig(k=2, d=64), sa=sa)
+    loc = build_locate(codes, sample_rate=8, d=loc_d, sa=sa)
+    loc_tables, _, _ = build_locate_tables(loc, lambda a: a)
+    state = dict(
+        XLAEngine(index).tables,
+        tail_entries=loc_tables["locate_rows"],
+        **{f"tail_{name}": loc_tables[name] for name in ("dollar_pos", "dollar_base", "dollar_block")},
+    )
+    with pytest.raises(ValueError, match="k=1"):
+        tables_from_jax(state)
+    t = tables_from_jax(state, tail_d=loc_d)
+    assert (t.d, t.tail_d) == (64, loc_d)
+    np.testing.assert_array_equal(t.tail_entries, np.asarray(loc_tables["locate_rows"]))
+    queries = _queries(rng, codes, 25)  # 25 % 2: one k=1 tail round
+    want, _ = SearchLocateEngine(index, loc, max_hits=4).search_locate(queries)
+    np.testing.assert_array_equal(SearchEngine(t, "cpu").search(queries), want)
 
 
 def test_tables_from_jax_checks_the_padding(rng):

@@ -101,7 +101,12 @@ def _shape_of(entries: np.ndarray, k: int) -> int:
     return 32 * (bmw // (2 * k))
 
 
-def tables_from_jax(tables: dict, d: int | None = None) -> Tables:
+def _check_d(d: int, name: str = "d") -> None:
+    if d <= 0 or d % 32:
+        raise ValueError(f"{name} must be a positive multiple of 32, got {d}")
+
+
+def tables_from_jax(tables: dict, d: int | None = None, tail_d: int | None = None) -> Tables:
     """Port the JAX engine's state (``XLAEngine(...).tables``, fused layout)
     to the port's tables, including an already-built ``lut`` and tail table,
     so that both engines compute on identical state.
@@ -114,6 +119,13 @@ def tables_from_jax(tables: dict, d: int | None = None) -> Tables:
     bwtsize is the sentinel row's last counter: that counter is C[4^k - 1]
     plus the whole text's count of the last k-mer, i.e. every position
     except the k '$' positions, plus one '$' increment per level.
+
+    The k=1 tail table likewise: without ``tail_d`` its rows must be exactly
+    2*nb + 4 words; with it, wider rows are kept whole, such as the fused
+    locate rows that the JAX search+locate state carries as its tail
+    (xla.py:1183-1189: 3*nb + 5 words, the mark columns past the counters,
+    which the LF round never reads). Either way the tail's row count must be
+    ceil(bwtsize / tail_d) + 1, or the row width was misread.
     """
     arr = {name: np.asarray(v) for name, v in tables.items()}
     k = int(arr["dollar_pos"].shape[0])
@@ -121,8 +133,7 @@ def tables_from_jax(tables: dict, d: int | None = None) -> Tables:
     if d is None:
         d = _shape_of(entries, k)
     else:
-        if d <= 0 or d % 32:
-            raise ValueError(f"d must be a positive multiple of 32, got {d}")
+        _check_d(d)
         width = 2 * k * (d // 32) + 4**k
         if entries.shape[1] < width:
             raise ValueError(f"fused rows of {entries.shape[1]} words cannot hold k={k} d={d} ({width} words)")
@@ -146,11 +157,27 @@ def tables_from_jax(tables: dict, d: int | None = None) -> Tables:
             "for padded rows pass d"
         )
     if "tail_entries" in arr:
-        out.tail_entries = arr["tail_entries"].astype(np.uint32, copy=False)
-        out.tail_d = _shape_of(out.tail_entries, 1)
+        tail = arr["tail_entries"].astype(np.uint32, copy=False)
+        if tail_d is None:
+            tail_d = _shape_of(tail, 1)
+        else:
+            _check_d(tail_d, "tail_d")
+            if tail.shape[1] < 2 * (tail_d // 32) + 4:
+                raise ValueError(f"tail rows of {tail.shape[1]} words cannot hold k=1 d={tail_d}")
+        out.tail_d, out.tail_entries = tail_d, tail
         out.tail_dollar = np.stack(
             [arr["tail_dollar_pos"], arr["tail_dollar_base"], arr["tail_dollar_block"]]
         ).astype(np.uint32)
+        if tail.shape[0] != -(-out.bwtsize // tail_d) + 1 or not np.array_equal(
+            out.tail_dollar[2], out.tail_dollar[0] // np.uint32(tail_d)
+        ):
+            raise ValueError(
+                f"tail table of {tail.shape[0]} rows x {tail.shape[1]} words does not "
+                f"fit k=1 d={tail_d} (row count or dollar_block); for rows wider than "
+                "2*nb + 4 words, such as the fused locate rows, pass tail_d"
+            )
+    elif tail_d is not None:
+        raise ValueError("tail_d given, but the tables carry no tail_entries")
     if "lut" in arr:
         out.lut = arr["lut"].astype(np.uint32, copy=False)
     return out
