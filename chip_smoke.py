@@ -55,7 +55,15 @@ import torch
 
 from tpufm_torch import SearchEngine, cli, kernels
 from tpufm_torch.engine import lf_round as lf_mod
+from tpufm_torch.engine import locate as loc_mod
 from tpufm_torch.engine import row_gather as rg_mod
+from tpufm_torch.engine.locate import (
+    LocateEngine,
+    locate_tables_from_index,
+    locate_walk,
+    locate_walk_reference,
+)
+from tpufm_torch.engine.search_locate import SearchLocateEngine
 from tpufm_torch.engine.lf_round import (
     lf_round,
     lf_round_reference,
@@ -63,9 +71,11 @@ from tpufm_torch.engine.lf_round import (
     lf_round_rows_reference,
 )
 from tpufm_torch.engine.row_gather import row_gather, row_gather_reference, vector_path
-from tpufm_torch.host.formats import write_fmi
+from tpufm_torch.host.formats import load_store, write_fmi
 from tpufm_torch.host.index import IndexConfig, build_index, derive_tail
+from tpufm_torch.host.locate import build_locate, locate_hits
 from tpufm_torch.host.oracle import search_oracle
+from tpufm_torch.host.suffix_array import suffix_array
 from tpufm_torch.host.seqio import (
     decode_bases,
     generate_reads,
@@ -92,12 +102,17 @@ GATHER_CASES = [
     ("P5", 156_256, 128, 1 << 17),
 ] + [("P35", E, W, 1 << 20) for E in (208_000, 2_000_000) for W in (8, 32, 88, 128)]
 VARLEN_READS, VARLEN_MIN, VARLEN_MAX = 1 << 20, 50, 151
+SAMPLE_RATE, MAX_HITS = 32, 16
+WALK_ROWS = 1 << 20  # the walk lanes of a 1M-read locate
+WIDE_READS, WIDE_LEN, WIDE_HITS = 1 << 16, 10, 8
+MM_READS, MM_PLAIN = 1 << 16, 4096
 
 #: each kernel's wrapper and the module attribute holding its launch count
 COUNTS = {
     "lf_round": (lf_mod, "LAUNCHES"),
     "lf_round_rows": (lf_mod, "ROWS_LAUNCHES"),
     "row_gather": (rg_mod, "LAUNCHES"),
+    "locate_walk": (loc_mod, "LAUNCHES"),
 }
 
 
@@ -272,6 +287,42 @@ def write_fastq(path, codes: np.ndarray, lengths: np.ndarray) -> None:
                 b"@r%d\n%s\n+\n%s\n" % (base + j, seqs[j * W:j * W + n], b"I" * n)
                 for j, n in enumerate(lengths[base:base + chunk].tolist())
             ))
+
+
+def check_walk(loc, sa: np.ndarray, dev) -> dict:
+    """K4 over every BWT row, bwtsize and rows past the table (clamped):
+    equal to the suffix array and to the plain walk; both timed at
+    WALK_ROWS random rows and at all rows."""
+    t = locate_tables_from_index(loc)
+    tables = [torch.from_numpy(a).to(dev) for a in (t.rows.view(np.int32), t.samples.view(np.int32),
+                                                    t.dollar.astype(np.int64))]
+    bwtsize = sa.shape[0]
+    past = [bwtsize, bwtsize + 3, bwtsize + 5 * D, (bwtsize // D + 7) * D + 11]
+    p = torch.cat([torch.arange(bwtsize, dtype=torch.int64, device=dev),
+                   torch.tensor(past, dtype=torch.int64, device=dev)])
+    got = locate_walk(*tables, p, D, SAMPLE_RATE)
+    want = locate_walk_reference(*tables, p, D, SAMPLE_RATE)
+    torch.cuda.synchronize()
+    err = int((got - want).abs().max())
+    if err != 0 or not torch.equal(got, want):
+        raise AssertionError(f"K4: kernel differs from plain on {(got != want).sum()} rows (max abs err {err})")
+    if not np.array_equal(got[:bwtsize].cpu().numpy(), sa):
+        raise AssertionError("K4: walked rows differ from the suffix array")
+    del want
+    rnd = torch.randint(0, bwtsize, (WALK_ROWS,), dtype=torch.int64, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(SEED))
+    return {
+        "max_abs_err": err, "rows": int(p.shape[0]),
+        "ms": cuda_ms(lambda: locate_walk(*tables, rnd, D, SAMPLE_RATE)),
+        "plain_ms": cuda_ms(lambda: locate_walk_reference(*tables, rnd, D, SAMPLE_RATE)),
+        "all_ms": cuda_ms(lambda: locate_walk(*tables, p, D, SAMPLE_RATE)),
+        "all_plain_ms": cuda_ms(lambda: locate_walk_reference(*tables, p, D, SAMPLE_RATE), reps=3),
+    }
+
+
+def text_windows(codes: np.ndarray, pos: np.ndarray, L: int) -> np.ndarray:
+    """uint8 [N, L]: the text at each position."""
+    return codes[pos.astype(np.int64)[:, None] + np.arange(L, dtype=np.int64)[None, :]]
 
 
 def main() -> None:
@@ -470,6 +521,167 @@ def main() -> None:
               f"first {ORACLE_READS} equal to the oracle over {len(np.unique(head))} lengths; checks "
               f"{time.perf_counter() - t1:.2f} s; phase {time.perf_counter() - t0:.2f} s", flush=True)
 
+        t0 = time.perf_counter()
+        sa = suffix_array(codes)
+        loc = build_locate(codes, sample_rate=SAMPLE_RATE, d=D, sa=sa)
+        loc_s = time.perf_counter() - t0
+        walk = check_walk(loc, sa, dev)
+        del sa, loc
+        torch.cuda.empty_cache()
+        print(f"[9 K4 vs plain] sample rate {SAMPLE_RATE}, d={D}: all {REF_BASES + 1} BWT rows plus "
+              f"bwtsize and 3 rows past it walked, equal to the suffix array and bit-identical to the "
+              f"plain walk; {WALK_ROWS} random rows: kernel {walk['ms']:.4f} ms, plain "
+              f"{walk['plain_ms']:.4f} ms; all {walk['rows']} rows: kernel {walk['all_ms']:.4f} ms, "
+              f"plain {walk['all_plain_ms']:.4f} ms; suffix sort + locate tables {loc_s:.2f} s; phase "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+        t0 = time.perf_counter()
+        store = os.path.join(tmp, "P")
+        pos_two, pos_fused = os.path.join(tmp, "two.pos"), os.path.join(tmp, "fused.pos")
+        common = [qry, str(READ_LEN), str(READS), "--k", str(K), "--d", str(D), "--sample-rate",
+                  str(SAMPLE_RATE), "--max-hits", str(MAX_HITS), "--lut", str(LUT_M), "--device", "cuda"]
+        reset_counts()
+        two = cli.main(["locate", ref, str(REF_BASES), *common, "--store", store, "--output", pos_two])
+        by_path["locate"] = read_counts()
+        walk_waves = -(-int((two.positions != 0xFFFFFFFF).sum()) // LocateEngine.WAVE)
+        expect_launches("locate two-pass", by_path["locate"],
+                        {"lf_round": rounds * waves + lut_launches, "locate_walk": walk_waves})
+        reset_counts()
+        fused = cli.main(["locate", "-", "0", *common, "--from-store", store, "--fused", "--output", pos_fused])
+        by_path["locate_fused"] = read_counts()
+        fwaves = -(-READS // SearchLocateEngine.WAVE)
+        expect_launches("locate --fused", by_path["locate_fused"],
+                        {"lf_round": rounds * fwaves + lut_launches, "locate_walk": fwaves})
+        reset_counts()
+        both = cli.main(["locate", "-", "0", *common, "--from-store", store, "--fused", "--rc",
+                         "--output", os.path.join(tmp, "rc.pos")])
+        by_path["locate_fused_rc"] = read_counts()
+        # the minus-strand waves hold no hit in a random text, and a wave
+        # with no row to walk launches no walk
+        expect_launches("locate --fused --rc", by_path["locate_fused_rc"],
+                        {"lf_round": 2 * rounds * fwaves + lut_launches, "locate_walk": fwaves})
+        cli_s = time.perf_counter() - t0
+        if Path(pos_two).read_bytes() != Path(pos_fused).read_bytes():
+            raise AssertionError("locate: the two-pass and fused .pos files differ")
+        if not np.array_equal(both.positions[:READS], fused.positions):
+            raise AssertionError("locate --rc: the plus strand differs from the fused run")
+        for name, run_ in (("two-pass", two), ("fused", fused), ("fused --rc", both)):
+            if not (run_.positions[:READS] == starts[:, None]).any(axis=1).all():
+                raise AssertionError(f"locate {name}: a read's true start is missing from its positions")
+        if not np.array_equal(two.intervals, run.results):
+            raise AssertionError("locate two-pass: intervals differ from phase 4's")
+        index_s = load_store(f"{store}.search.tpufm")
+        loc_store = load_store(f"{store}.locate.tpufm")
+        oracle = locate_hits(loc_store, search_oracle(index_s, reads[:ORACLE_READS]), MAX_HITS)
+        if not np.array_equal(fused.positions[:ORACLE_READS], oracle):
+            raise AssertionError("locate: the first reads differ from the host oracle")
+        sle = SearchLocateEngine(index_s, loc_store, dev, max_hits=MAX_HITS, lut_m=LUT_M)
+        plain_iv, plain_pos = sle.search_locate(reads[:ORACLE_READS], step=lf_round_reference,
+                                                walk=locate_walk_reference)
+        if not (np.array_equal(plain_pos, fused.positions[:ORACLE_READS])
+                and np.array_equal(plain_iv, run.results[:ORACLE_READS])):
+            raise AssertionError("locate: the first reads differ from the plain path")
+        reset_counts()
+        (_, f_pos), f_s = timed_passes(lambda: sle.search_locate(reads))
+        by_path["search_locate_timed"] = read_counts()
+        expect_launches("search_locate", by_path["search_locate_timed"],
+                        {"lf_round": 4 * rounds * fwaves, "locate_walk": 4 * fwaves})
+        two_search = SearchEngine(index_s, dev, lut_m=LUT_M)
+        two_locate = LocateEngine(loc_store, dev)
+        reset_counts()
+        t_pos, t_s = timed_passes(lambda: two_locate.locate_hits(two_search.search(reads), MAX_HITS))
+        by_path["two_pass_timed"] = read_counts()
+        expect_launches("search + locate_hits", by_path["two_pass_timed"],
+                        {"lf_round": 4 * rounds * waves, "locate_walk": 4 * walk_waves})
+        if not (np.array_equal(f_pos, fused.positions) and np.array_equal(t_pos, fused.positions)):
+            raise AssertionError("locate: the timed passes differ from the CLI's positions")
+        hits = int((fused.positions != 0xFFFFFFFF).sum())
+        print(f"[10 locate] {READS} x {READ_LEN} bp, max-hits {MAX_HITS}, {hits} positions: CLI two-pass "
+              f"(+ --store) pass {two.seconds:.6f} s, --fused {fused.seconds:.6f} s, --fused --rc "
+              f"{both.seconds:.6f} s; .pos byte-identical, every true start found, first {ORACLE_READS} "
+              f"equal to the host oracle and the plain path; timed passes: search_locate "
+              f"{f_s:.6f} s/pass ({READS / f_s:.0f} reads/s), search + locate_hits {t_s:.6f} s/pass "
+              f"({READS / t_s:.0f} reads/s); launches {by_path['locate']} / {by_path['locate_fused']} / "
+              f"{by_path['locate_fused_rc']}; CLI {cli_s:.2f} s; phase {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        del two, both, two_search, two_locate, f_pos, t_pos
+
+        t0 = time.perf_counter()
+        wide = generate_reads(codes, WIDE_LEN, WIDE_READS, seed=SEED + 3)
+        reset_counts()
+        wide_sle = SearchLocateEngine(index_s, loc_store, dev, max_hits=WIDE_HITS)
+        w_iv, w_pos = wide_sle.search_locate(wide)
+        by_path["wide_fused"] = read_counts()
+        reset_counts()
+        w_two_iv = SearchEngine(index_s, dev, tail_index=loc_store.lf1).search(wide)
+        w_two = LocateEngine(loc_store, dev).locate_hits(w_two_iv, WIDE_HITS)
+        by_path["wide_two_pass"] = read_counts()
+        for name in ("wide_fused", "wide_two_pass"):
+            expect_launches(name, by_path[name], {"lf_round": WIDE_LEN // K + 1, "locate_walk": 1})
+        if not (np.array_equal(w_iv, w_two_iv) and np.array_equal(w_pos, w_two)):
+            raise AssertionError("wide intervals: fused and two-pass differ")
+        width = w_iv[:, 1].astype(np.int64) - w_iv[:, 0]
+        fill = (w_pos != 0xFFFFFFFF).sum(axis=1)
+        if not np.array_equal(fill, np.minimum(width, WIDE_HITS)):
+            raise AssertionError("wide intervals: a fill count is not min(R - L, max-hits)")
+        valid = w_pos != 0xFFFFFFFF
+        at = text_windows(codes, w_pos[valid], WIDE_LEN)
+        if not (at == np.repeat(wide, fill, axis=0)).all():
+            raise AssertionError("wide intervals: a reported position is not an occurrence")
+        print(f"[11 wide intervals] {WIDE_READS} x {WIDE_LEN} bp, no LUT, max-hits {WIDE_HITS}: mean "
+              f"R - L {width.mean():.2f}, {(width >= WIDE_HITS).mean() * 100:.1f}% of reads at the cap, "
+              f"{int(valid.sum())} positions; fused equal to two-pass, fill = min(R - L, {WIDE_HITS}), every "
+              f"position an occurrence; launches {by_path['wide_fused']} / {by_path['wide_two_pass']}; "
+              f"phase {time.perf_counter() - t0:.2f} s", flush=True)
+        del wide_sle
+
+        t0 = time.perf_counter()
+        mm_reads, mm_starts = generate_reads(codes, READ_LEN, MM_READS, seed=SEED + 4, return_starts=True)
+        mrng = np.random.default_rng(SEED + 4)
+        mutated = np.arange(MM_READS) % 2 == 0
+        col = mrng.integers(0, READ_LEN, size=MM_READS)
+        sub = (mm_reads[np.arange(MM_READS), col] + mrng.integers(1, 4, size=MM_READS)) % 4
+        mm_reads[mutated, col[mutated]] = sub[mutated]
+        mm_qry = os.path.join(tmp, "mm.qry")
+        write_reads_fasta(mm_qry, mm_reads, mm_starts)
+        mm_waves = -(-MM_READS // (SearchEngine.WAVE // (3 * READ_LEN + 1)))
+        reset_counts()
+        cnt = cli.main(["count", fmi, mm_qry, str(READ_LEN), str(MM_READS), "--mismatches", "1",
+                        "--lut", str(LUT_M), "--device", "cuda", "--output", os.path.join(tmp, "mm.cnt")])
+        by_path["count_mm1"] = read_counts()
+        expect_launches("count --mismatches 1", by_path["count_mm1"], {"lf_round": 2 * rounds * mm_waves})
+        reset_counts()
+        mloc = cli.main(["locate", "-", "0", mm_qry, str(READ_LEN), str(MM_READS), "--from-store", store,
+                         "--mismatches", "1", "--lut", str(LUT_M), "--max-hits", str(MAX_HITS),
+                         "--device", "cuda", "--output", os.path.join(tmp, "mm.pos")])
+        by_path["locate_mm1"] = read_counts()
+        expect_launches("locate --mismatches 1", by_path["locate_mm1"],
+                        {"lf_round": rounds * mm_waves + lut_launches, "locate_walk": mm_waves})
+        t1 = time.perf_counter()
+        if not (cnt.counts >= 1).all():
+            raise AssertionError("count --mismatches 1: a sampled read counts 0")
+        plain_cnt = cnt.engine.count(mm_reads[:MM_PLAIN], mismatches=1, step=lf_round_reference)
+        if not np.array_equal(cnt.counts[:MM_PLAIN], plain_cnt):
+            raise AssertionError("count --mismatches 1: counts differ from the plain path")
+        mpos = mloc.positions
+        if not (mpos == mm_starts[:, None]).any(axis=1).all():
+            raise AssertionError("locate --mismatches 1: a read's origin is missing from its positions")
+        valid = mpos != 0xFFFFFFFF
+        dist = (text_windows(codes, mpos[valid], READ_LEN)
+                != np.repeat(mm_reads, valid.sum(axis=1), axis=0)).sum(axis=1)
+        if not (dist <= 1).all():
+            raise AssertionError("locate --mismatches 1: a position is more than one substitution away")
+        if not np.array_equal(valid.sum(axis=1), np.minimum(cnt.counts, MAX_HITS)):
+            raise AssertionError("locate --mismatches 1: fill counts differ from min(count, max-hits)")
+        print(f"[12 Hamming <= 1] {MM_READS} x {READ_LEN} bp (cut from 1M for the time limit; width not "
+              f"cut), half with one planted substitution, {3 * READ_LEN + 1} variants per read = "
+              f"{MM_READS * (3 * READ_LEN + 1)} search lanes, {mm_waves} waves: count --mismatches 1 "
+              f"{cnt.seconds_per_pass:.6f} s/pass ({MM_READS / cnt.seconds_per_pass:.0f} reads/s), locate "
+              f"--mismatches 1 {mloc.seconds:.6f} s ({MM_READS / mloc.seconds:.0f} reads/s); counts >= 1, "
+              f"first {MM_PLAIN} equal to the plain path, every origin found, all {int(valid.sum())} "
+              f"positions within Hamming 1; launches {by_path['count_mm1']} / {by_path['locate_mm1']}; "
+              f"checks {time.perf_counter() - t1:.2f} s; phase {time.perf_counter() - t0:.2f} s", flush=True)
+
     for pkg in ("jax", "tpufm"):
         if any(m == pkg or m.startswith(pkg + ".") for m in sys.modules):
             raise AssertionError(f"{pkg} was imported")
@@ -509,6 +721,19 @@ def main() -> None:
             "plain_ms": search_case["plain_ms"],
             "launches_by_path": {path: c["row_gather"] for path, c in by_path.items()},
             "rates": gathers,
+        },
+        {
+            "name": "locate_walk",
+            "route": "cuda",
+            "source": "tpufm_torch/csrc/locate_walk.cu",
+            "replaces": "tpufm/engine/xla.py:970 (jnp walk, no pallas_call)",
+            "launches": by_path["locate_fused"]["locate_walk"],
+            "max_abs_err": walk["max_abs_err"],
+            "ms": walk["ms"],
+            "plain_ms": walk["plain_ms"],
+            "all_rows_ms": walk["all_ms"],
+            "all_rows_plain_ms": walk["all_plain_ms"],
+            "launches_by_path": {path: c["locate_walk"] for path, c in by_path.items()},
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -16,13 +16,14 @@ from tpufm.engine.oracle import search_oracle as jax_oracle
 from tpufm.index import builder as jb
 from tpufm.index import formats as jf
 from tpufm.index import store as jstore
+from tpufm.index import locate as jlocate
 from tpufm.index.layouts import make_alt_counters
 from tpufm.index.suffix_array import suffix_array_doubling
 from tpufm.io import fasta as jfasta
 from tpufm.io import genreads as jgen
 from tpufm.io.results import write_results as jax_write_results
 from tpufm.utils import encoding as jenc
-from tpufm_torch.host import formats, index as host, oracle, seqio
+from tpufm_torch.host import formats, index as host, locate as host_locate, oracle, seqio
 from tpufm_torch.host.suffix_array import suffix_array
 
 _ARRAYS = ("occ", "bitmaps", "dollar_pos", "dollar_base")
@@ -167,9 +168,73 @@ def test_load_store_matches_tpufm(rng, tmp_path, kind, mmap):
 def test_load_store_refuses_other_kinds(tmp_path):
     root = tmp_path / "x.tpufm"
     root.mkdir()
-    (root / "meta.json").write_text('{"kind": "locate", "format": 1}')
-    with pytest.raises(ValueError, match="not a k-step search index"):
+    (root / "meta.json").write_text('{"kind": "kstep_sharded", "format": 1}')
+    with pytest.raises(ValueError, match="not a k-step index or locate tables"):
         formats.load_store(root)
+    (root / "meta.json").write_text('{"kind": "kstep", "format": 2}')
+    with pytest.raises(ValueError, match="newer"):
+        formats.load_store(root)
+
+
+def _locate_pair(rng, d, s, n):
+    codes = rng.integers(0, 4, size=n, dtype=np.uint8)
+    sa = suffix_array_doubling(codes)
+    return host_locate.build_locate(codes, s, d, sa=sa), jlocate.build_locate(codes, s, d, sa=sa)
+
+
+def _assert_locate_equal(ours, theirs):
+    assert ours.sample_rate == theirs.sample_rate
+    _assert_index_equal(ours.lf1, theirs.lf1)
+    for name in ("mark_words", "mark_rank", "samples"):
+        a, b = np.asarray(getattr(ours, name)), np.asarray(getattr(theirs, name))
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+@pytest.mark.parametrize("kind", ["kstep", "locate"])
+@pytest.mark.parametrize("writer", ["port", "tpufm"])
+def test_stores_load_across(rng, tmp_path, kind, writer):
+    """A store either package writes (kinds kstep and locate) loads in the
+    other, with identical arrays, and the two write the same files."""
+    if kind == "kstep":
+        _, ours, theirs = _pair(rng, 2, 64, 700)
+        check = _assert_index_equal
+    else:
+        ours, theirs = _locate_pair(rng, 64, 8, 700)
+        check = _assert_locate_equal
+    save, load = (formats.save_store, jstore.load_store) if writer == "port" else (jstore.save_store, formats.load_store)
+    root = save(tmp_path / "x", ours if writer == "port" else theirs)
+    assert root == tmp_path / "x.tpufm"
+    loaded = load(root)
+    check(loaded, theirs) if writer == "port" else check(ours, loaded)
+    other = (jstore.save_store if writer == "port" else formats.save_store)(
+        tmp_path / "y.tpufm", theirs if writer == "port" else ours)
+    assert sorted(p.name for p in root.iterdir()) == sorted(p.name for p in other.iterdir())
+    for f in root.iterdir():
+        assert f.read_bytes() == (other / f.name).read_bytes(), f.name
+
+
+@pytest.mark.parametrize("mmap", [True, False])
+def test_load_locate_store_matches_tpufm(rng, tmp_path, mmap):
+    ours, theirs = _locate_pair(rng, 32, 4, 6 * 32 - 1)
+    root = jstore.save_store(tmp_path / "loc", theirs)
+    _assert_locate_equal(formats.load_store(root, mmap=mmap), jstore.load_store(root, mmap=mmap))
+    _assert_locate_equal(formats.load_store(root, mmap=mmap), ours)
+
+
+def test_save_store_refuses_other_objects(rng, tmp_path):
+    _, ours, _ = _pair(rng, 2, 64, 300)
+    with pytest.raises(TypeError, match="kinds kstep and locate"):
+        formats.save_store(tmp_path / "x", host.AltCountersIndex(base=ours, occ_slim=ours.occ))
+
+
+def test_build_index_takes_its_suffix_array(rng):
+    codes = rng.integers(0, 4, size=500, dtype=np.uint8)
+    sa = suffix_array(codes, "doubling")
+    _assert_index_equal(host.build_index(codes, host.IndexConfig(k=3, d=64), sa=sa),
+                        jb.build_index(codes, JaxIndexConfig(k=3, d=64), sa=sa))
+    with pytest.raises(ValueError, match="sa has 500 entries"):
+        host.build_index(codes, host.IndexConfig(k=3, d=64), sa=sa[:-1])
 
 
 def test_encoding_matches_tpufm(rng):

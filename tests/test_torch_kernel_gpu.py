@@ -6,11 +6,13 @@ and no JAX:
     python -m pytest --noconftest -m gpu tests/test_torch_kernel_gpu.py
 
 The LF round kernel (both entries: its own rows, and rows gathered
-beforehand) and the row gather kernel (both copy paths: 16-byte units and
-4-byte words) must equal their plain PyTorch versions on the same CUDA
-tensors, and the engine's searches on the card (fixed length on both gather
-paths, and variable length) must equal the plain path and the numpy oracle.
-Intervals and table words are integers and compare exactly (tolerance 0).
+beforehand), the row gather kernel (both copy paths: 16-byte units and
+4-byte words) and the locate walk kernel must equal their plain PyTorch
+versions on the same CUDA tensors, and the engine's searches on the card
+(fixed length on both gather paths, and variable length), its fused
+search+locate and its Hamming <= 1 locate must equal the plain path and the
+numpy oracle. Intervals, positions and table words are integers and compare
+exactly (tolerance 0).
 """
 
 import numpy as np
@@ -19,10 +21,14 @@ import torch
 
 from tpufm_torch import SearchEngine
 from tpufm_torch.engine import lf_round as lf_mod
+from tpufm_torch.engine import locate as loc_mod
 from tpufm_torch.engine import row_gather as rg_mod
+from tpufm_torch.engine.search_locate import SearchLocateEngine
 from tpufm_torch.engine.tables import tables_from_index
 from tpufm_torch.host.index import IndexConfig, build_index, derive_tail
+from tpufm_torch.host.locate import build_locate, locate_hits
 from tpufm_torch.host.oracle import search_oracle
+from tpufm_torch.host.suffix_array import suffix_array
 
 pytestmark = pytest.mark.gpu
 
@@ -143,3 +149,71 @@ def test_search_varlen_on_card_matches_plain_and_oracle(cuda, lut_m, gather):
     want = np.stack([search_oracle(index, r[None], tail_index=tail)[0] for r in reads])
     np.testing.assert_array_equal(got, want)
     assert (got[:, 1] > got[:, 0]).all()
+
+
+@pytest.mark.parametrize("n", [1, 31, 4099])
+@pytest.mark.parametrize("s", [1, 8, 32])
+@pytest.mark.parametrize("d", [32, 192])
+def test_locate_walk_kernel_matches_plain(cuda, d, s, n):
+    # a text of c*d - 1 bases: bwtsize % d == 0, so bwtsize reads the sentinel row
+    codes = np.random.default_rng(n + s).integers(0, 4, size=7 * d - 1, dtype=np.uint8)
+    sa = suffix_array(codes, "doubling")
+    t = loc_mod.locate_tables_from_index(build_locate(codes, sample_rate=s, d=d, sa=sa))
+    bwtsize = codes.shape[0] + 1
+    rng = np.random.default_rng(n * s)
+    p = rng.integers(0, bwtsize, size=n)
+    # bwtsize itself, rows past it in its block and past the table (clamped)
+    p[: min(n, 4)] = [bwtsize, bwtsize + 3, bwtsize + 5 * d, 0][: min(n, 4)]
+    args = [torch.from_numpy(a).to(cuda) for a in (t.rows.view(np.int32), t.samples.view(np.int32),
+                                                  t.dollar.astype(np.int64), p)]
+    before = loc_mod.LAUNCHES
+    got = loc_mod.locate_walk(*args, d, s)
+    torch.cuda.synchronize()
+    assert loc_mod.LAUNCHES == before + 1
+    assert torch.equal(got, loc_mod.locate_walk_reference(*args, d, s))
+    inside = p < bwtsize
+    np.testing.assert_array_equal(got.cpu().numpy()[inside], sa[p[inside]])
+
+
+@pytest.mark.parametrize("L,lut_m", [(24, 0), (25, 6)])
+def test_search_locate_on_card_matches_plain_and_oracle(cuda, L, lut_m):
+    codes = np.random.default_rng(L).integers(0, 4, size=3000, dtype=np.uint8)
+    sa = suffix_array(codes, "doubling")
+    index = build_index(codes, IndexConfig(k=3, d=192), sa=sa)
+    loc = build_locate(codes, sample_rate=8, d=192, sa=sa)
+    rng = np.random.default_rng(lut_m)
+    queries = np.stack([codes[s : s + L] for s in rng.integers(0, len(codes) - L, size=100)])
+    queries[:10, :8] = queries[:10, 8:16]  # some reads with no hit
+    engine = SearchLocateEngine(index, loc, cuda, max_hits=6, lut_m=lut_m)
+    before = loc_mod.LAUNCHES
+    iv, pos = engine.search_locate(queries, wave=32)
+    assert loc_mod.LAUNCHES - before == 4  # four waves
+    plain = engine.search_locate(queries, step=lf_mod.lf_round_reference,
+                                 walk=loc_mod.locate_walk_reference)
+    np.testing.assert_array_equal(iv, plain[0])
+    np.testing.assert_array_equal(pos, plain[1])
+    tail = derive_tail(index) if L % 3 else None
+    np.testing.assert_array_equal(iv, search_oracle(index, queries, tail_index=tail))
+    np.testing.assert_array_equal(pos, locate_hits(loc, iv, 6))
+
+
+def test_locate_mismatch_on_card_matches_plain(cuda):
+    codes = np.random.default_rng(3).integers(0, 4, size=3000, dtype=np.uint8)
+    sa = suffix_array(codes, "doubling")
+    index = build_index(codes, IndexConfig(k=3, d=192), sa=sa)
+    loc = build_locate(codes, sample_rate=8, d=192, sa=sa)
+    rng = np.random.default_rng(4)
+    queries = np.stack([codes[s : s + 9] for s in rng.integers(0, len(codes) - 9, size=40)])
+    queries[::2, 4] = (queries[::2, 4] + 1) % 4  # one substitution in half the reads
+    engine = SearchLocateEngine(index, loc, cuda, max_hits=8)
+    got = engine.locate_mismatch(queries, wave=16)
+    plain = engine.locate_mismatch(queries, step=lf_mod.lf_round_reference,
+                                   walk=loc_mod.locate_walk_reference)
+    np.testing.assert_array_equal(got, plain)
+    wins = np.lib.stride_tricks.sliding_window_view(codes, 9)
+    for q, row in zip(queries, got):
+        hits = row[row != 0xFFFFFFFF].astype(np.int64)
+        assert len(hits) == min(8, int(((wins != q).sum(1) <= 1).sum()))
+        assert ((wins[hits] != q).sum(1) <= 1).all()
+    counts = SearchEngine(index, cuda).count(queries, mismatches=1, wave=16)
+    np.testing.assert_array_equal(counts, ((wins[None] != queries[:, None]).sum(2) <= 1).sum(1))

@@ -1,9 +1,11 @@
 """The port and its smoke script stand alone: a child interpreter blocks every
 import of jax and of the JAX package tpufm, then imports tpufm_torch, its
 CLI, its kernel loader, every engine module and chip_smoke, builds an index
-with the port's own host side, runs a small CPU search on both gather paths
-and a variable-length one, and checks them against the port's numpy
-oracle; the parent holds the result against tpufm's builder and oracle.
+and locate tables with the port's own host side, runs a small CPU search on
+both gather paths, a variable-length one, a fused search+locate and a
+Hamming <= 1 count, and checks them against the port's numpy oracles and a
+naive scan of the text; the parent holds the result against tpufm's builder
+and oracle.
 chip_smoke itself refuses to run without a GPU, or without the repo around
 it. Intervals are integers and compare exactly (tolerance 0)."""
 
@@ -39,9 +41,13 @@ import numpy as np
 import chip_smoke
 import tpufm_torch, tpufm_torch.cli, tpufm_torch.kernels
 import tpufm_torch.engine.lf_round, tpufm_torch.engine.row_gather
+import tpufm_torch.engine.locate, tpufm_torch.engine.mismatch
 from tpufm_torch import SearchEngine
+from tpufm_torch.engine.search_locate import SearchLocateEngine
 from tpufm_torch.host.index import IndexConfig, build_index, derive_tail
+from tpufm_torch.host.locate import build_locate, locate_hits
 from tpufm_torch.host.oracle import search_oracle
+from tpufm_torch.host.suffix_array import suffix_array
 
 rng = np.random.default_rng(7)
 codes = rng.integers(0, 4, size=1000, dtype=np.uint8)
@@ -55,6 +61,13 @@ batch = queries.copy()
 batch[:, :5] = 0xFF  # 19 bp reads, right-aligned
 got = SearchEngine(index, "cpu", lut_m=6, tail_index=tail).search_varlen(batch)
 assert np.array_equal(got, search_oracle(index, queries[:, 5:], tail_index=tail))
+loc = build_locate(codes, sample_rate=8, d=64, sa=suffix_array(codes, sys.argv[1]))
+iv, pos = SearchLocateEngine(index, loc, "cpu", max_hits=4, lut_m=6).search_locate(queries[:, 1:])
+assert np.array_equal(iv, search_oracle(index, queries[:, 1:], tail_index=loc.lf1))  # 23 % 3: tail
+assert np.array_equal(pos, locate_hits(loc, iv, 4))
+wins = np.lib.stride_tricks.sliding_window_view(codes, 24)
+mm = SearchEngine(index, "cpu", lut_m=6).count(queries, mismatches=1, wave=7)
+assert np.array_equal(mm, ((wins[None] != queries[:, None]).sum(2) <= 1).sum(1))
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpufm")]
 print(json.dumps(res.tolist()))
 """

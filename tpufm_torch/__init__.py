@@ -6,11 +6,18 @@ The package stands alone: it imports neither jax nor tpufm, and carries its
 own host side (index construction, file formats, read I/O, numpy oracle).
 
 Layers:
-  tpufm_torch.cli               — ``python -m tpufm_torch.cli search ...``
+  tpufm_torch.cli               — ``python -m tpufm_torch.cli search|count|
+                                  locate ...``
+  tpufm_torch.engine.search_locate — SearchLocateEngine: reads to text
+                                  positions in one pass, exact or within
+                                  Hamming distance 1
   tpufm_torch.engine.search     — SearchEngine: tables on the device, waves,
                                   prefix LUT, k-step and k=1 tail rounds,
                                   fixed and variable length, gather "fused"
-                                  or "dma"
+                                  or "dma"; counts, exact or Hamming <= 1
+                                  (engine.mismatch: the 3L+1 variants)
+  tpufm_torch.engine.locate     — LocateEngine: the sampled-SA walk (K4)
+                                  from BWT rows to text positions
   tpufm_torch.engine.lf_round   — one LF round (K1): on its own rows or on
                                   rows gathered beforehand; the CUDA kernel
                                   on the card, its plain version on the CPU
@@ -22,12 +29,24 @@ Layers:
 """
 
 from tpufm_torch.device import resolve_device
+from tpufm_torch.engine.locate import (
+    LocateEngine,
+    LocateTables,
+    locate_tables_from_index,
+    locate_tables_from_jax,
+)
 from tpufm_torch.engine.search import SearchEngine
+from tpufm_torch.engine.search_locate import SearchLocateEngine
 from tpufm_torch.engine.tables import Tables, tables_from_index, tables_from_jax
 
 __all__ = [
+    "LocateEngine",
+    "LocateTables",
     "SearchEngine",
+    "SearchLocateEngine",
     "Tables",
+    "locate_tables_from_index",
+    "locate_tables_from_jax",
     "resolve_device",
     "tables_from_index",
     "tables_from_jax",

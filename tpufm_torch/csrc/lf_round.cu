@@ -20,10 +20,11 @@
 // prefix mask covers, and ONE counter by index: the TPU's binary-tree
 // counter pick was a lane-select workaround and is not ported.
 //
-// Two entries share one round body (lf_round_end). tpufm_lf_round is the
-// fused path above. tpufm_lf_round_rows keeps the Pallas contract: row j
-// was gathered beforehand (by K3, row_gather.cu, or by torch indexing) and
-// may carry padding past the counters, as XLAEngine(gather="dma") rows do.
+// Two entries share one round body (lf_round_end, lf_round.cuh, which K4's
+// LF(1) hop in locate_walk.cu shares too). tpufm_lf_round is the fused
+// path above. tpufm_lf_round_rows keeps the Pallas contract: row j was
+// gathered beforehand (by K3, row_gather.cu, or by torch indexing) and may
+// carry padding past the counters, as XLAEngine(gather="dma") rows do.
 // It serves the gathered-row engines, which pay a [n, row_words] buffer
 // written and read back through HBM every round.
 //
@@ -40,47 +41,13 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "lf_round.cuh"
+
 namespace {
 
+using tpufm::lf_round_end;
+
 constexpr int kThreads = 256;
-
-// The round of one end on its row r (row_words >= 2k*nb + 4^k; words past
-// the 4^k counters, e.g. alignment padding, are never read). block = v / d
-// comes from the interval itself, never from which row r is: the '$'
-// correction compares it with dollar_block exactly as _lf_round_kernel does
-// (pallas_kernel.py:56, :92-97).
-template <int K>
-__device__ __forceinline__ uint32_t lf_round_end(const uint32_t* __restrict__ r,
-                                                 int nb, uint32_t v, uint32_t c,
-                                                 uint32_t block, uint32_t d,
-                                                 const long long* __restrict__ dollar) {
-  const int shift = (int)(v - block * d);  // v % d, in [0, d)
-  uint32_t count = 0;
-  for (int w = 0; w < nb; ++w) {
-    // cov = clip(shift - 32w, 0, 32) bases of window w lie before iv.
-    const int cov = min(shift - 32 * w, 32);
-    if (cov <= 0) break;  // this window and every later one mask to 0
-    // cov in [1, 32]: the shift is in [0, 31], never the undefined 32.
-    uint32_t m = 0xFFFFFFFFu << (32 - cov);
-#pragma unroll
-    for (int i = 0; i < K; ++i) {
-      const uint32_t p0 = __ldg(r + (2 * i) * nb + w);
-      const uint32_t p1 = __ldg(r + (2 * i + 1) * nb + w);
-      m &= ((c >> (2 * i)) & 1u) ? p0 : ~p0;
-      m &= ((c >> (2 * i + 1)) & 1u) ? p1 : ~p1;
-    }
-    count += __popc(m);
-  }
-
-  const uint32_t cnt = __ldg(r + 2 * K * nb + (c & ((1u << (2 * K)) - 1u)));
-#pragma unroll
-  for (int i = 0; i < K; ++i) {
-    const bool hit = block == (uint32_t)dollar[2 * K + i] &&
-                     c == (uint32_t)dollar[K + i] && v > (uint32_t)dollar[i];
-    count -= hit ? 1u : 0u;
-  }
-  return cnt + count;
-}
 
 // K1 as the engine's fused path runs it: each end loads its own row.
 template <int K>

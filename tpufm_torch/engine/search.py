@@ -7,7 +7,9 @@ Counterpart of the fused branch of ``make_search_fn``
 the full interval), takes (L - m) / k rounds on the k-step table and L mod k
 rounds on the k=1 tail table; every round is one LF round over both interval
 ends of every read. A variable-length batch is right-aligned and masks each
-round per read.
+round per read. ``count`` (``XLAEngine.count``, :866-906) gives occurrence
+counts, exact or within Hamming distance 1 (each read's 3L+1 variants
+searched as lanes of one batch).
 
 The k-step rounds run one of two ways (``gather``): "fused", K1 loading its
 own rows (``lf_round``); or "dma", the counterpart of
@@ -23,7 +25,7 @@ import time
 import numpy as np
 import torch
 
-from tpufm_torch.bitops import from_u32_bits, to_u32_bits
+from tpufm_torch.bitops import FULL, from_u32_bits, to_u32_bits
 from tpufm_torch.device import resolve_device
 from tpufm_torch.engine.codes import (
     decode_prefix_codes,
@@ -31,6 +33,7 @@ from tpufm_torch.engine.codes import (
     fuse_round_codes,
 )
 from tpufm_torch.engine.lf_round import lf_round, lf_round_rows
+from tpufm_torch.engine.mismatch import variants1
 from tpufm_torch.engine.row_gather import row_gather
 from tpufm_torch.engine.tables import (
     Tables,
@@ -146,6 +149,17 @@ class SearchEngine(torch.nn.Module):
     @property
     def device(self) -> torch.device:
         return self.entries.device
+
+    def use_tail(self, entries: torch.Tensor, dollar: torch.Tensor, d: int) -> None:
+        """Take ``entries`` (int32 [E+1, W >= 2*nb + 4] on this engine's
+        device, shared, not copied) with its '$' metadata ``dollar`` (int64
+        [3, 1]) as the k=1 tail table at sample distance ``d``: the fused
+        locate rows are one, as the JAX search+locate functions use them
+        (xla.py:1183-1189; the LF round never reads their mark columns)."""
+        if entries.device != self.device or dollar.device != self.device:
+            raise ValueError(f"tail table on {entries.device}, engine on {self.device}")
+        self.tail_d = d
+        self.tail_entries, self.tail_dollar = entries, dollar
 
     def _full_interval(self, n: int) -> torch.Tensor:
         iv = torch.zeros((n, 2), dtype=torch.int64, device=self.device)
@@ -275,25 +289,12 @@ class SearchEngine(torch.nn.Module):
                          self.tail_d, step or lf_round, t < rem)
         return iv
 
-    def _stream(self, queries, wave: int | None, fn) -> np.ndarray:
-        """uint32 [B, 2] host intervals of ``fn`` over host queries streamed
-        through the device in waves of ``wave`` reads, the next wave queued
-        before the previous one is copied back."""
+    def _stream(self, queries, wave: int | None, fn, cols: tuple = (2,)) -> np.ndarray:
+        """uint32 [B, *cols] host results of ``fn`` over host queries, in
+        waves of ``wave`` reads (default ``WAVE``)."""
         # torch.from_numpy wants a writable buffer (read-only ones are copied)
         queries = np.require(queries, np.uint8, ["C", "W"])
-        wave = wave or self.WAVE
-        if wave <= 0:
-            raise ValueError(f"wave must be positive, got {wave}")
-        out = np.empty((queries.shape[0], 2), dtype=np.uint32)
-        pending = None
-        for start in range(0, queries.shape[0], wave):
-            iv = fn(torch.from_numpy(queries[start:start + wave]).to(self.device))
-            if pending is not None:
-                out[pending[0]:start] = pending[1].cpu().numpy()
-            pending = (start, iv)
-        if pending is not None:
-            out[pending[0]:] = pending[1].cpu().numpy()
-        return out
+        return stream_waves(queries, wave or self.WAVE, fn, self.device, cols)
 
     def search(self, queries, wave: int | None = None, step=None) -> np.ndarray:
         """uint8 [B, L] host queries -> uint32 [B, 2] host intervals, in
@@ -306,3 +307,54 @@ class SearchEngine(torch.nn.Module):
         read searched at its own length, in waves of ``wave`` reads."""
         self._need_varlen_tail()
         return self._stream(queries, wave, lambda q: self.search_varlen_device(q, step))
+
+    def count_mismatch_device(self, queries: torch.Tensor, step=None) -> torch.Tensor:
+        """uint8 [W, L] reads on this engine's device -> int64 [W] counts of
+        their occurrences within Hamming distance 1: the 3L+1 variants of
+        every read (``variants1``) ride one search as 3L+1 lanes each, and
+        their intervals, pairwise disjoint, sum to the count
+        (``make_count_mismatch_fn``, xla.py:944)."""
+        self._check_queries(queries)
+        W, L = queries.shape
+        iv = self.search_device(variants1(queries).reshape(-1, L), step).view(W, 3 * L + 1, 2)
+        return (iv[..., 1] - iv[..., 0]).sum(dim=-1) & FULL
+
+    def count(self, queries, mismatches: int = 0, wave: int | None = None, step=None) -> np.ndarray:
+        """uint32 [B] occurrence count of every read: R - L of its exact
+        search (mismatches=0), or its occurrences within Hamming distance 1
+        (mismatches=1), in waves of ``wave`` reads; a Hamming wave defaults
+        to WAVE // (3L + 1) reads, so that it searches about WAVE lanes
+        (``XLAEngine.count``, xla.py:866)."""
+        queries = np.require(queries, np.uint8, ["C", "W"])
+        if mismatches == 0:
+            iv = self.search(queries, wave=wave, step=step)
+            return (iv[:, 1] - iv[:, 0]).astype(np.uint32)
+        if mismatches != 1:
+            raise NotImplementedError(
+                f"mismatches={mismatches}: only 0 and 1 are supported (the "
+                "variant fan-out grows as (3L)^e — distance 2 at L=120 is "
+                "~65K variants/read; use a seed-and-verify pipeline instead)"
+            )
+        wave = wave or max(1, self.WAVE // (3 * queries.shape[1] + 1))
+        return self._stream(queries, wave, lambda q: self.count_mismatch_device(q, step), ())
+
+
+def stream_waves(items: np.ndarray, wave: int, fn, device: torch.device, cols: tuple = ()) -> np.ndarray:
+    """uint32 [B, *cols] host results of ``fn`` (a device tensor of up to
+    ``wave`` items -> a device tensor of their results) over the host array
+    ``items`` [B, ...], streamed through ``device`` wave by wave, the next
+    wave queued before the previous one is copied back (tpufm/utils/
+    waves.py:25 with two waves in flight; no wave is padded, since nothing
+    is compiled per shape here)."""
+    if wave <= 0:
+        raise ValueError(f"wave must be positive, got {wave}")
+    out = np.empty((items.shape[0], *cols), dtype=np.uint32)
+    pending = None
+    for start in range(0, items.shape[0], wave):
+        res = fn(torch.from_numpy(items[start:start + wave]).to(device))
+        if pending is not None:
+            out[pending[0]:start] = pending[1].cpu().numpy()
+        pending = (start, res)
+    if pending is not None:
+        out[pending[0]:] = pending[1].cpu().numpy()
+    return out

@@ -7,11 +7,15 @@ port needs nothing of the tpufm package:
                                   derive_tail (tpufm/config.py,
                                   tpufm/index/builder.py)
   tpufm_torch.host.suffix_array — SA-IS (csrc/sais.cpp) and numpy doubling
-  tpufm_torch.host.formats      — .fmi, .npz and .tpufm index files
+  tpufm_torch.host.formats      — .fmi, .npz and .tpufm index files (and
+                                  .tpufm stores of locate tables)
   tpufm_torch.host.seqio        — 2-bit encoding, FASTA/FASTQ reads,
                                   sampled reads, .res results
   tpufm_torch.host.oracle       — plain numpy backward search, the ground
                                   truth the device search is held against
+  tpufm_torch.host.locate       — sampled-SA locate tables (build_locate)
+                                  and the numpy locate oracle
+                                  (tpufm/index/locate.py)
 
 Every array is numpy and bit-identical to tpufm's; the tests hold each
 function against its tpufm counterpart.

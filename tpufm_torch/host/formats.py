@@ -1,7 +1,9 @@
 """Index files: the .fmi images, the .npz archive and the .tpufm store.
 
 Counterparts of tpufm/index/formats.py (``read_fmi`` :112, ``write_fmi`` :56,
-``load_npz`` :234) and tpufm/index/store.py (``load_store`` :217). An .fmi
+``load_npz`` :234) and tpufm/index/store.py (``save_store`` :67,
+``load_store`` :217: it reads kinds kstep, alt_counters and locate, and
+writes kstep and locate, each readable by tpufm). An .fmi
 image is a uint32 little-endian header {tag, k, bwtsize, ncounters,
 nentries, d}, dollar_pos[k], dollar_base[k], then the entry table:
 
@@ -35,6 +37,7 @@ from tpufm_torch.host.index import (
     Layout,
     c_array,
 )
+from tpufm_torch.host.locate import LocateIndex
 
 _U32 = np.dtype("<u4")
 
@@ -160,24 +163,70 @@ def load_npz(path) -> KStepFMIndex:
 
 
 _KSTEP = ("occ", "bitmaps", "dollar_pos", "dollar_base")
+_LOCATE = ("mark_words", "mark_rank", "samples")
+#: the store format this module reads and writes (tpufm/index/store.py FORMAT)
+STORE_FORMAT = 1
 
 
-def load_store(path, mmap: bool = True) -> KStepFMIndex | AltCountersIndex:
-    """A ``.tpufm`` store directory of a k-step or alternate-counters
-    index, its arrays memory-mapped unless ``mmap`` is false. Other kinds
-    of store raise ValueError."""
-    root = Path(str(path) if str(path).endswith(".tpufm") else f"{path}.tpufm")
-    meta = json.loads((root / "meta.json").read_text())
-    if meta.get("format", 0) > 1:
-        raise ValueError(f"store format {meta['format']} is newer than supported (1)")
-    kind = meta["kind"]
-    if kind not in ("kstep", "alt_counters"):
-        raise ValueError(f"{root} holds a {kind!r} store, not a k-step search index")
-    names = _KSTEP + (("occ_slim",) if kind == "alt_counters" else ())
-    arr = {n: np.load(root / f"{n}.npy", mmap_mode="r" if mmap else None) for n in names}
-    index = KStepFMIndex(
+def _store_root(path) -> Path:
+    return Path(str(path) if str(path).endswith(".tpufm") else f"{path}.tpufm")
+
+
+def _kstep_meta(index: KStepFMIndex) -> dict:
+    cfg = index.config
+    return {"k": cfg.k, "d": cfg.d, "layout": cfg.layout.value, "bwtsize": index.bwtsize}
+
+
+def _kstep_from(meta: dict, arr: dict) -> KStepFMIndex:
+    return KStepFMIndex(
         config=IndexConfig(k=meta["k"], d=meta["d"], layout=Layout(meta["layout"])),
         bwtsize=meta["bwtsize"], occ=arr["occ"], bitmaps=arr["bitmaps"],
         dollar_pos=np.asarray(arr["dollar_pos"]), dollar_base=np.asarray(arr["dollar_base"]),
     )
+
+
+def save_store(path, index: KStepFMIndex | LocateIndex) -> Path:
+    """Write a k-step index (kind ``kstep``) or locate tables (kind
+    ``locate``) as a ``<path>.tpufm`` store directory in tpufm's layout
+    (tpufm/index/store.py:67-108): one ``.npy`` per array, the locate
+    tables' k=1 index under the prefix ``lf1_``, and ``meta.json``."""
+    root = _store_root(path)
+    if isinstance(index, LocateIndex):
+        meta = {"kind": "locate", "format": STORE_FORMAT, "sample_rate": index.sample_rate,
+                **{f"lf1_{k}": v for k, v in _kstep_meta(index.lf1).items()}}
+        arrays = {**{f"lf1_{n}": getattr(index.lf1, n) for n in _KSTEP},
+                  **{n: getattr(index, n) for n in _LOCATE}}
+    elif isinstance(index, KStepFMIndex):
+        meta = {"kind": "kstep", "format": STORE_FORMAT, **_kstep_meta(index)}
+        arrays = {n: getattr(index, n) for n in _KSTEP}
+    else:
+        raise TypeError(f"cannot store {type(index).__name__} (kinds kstep and locate)")
+    root.mkdir(parents=True, exist_ok=True)
+    for name, a in arrays.items():
+        np.save(root / f"{name}.npy", np.ascontiguousarray(a))
+    (root / "meta.json").write_text(json.dumps(meta, indent=1))
+    return root
+
+
+def load_store(path, mmap: bool = True) -> KStepFMIndex | AltCountersIndex | LocateIndex:
+    """A ``.tpufm`` store directory of a k-step or alternate-counters index
+    or of locate tables, its arrays memory-mapped unless ``mmap`` is false.
+    Other kinds of store raise ValueError."""
+    root = _store_root(path)
+    meta = json.loads((root / "meta.json").read_text())
+    if meta.get("format", 0) > STORE_FORMAT:
+        raise ValueError(f"store format {meta['format']} is newer than supported ({STORE_FORMAT})")
+    kind = meta["kind"]
+
+    def arrays(names, prefix=""):
+        return {n: np.load(root / f"{prefix}{n}.npy", mmap_mode="r" if mmap else None) for n in names}
+
+    if kind == "locate":
+        lf1 = _kstep_from({k[4:]: v for k, v in meta.items() if k.startswith("lf1_")},
+                          arrays(_KSTEP, "lf1_"))
+        return LocateIndex(lf1=lf1, sample_rate=meta["sample_rate"], **arrays(_LOCATE))
+    if kind not in ("kstep", "alt_counters"):
+        raise ValueError(f"{root} holds a {kind!r} store, not a k-step index or locate tables")
+    arr = arrays(_KSTEP + (("occ_slim",) if kind == "alt_counters" else ()))
+    index = _kstep_from(meta, arr)
     return AltCountersIndex(base=index, occ_slim=arr["occ_slim"]) if kind == "alt_counters" else index

@@ -1,8 +1,8 @@
 """The k-step FM-index on the host: configuration, construction, k=1 tail.
 
 Counterparts of tpufm/config.py (``Layout`` :15, ``IndexConfig`` :59),
-tpufm/index/builder.py (``KStepFMIndex`` :50, ``build_index`` :106,
-``derive_tail`` :225) and the ``AltCountersIndex`` record of
+tpufm/index/builder.py (``KStepFMIndex`` :50, ``normalize_reference``
+:95, ``build_index`` :106, ``derive_tail`` :225) and the ``AltCountersIndex`` record of
 tpufm/index/layouts.py:30. The arrays are bit-identical to tpufm's:
 
   occ      uint32 [E+1, 4^k]: per block, C[c] plus the '$'-exclusive count
@@ -145,21 +145,32 @@ def _pack_words(bits: np.ndarray) -> np.ndarray:
     return (by[..., 0] << 24) | (by[..., 1] << 16) | (by[..., 2] << 8) | by[..., 3]
 
 
-def build_index(reference, config: IndexConfig = IndexConfig(),
-                sa_method: str = "native") -> KStepFMIndex:
-    """The k-step FM-index of ``reference``: ACGT str/bytes or uint8 codes
-    (2-bit codes, or ASCII bytes when any value exceeds 3)."""
+def normalize_reference(reference) -> np.ndarray:
+    """ACGT str/bytes or uint8 codes (2-bit codes, or ASCII bytes when any
+    value exceeds 3) -> 2-bit codes, as every builder sees them."""
     if isinstance(reference, (str, bytes, bytearray)):
-        codes = encode_bases(reference)
-    else:
-        codes = np.asarray(reference, dtype=np.uint8)
-        if codes.size and codes.max() > 3:
-            codes = encode_bases(codes)
+        return encode_bases(reference)
+    codes = np.asarray(reference, dtype=np.uint8)
+    if codes.size and codes.max() > 3:
+        codes = encode_bases(codes)
+    return codes
+
+
+def build_index(reference, config: IndexConfig = IndexConfig(),
+                sa_method: str = "native", sa: np.ndarray | None = None) -> KStepFMIndex:
+    """The k-step FM-index of ``reference`` (see ``normalize_reference``).
+    ``sa``: its suffix array when already computed (int64 [n+1], sa[0] ==
+    n), so that one suffix sort serves several indexes and the locate
+    tables."""
+    codes = normalize_reference(reference)
     k, d, nb = config.k, config.d, config.words_per_plane
     n = int(codes.shape[0])
     bwtsize = n + 1
     E = config.num_entries(bwtsize)
-    sa = suffix_array(codes, sa_method)
+    if sa is None:
+        sa = suffix_array(codes, sa_method)
+    elif sa.shape[0] != bwtsize:
+        raise ValueError(f"sa has {sa.shape[0]} entries, expected {bwtsize}")
 
     text = np.zeros(bwtsize, dtype=np.uint8)  # '$' read as 'A'
     text[:n] = codes

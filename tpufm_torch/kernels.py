@@ -38,6 +38,11 @@ SIGNATURES = {
         # table, nrows, row_words, idx, out, n, vec, stream
         "tpufm_row_gather": [_P, _LL, _I, _P, _P, _LL, _I, _P],
     },
+    "locate_walk": {
+        # rows, nrows, row_words, nb, samples, n_samples, dollar, p, out, n,
+        # sample_rate, stream
+        "tpufm_locate_walk": [_P, _LL, _I, _I, _P, _LL, _P, _P, _P, _LL, _I, _P],
+    },
 }
 
 _libraries: dict[str, ctypes.CDLL] = {}
@@ -45,6 +50,12 @@ _libraries: dict[str, ctypes.CDLL] = {}
 
 def sources() -> list[Path]:
     return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def headers() -> list[Path]:
+    """The shared headers (csrc/*.cuh): every CUDA library's build hash
+    covers them, so a changed header rebuilds each source that includes it."""
+    return sorted(CSRC_DIR.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -58,17 +69,19 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def compile_libraries(compiler: str, flags: list[str], jobs: list[tuple[list[Path], str]]) -> list[Path]:
+def compile_libraries(compiler: str, flags: list[str], jobs: list[tuple[list[Path], str]],
+                      deps: list[Path] = ()) -> list[Path]:
     """Compile each job (sources, stem) into ``_build/<stem>_<hash of
-    sources and flags>.so`` unless that library exists, one compiler process
-    per job, all running at once; return the paths. The compiler's output is
-    kept beside each library as ``<name>.log``. Raises RuntimeError if a
-    compiler fails."""
+    sources, deps and flags>.so`` unless that library exists, one compiler
+    process per job, all running at once; return the paths. ``deps`` are
+    files every job includes (headers), hashed but not passed to the
+    compiler. The compiler's output is kept beside each library as
+    ``<name>.log``. Raises RuntimeError if a compiler fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     libs, running = [], []
     for srcs, stem in jobs:
         h = hashlib.sha256(" ".join(flags).encode())
-        for src in srcs:
+        for src in [*srcs, *deps]:
             h.update(src.name.encode())
             h.update(src.read_bytes())
         lib = BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}.so"
@@ -99,7 +112,8 @@ def build() -> dict[str, Path]:
     compiled with nvcc unless already built; each log holds ptxas's register
     and spill counts."""
     srcs = sources()
-    libs = compile_libraries(_nvcc(), NVCC_FLAGS, [([s], f"libtpufm_{s.stem}") for s in srcs])
+    libs = compile_libraries(_nvcc(), NVCC_FLAGS, [([s], f"libtpufm_{s.stem}") for s in srcs],
+                             deps=headers())
     return {s.stem: lib for s, lib in zip(srcs, libs)}
 
 
