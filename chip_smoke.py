@@ -30,6 +30,23 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      searched with ``search_varlen`` (lut12) on the default and the gather
      path; all equal to the plain path, the two paths equal, and the first
      65,536 equal to the numpy oracle run once per distinct length
+  9. K4 (the sampled-SA walk) on locate tables at sample rate 32, d=192
+     from one native suffix sort: all 10,000,001 BWT rows, bwtsize and
+     rows past the table (clamped) equal to the suffix array and to the
+     plain walk on the card; both timed at 1,048,576 random rows and at
+     all rows
+ 10. locate through the CLI on phase 4's reads, max-hits 16: two-pass with
+     ``--store``, then ``--from-store --fused`` and ``--fused --rc``; the
+     .pos files byte-identical, every true start found, the first 65,536
+     equal to the host oracle and the plain path; ``search_locate`` and
+     ``search`` + ``locate_hits`` timed
+ 11. wide intervals: 65,536 reads of 10 bp, no LUT, max-hits 8, fused equal
+     to two-pass, each fill min(R - L, 8), each position an occurrence
+ 12. Hamming <= 1: ``count`` and ``locate --mismatches 1`` through the CLI
+     on 65,536 x 120 bp reads (cut from 1M for the time limit), half with
+     one planted substitution; counts >= 1 and equal to the plain path on
+     the first 4,096, every origin found, every position within one
+     substitution of its read
 Every path is driven with all launch counts set to 0 just before it and
 read just after; a kernel of the path launched too few times fails the run.
 Then one JSON line of kernel figures, and last the device JSON line.
