@@ -7,13 +7,20 @@ Phases (one line each; any failure raises and the exit code is non-zero):
   2. build the kernels from tpufm_torch/csrc/ with nvcc
   3. K1 (the LF round kernel) against its plain PyTorch version on the card,
      seeded tables at the search's shapes (k=3 d=192 and the k=1 d=192 tail
-     table of a 10 Mbase reference), 2M interval ends: bit-identical, and
-     both timed with CUDA events (median of 7 after a warm-up)
+     table of a 10 Mbase reference), 2M random interval ends through the
+     per-end entry: bit-identical, and both timed with CUDA events (median
+     of 7 after a warm-up)
   4. the main path: a seeded 10 Mbase reference, k=3 d=192 index, 1,048,576
      x 120 bp reads, ``python -m tpufm_torch.cli search ... --lut 12
-     --device cuda`` in process; every interval checked against the plain
-     path on the card and the first 65,536 against the numpy oracle, and
-     the prefix LUT K1 built against the LUT the plain rounds build
+     --device cuda`` in process, every round through K1's pair entry; every
+     interval checked against the plain path on the card and the first
+     65,536 against the numpy oracle, and the prefix LUT K1 built against
+     the LUT the plain rounds build
+ 3b. (printed after phase 4) K1 at the main path's shape: phase 4's first
+     wave replayed round by round (ending on phase 4's intervals), the (iv,
+     code) of rounds 1 and 18 captured; the pair entry bit-identical to
+     plain there, timed beside its bound and the per-end entry on the same
+     ends
   5. any-length reads: 65,536 x 151 bp (one k=1 tail round per read)
   6. K1's rows entry (``lf_round_rows``, 2M ends, k=3 and k=1 d=192) and K3
      (``row_gather``) against their plain versions on the card, bit-identical
@@ -31,10 +38,11 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      path; all equal to the plain path, the two paths equal, and the first
      65,536 equal to the numpy oracle run once per distinct length
   9. K4 (the sampled-SA walk) on locate tables at sample rate 32, d=192
-     from one native suffix sort: all 10,000,001 BWT rows, bwtsize and
-     rows past the table (clamped) equal to the suffix array and to the
-     plain walk on the card; both timed at 1,048,576 random rows and at
-     all rows
+     from one native suffix sort, the rows padded to 24 words as the
+     engines hold them: all 10,000,001 BWT rows, bwtsize and rows past the
+     table (clamped) equal to the suffix array and to the plain walk on the
+     card; both timed at 1,048,576 random rows and at all rows; one hop
+     timed (a lane of 31 hops against one of none) for the latency floor
  10. locate through the CLI on phase 4's reads, max-hits 16: two-pass with
      ``--store``, then ``--from-store --fused`` and ``--fused --rc``; the
      .pos files byte-identical, every true start found, the first 65,536
@@ -49,7 +57,11 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      substitution of its read
 Every path is driven with all launch counts set to 0 just before it and
 read just after; a kernel of the path launched too few times fails the run.
-Then one JSON line of kernel figures, and last the device JSON line.
+Then one JSON line of kernel figures (each kernel's time beside its bound:
+the bytes the call must move, each input read once and each output written
+once, over 3.35 TB/s of HBM; the one PyTorch call of the same function where
+there is one; launches per pass on each path), and last the device JSON
+line.
 Nothing here imports jax or the JAX package tpufm: the index builder, the
 read I/O and the numpy oracle are the port's own host modules
 (tpufm_torch.host).
@@ -81,8 +93,12 @@ from tpufm_torch.engine.locate import (
     locate_walk_reference,
 )
 from tpufm_torch.engine.search_locate import SearchLocateEngine
+from tpufm_torch.bitops import from_u32_bits
+from tpufm_torch.engine.codes import fuse_prefix_codes, fuse_round_codes
 from tpufm_torch.engine.lf_round import (
     lf_round,
+    lf_round_pairs,
+    lf_round_pairs_reference,
     lf_round_reference,
     lf_round_rows,
     lf_round_rows_reference,
@@ -123,10 +139,17 @@ SAMPLE_RATE, MAX_HITS = 32, 16
 WALK_ROWS = 1 << 20  # the walk lanes of a 1M-read locate
 WIDE_READS, WIDE_LEN, WIDE_HITS = 1 << 16, 10, 8
 MM_READS, MM_PLAIN = 1 << 16, 4096
+#: the rounds of phase 4's first wave whose (iv, code) phase 3b captures
+CAPTURED_ROUNDS = (1, 18)
+#: HBM rate of one H100 SXM (NVIDIA's data sheet): every kernel's bound is
+#: the bytes its call must move, each input read once and each output
+#: written once, over this rate
+HBM_BYTES_PER_S = 3.35e12
 
 #: each kernel's wrapper and the module attribute holding its launch count
 COUNTS = {
     "lf_round": (lf_mod, "LAUNCHES"),
+    "lf_round_pairs": (lf_mod, "PAIRS_LAUNCHES"),
     "lf_round_rows": (lf_mod, "ROWS_LAUNCHES"),
     "row_gather": (rg_mod, "LAUNCHES"),
     "locate_walk": (loc_mod, "LAUNCHES"),
@@ -150,33 +173,53 @@ def expect_launches(path: str, counts: dict, need: dict) -> None:
 
 
 def ptxas_summary(log: str) -> str:
-    """Registers and spill bytes of each kernel instance from ``nvcc -Xptxas -v``."""
-    regs, spills, name = [], 0, "?"
+    """Registers (fewest-most over its instances) of each kernel and the
+    spill bytes, from ``nvcc -Xptxas -v``."""
+    regs, spills, name = {}, 0, "?"
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"\d([A-Za-z_]+_kernel)(?:ILi(\d+)E|I(\w+?)E)?", line)
-            name = "?" if m is None else m.group(1) + (f"<{m.group(2) or m.group(3)}>" if m.group(2) or m.group(3) else "")
+            m = re.search(r"\d([A-Za-z_]+_kernel)", line)
+            name = "?" if m is None else m.group(1)
         elif m := re.search(r"(\d+) bytes spill stores", line):
             spills += int(m.group(1))
         elif m := re.search(r"Used (\d+) registers", line):
-            regs.append(f"{name}:{m.group(1)}")
-    return f"registers per instance {' '.join(regs)}, spill stores {spills} B"
+            regs.setdefault(name, []).append(int(m.group(1)))
+    per = " ".join(f"{n} x{len(r)}: {min(r)}-{max(r)}" for n, r in regs.items())
+    return f"registers {per}, spill stores {spills} B"
 
 
-def cuda_ms(fn, reps: int = 7) -> float:
-    """Median milliseconds of ``fn`` on the card (CUDA events), after a warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
+def bound_ms(nbytes: int) -> float:
+    """The least time the card could take to move ``nbytes`` (HBM)."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def touched_bytes(table: torch.Tensor, rows: torch.Tensor) -> int:
+    """Bytes of the distinct rows of ``table`` that ``rows`` (clamped into
+    the table) reads, each once."""
+    distinct = torch.unique(rows.clamp(0, table.shape[0] - 1)).numel()
+    return distinct * table.shape[1] * table.element_size()
+
+
+def cuda_ms(fn, reps: int = 7, run: int | None = None) -> float:
+    """Median milliseconds of one call of ``fn`` on the card, after a
+    warm-up: CUDA events around a run of ``run`` calls back to back, over
+    ``run``, so that the host's time per call (a wrapper's checks and its
+    launch) overlaps the kernels before it. ``run`` defaults to as many
+    calls as fill about 2 ms, at most 20; run=1 times single calls."""
+    def timed(n: int) -> float:
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(n):
+            fn()
         stop.record()
         stop.synchronize()
-        times.append(start.elapsed_time(stop))
-    return statistics.median(times)
+        return start.elapsed_time(stop) / n
+
+    first = timed(1)  # the warm-up
+    if run is None:
+        run = max(1, min(20, int(2.0 / max(first, 0.1))))
+    return statistics.median(timed(run) for _ in range(reps))
 
 
 def k1_inputs(rng, k: int, d: int, bwtsize: int, n: int, dev):
@@ -215,11 +258,52 @@ def check_k1(rng, k: int, d: int, dev) -> dict:
     err = int((got - want).abs().max())
     if err != 0 or not torch.equal(got, want):
         raise AssertionError(f"K1 k={k} d={d}: kernel differs from plain (max abs err {err})")
+    entries, iv = args[0], args[1]
     return {
         "max_abs_err": err,
         "ms": cuda_ms(lambda: lf_round(*args, k, d)),
         "plain_ms": cuda_ms(lambda: lf_round_reference(*args, k, d)),
+        # iv, code and out (int64), and the rows the ends read
+        "bound_ms": bound_ms(3 * 8 * iv.numel() + touched_bytes(entries, iv // d)),
     }
+
+
+def k1_main_shape(engine, reads: np.ndarray, want: np.ndarray, dev) -> list:
+    """K1 at the main path's shape: phase 4's first wave replayed round by
+    round through the pair entry, the (iv, code) entering CAPTURED_ROUNDS
+    kept; the replay must end on phase 4's intervals. For each captured
+    round, the pair entry against its plain version (bit-identical) and the
+    per-end entry on the same ends, all timed, with the pair entry's bound."""
+    q = torch.from_numpy(reads[:engine.WAVE]).to(dev)
+    body = q[:, (READ_LEN - LUT_M) % K:]
+    iv = from_u32_bits(engine.lut[fuse_prefix_codes(body, LUT_M)])
+    captured = {}
+    for j, code in enumerate(fuse_round_codes(body[:, :body.shape[1] - LUT_M], K), start=1):
+        if j in CAPTURED_ROUNDS:
+            captured[j] = (iv, code)
+        iv = lf_round_pairs(engine.entries, iv, code, engine.dollar, K, D)
+    if not np.array_equal(iv.cpu().numpy(), want[:engine.WAVE].astype(np.int64)):
+        raise AssertionError("phase 3b: the replayed rounds do not end on phase 4's intervals")
+    out = []
+    for j, (iv, code) in captured.items():
+        args = (engine.entries, iv, code, engine.dollar, K, D)
+        got, ref = lf_round_pairs(*args), lf_round_pairs_reference(*args)
+        torch.cuda.synchronize()
+        err = int((got - ref).abs().max())
+        if err != 0 or not torch.equal(got, ref):
+            raise AssertionError(f"K1 pair entry, round {j}: kernel differs from plain (max abs err {err})")
+        flat, codes2 = iv.reshape(-1).contiguous(), code.repeat_interleave(2)
+        blocks = iv // D
+        out.append({
+            "round": j, "reads": int(iv.shape[0]), "max_abs_err": err,
+            "same_block_share": float((blocks[:, 0] == blocks[:, 1]).double().mean()),
+            "ms": cuda_ms(lambda: lf_round_pairs(*args)),
+            "plain_ms": cuda_ms(lambda: lf_round_pairs_reference(*args)),
+            "per_end_ms": cuda_ms(lambda: lf_round(engine.entries, flat, codes2, engine.dollar, K, D)),
+            # iv [2] and out [2] and code (int64) a read, and the rows read
+            "bound_ms": bound_ms(5 * 8 * iv.shape[0] + touched_bytes(engine.entries, blocks)),
+        })
+    return out
 
 
 def check_run(name, run, index, reads, tail=None) -> None:
@@ -252,6 +336,9 @@ def check_rows(rng, k: int, d: int, dev) -> dict:
         "max_abs_err": err,
         "ms": cuda_ms(lambda: lf_round_rows(rows, iv, code, dollar, k, d)),
         "plain_ms": cuda_ms(lambda: lf_round_rows_reference(rows, iv, code, dollar, k, d)),
+        # iv, code and out, and the words of its row each end needs (the
+        # plane words of the windows its prefix covers and one counter)
+        "bound_ms": bound_ms(3 * 8 * iv.numel() + 4 * int((2 * k * ((iv % d + 31) // 32) + 1).sum())),
     }
 
 
@@ -272,11 +359,17 @@ def check_gather(gen, label: str, E: int, W: int, N: int, dev) -> dict:
         raise AssertionError(f"row_gather {label} E={E} W={W} N={N}: kernel differs from plain (max abs err {err})")
     ms = cuda_ms(lambda: row_gather(table, idx, out=out))
     plain_ms = cuda_ms(lambda: row_gather_reference(table, idx))
+    # the one PyTorch call of the same function: index_select on indices
+    # already in range (it refuses E and E+5)
+    inside = idx.clamp(0, E - 1)
+    library_ms = cuda_ms(lambda: torch.index_select(table, 0, inside))
     gb = (2 * N * W * 4 + 8 * N) / 1e9
     return {
         "case": label, "E": E, "W": W, "N": N,
         "path": "int4" if vector_path(table, out) else "word",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        # out and idx, and the distinct rows read
+        "bound_ms": bound_ms(N * W * 4 + 8 * N + touched_bytes(table, idx)),
         "rows_per_s": N / (ms / 1e3), "GB_per_s": gb / (ms / 1e3),
         "plain_rows_per_s": N / (plain_ms / 1e3), "plain_GB_per_s": gb / (plain_ms / 1e3),
     }
@@ -309,10 +402,14 @@ def write_fastq(path, codes: np.ndarray, lengths: np.ndarray) -> None:
 def check_walk(loc, sa: np.ndarray, dev) -> dict:
     """K4 over every BWT row, bwtsize and rows past the table (clamped):
     equal to the suffix array and to the plain walk; both timed at
-    WALK_ROWS random rows and at all rows."""
+    WALK_ROWS random rows and at all rows, on the rows as LocateEngine holds
+    them on the device (padded to 24 words). Beside the bytes bound, the
+    latency floor: the longest trip of the random rows times one hop, a hop
+    timed as the difference between one lane that walks SAMPLE_RATE - 1
+    hops and one that walks none, over SAMPLE_RATE - 1."""
     t = locate_tables_from_index(loc)
-    tables = [torch.from_numpy(a).to(dev) for a in (t.rows.view(np.int32), t.samples.view(np.int32),
-                                                    t.dollar.astype(np.int64))]
+    tables = [LocateEngine(t, dev).rows, torch.from_numpy(t.samples.view(np.int32)).to(dev),
+              torch.from_numpy(t.dollar.astype(np.int64)).to(dev)]
     bwtsize = sa.shape[0]
     past = [bwtsize, bwtsize + 3, bwtsize + 5 * D, (bwtsize // D + 7) * D + 11]
     p = torch.cat([torch.arange(bwtsize, dtype=torch.int64, device=dev),
@@ -328,12 +425,21 @@ def check_walk(loc, sa: np.ndarray, dev) -> dict:
     del want
     rnd = torch.randint(0, bwtsize, (WALK_ROWS,), dtype=torch.int64, device=dev,
                         generator=torch.Generator(device=dev).manual_seed(SEED))
+    trips = sa[rnd.cpu().numpy()] % SAMPLE_RATE  # the row of SA value v walks v % s hops
+    lanes = [torch.tensor([int(np.flatnonzero(sa % SAMPLE_RATE == h)[0])], device=dev)
+             for h in (0, SAMPLE_RATE - 1)]
+    one = [cuda_ms(lambda: locate_walk(*tables, lane, D, SAMPLE_RATE), reps=51, run=1) for lane in lanes]
+    hop_ms = (one[1] - one[0]) / (SAMPLE_RATE - 1)
     return {
         "max_abs_err": err, "rows": int(p.shape[0]),
         "ms": cuda_ms(lambda: locate_walk(*tables, rnd, D, SAMPLE_RATE)),
         "plain_ms": cuda_ms(lambda: locate_walk_reference(*tables, rnd, D, SAMPLE_RATE)),
         "all_ms": cuda_ms(lambda: locate_walk(*tables, p, D, SAMPLE_RATE)),
         "all_plain_ms": cuda_ms(lambda: locate_walk_reference(*tables, p, D, SAMPLE_RATE)),
+        # p and out (int64) a lane, the locate rows and the samples once
+        "bound_ms": bound_ms(2 * 8 * WALK_ROWS + sum(x.numel() * x.element_size() for x in tables[:2])),
+        "mean_trip": float(trips.mean()), "longest_trip": int(trips.max()),
+        "hop_ms": hop_ms, "latency_floor_ms": int(trips.max()) * hop_ms,
     }
 
 
@@ -367,8 +473,8 @@ def main() -> None:
     k1 = check_k1(rng, K, D, dev)
     k1_tail = check_k1(rng, 1, D, dev)
     print(f"[3 K1 vs plain, {K1_ENDS} ends] k=3 d=192: bit-identical, kernel "
-          f"{k1['ms']:.4f} ms, plain {k1['plain_ms']:.4f} ms; k=1 d=192: "
-          f"bit-identical, kernel {k1_tail['ms']:.4f} ms, plain "
+          f"{k1['ms']:.4f} ms (bound {k1['bound_ms']:.4f} ms), plain {k1['plain_ms']:.4f} ms; k=1 d=192: "
+          f"bit-identical, kernel {k1_tail['ms']:.4f} ms (bound {k1_tail['bound_ms']:.4f} ms), plain "
           f"{k1_tail['plain_ms']:.4f} ms; phase {time.perf_counter() - t0:.2f} s", flush=True)
 
     by_path = {}
@@ -393,13 +499,13 @@ def main() -> None:
                         "--device", "cuda", "--iterations", "3",
                         "--output", os.path.join(tmp, "reads.res")])
         by_path["main"] = read_counts()
-        launches = by_path["main"]["lf_round"]
+        launches = by_path["main"]["lf_round_pairs"]
         cli_s = time.perf_counter() - t0
         rounds = (READ_LEN - LUT_M) // K
         waves = -(-READS // run.engine.WAVE)
         lut_launches = (4**LUT_M // min(4**LUT_M, 1 << 20)) * (LUT_M // K)
         need = (1 + 3) * rounds * waves + lut_launches
-        expect_launches("main path", by_path["main"], {"lf_round": need})
+        expect_launches("main path", by_path["main"], {"lf_round_pairs": need})
         peak = torch.cuda.max_memory_allocated(dev)
         check_run("main path", run, index, reads)
         lut_plain = run.engine.build_prefix_lut(LUT_M, step=lf_round_reference)
@@ -409,12 +515,23 @@ def main() -> None:
         del lut_plain
         print(f"[4 main path] 10 Mbase k=3 d=192 lut12, {READS} x {READ_LEN} bp: "
               f"{run.seconds_per_pass:.6f} s/pass = {READS / run.seconds_per_pass:.0f} reads/s, "
-              f"LUT build {run.engine.lut_build_seconds:.4f} s, K1 launches {launches} "
+              f"LUT build {run.engine.lut_build_seconds:.4f} s, K1 pair-entry launches {launches} "
               f"(>= {need}), peak device memory {peak} B; all reads found, all equal to the "
               f"plain path, first {ORACLE_READS} equal to the oracle, all {4**LUT_M} LUT rows equal "
               f"to the plain rounds' LUT; host set-up "
               f"{setup_s:.2f} s (index {build_s:.2f} s), cli {cli_s:.2f} s, checks "
               f"{time.perf_counter() - t0 - cli_s:.2f} s", flush=True)
+
+        t0 = time.perf_counter()
+        k1_main = k1_main_shape(run.engine, reads, run.results, dev)
+        print(f"[3b K1 at the main path's shape] phase 4's first wave replayed through the pair entry, "
+              f"ending on phase 4's intervals; captured rounds bit-identical to plain:", flush=True)
+        for c in k1_main:
+            print(f"    round {c['round']}: {c['reads']} reads, {c['same_block_share'] * 100:.2f}% with both "
+                  f"ends in one block: pair entry {c['ms']:.4f} ms (bound {c['bound_ms']:.4f} ms, "
+                  f"{c['bound_ms'] / c['ms'] * 100:.1f}% of it), per-end entry on the same "
+                  f"{2 * c['reads']} ends {c['per_end_ms']:.4f} ms, plain {c['plain_ms']:.4f} ms", flush=True)
+        print(f"    phase {time.perf_counter() - t0:.2f} s", flush=True)
 
         t0 = time.perf_counter()
         reads151 = generate_reads(codes, TAIL_LEN, TAIL_READS, seed=SEED + 1)
@@ -425,10 +542,10 @@ def main() -> None:
                            "--device", "cuda", "--iterations", "1",
                            "--output", os.path.join(tmp, "reads151.res")])
         by_path["tail"] = read_counts()
-        expect_launches("tail run", by_path["tail"], {"lf_round": 2 * ((TAIL_LEN - LUT_M) // K + 1)})
+        expect_launches("tail run", by_path["tail"], {"lf_round_pairs": 2 * ((TAIL_LEN - LUT_M) // K + 1)})
         check_run("tail", run151, index, reads151, tail=derive_tail(index))
         print(f"[5 any length] {TAIL_READS} x {TAIL_LEN} bp, 46 k=3 rounds + 1 k=1 tail round: "
-              f"{run151.seconds_per_pass:.6f} s/pass, K1 launches {by_path['tail']['lf_round']}; "
+              f"{run151.seconds_per_pass:.6f} s/pass, K1 launches {by_path['tail']['lf_round_pairs']}; "
               f"all equal to the plain path and the oracle; phase {time.perf_counter() - t0:.2f} s",
               flush=True)
         del run151, reads151
@@ -442,14 +559,16 @@ def main() -> None:
             gathers.append(check_gather(gen, *case, dev))
             torch.cuda.empty_cache()
         print(f"[6 rows entry and K3 vs plain] lf_round_rows {K1_ENDS} ends: k=3 d=192 bit-identical, "
-              f"kernel {rows3['ms']:.4f} ms, plain {rows3['plain_ms']:.4f} ms; k=1 d=192 "
-              f"bit-identical, kernel {rows1['ms']:.4f} ms, plain {rows1['plain_ms']:.4f} ms; "
-              f"row_gather, all bit-identical (idx includes E and E+5):", flush=True)
+              f"kernel {rows3['ms']:.4f} ms (bound {rows3['bound_ms']:.4f} ms), plain {rows3['plain_ms']:.4f} "
+              f"ms; k=1 d=192 bit-identical, kernel {rows1['ms']:.4f} ms (bound {rows1['bound_ms']:.4f} ms), "
+              f"plain {rows1['plain_ms']:.4f} ms; row_gather, all bit-identical (idx includes E and E+5):",
+              flush=True)
         for g in gathers:
             print(f"    {g['case']:6s} E={g['E']:>9} W={g['W']:>3} N={g['N']:>7} {g['path']:4s}: kernel "
-                  f"{g['ms']:.4f} ms = {g['rows_per_s']:.4g} rows/s = {g['GB_per_s']:.4g} GB/s; plain "
-                  f"table[idx] {g['plain_ms']:.4f} ms = {g['plain_rows_per_s']:.4g} rows/s = "
-                  f"{g['plain_GB_per_s']:.4g} GB/s", flush=True)
+                  f"{g['ms']:.4f} ms = {g['rows_per_s']:.4g} rows/s = {g['GB_per_s']:.4g} GB/s (bound "
+                  f"{g['bound_ms']:.4f} ms); plain table[idx] {g['plain_ms']:.4f} ms = "
+                  f"{g['plain_rows_per_s']:.4g} rows/s = {g['plain_GB_per_s']:.4g} GB/s; index_select "
+                  f"{g['library_ms']:.4f} ms", flush=True)
         print(f"    phase {time.perf_counter() - t0:.2f} s", flush=True)
 
         t0 = time.perf_counter()
@@ -461,7 +580,7 @@ def main() -> None:
         dma_peak = torch.cuda.max_memory_allocated(dev)
         need_rows = (1 + 3) * rounds * waves
         expect_launches("gather engine", by_path["gather"],
-                        {"row_gather": need_rows, "lf_round_rows": need_rows, "lf_round": lut_launches})
+                        {"row_gather": need_rows, "lf_round_rows": need_rows, "lf_round_pairs": lut_launches})
         if not np.array_equal(dma_res, run.results):
             raise AssertionError(f"gather engine: {(dma_res != run.results).any(1).sum()} reads differ from phase 4")
         del dma
@@ -505,14 +624,14 @@ def main() -> None:
         veng = SearchEngine(index, dev, lut_m=LUT_M, tail_index=tail)
         vres, v_s = timed_passes(lambda: veng.search_varlen(batch))
         by_path["varlen"] = read_counts()
-        expect_launches("varlen", by_path["varlen"], {"lf_round": 4 * (vrounds + K - 1) * vwaves})
+        expect_launches("varlen", by_path["varlen"], {"lf_round_pairs": 4 * (vrounds + K - 1) * vwaves})
         reset_counts()
         vdma = SearchEngine(index, dev, lut_m=LUT_M, tail_index=tail, gather="dma")
         vdres, vd_s = timed_passes(lambda: vdma.search_varlen(batch))
         by_path["varlen_gather"] = read_counts()
         expect_launches("varlen gather", by_path["varlen_gather"], {
             "row_gather": 4 * vrounds * vwaves, "lf_round_rows": 4 * vrounds * vwaves,
-            "lf_round": 4 * (K - 1) * vwaves,
+            "lf_round_pairs": 4 * (K - 1) * vwaves,
         })
         del vdma
         t1 = time.perf_counter()
@@ -548,7 +667,10 @@ def main() -> None:
         print(f"[9 K4 vs plain] sample rate {SAMPLE_RATE}, d={D}: all {REF_BASES + 1} BWT rows plus "
               f"bwtsize and 3 rows past it walked, equal to the suffix array and bit-identical to the "
               f"plain walk; {WALK_ROWS} random rows: kernel {walk['ms']:.4f} ms, plain "
-              f"{walk['plain_ms']:.4f} ms; all {walk['rows']} rows: kernel {walk['all_ms']:.4f} ms, "
+              f"{walk['plain_ms']:.4f} ms; bound {walk['bound_ms']:.4f} ms (bytes), latency floor "
+              f"{walk['latency_floor_ms']:.4f} ms (longest trip {walk['longest_trip']} hops, mean "
+              f"{walk['mean_trip']:.2f}, x {walk['hop_ms'] * 1e3:.3f} us a hop); all {walk['rows']} rows: "
+              f"kernel {walk['all_ms']:.4f} ms, "
               f"plain {walk['all_plain_ms']:.4f} ms; suffix sort + locate tables {loc_s:.2f} s; phase "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
 
@@ -562,13 +684,13 @@ def main() -> None:
         by_path["locate"] = read_counts()
         walk_waves = -(-int((two.positions != 0xFFFFFFFF).sum()) // LocateEngine.WAVE)
         expect_launches("locate two-pass", by_path["locate"],
-                        {"lf_round": rounds * waves + lut_launches, "locate_walk": walk_waves})
+                        {"lf_round_pairs": rounds * waves + lut_launches, "locate_walk": walk_waves})
         reset_counts()
         fused = cli.main(["locate", "-", "0", *common, "--from-store", store, "--fused", "--output", pos_fused])
         by_path["locate_fused"] = read_counts()
         fwaves = -(-READS // SearchLocateEngine.WAVE)
         expect_launches("locate --fused", by_path["locate_fused"],
-                        {"lf_round": rounds * fwaves + lut_launches, "locate_walk": fwaves})
+                        {"lf_round_pairs": rounds * fwaves + lut_launches, "locate_walk": fwaves})
         reset_counts()
         both = cli.main(["locate", "-", "0", *common, "--from-store", store, "--fused", "--rc",
                          "--output", os.path.join(tmp, "rc.pos")])
@@ -576,7 +698,7 @@ def main() -> None:
         # the minus-strand waves hold no hit in a random text, and a wave
         # with no row to walk launches no walk
         expect_launches("locate --fused --rc", by_path["locate_fused_rc"],
-                        {"lf_round": 2 * rounds * fwaves + lut_launches, "locate_walk": fwaves})
+                        {"lf_round_pairs": 2 * rounds * fwaves + lut_launches, "locate_walk": fwaves})
         cli_s = time.perf_counter() - t0
         if Path(pos_two).read_bytes() != Path(pos_fused).read_bytes():
             raise AssertionError("locate: the two-pass and fused .pos files differ")
@@ -602,14 +724,14 @@ def main() -> None:
         (_, f_pos), f_s = timed_passes(lambda: sle.search_locate(reads))
         by_path["search_locate_timed"] = read_counts()
         expect_launches("search_locate", by_path["search_locate_timed"],
-                        {"lf_round": 4 * rounds * fwaves, "locate_walk": 4 * fwaves})
+                        {"lf_round_pairs": 4 * rounds * fwaves, "locate_walk": 4 * fwaves})
         two_search = SearchEngine(index_s, dev, lut_m=LUT_M)
         two_locate = LocateEngine(loc_store, dev)
         reset_counts()
         t_pos, t_s = timed_passes(lambda: two_locate.locate_hits(two_search.search(reads), MAX_HITS))
         by_path["two_pass_timed"] = read_counts()
         expect_launches("search + locate_hits", by_path["two_pass_timed"],
-                        {"lf_round": 4 * rounds * waves, "locate_walk": 4 * walk_waves})
+                        {"lf_round_pairs": 4 * rounds * waves, "locate_walk": 4 * walk_waves})
         if not (np.array_equal(f_pos, fused.positions) and np.array_equal(t_pos, fused.positions)):
             raise AssertionError("locate: the timed passes differ from the CLI's positions")
         hits = int((fused.positions != 0xFFFFFFFF).sum())
@@ -634,7 +756,7 @@ def main() -> None:
         w_two = LocateEngine(loc_store, dev).locate_hits(w_two_iv, WIDE_HITS)
         by_path["wide_two_pass"] = read_counts()
         for name in ("wide_fused", "wide_two_pass"):
-            expect_launches(name, by_path[name], {"lf_round": WIDE_LEN // K + 1, "locate_walk": 1})
+            expect_launches(name, by_path[name], {"lf_round_pairs": WIDE_LEN // K + 1, "locate_walk": 1})
         if not (np.array_equal(w_iv, w_two_iv) and np.array_equal(w_pos, w_two)):
             raise AssertionError("wide intervals: fused and two-pass differ")
         width = w_iv[:, 1].astype(np.int64) - w_iv[:, 0]
@@ -666,14 +788,14 @@ def main() -> None:
         cnt = cli.main(["count", fmi, mm_qry, str(READ_LEN), str(MM_READS), "--mismatches", "1",
                         "--lut", str(LUT_M), "--device", "cuda", "--output", os.path.join(tmp, "mm.cnt")])
         by_path["count_mm1"] = read_counts()
-        expect_launches("count --mismatches 1", by_path["count_mm1"], {"lf_round": 2 * rounds * mm_waves})
+        expect_launches("count --mismatches 1", by_path["count_mm1"], {"lf_round_pairs": 2 * rounds * mm_waves})
         reset_counts()
         mloc = cli.main(["locate", "-", "0", mm_qry, str(READ_LEN), str(MM_READS), "--from-store", store,
                          "--mismatches", "1", "--lut", str(LUT_M), "--max-hits", str(MAX_HITS),
                          "--device", "cuda", "--output", os.path.join(tmp, "mm.pos")])
         by_path["locate_mm1"] = read_counts()
         expect_launches("locate --mismatches 1", by_path["locate_mm1"],
-                        {"lf_round": rounds * mm_waves + lut_launches, "locate_walk": mm_waves})
+                        {"lf_round_pairs": rounds * mm_waves + lut_launches, "locate_walk": mm_waves})
         t1 = time.perf_counter()
         if not (cnt.counts >= 1).all():
             raise AssertionError("count --mismatches 1: a sampled read counts 0")
@@ -703,17 +825,40 @@ def main() -> None:
         if any(m == pkg or m.startswith(pkg + ".") for m in sys.modules):
             raise AssertionError(f"{pkg} was imported")
     search_case = gathers[0]
+    # launches per pass on the paths users run: (counted run, passes in it,
+    # whether it built the prefix LUT inside the count)
+    passes = {"search": ("main", 4, True), "varlen": ("varlen", 4, True),
+              "fused_locate": ("search_locate_timed", 4, False),
+              "two_pass_locate": ("two_pass_timed", 4, False),
+              "hamming1_count": ("count_mm1", 2, False), "gather_engine": ("gather", 4, True)}
+
+    def per_pass(name: str) -> dict:
+        return {label: (by_path[path][name] - (lut_launches if lut and name == "lf_round_pairs" else 0)) / n
+                for label, (path, n, lut) in passes.items()}
+
+    r18 = k1_main[-1]
     print(json.dumps({"kernels": [
         {
+            # K1 on the fused table: the pair entry, which every path runs,
+            # and the per-end entry (the Pallas contract, on no path)
             "name": "lf_round",
             "route": "cuda",
             "source": "tpufm_torch/csrc/lf_round.cu",
             "replaces": "tpufm/engine/pallas_kernel.py:41",
-            "launches": launches,
-            "max_abs_err": max(k1["max_abs_err"], k1_tail["max_abs_err"]),
-            "ms": k1["ms"],
-            "plain_ms": k1["plain_ms"],
-            "launches_by_path": {path: c["lf_round"] for path, c in by_path.items()},
+            "launches": by_path["main"]["lf_round_pairs"] + by_path["main"]["lf_round"],
+            "max_abs_err": max(k1["max_abs_err"], k1_tail["max_abs_err"], *(c["max_abs_err"] for c in k1_main)),
+            "ms": r18["ms"],
+            "plain_ms": r18["plain_ms"],
+            "bound_ms": r18["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+            "shape": f"pair entry, round {r18['round']} of phase 4's first wave, {r18['reads']} reads",
+            "launches_per_pass": per_pass("lf_round_pairs"),
+            "launches_by_path": {path: {"pairs": c["lf_round_pairs"], "per_end": c["lf_round"]}
+                                 for path, c in by_path.items()},
+            "main_path_rounds": k1_main,
+            "per_end": {"ends": K1_ENDS, "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
+                        "k1_tail_ms": k1_tail["ms"], "k1_tail_bound_ms": k1_tail["bound_ms"]},
         },
         {
             "name": "lf_round_rows",
@@ -725,6 +870,10 @@ def main() -> None:
             "max_abs_err": max(rows3["max_abs_err"], rows1["max_abs_err"]),
             "ms": rows3["ms"],
             "plain_ms": rows3["plain_ms"],
+            "bound_ms": rows3["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+            "launches_per_pass": per_pass("lf_round_rows"),
             "launches_by_path": {path: c["lf_round_rows"] for path, c in by_path.items()},
         },
         {
@@ -736,6 +885,10 @@ def main() -> None:
             "max_abs_err": max(g["max_abs_err"] for g in gathers),
             "ms": search_case["ms"],
             "plain_ms": search_case["plain_ms"],
+            "bound_ms": search_case["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": search_case["library_ms"],
+            "launches_per_pass": per_pass("row_gather"),
             "launches_by_path": {path: c["row_gather"] for path, c in by_path.items()},
             "rates": gathers,
         },
@@ -748,8 +901,15 @@ def main() -> None:
             "max_abs_err": walk["max_abs_err"],
             "ms": walk["ms"],
             "plain_ms": walk["plain_ms"],
+            "bound_ms": walk["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+            "latency_floor_ms": walk["latency_floor_ms"],
+            "hop_ms": walk["hop_ms"],
+            "longest_trip": walk["longest_trip"],
             "all_rows_ms": walk["all_ms"],
             "all_rows_plain_ms": walk["all_plain_ms"],
+            "launches_per_pass": per_pass("locate_walk"),
             "launches_by_path": {path: c["locate_walk"] for path, c in by_path.items()},
         },
     ]}))

@@ -5,15 +5,21 @@ and no JAX:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernel_gpu.py
 
-The LF round kernel (both entries: its own rows, and rows gathered
-beforehand), the row gather kernel (both copy paths: 16-byte units and
-4-byte words) and the locate walk kernel must equal their plain PyTorch
-versions on the same CUDA tensors, and the engine's searches on the card
+The LF round kernel (all three entries: per read, per end on its own rows,
+and on rows gathered beforehand; on host-width rows, which take its word
+path where they are not 16-byte aligned, and on the engines' device rows,
+padded to a multiple of 4 words), the row gather kernel (both copy paths:
+16-byte units and 4-byte words) and the locate walk kernel (lane refill
+across warps holding walks of 0 and sample_rate - 1 hops) must equal their
+plain PyTorch versions on the same CUDA tensors, and the engine's searches
+on the card
 (fixed length on both gather paths, and variable length), its fused
 search+locate and its Hamming <= 1 locate must equal the plain path and the
 numpy oracle. Intervals, positions and table words are integers and compare
 exactly (tolerance 0).
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -23,6 +29,7 @@ from tpufm_torch import SearchEngine
 from tpufm_torch.engine import lf_round as lf_mod
 from tpufm_torch.engine import locate as loc_mod
 from tpufm_torch.engine import row_gather as rg_mod
+from tpufm_torch.engine.search import _rows
 from tpufm_torch.engine.search_locate import SearchLocateEngine
 from tpufm_torch.engine.tables import tables_from_index
 from tpufm_torch.host.index import IndexConfig, build_index, derive_tail
@@ -40,30 +47,70 @@ def cuda():
     return torch.device("cuda")
 
 
+@functools.lru_cache(maxsize=None)
 def _index(k, d, n, seed=11):
     codes = np.random.default_rng(seed).integers(0, 4, size=n, dtype=np.uint8)
     return codes, build_index(codes, IndexConfig(k=k, d=d), sa_method="doubling")
 
 
+def _ends(rng, bwtsize, d, n):
+    """Seeded ends over [0, bwtsize] and the same as reads (lo, hi): half of
+    the reads with both ends in one block, half across blocks; the first
+    end and read end at bwtsize (an aligned text: the sentinel row)."""
+    iv = rng.integers(0, bwtsize + 1, size=n)
+    iv[0] = bwtsize
+    inside = np.minimum(iv - iv % d + rng.integers(0, d, size=n), bwtsize)
+    other = np.where(np.arange(n) % 2 == 0, inside, rng.integers(0, bwtsize + 1, size=n))
+    pairs = np.sort(np.stack([iv, other], axis=1), axis=1)
+    return iv, pairs
+
+
+def _check_k1(cuda, table, dollar, bwtsize, k, d, n):
+    """All three K1 entries on ``table`` (uint32 rows) against their plain
+    versions: n ends, n reads, n gathered rows."""
+    rng = np.random.default_rng(n + 31 * k + d + table.shape[1])
+    iv, pairs = _ends(rng, bwtsize, d, n)
+    code = rng.integers(0, 4**k, size=n)
+    entries, iv, pairs, code, dollar = (
+        torch.from_numpy(a).to(cuda)
+        for a in (np.ascontiguousarray(table).view(np.int32), iv, pairs, code, dollar.astype(np.int64))
+    )
+    before = lf_mod.LAUNCHES, lf_mod.PAIRS_LAUNCHES, lf_mod.ROWS_LAUNCHES
+    got = lf_mod.lf_round(entries, iv, code, dollar, k, d)
+    got_pairs = lf_mod.lf_round_pairs(entries, pairs, code, dollar, k, d)
+    rows = rg_mod.row_gather_reference(entries, iv // d)
+    got_rows = lf_mod.lf_round_rows(rows, iv, code, dollar, k, d)
+    torch.cuda.synchronize()
+    assert (lf_mod.LAUNCHES, lf_mod.PAIRS_LAUNCHES, lf_mod.ROWS_LAUNCHES) == tuple(b + 1 for b in before)
+    want = lf_mod.lf_round_reference(entries, iv, code, dollar, k, d)
+    assert torch.equal(got, want)
+    assert torch.equal(got_rows, want)
+    assert torch.equal(got_pairs, lf_mod.lf_round_pairs_reference(entries, pairs, code, dollar, k, d))
+
+
 @pytest.mark.parametrize("n", [1, 31, 4099])
-@pytest.mark.parametrize("k,d", [(1, 192), (3, 192), (2, 64)])
-def test_lf_round_kernel_matches_plain(cuda, k, d, n):
+@pytest.mark.parametrize("width", ["host", "device"])
+# host widths stage 16-byte units where the row stride is a multiple of 4
+# words, else words; k=8 d=960 stages more than 48 KB a warp
+@pytest.mark.parametrize("k,d", [(k, d) for k in (1, 2, 3, 4) for d in (32, 64, 128, 192, 448)] + [(8, 960)])
+def test_lf_round_kernel_matches_plain(cuda, k, d, width, n):
     # a text of c*d - 1 bases: bwtsize % d == 0, so bwtsize reads the sentinel row
     _, index = _index(k, d, 7 * d - 1)
-    rng = np.random.default_rng(n)
-    iv = rng.integers(0, index.bwtsize + 1, size=n)
-    iv[0] = index.bwtsize
-    code = rng.integers(0, 4**k, size=n)
     t = tables_from_index(index)
-    args = [
-        torch.from_numpy(a).to(cuda)
-        for a in (t.entries.view(np.int32), iv, code, t.dollar.astype(np.int64))
-    ]
-    before = lf_mod.LAUNCHES
-    got = lf_mod.lf_round(*args, k, d)
-    torch.cuda.synchronize()
-    assert lf_mod.LAUNCHES == before + 1
-    assert torch.equal(got, lf_mod.lf_round_reference(*args, k, d))
+    table = t.entries if width == "host" else _rows(t.entries, torch.device("cpu")).numpy().view(np.uint32)
+    _check_k1(cuda, table, t.dollar, index.bwtsize, k, d, n)
+
+
+@pytest.mark.parametrize("n", [1, 31, 4099])
+@pytest.mark.parametrize("width", ["host", "device"])
+@pytest.mark.parametrize("d", [32, 192])
+def test_lf_round_kernel_on_locate_rows(cuda, d, width, n):
+    """The locate rows as the k=1 table (the search's tail in the fused
+    locate): 3*nb + 5 words, 23 at d=192, or 24 as the engines pad them."""
+    codes = np.random.default_rng(d).integers(0, 4, size=7 * d - 1, dtype=np.uint8)
+    t = loc_mod.locate_tables_from_index(build_locate(codes, sample_rate=8, d=d, sa=suffix_array(codes, "doubling")))
+    table = t.rows if width == "host" else _rows(t.rows, torch.device("cpu")).numpy().view(np.uint32)
+    _check_k1(cuda, table, t.dollar, codes.shape[0] + 1, 1, d, n)
 
 
 @pytest.mark.parametrize("path", ["vector", "words"])
@@ -151,21 +198,35 @@ def test_search_varlen_on_card_matches_plain_and_oracle(cuda, lut_m, gather):
     assert (got[:, 1] > got[:, 0]).all()
 
 
-@pytest.mark.parametrize("n", [1, 31, 4099])
-@pytest.mark.parametrize("s", [1, 8, 32])
-@pytest.mark.parametrize("d", [32, 192])
-def test_locate_walk_kernel_matches_plain(cuda, d, s, n):
-    # a text of c*d - 1 bases: bwtsize % d == 0, so bwtsize reads the sentinel row
-    codes = np.random.default_rng(n + s).integers(0, 4, size=7 * d - 1, dtype=np.uint8)
+@functools.lru_cache(maxsize=None)
+def _walk_tables(d, s, n_bases):
+    codes = np.random.default_rng(n_bases + s).integers(0, 4, size=n_bases, dtype=np.uint8)
     sa = suffix_array(codes, "doubling")
-    t = loc_mod.locate_tables_from_index(build_locate(codes, sample_rate=s, d=d, sa=sa))
-    bwtsize = codes.shape[0] + 1
+    return sa, loc_mod.locate_tables_from_index(build_locate(codes, sample_rate=s, d=d, sa=sa))
+
+
+@pytest.mark.parametrize("n", [1, 31, 4099, 1 << 20])
+@pytest.mark.parametrize("width", ["host", "device"])
+@pytest.mark.parametrize("s", [1, 4, 32])
+@pytest.mark.parametrize("d", [32, 128, 192, 448, 960])  # d=960: over 48 KB of staged rows a block
+def test_locate_walk_kernel_matches_plain(cuda, d, s, width, n):
+    # a text of c*d - 1 bases: bwtsize % d == 0, so bwtsize reads the sentinel row
+    sa, t = _walk_tables(d, s, 7 * d - 1)
+    bwtsize = sa.shape[0]
     rng = np.random.default_rng(n * s)
     p = rng.integers(0, bwtsize, size=n)
+    # every warp of the first lanes holds walks of 0 and of s - 1 hops side
+    # by side (the row of SA value v walks v % s hops)
+    short, long_ = np.flatnonzero(sa % s == 0), np.flatnonzero(sa % s == s - 1)
+    head = min(n, 4096) // 2
+    p[0:2 * head:2] = rng.choice(short, size=head)
+    p[1:2 * head:2] = rng.choice(long_, size=head)
     # bwtsize itself, rows past it in its block and past the table (clamped)
-    p[: min(n, 4)] = [bwtsize, bwtsize + 3, bwtsize + 5 * d, 0][: min(n, 4)]
-    args = [torch.from_numpy(a).to(cuda) for a in (t.rows.view(np.int32), t.samples.view(np.int32),
-                                                  t.dollar.astype(np.int64), p)]
+    tail = [bwtsize, bwtsize + 3, bwtsize + 5 * d][: max(0, min(n, 4) - 1)]
+    p[n - len(tail):] = tail
+    rows = t.rows if width == "host" else _rows(t.rows, torch.device("cpu")).numpy().view(np.uint32)
+    args = [torch.from_numpy(a).to(cuda) for a in (np.ascontiguousarray(rows).view(np.int32),
+                                                  t.samples.view(np.int32), t.dollar.astype(np.int64), p)]
     before = loc_mod.LAUNCHES
     got = loc_mod.locate_walk(*args, d, s)
     torch.cuda.synchronize()
@@ -173,6 +234,10 @@ def test_locate_walk_kernel_matches_plain(cuda, d, s, n):
     assert torch.equal(got, loc_mod.locate_walk_reference(*args, d, s))
     inside = p < bwtsize
     np.testing.assert_array_equal(got.cpu().numpy()[inside], sa[p[inside]])
+    # a lane never marked within the trip count stays 0xFFFFFFFF
+    short_trip = loc_mod.locate_walk(*args, d, max(1, s // 2)).cpu().numpy()[inside]
+    want = np.where(sa[p[inside]] % s < max(1, s // 2), sa[p[inside]], 0xFFFFFFFF)
+    np.testing.assert_array_equal(short_trip, want)
 
 
 @pytest.mark.parametrize("L,lut_m", [(24, 0), (25, 6)])

@@ -96,7 +96,7 @@ def test_port_imports_and_searches_without_jax_or_tpufm(sa_method):
 
 def test_package_sources_never_import_jax_or_tpufm():
     banned = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|tpufm)\b", re.M)
-    for path in [*(REPO / "tpufm_torch").rglob("*.py"), REPO / "chip_smoke.py"]:
+    for path in [*(REPO / "tpufm_torch").rglob("*.py"), REPO / "chip_smoke.py", REPO / "kernel_times.py"]:
         assert not banned.search(path.read_text()), path
 
 
@@ -115,3 +115,13 @@ def test_chip_smoke_fails_alone(tmp_path):
     proc = _run(["chip_smoke.py"], tmp_path)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_kernel_times_fails_without_gpu():
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: kernel_times would run for real")
+    proc = _run(["kernel_times.py"], REPO)
+    assert proc.returncode != 0
+    assert "needs a CUDA card" in proc.stderr

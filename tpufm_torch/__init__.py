@@ -18,9 +18,10 @@ Layers:
                                   (engine.mismatch: the 3L+1 variants)
   tpufm_torch.engine.locate     — LocateEngine: the sampled-SA walk (K4)
                                   from BWT rows to text positions
-  tpufm_torch.engine.lf_round   — one LF round (K1): on its own rows or on
-                                  rows gathered beforehand; the CUDA kernel
-                                  on the card, its plain version on the CPU
+  tpufm_torch.engine.lf_round   — one LF round (K1): per read (both ends,
+                                  the engine's), per end, or on rows
+                                  gathered beforehand; the CUDA kernel on
+                                  the card, its plain version on the CPU
   tpufm_torch.engine.row_gather — the row gather (K3) of gather="dma"
   tpufm_torch.kernels           — nvcc build (one library per csrc/*.cu,
                                   all at once) + ctypes binding

@@ -1,4 +1,4 @@
-// K1: one k-step LF round per interval end, for Hopper (sm_90a).
+// K1: one k-step LF round per interval end or per read, for Hopper (sm_90a).
 //
 // Replaces the Pallas kernel _lf_round_kernel (tpufm/engine/pallas_kernel.py:41,
 // built by make_lf_round, :102) and computes exactly what lf_step_fused
@@ -12,25 +12,38 @@
 //            and iv > dollar_pos[i]
 //   out    = row[2k*nb + (code mod 4^k)] + count          (mod 2^32)
 //
-// Design. One thread per interval end over a 1-D grid; the ragged edge is
-// masked here, so any n works (the TPU version padded to a 2048-end tile).
-// The kernel loads its own row: on the TPU the gather stayed in XLA and the
-// gathered rows went through HBM between the two (pallas_kernel.py:12-19);
-// nothing forces that here. It reads only the plane words of windows the
-// prefix mask covers, and ONE counter by index: the TPU's binary-tree
-// counter pick was a lane-select workaround and is not ported.
+// Three entries share one round body (lf_round.cuh, which K4's LF(1) hop in
+// locate_walk.cu shares too):
+//   tpufm_lf_round_pairs  the engine's: one thread per read, iv [n, 2] and
+//                         one code per read. Both ends of a read take the
+//                         same code, and after the prefix-LUT start almost
+//                         every read has R - L <= 1, so both ends lie in one
+//                         block: the row is loaded once and both ends are
+//                         computed from it. Reads whose ends lie in two
+//                         blocks take a second row.
+//   tpufm_lf_round        one thread per end, the Pallas contract on the
+//                         fused table (make_lf_round(k, d)(entries[iv // d],
+//                         ...)), the row loaded by the kernel.
+//   tpufm_lf_round_rows   the Pallas contract itself: row j was gathered
+//                         beforehand (by K3, row_gather.cu, or by torch
+//                         indexing) and may carry padding past the
+//                         counters, as XLAEngine(gather="dma") rows do.
+// The ragged edge is masked here, so any n works (the TPU version padded to
+// a 2048-end tile).
 //
-// Two entries share one round body (lf_round_end, lf_round.cuh, which K4's
-// LF(1) hop in locate_walk.cu shares too). tpufm_lf_round is the fused
-// path above. tpufm_lf_round_rows keeps the Pallas contract: row j was
-// gathered beforehand (by K3, row_gather.cu, or by torch indexing) and may
-// carry padding past the counters, as XLAEngine(gather="dma") rows do.
-// It serves the gathered-row engines, which pay a [n, row_words] buffer
-// written and read back through HBM every round.
-//
-// Bound. Dependent random row loads: at most (2k*nb + 1) * 4 B per end per
-// round, 148 B at k=3 d=192. At 10 Mbase the 21 MB fused table fits the
-// H100's 50 MB L2; at genome scale it does not and each row comes from HBM.
+// Bound. HBM-bound as reckoned: each input read once, each output written
+// once. Per read the pair entry moves int64 iv [2], code and out [2] (40 B)
+// and, once, the table rows it touches: at 1M reads of the 10 Mbase k=3
+// d=192 table (52,085 x 100 words, 20.8 MB) 62.7 MB, 18.7 us at 3.35 TB/s.
+// What limits it is the L2: the table lives there (21 MB of 50 MB), and a
+// round asks it for every read's plane block (5 sectors at k=3 d=192) and
+// counter. Loading them a word at a time per lane would make up to 37
+// sector requests an end, and one thread per end would fetch every row
+// twice. This design asks for each sector once: the warp stages its rows
+// with coalesced 16-byte loads (lf_round.cuh), the pair entry loads one row
+// per read, and evict-first loads and stores (__ldcs, __stcs) for the
+// once-read iv, code and gathered rows and the once-written out keep those
+// streams (40 MB a round at 1M reads) from pushing the table out of L2.
 // Fusing all rounds of a wave into one launch with the interval kept in a
 // register (K2) is later work.
 //
@@ -39,18 +52,26 @@
 // Table words arrive as int32 tensors holding the uint32 bits.
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 #include "lf_round.cuh"
 
 namespace {
 
-using tpufm::lf_round_end;
+using tpufm::LoadCached;
+using tpufm::LoadStreaming;
+using tpufm::lf_rounds;
+using tpufm::stage_stride;
 
-constexpr int kThreads = 256;
-
-// K1 as the engine's fused path runs it: each end loads its own row.
+// The warp's slot of the block's shared memory for its staged rows.
 template <int K>
+__device__ __forceinline__ uint32_t* warp_stage(int nb) {
+  extern __shared__ uint4 staged[];
+  return reinterpret_cast<uint32_t*>(staged) + (threadIdx.x & ~31) * stage_stride(2 * K * nb);
+}
+
+template <int K, int V>
 __global__ void lf_round_kernel(const uint32_t* __restrict__ entries,
                                 long long nrows, int row_words, int nb,
                                 const long long* __restrict__ iv,
@@ -58,19 +79,19 @@ __global__ void lf_round_kernel(const uint32_t* __restrict__ entries,
                                 const long long* __restrict__ dollar,
                                 long long* __restrict__ out, long long n) {
   const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n) return;
-  const uint32_t v = (uint32_t)iv[j];
-  const uint32_t d = 32u * (uint32_t)nb;
-  const uint32_t block = v / d;
-  const unsigned long long row =
-      min((unsigned long long)block, (unsigned long long)(nrows - 1));
-  out[j] = (long long)lf_round_end<K>(entries + row * (unsigned long long)row_words,
-                                      nb, v, (uint32_t)code[j], block, d, dollar);
+  const bool active = j < n;  // every lane stays: the warp stages rows together
+  const uint32_t v = active ? (uint32_t)__ldcs(iv + j) : 0u;
+  const uint32_t c = active ? (uint32_t)__ldcs(code + j) : 0u;
+  const auto row_of = [&](uint32_t block) {
+    return entries + min((unsigned long long)block, (unsigned long long)(nrows - 1)) *
+                         (unsigned long long)row_words;
+  };
+  uint32_t o, unused;
+  lf_rounds<K, V, LoadCached>(warp_stage<K>(nb), row_of, nb, v, v, c, active, dollar, o, unused);
+  if (active) __stcs(out + j, (long long)o);
 }
 
-// K1 with the Pallas contract: end j's row was gathered beforehand into
-// rows[j] (by K3, row_gather.cu, or by torch indexing).
-template <int K>
+template <int K, int V>
 __global__ void lf_round_rows_kernel(const uint32_t* __restrict__ rows,
                                      int row_words, int nb,
                                      const long long* __restrict__ iv,
@@ -78,40 +99,79 @@ __global__ void lf_round_rows_kernel(const uint32_t* __restrict__ rows,
                                      const long long* __restrict__ dollar,
                                      long long* __restrict__ out, long long n) {
   const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n) return;
-  const uint32_t v = (uint32_t)iv[j];
-  const uint32_t d = 32u * (uint32_t)nb;
-  out[j] = (long long)lf_round_end<K>(rows + j * (unsigned long long)row_words,
-                                      nb, v, (uint32_t)code[j], v / d, d, dollar);
+  const bool active = j < n;
+  const uint32_t v = active ? (uint32_t)__ldcs(iv + j) : 0u;
+  const uint32_t c = active ? (uint32_t)__ldcs(code + j) : 0u;
+  const auto row_of = [&](uint32_t) { return rows + (active ? j : 0) * (unsigned long long)row_words; };
+  uint32_t o, unused;
+  lf_rounds<K, V, LoadStreaming>(warp_stage<K>(nb), row_of, nb, v, v, c, active, dollar, o, unused);
+  if (active) __stcs(out + j, (long long)o);
 }
 
-template <int K>
-int launch(const void* entries, long long nrows, int row_words, int nb,
-           const void* iv, const void* code, const void* dollar, void* out,
-           long long n, cudaStream_t stream) {
-  const long long blocks = (n + kThreads - 1) / kThreads;
-  lf_round_kernel<K><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      static_cast<const uint32_t*>(entries), nrows, row_words, nb,
-      static_cast<const long long*>(iv), static_cast<const long long*>(code),
-      static_cast<const long long*>(dollar), static_cast<long long*>(out), n);
+template <int K, int V>
+__global__ void lf_round_pairs_kernel(const uint32_t* __restrict__ entries,
+                                      long long nrows, int row_words, int nb,
+                                      const long long* __restrict__ iv,
+                                      const long long* __restrict__ code,
+                                      const long long* __restrict__ dollar,
+                                      long long* __restrict__ out, long long n) {
+  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool active = j < n;
+  const uint32_t lo = active ? (uint32_t)__ldcs(iv + 2 * j) : 0u;
+  const uint32_t hi = active ? (uint32_t)__ldcs(iv + 2 * j + 1) : 0u;
+  const uint32_t c = active ? (uint32_t)__ldcs(code + j) : 0u;
+  const auto row_of = [&](uint32_t block) {
+    return entries + min((unsigned long long)block, (unsigned long long)(nrows - 1)) *
+                         (unsigned long long)row_words;
+  };
+  uint32_t o_lo, o_hi;
+  lf_rounds<K, V, LoadCached>(warp_stage<K>(nb), row_of, nb, lo, hi, c, active, dollar, o_lo, o_hi);
+  if (active) {
+    __stcs(out + 2 * j, (long long)o_lo);
+    __stcs(out + 2 * j + 1, (long long)o_hi);
+  }
+}
+
+// f(K, V) as integral constants, for k in [1, 8] and v in {1, 4}.
+template <int K, class F>
+int with_v(int v, F& f) {
+  if (v == 4) return f(std::integral_constant<int, K>{}, std::integral_constant<int, 4>{});
+  return f(std::integral_constant<int, K>{}, std::integral_constant<int, 1>{});
+}
+
+template <class F>
+int with_kv(int k, int v, F f) {
+  switch (k) {
+    case 1: return with_v<1>(v, f);
+    case 2: return with_v<2>(v, f);
+    case 3: return with_v<3>(v, f);
+    case 4: return with_v<4>(v, f);
+    case 5: return with_v<5>(v, f);
+    case 6: return with_v<6>(v, f);
+    case 7: return with_v<7>(v, f);
+    default: return with_v<8>(v, f);
+  }
+}
+
+// Launches `kernel` over n items (ends or reads) with the block size and
+// shared memory its staged rows need: 2k*nb words a lane.
+template <class Kernel, class... Args>
+int launch(Kernel kernel, int k, int nb, long long n, cudaStream_t stream, Args... args) {
+  size_t smem = 0;
+  const int threads = tpufm::stage_block(stage_stride(2 * k * nb), &smem);
+  const long long blocks = (n + threads - 1) / threads;
+  if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  if (smem > 48u * 1024u) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<(unsigned)blocks, threads, smem, stream>>>(args...);
   return (int)cudaGetLastError();
 }
 
-template <int K>
-int launch_rows(const void* rows, int row_words, int nb, const void* iv,
-                const void* code, const void* dollar, void* out, long long n,
-                cudaStream_t stream) {
-  const long long blocks = (n + kThreads - 1) / kThreads;
-  lf_round_rows_kernel<K><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      static_cast<const uint32_t*>(rows), row_words, nb,
-      static_cast<const long long*>(iv), static_cast<const long long*>(code),
-      static_cast<const long long*>(dollar), static_cast<long long*>(out), n);
-  return (int)cudaGetLastError();
-}
-
-bool bad_shape(int row_words, int k, int nb, long long n) {
-  return nb <= 0 || k < 1 || k > 8 || row_words < 2 * k * nb + (1 << (2 * k)) ||
-         (n + kThreads - 1) / kThreads > 0x7FFFFFFFLL;
+bool bad_shape(int row_words, int k, int nb) {
+  return nb <= 0 || k < 1 || k > 8 || row_words < 2 * k * nb + (1 << (2 * k));
 }
 
 }  // namespace
@@ -124,18 +184,13 @@ extern "C" int tpufm_lf_round(const void* entries, long long nrows,
                               const void* code, const void* dollar, void* out,
                               long long n, void* stream) {
   if (n <= 0) return 0;
-  if (nrows <= 0 || bad_shape(row_words, k, nb, n)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (k) {
-    case 1: return launch<1>(entries, nrows, row_words, nb, iv, code, dollar, out, n, s);
-    case 2: return launch<2>(entries, nrows, row_words, nb, iv, code, dollar, out, n, s);
-    case 3: return launch<3>(entries, nrows, row_words, nb, iv, code, dollar, out, n, s);
-    case 4: return launch<4>(entries, nrows, row_words, nb, iv, code, dollar, out, n, s);
-    case 5: return launch<5>(entries, nrows, row_words, nb, iv, code, dollar, out, n, s);
-    case 6: return launch<6>(entries, nrows, row_words, nb, iv, code, dollar, out, n, s);
-    case 7: return launch<7>(entries, nrows, row_words, nb, iv, code, dollar, out, n, s);
-    default: return launch<8>(entries, nrows, row_words, nb, iv, code, dollar, out, n, s);
-  }
+  if (nrows <= 0 || bad_shape(row_words, k, nb)) return (int)cudaErrorInvalidValue;
+  return with_kv(k, tpufm::unit_words(entries, row_words), [&](auto K, auto V) {
+    return launch(lf_round_kernel<decltype(K)::value, decltype(V)::value>, k, nb, n,
+                  static_cast<cudaStream_t>(stream), static_cast<const uint32_t*>(entries), nrows,
+                  row_words, nb, static_cast<const long long*>(iv), static_cast<const long long*>(code),
+                  static_cast<const long long*>(dollar), static_cast<long long*>(out), n);
+  });
 }
 
 // Launches K1 on rows gathered beforehand, the Pallas contract
@@ -146,18 +201,30 @@ extern "C" int tpufm_lf_round_rows(const void* rows, int row_words, int k,
                                    const void* dollar, void* out, long long n,
                                    void* stream) {
   if (n <= 0) return 0;
-  if (bad_shape(row_words, k, nb, n)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (k) {
-    case 1: return launch_rows<1>(rows, row_words, nb, iv, code, dollar, out, n, s);
-    case 2: return launch_rows<2>(rows, row_words, nb, iv, code, dollar, out, n, s);
-    case 3: return launch_rows<3>(rows, row_words, nb, iv, code, dollar, out, n, s);
-    case 4: return launch_rows<4>(rows, row_words, nb, iv, code, dollar, out, n, s);
-    case 5: return launch_rows<5>(rows, row_words, nb, iv, code, dollar, out, n, s);
-    case 6: return launch_rows<6>(rows, row_words, nb, iv, code, dollar, out, n, s);
-    case 7: return launch_rows<7>(rows, row_words, nb, iv, code, dollar, out, n, s);
-    default: return launch_rows<8>(rows, row_words, nb, iv, code, dollar, out, n, s);
-  }
+  if (bad_shape(row_words, k, nb)) return (int)cudaErrorInvalidValue;
+  return with_kv(k, tpufm::unit_words(rows, row_words), [&](auto K, auto V) {
+    return launch(lf_round_rows_kernel<decltype(K)::value, decltype(V)::value>, k, nb, n,
+                  static_cast<cudaStream_t>(stream), static_cast<const uint32_t*>(rows), row_words, nb,
+                  static_cast<const long long*>(iv), static_cast<const long long*>(code),
+                  static_cast<const long long*>(dollar), static_cast<long long*>(out), n);
+  });
+}
+
+// Launches K1 with one thread per read: iv, out: int64 [n, 2] (each read's
+// lo, hi); code: int64 [n], one code for both ends; otherwise as
+// tpufm_lf_round.
+extern "C" int tpufm_lf_round_pairs(const void* entries, long long nrows,
+                                    int row_words, int k, int nb, const void* iv,
+                                    const void* code, const void* dollar, void* out,
+                                    long long n, void* stream) {
+  if (n <= 0) return 0;
+  if (nrows <= 0 || bad_shape(row_words, k, nb)) return (int)cudaErrorInvalidValue;
+  return with_kv(k, tpufm::unit_words(entries, row_words), [&](auto K, auto V) {
+    return launch(lf_round_pairs_kernel<decltype(K)::value, decltype(V)::value>, k, nb, n,
+                  static_cast<cudaStream_t>(stream), static_cast<const uint32_t*>(entries), nrows,
+                  row_words, nb, static_cast<const long long*>(iv), static_cast<const long long*>(code),
+                  static_cast<const long long*>(dollar), static_cast<long long*>(out), n);
+  });
 }
 
 extern "C" const char* tpufm_cuda_error_string(int err) {

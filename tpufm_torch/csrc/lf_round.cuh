@@ -1,6 +1,6 @@
-// The LF round of one interval end: the round body shared by K1
-// (lf_round.cu, both entries) and K4's LF(1) hop (locate_walk.cu), so that
-// one copy of the LF math serves every kernel.
+// The LF round of one interval end, or of both ends of a read: the round
+// body shared by K1 (lf_round.cu, all three entries) and K4's LF(1) hop
+// (locate_walk.cu), so that one copy of the LF math serves every kernel.
 //
 //   count  = sum over windows w of popcount(prefix_mask(v % d, w)
 //            & AND over levels i of plane pair i, each plane taken as is or
@@ -11,12 +11,26 @@
 //
 // r is the end's row (row_words >= 2K*nb + 4^K; words past the 4^K counters,
 // e.g. alignment padding or the locate rows' mark columns, are never read).
-// It reads only the plane words of windows the prefix mask covers, and ONE
-// counter by index: the TPU's binary-tree counter pick was a lane-select
-// workaround and is not ported. block = v / d comes from the interval itself,
-// never from which row r is: the '$' correction compares it with
-// dollar_block exactly as _lf_round_kernel does (pallas_kernel.py:56,
-// :92-97). dollar: int64 [3, K], rows pos, base, block.
+// Plane q of the row (level q / 2, bit q % 2 of the code) holds window w at
+// word q*nb + w: the JAX package's plane-major layout, kept on the device.
+// block = v / d comes from the interval itself, never from which row r is:
+// the '$' correction compares it with dollar_block exactly as
+// _lf_round_kernel does (pallas_kernel.py:56, :92-97). dollar: int64 [3, K],
+// rows pos, base, block.
+//
+// Loads. Every lane of a warp has a row of its own at a random place, so a
+// load instruction that each lane issues for its own row touches 32 sectors
+// at once, and two of a lane's loads into one sector are two L2 requests
+// when they are in flight together. So the warp stages its 32 rows together
+// (stage_rows): its lanes copy consecutive 16-byte units of one row at a
+// time, so each row's plane block arrives as whole sectors, each requested
+// once, in the lane's slot of shared memory; then each lane computes its
+// own end(s) from there, indexing words freely (d is a run-time value). On
+// the H100 at k=3 d=192 this beat one lane loading its own row, whether as
+// 8-byte vectors of the covered windows or as nine 16-byte vectors of the
+// whole plane block. The counter, one word by index, is loaded by its lane
+// before the staging, so that it is in flight meanwhile. The TPU's
+// binary-tree counter pick was a lane-select workaround and is not ported.
 
 #pragma once
 
@@ -24,37 +38,149 @@
 
 namespace tpufm {
 
-template <int K>
-__device__ __forceinline__ uint32_t lf_round_end(const uint32_t* __restrict__ r,
-                                                 int nb, uint32_t v, uint32_t c,
-                                                 uint32_t block, uint32_t d,
-                                                 const long long* __restrict__ dollar) {
-  const int shift = (int)(v - block * d);  // v % d, in [0, d)
-  uint32_t count = 0;
-  for (int w = 0; w < nb; ++w) {
-    // cov = clip(shift - 32w, 0, 32) bases of window w lie before iv.
-    const int cov = min(shift - 32 * w, 32);
-    if (cov <= 0) break;  // this window and every later one mask to 0
-    // cov in [1, 32]: the shift is in [0, 31], never the undefined 32.
-    uint32_t m = 0xFFFFFFFFu << (32 - cov);
-#pragma unroll
-    for (int i = 0; i < K; ++i) {
-      const uint32_t p0 = __ldg(r + (2 * i) * nb + w);
-      const uint32_t p1 = __ldg(r + (2 * i + 1) * nb + w);
-      m &= ((c >> (2 * i)) & 1u) ? p0 : ~p0;
-      m &= ((c >> (2 * i + 1)) & 1u) ? p1 : ~p1;
-    }
-    count += __popc(m);
-  }
+constexpr unsigned kFullWarp = 0xFFFFFFFFu;
 
-  const uint32_t cnt = __ldg(r + 2 * K * nb + (c & ((1u << (2 * K)) - 1u)));
-#pragma unroll
-  for (int i = 0; i < K; ++i) {
-    const bool hit = block == (uint32_t)dollar[2 * K + i] &&
-                     c == (uint32_t)dollar[K + i] && v > (uint32_t)dollar[i];
-    count -= hit ? 1u : 0u;
+// Row loads through the read-only path, cached: a table that many ends and
+// rounds reuse.
+struct LoadCached {
+  template <typename T>
+  static __device__ __forceinline__ T ld(const T* p) { return __ldg(p); }
+};
+
+// Evict-first row loads: rows gathered for one use, which would otherwise
+// push the table out of L2.
+struct LoadStreaming {
+  template <typename T>
+  static __device__ __forceinline__ T ld(const T* p) { return __ldcs(p); }
+};
+
+template <int V> struct Unit;
+template <> struct Unit<1> { using T = uint32_t; };
+template <> struct Unit<4> { using T = uint4; };
+
+// The unit (4 or 1 words) in which every row of a table copies aligned: 4
+// when the row stride is a multiple of 4 words and the base 16-byte aligned
+// (the engines' padded device tables), else single words.
+inline int unit_words(const void* table, int row_words) {
+  return row_words % 4 == 0 && reinterpret_cast<uintptr_t>(table) % 16 == 0 ? 4 : 1;
+}
+
+// Words of shared memory a lane's staged row takes: `words` rounded up to
+// whole 16-byte units.
+__host__ __device__ constexpr int stage_stride(int words) { return (words + 3) / 4 * 4; }
+
+// Warp-cooperative copy of the first `words` words of every lane's `row`
+// into that lane's slot (stride words) of the warp's `stage`, skipping the
+// rows of lanes that are not `active`. Consecutive lanes copy consecutive
+// V-word units of one row, so a row's loads coalesce into whole sectors.
+// Every lane of the warp calls it; a row is copied in whole units, which
+// stay inside it (V divides the row stride). Ends with __syncwarp, so the
+// staged words are visible to every lane. (Holding a batch of loads in
+// registers before storing them was slower on the H100: the registers cost
+// more warps than the overlap gained.)
+template <int V, class Ld>
+__device__ __forceinline__ void stage_rows(uint32_t* stage, int stride, const uint32_t* row,
+                                           bool active, int words) {
+  using T = typename Unit<V>::T;
+  const int units = (words + V - 1) / V;
+  const unsigned long long from = reinterpret_cast<unsigned long long>(row);
+  // the same trip count, `units`, in every lane: the shuffles stay uniform
+  for (int t = threadIdx.x & 31; t < 32 * units; t += 32) {
+    const int i = t / units, u = t - i * units;
+    const auto src = reinterpret_cast<const T*>(__shfl_sync(kFullWarp, from, i));
+    if (__shfl_sync(kFullWarp, (int)active, i))
+      *reinterpret_cast<T*>(stage + i * stride + u * V) = Ld::ld(src + u);
   }
-  return cnt + count;
+  __syncwarp();
+}
+
+// The bits of window w before position `shift` of the block: the top
+// clip(shift - 32w, 0, 32) bits (never a shift by 32).
+__device__ __forceinline__ uint32_t prefix_mask(int shift, int w) {
+  const int cov = shift - 32 * w;
+  return cov <= 0 ? 0u : (cov >= 32 ? 0xFFFFFFFFu : 0xFFFFFFFFu << (32 - cov));
+}
+
+// The popcount part of two LF rounds under one k-mer c on one row, whose
+// plane words are `s` (plane q, window w at s[q*nb + w]): for the in-block
+// offsets s0 and s1, the positions before each whose K characters are c.
+template <int K>
+__device__ __forceinline__ void lf_counts(const uint32_t* s, int nb, uint32_t c, int s0, int s1,
+                                          uint32_t& n0, uint32_t& n1) {
+  const int nw = ((s0 > s1 ? s0 : s1) + 31) >> 5;  // windows the prefix masks cover
+  n0 = n1 = 0;
+  for (int w = 0; w < nw; ++w) {
+    uint32_t m = 0xFFFFFFFFu;
+#pragma unroll
+    for (int q = 0; q < 2 * K; ++q) {
+      const uint32_t x = s[q * nb + w];
+      m &= ((c >> q) & 1u) ? x : ~x;
+    }
+    n0 += __popc(m & prefix_mask(s0, w));
+    n1 += __popc(m & prefix_mask(s1, w));
+  }
+}
+
+// The '$' correction: levels whose '$' lies in this block before v with
+// k-mer c.
+template <int K>
+__device__ __forceinline__ uint32_t dollar_hits(uint32_t block, uint32_t c, uint32_t v,
+                                                const long long* __restrict__ dollar) {
+  uint32_t n = 0;
+#pragma unroll
+  for (int i = 0; i < K; ++i)
+    n += (block == (uint32_t)dollar[2 * K + i] && c == (uint32_t)dollar[K + i] &&
+          v > (uint32_t)dollar[i]) ? 1u : 0u;
+  return n;
+}
+
+// LF rounds of the ends lo and hi under code c, each on the row of its
+// block, row_of(block) (for one end per lane, lo == hi). Warp-collective:
+// every lane of the warp calls it, and the lanes that are `active` get
+// o_lo, o_hi. The warp stages the rows of the lo blocks; where a lane's hi
+// lies in another block (rare after the prefix-LUT start), the warp stages
+// those rows in a second round. `stage` is the warp's shared memory,
+// 32 * stage_stride(2K*nb) words.
+template <int K, int V, class Ld, class RowOf>
+__device__ __forceinline__ void lf_rounds(uint32_t* stage, RowOf row_of, int nb, uint32_t lo,
+                                          uint32_t hi, uint32_t c, bool active,
+                                          const long long* __restrict__ dollar, uint32_t& o_lo,
+                                          uint32_t& o_hi) {
+  const uint32_t d = 32u * (uint32_t)nb;
+  const int words = 2 * K * nb, stride = stage_stride(words);
+  const uint32_t* s = stage + (threadIdx.x & 31) * stride;
+  const uint32_t cmask = (1u << (2 * K)) - 1u;
+  const uint32_t b_lo = lo / d, b_hi = hi / d;
+  const bool split = b_lo != b_hi;
+  const uint32_t* r = row_of(b_lo);
+  const uint32_t cnt = active ? Ld::ld(r + words + (c & cmask)) : 0u;
+  stage_rows<V, Ld>(stage, stride, r, active, words);
+  uint32_t n_lo, n_hi;
+  lf_counts<K>(s, nb, c, (int)(lo - b_lo * d), split ? 0 : (int)(hi - b_lo * d), n_lo, n_hi);
+  o_lo = cnt + n_lo - dollar_hits<K>(b_lo, c, lo, dollar);
+  o_hi = cnt + n_hi - dollar_hits<K>(b_lo, c, hi, dollar);
+  if (__any_sync(kFullWarp, active && split)) {
+    __syncwarp();  // every lane is done with the first rows
+    const uint32_t* r2 = row_of(b_hi);
+    const uint32_t cnt2 = active && split ? Ld::ld(r2 + words + (c & cmask)) : 0u;
+    stage_rows<V, Ld>(stage, stride, r2, active && split, words);
+    if (active && split) {
+      lf_counts<K>(s, nb, c, (int)(hi - b_hi * d), 0, n_hi, n_lo);
+      o_hi = cnt2 + n_hi - dollar_hits<K>(b_hi, c, hi, dollar);
+    }
+  }
+}
+
+// Threads per block (a multiple of 32, at most 256) whose staged rows of
+// `stride` words fit in 48 KB of shared memory, at least one warp; *smem is
+// set to the block's bytes. A caller whose one warp needs more than 48 KB
+// raises the kernel's dynamic shared memory limit first.
+inline int stage_block(int stride, size_t* smem) {
+  const size_t per_warp = 32u * 4u * (size_t)stride;
+  size_t warps = (48u * 1024u) / per_warp;
+  warps = warps < 1 ? 1 : (warps > 8 ? 8 : warps);
+  *smem = warps * per_warp;
+  return 32 * (int)warps;
 }
 
 }  // namespace tpufm

@@ -14,34 +14,51 @@
 //               the lane stops
 //     else one LF(1) hop: c = the BWT character at p from the row's two
 //       bit-planes; p = LF round at k=1 on the row's first 2*nb + 4 words
-//       (lf_round_end<1>, lf_round.cuh: K1's round body, '$' correction
-//       included), hops += 1
+//       (K1's round math, lf_round.cuh, '$' correction included), hops += 1
 //   a lane never marked within sample_rate iterations gives 0xFFFFFFFF.
 //
 // A fused locate row (build_locate_tables, xla.py:1352) is uint32
-// [2*nb LF(1) plane words | 4 LF(1) counters | nb mark words | mark rank].
+// [2*nb LF(1) plane words | 4 LF(1) counters | nb mark words | mark rank],
+// which the engine pads on the device to a multiple of 4 words (24 at
+// d=192: 96 B, three sectors).
 //
-// Design. One thread per lane with the whole walk in the thread, over a
-// 1-D grid with the ragged edge masked. A finished lane exits early: the
-// TPU ran every lane for the fixed trip count and masked the finished ones
-// (xla.py:1047-1049); nothing forces that here, and the result is the same
-// since a marked lane never moves again. Words are indexed directly: the
-// one-hot picks of xla.py:982-992 were a TPU lane-select workaround. The
-// thread reads only the mark and plane words its prefix mask covers.
-//
-// Bound. Dependent random row loads: a hop reads at most (2*nb + 2) * 4 B
-// of one row (the mark word, the plane words up to p's window, one
-// counter), the marked row at most (nb + 1) * 4 B more and one sample:
-// about (3*nb + 2) * 4 B, 80 B at d=192. The next hop's row depends on the
-// hop before, so a lane is a chain of latencies, and a warp is held to its
-// slowest lane (up to sample_rate - 1 hops). At 10 Mbase and d=192 the locate rows (23 words x 52,085 rows =
-// 4.8 MB) and the samples (1.25 MB at s=32) sit in the 50 MB L2; at genome
-// scale they do not and each hop comes from HBM.
+// Bound. HBM-bound as reckoned: p and out (16 B a lane), the locate rows and
+// the samples once; 1M lanes at 10 Mbase s=32 d=192 move 22.8 MB, 6.8 us at
+// 3.35 TB/s. A dependent walk cannot come near that: each hop needs the row
+// the hop before computed, so one floor is the longest trip (up to
+// sample_rate - 1 hops and the sample) times one dependent hop. At 1M lanes
+// it stays far above both: ~16M hops each read a 96-byte row (three sectors)
+// from L2, and the rate at which L2 serves such scattered rows is the
+// likely limit (not measured: no L2 counters were read).
+// The design works on requests and idle lanes:
+//   * One memory round trip a hop, a row's sectors each requested once. At
+//     each step the warp stages the rows of its 32 lanes' hops in shared
+//     memory with coalesced 16-byte loads (stage_rows, lf_round.cuh: the
+//     whole row, 24 padded words at d=192), then every lane takes its hop
+//     from there: the character, the mark test, the mark prefix, and the LF
+//     count by K1's round math (lf_counts). Loaded word by word, a hop
+//     would take 2-3 dependent trips (mark word, then the character's
+//     plane words, then the LF round's words), one request per word.
+//   * Lane refill. A persistent grid of a few blocks per SM; each warp
+//     claims kChunk lanes with one atomicAdd by its first thread, and a
+//     thread whose walk ends takes the next lane of its warp's chunk (or of
+//     a new chunk), so the warp stages 32 rows a step until the queue
+//     drains. With one lane a thread, a warp would be held to its slowest
+//     lane (mean trip ~15.5 hops, up to 31 at s=32), about half of its
+//     lane-slots idle.
+//   * The last iteration's hop is skipped: its row would never be tested.
+// In design experiments on the H100, one lane loading its own whole row as
+// 16-byte vectors (a row width fixed at compile time) walked faster than
+// this staged design; that is the next design to measure.
+// Results are written by lane index, so the order lanes finish in is
+// irrelevant. Words are indexed directly: the one-hot picks of
+// xla.py:982-992 were a TPU lane-select workaround.
 //
 // Types. Rows and SA values reach 2^32 - 1: uint32_t here, int64 holding
 // the uint32 bits on the torch side. Table words and samples arrive as
 // int32 tensors holding the uint32 bits.
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -49,46 +66,123 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+using namespace tpufm;
 
-__global__ void locate_walk_kernel(const uint32_t* __restrict__ rows,
-                                   long long nrows, int row_words, int nb,
-                                   const uint32_t* __restrict__ samples,
-                                   long long n_samples,
-                                   const long long* __restrict__ dollar,
-                                   const long long* __restrict__ p_in,
-                                   long long* __restrict__ out, long long n,
-                                   int sample_rate) {
-  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n) return;
+constexpr int kThreads = 256;
+constexpr int kChunk = 64;  // lanes a warp claims with one atomic
+
+struct Walk {
+  const uint32_t* rows;
+  long long nrows;
+  int row_words, nb;
+  const uint32_t* samples;
+  uint32_t last;  // n_samples - 1
+  const long long* dollar;
+  int sample_rate;
+};
+
+// One iteration of the walk of a lane at row p after `hops` hops, on its
+// staged row s: true when the lane is finished, its SA value in `result`;
+// else p has taken its hop.
+__device__ __forceinline__ bool walk_step(const Walk& W, const uint32_t* s, uint32_t& p, int hops,
+                                          uint32_t& result) {
+  const int nb = W.nb;
   const uint32_t d = 32u * (uint32_t)nb;
-  const int mark0 = 2 * nb + 4;  // first mark word of a row
-  const uint32_t last = (uint32_t)(n_samples - 1);
-  uint32_t p = (uint32_t)p_in[j];
-  uint32_t result = 0xFFFFFFFFu;
-  for (int hops = 0; hops < sample_rate; ++hops) {
-    const uint32_t block = p / d;
-    const uint32_t off = p - block * d;
-    const uint32_t* r =
-        rows + min((unsigned long long)block, (unsigned long long)(nrows - 1)) *
-                   (unsigned long long)row_words;
-    const int w = (int)(off >> 5);
-    const int bit = 31 - (int)(off & 31u);
-    const uint32_t mark = __ldg(r + mark0 + w);
-    if ((mark >> bit) & 1u) {
-      // marked bits before off: whole words before w, then the top off % 32
-      // bits of word w (~(FFFFFFFF >> 0) == 0: no bit at a word's start)
-      uint32_t pre = __popc(mark & ~(0xFFFFFFFFu >> (off & 31u)));
-      for (int i = 0; i < w; ++i) pre += __popc(__ldg(r + mark0 + i));
-      const uint32_t rank = min(__ldg(r + mark0 + nb) + pre, last);
-      result = __ldg(samples + rank) + (uint32_t)hops;
-      break;
-    }
-    const uint32_t c = ((__ldg(r + w) >> bit) & 1u) |
-                       (((__ldg(r + nb + w) >> bit) & 1u) << 1);
-    p = tpufm::lf_round_end<1>(r, nb, p, c, block, d, dollar);
+  const uint32_t block = p / d;
+  const int off = (int)(p - block * d), w = off >> 5, bit = 31 - (off & 31);
+  const uint32_t* marks = s + 2 * nb + 4;
+  if ((marks[w] >> bit) & 1u) {
+    uint32_t pre = __popc(marks[w] & prefix_mask(off, w));
+    for (int i = 0; i < w; ++i) pre += __popc(marks[i]);
+    result = __ldg(W.samples + min(marks[nb] + pre, W.last)) + (uint32_t)hops;
+    return true;
   }
-  out[j] = (long long)result;
+  if (hops + 1 == W.sample_rate) {  // never marked: the last hop is never tested
+    result = 0xFFFFFFFFu;
+    return true;
+  }
+  const uint32_t c = ((s[w] >> bit) & 1u) | (((s[nb + w] >> bit) & 1u) << 1);
+  uint32_t count, unused;
+  lf_counts<1>(s, nb, c, off, 0, count, unused);
+  p = s[2 * nb + c] + count - dollar_hits<1>(block, c, p, W.dollar);
+  return false;
+}
+
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+locate_walk_kernel(Walk W, const long long* __restrict__ p_in, long long* __restrict__ out,
+                   long long n, unsigned long long* __restrict__ next_lane) {
+  extern __shared__ uint4 staged[];
+  const int stride = stage_stride(W.row_words);
+  uint32_t* stage = reinterpret_cast<uint32_t*>(staged) + (threadIdx.x & ~31) * stride;
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  const uint32_t d = 32u * (uint32_t)W.nb;
+  long long base = 0, end = 0;  // the warp's unclaimed lanes [base, end), warp-uniform
+  bool drained = false;         // warp-uniform
+  long long j = -1;             // this thread's lane, -1 when idle
+  uint32_t p = 0, result = 0;
+  int hops = 0;
+  for (;;) {
+    unsigned idle = __ballot_sync(kFullWarp, j < 0);
+    while (idle && !drained) {
+      if (base == end) {
+        unsigned long long b = 0;
+        if (lane == 0) b = atomicAdd(next_lane, (unsigned long long)kChunk);
+        b = __shfl_sync(kFullWarp, b, 0);
+        if (b >= (unsigned long long)n) {
+          drained = true;
+          break;
+        }
+        base = (long long)b;
+        end = min(base + kChunk, n);
+      }
+      const int take = (int)min((long long)__popc(idle), end - base);
+      if (j < 0 && __popc(idle & below) < take) {
+        j = base + __popc(idle & below);
+        p = (uint32_t)__ldcs(p_in + j);
+        hops = 0;
+      }
+      base += take;
+      idle = __ballot_sync(kFullWarp, j < 0);
+    }
+    if (idle == kFullWarp) return;  // drained, and every thread idle
+    const uint32_t* row =
+        W.rows + min((unsigned long long)(p / d), (unsigned long long)(W.nrows - 1)) *
+                     (unsigned long long)W.row_words;
+    stage_rows<V, LoadCached>(stage, stride, row, j >= 0, W.row_words);
+    if (j >= 0) {
+      if (walk_step(W, stage + lane * stride, p, hops, result)) {
+        __stcs(out + j, (long long)result);
+        j = -1;
+      } else {
+        ++hops;
+      }
+    }
+    __syncwarp();  // every lane is done with the staged rows
+  }
+}
+
+template <int V>
+int launch(const Walk& W, const void* p, void* out, long long n, void* next_lane,
+           cudaStream_t stream) {
+  const size_t smem = (size_t)kThreads * 4 * stage_stride(W.row_words);
+  if (smem > 48u * 1024u) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        locate_walk_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, locate_walk_kernel<V>, kThreads, smem);
+  const long long lanes_per_block = (long long)kChunk * (kThreads / 32);
+  const long long blocks =
+      std::min((long long)std::max(sms * per_sm, 1), (n + lanes_per_block - 1) / lanes_per_block);
+  locate_walk_kernel<V><<<(unsigned)blocks, kThreads, smem, stream>>>(
+      W, static_cast<const long long*>(p), static_cast<long long*>(out), n,
+      static_cast<unsigned long long*>(next_lane));
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -96,24 +190,23 @@ __global__ void locate_walk_kernel(const uint32_t* __restrict__ rows,
 // Launches K4 on `stream` and returns cudaGetLastError() (0 on success).
 // rows: uint32 [nrows, row_words >= 3*nb + 5] fused locate rows; samples:
 // uint32 [n_samples >= 1]; dollar: int64 [3, 1] (pos, base, block of the
-// k=1 '$'); p, out: int64 [n] (uint32 values). Does not synchronise.
+// k=1 '$'); p, out: int64 [n] (uint32 values); next_lane: one uint64 set to
+// 0, the lane queue's head. Does not synchronise.
 extern "C" int tpufm_locate_walk(const void* rows, long long nrows,
                                  int row_words, int nb, const void* samples,
                                  long long n_samples, const void* dollar,
                                  const void* p, void* out, long long n,
-                                 int sample_rate, void* stream) {
+                                 int sample_rate, void* next_lane, void* stream) {
   if (n <= 0) return 0;
-  const long long blocks = (n + kThreads - 1) / kThreads;
   if (nrows <= 0 || nb <= 0 || row_words < 3 * nb + 5 || n_samples <= 0 ||
-      n_samples > 0x100000000LL || sample_rate < 1 || blocks > 0x7FFFFFFFLL)
+      n_samples > 0x100000000LL || sample_rate < 1)
     return (int)cudaErrorInvalidValue;
-  locate_walk_kernel<<<(unsigned)blocks, kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(rows), nrows, row_words, nb,
-      static_cast<const uint32_t*>(samples), n_samples,
-      static_cast<const long long*>(dollar), static_cast<const long long*>(p),
-      static_cast<long long*>(out), n, sample_rate);
-  return (int)cudaGetLastError();
+  const Walk W{static_cast<const uint32_t*>(rows), nrows, row_words, nb,
+               static_cast<const uint32_t*>(samples), (uint32_t)(n_samples - 1),
+               static_cast<const long long*>(dollar), sample_rate};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return unit_words(rows, row_words) == 4 ? launch<4>(W, p, out, n, next_lane, s)
+                                           : launch<1>(W, p, out, n, next_lane, s);
 }
 
 extern "C" const char* tpufm_cuda_error_string(int err) {

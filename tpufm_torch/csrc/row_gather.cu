@@ -19,10 +19,12 @@
 // words (a DMA constraint, dma_gather.py:87-91) and its R copies in flight
 // are not ported: the card keeps many rows in flight by running many groups.
 //
-// Bound. Pure data movement: n * row_words * 4 B read from scattered rows,
-// the same written in order, plus 8 B of index per row, with no reuse
-// unless rows repeat. cp.async or TMA staging and a redesign for rate are
-// later work.
+// Bound. HBM-bound, pure data movement: n * row_words * 4 B written in
+// order, 8 B of index a row, and the distinct rows read once; at the
+// search's shape (2M rows of the 52,085 x 100-word table) 876.5 MB, 261.6
+// us at 3.35 TB/s, of which this design reaches about half: each lane
+// copies its units one at a time, load then store, so few loads are in
+// flight per lane.
 //
 // Types. Indices are int64: a 3.2 Gbase table has about 17M rows and the
 // interval ends they come from pass 2^31. Table words are the uint32 bits

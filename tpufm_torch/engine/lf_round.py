@@ -17,25 +17,28 @@ which equals ``make_lf_round(k, d)(entries[iv // d], iv, code, dollar)``.
 Intervals and codes are int64 tensors; table words are int32 tensors holding
 uint32 bits; dollar is int64 [3, k] (rows pos, base, block).
 
-Two entries, one round body:
+Three entries, one round body (tpufm_torch/csrc/lf_round.cu); each takes
+its plain PyTorch version for a CPU tensor and launches its kernel, or
+raises, for a CUDA tensor:
 
-* ``lf_round`` is the fused path the engine runs by default: a CPU tensor
-  goes to the plain PyTorch version ``lf_round_reference``; a CUDA tensor
-  launches the kernel in tpufm_torch/csrc/lf_round.cu or raises. Unlike the
-  Pallas design, the kernel loads its own rows: nothing forces the gathered
-  rows through device memory between two launches on the GPU.
+* ``lf_round_pairs`` is what the engine runs: one read per thread, ``iv``
+  int64 [B, 2] and one code per read for both ends, the row loaded once
+  when both ends lie in one block. Plain version ``lf_round_pairs_reference``
+  (the per-end round on ``iv.reshape(-1)`` and ``code.repeat_interleave(2)``).
+* ``lf_round`` is the round per end on the fused table, ``make_lf_round(k,
+  d)(entries[iv // d], iv, code, dollar)``, plain version
+  ``lf_round_reference``. Unlike the Pallas design, the kernel loads its own
+  rows: nothing forces the gathered rows through device memory between two
+  launches on the GPU.
 * ``lf_round_rows`` keeps the Pallas contract, ``make_lf_round(k, d)(rows,
   iv, code, dollar)``: row j was gathered beforehand (by ``row_gather``,
   K3, or by torch indexing) and may carry padding words past the 4^k
-  counters. Plain version ``lf_round_rows_reference``; the same kernel
-  source, entry ``tpufm_lf_round_rows``. ``lf_round_indexed`` is the round
-  as ``PallasEngine`` splits it: torch's own indexing gathers, then
-  ``lf_round_rows`` computes.
+  counters. Plain version ``lf_round_rows_reference``. ``lf_round_indexed``
+  is the round as ``PallasEngine`` splits it: torch's own indexing gathers,
+  then ``lf_round_rows`` computes.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -46,6 +49,8 @@ from tpufm_torch.bitops import FULL, boundary_masks, from_u32_bits, match_words,
 LAUNCHES = 0
 #: kernel launches made by ``lf_round_rows`` in this process
 ROWS_LAUNCHES = 0
+#: kernel launches made by ``lf_round_pairs`` in this process
+PAIRS_LAUNCHES = 0
 
 
 def lf_round_rows_reference(rows, iv, code, dollar, k: int, d: int) -> torch.Tensor:
@@ -74,7 +79,13 @@ def lf_round_reference(entries, iv, code, dollar, k: int, d: int) -> torch.Tenso
     return lf_round_rows_reference(entries[row], iv, code, dollar, k, d)
 
 
-def _check(entries, iv, code, dollar, k: int, d: int, name: str = "entries") -> None:
+def lf_round_pairs_reference(entries, iv, code, dollar, k: int, d: int) -> torch.Tensor:
+    """Plain PyTorch LF round of both ends of every read on any device:
+    int64 [B, 2] new intervals of ``iv`` [B, 2] under one code per read."""
+    return lf_round_reference(entries, iv.reshape(-1), code.repeat_interleave(2), dollar, k, d).view(-1, 2)
+
+
+def _check(entries, iv, code, dollar, k: int, d: int, name: str = "entries", pairs: bool = False) -> None:
     if not 1 <= k <= 8:
         raise ValueError(f"k must be in [1, 8], got {k}")
     if d <= 0 or d % 32:
@@ -88,8 +99,9 @@ def _check(entries, iv, code, dollar, k: int, d: int, name: str = "entries") -> 
         )
     if iv.dtype != torch.int64 or code.dtype != torch.int64 or dollar.dtype != torch.int64:
         raise ValueError("iv, code and dollar must be int64")
-    if iv.dim() != 1 or iv.shape != code.shape:
-        raise ValueError(f"iv and code must be 1-D of one length, got {tuple(iv.shape)} and {tuple(code.shape)}")
+    want = "[N, 2] (both ends of a read)" if pairs else "[N] (one end per code)"
+    if code.dim() != 1 or tuple(iv.shape) != (*code.shape, *((2,) if pairs else ())):
+        raise ValueError(f"iv must be {want} and code [N], got {tuple(iv.shape)} and {tuple(code.shape)}")
     if tuple(dollar.shape) != (3, k):
         raise ValueError(f"dollar must be [3, {k}], got {tuple(dollar.shape)}")
     if not all(t.is_contiguous() for t in (entries, iv, code, dollar)):
@@ -113,7 +125,7 @@ def _launch(fn: str, table, iv, code, dollar, k: int, d: int, *shape) -> torch.T
         err = getattr(lib, fn)(
             table.data_ptr(), *shape, table.shape[1], k, d // 32,
             iv.data_ptr(), code.data_ptr(), dollar.data_ptr(), out.data_ptr(),
-            iv.shape[0], stream,
+            code.shape[0], stream,
         )
     if err:
         raise RuntimeError(f"{fn} kernel launch failed: {kernels.error_string('lf_round', err)}")
@@ -151,6 +163,22 @@ def lf_round_rows(rows, iv, code, dollar, k: int, d: int) -> torch.Tensor:
     global ROWS_LAUNCHES
     out = _launch("tpufm_lf_round_rows", rows, iv, code, dollar, k, d)
     ROWS_LAUNCHES += 1
+    return out
+
+
+def lf_round_pairs(entries, iv, code, dollar, k: int, d: int) -> torch.Tensor:
+    """LF round of both ends of every read: ``iv`` int64 [B, 2] (lo, hi),
+    ``code`` int64 [B], one code for both ends; int64 [B, 2]. CPU tensors
+    take the plain version; CUDA tensors launch the kernel, one thread per
+    read, and a kernel that cannot be built or launched raises."""
+    _check(entries, iv, code, dollar, k, d, pairs=True)
+    if iv.device.type == "cpu":
+        return lf_round_pairs_reference(entries, iv, code, dollar, k, d)
+    if iv.numel() == 0:
+        return torch.empty_like(iv)
+    global PAIRS_LAUNCHES
+    out = _launch("tpufm_lf_round_pairs", entries, iv, code, dollar, k, d, entries.shape[0])
+    PAIRS_LAUNCHES += 1
     return out
 
 

@@ -22,9 +22,12 @@ uint32 bits, dollar int64 [3, 1] (pos, base, block of the k=1 '$').
 
 ``locate_walk`` is the wrapper (K4): a CPU tensor goes to the plain PyTorch
 version ``locate_walk_reference``; a CUDA tensor launches the kernel in
-tpufm_torch/csrc/locate_walk.cu or raises. The JAX walk is plain jnp (no
+tpufm_torch/csrc/locate_walk.cu (a persistent grid whose warps refill
+finished lanes from a queue) or raises. The JAX walk is plain jnp (no
 ``pallas_call``); K4 is a new kernel because the walk is every locate
-path's hot loop.
+path's hot loop. ``LocateEngine`` pads its device copy of the rows to a
+multiple of 4 words (24 at d=192), so that a hop loads its row in aligned
+vectors; the host ``LocateTables`` keep JAX's 3*nb + 5.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ import torch
 from tpufm_torch.bitops import FULL, boundary_masks, from_u32_bits, popcount32
 from tpufm_torch.device import resolve_device
 from tpufm_torch.engine.lf_round import lf_round_rows_reference
-from tpufm_torch.engine.search import _int64, _words, stream_waves
+from tpufm_torch.engine.search import _int64, _rows, _words, stream_waves
 from tpufm_torch.engine.tables import _check_d, _dollar
 from tpufm_torch.host.locate import LocateIndex, locate_hits_compacted
 
@@ -174,12 +177,13 @@ def locate_walk(rows_tbl, samples, dollar, p, d: int, sample_rate: int) -> torch
     from tpufm_torch import kernels
 
     lib = kernels.library("locate_walk")
+    next_lane = torch.zeros(1, dtype=torch.int64, device=p.device)  # the lane queue's head
     with torch.cuda.device(p.device):
         stream = torch.cuda.current_stream(p.device).cuda_stream
         err = lib.tpufm_locate_walk(
             rows_tbl.data_ptr(), rows_tbl.shape[0], rows_tbl.shape[1], d // 32,
             samples.data_ptr(), samples.shape[0], dollar.data_ptr(), p.data_ptr(),
-            out.data_ptr(), p.shape[0], sample_rate, stream,
+            out.data_ptr(), p.shape[0], sample_rate, next_lane.data_ptr(), stream,
         )
     if err:
         raise RuntimeError(f"locate_walk kernel launch failed: {kernels.error_string('locate_walk', err)}")
@@ -217,7 +221,7 @@ class LocateEngine(torch.nn.Module):
         tables = loc if isinstance(loc, LocateTables) else locate_tables_from_index(loc)
         device = resolve_device(device)
         self.d, self.sample_rate, self.bwtsize = tables.d, tables.sample_rate, tables.bwtsize
-        self.register_buffer("rows", _words(tables.rows, device))
+        self.register_buffer("rows", _rows(tables.rows, device))
         self.register_buffer("samples", _words(tables.samples, device))
         self.register_buffer("dollar", _int64(tables.dollar, device))
 

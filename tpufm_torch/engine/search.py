@@ -11,11 +11,13 @@ round per read. ``count`` (``XLAEngine.count``, :866-906) gives occurrence
 counts, exact or within Hamming distance 1 (each read's 3L+1 variants
 searched as lanes of one batch).
 
-The k-step rounds run one of two ways (``gather``): "fused", K1 loading its
-own rows (``lf_round``); or "dma", the counterpart of
-``XLAEngine(gather="dma")``: K3 (``row_gather``) gathers every end's row into
-one buffer, then K1 computes on the gathered rows (``lf_round_rows``). The
-LUT build and the k=1 tail rounds always take ``lf_round``, as in JAX.
+The k-step rounds run one of two ways (``gather``): "fused", K1's pair entry
+loading its own rows (``lf_round_pairs``, one read per thread); or "dma",
+the counterpart of ``XLAEngine(gather="dma")``: K3 (``row_gather``) gathers
+every end's row into one buffer, then K1 computes on the gathered rows
+(``lf_round_rows``). The LUT build and the k=1 tail rounds always take
+``lf_round_pairs``. The device copies of the tables are padded to rows of a
+multiple of 4 words (``_rows``); the host ``Tables`` keep JAX's widths.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from tpufm_torch.engine.codes import (
     fuse_prefix_codes,
     fuse_round_codes,
 )
-from tpufm_torch.engine.lf_round import lf_round, lf_round_rows
+from tpufm_torch.engine.lf_round import lf_round_pairs, lf_round_rows
 from tpufm_torch.engine.mismatch import variants1
 from tpufm_torch.engine.row_gather import row_gather
 from tpufm_torch.engine.tables import (
@@ -56,16 +58,30 @@ def _words(a: np.ndarray | None, device: torch.device) -> torch.Tensor | None:
     return torch.from_numpy(a.view(np.int32)).to(device)
 
 
+def _rows(a: np.ndarray | None, device: torch.device) -> torch.Tensor | None:
+    """A uint32 numpy table [E, W] -> its device copy, int32 [E, W rounded up
+    to a multiple of 4], the extra words 0: every row then starts 16-byte
+    aligned, as the kernels' vector loads want (no kernel reads a row past
+    its counters and mark columns). The host tables keep JAX's widths."""
+    if a is not None and a.shape[1] % 4:
+        a = np.pad(np.asarray(a, dtype=np.uint32), ((0, 0), (0, -a.shape[1] % 4)))
+    return _words(a, device)
+
+
 def _int64(a: np.ndarray | None, device: torch.device) -> torch.Tensor | None:
     return None if a is None else torch.from_numpy(a.astype(np.int64)).to(device)
 
 
-def _rounds(iv, codes, entries, dollar, k: int, d: int, step, keep=None):
-    """Apply one LF round per row of ``codes`` [rounds, B] to ``iv`` [B, 2];
-    where ``keep`` [rounds, B] is False a read keeps its interval."""
+def _rounds(iv, codes, entries, dollar, k: int, d: int, step=None, keep=None):
+    """Apply one LF round per row of ``codes`` [rounds, B] to ``iv`` [B, 2]:
+    K1's pair entry (``lf_round_pairs``, one read per thread), or ``step``
+    on both ends of every read when given; where ``keep`` [rounds, B] is
+    False a read keeps its interval."""
     for j, code in enumerate(codes):
-        new = step(entries, iv.reshape(-1), code.repeat_interleave(2), dollar, k, d)
-        new = new.view(-1, 2)
+        if step is None:
+            new = lf_round_pairs(entries, iv, code, dollar, k, d)
+        else:
+            new = step(entries, iv.reshape(-1), code.repeat_interleave(2), dollar, k, d).view(-1, 2)
         iv = new if keep is None else torch.where(keep[j, :, None], new, iv)
     return iv
 
@@ -134,9 +150,9 @@ class SearchEngine(torch.nn.Module):
         self.k, self.d, self.bwtsize, self.tail_d = (
             tables.k, tables.d, tables.bwtsize, tables.tail_d,
         )
-        self.register_buffer("entries", _words(tables.entries, device))
+        self.register_buffer("entries", _rows(tables.entries, device))
         self.register_buffer("dollar", _int64(tables.dollar, device))
-        self.register_buffer("tail_entries", _words(tables.tail_entries, device))
+        self.register_buffer("tail_entries", _rows(tables.tail_entries, device))
         self.register_buffer("tail_dollar", _int64(tables.tail_dollar, device))
         self.register_buffer("lut", _words(tables.lut, device))
         self.lut_m = 0
@@ -166,7 +182,7 @@ class SearchEngine(torch.nn.Module):
         iv[:, 1] = self.bwtsize
         return iv
 
-    def build_prefix_lut(self, m: int, step=lf_round) -> torch.Tensor:
+    def build_prefix_lut(self, m: int, step=None) -> torch.Tensor:
         """int32 [4^m, 2] (uint32 bits): the SA interval of every m-mer, from
         this engine's rounds (``step``, as in ``search_device``), wave by
         wave straight into one device tensor."""
@@ -185,13 +201,11 @@ class SearchEngine(torch.nn.Module):
 
     def _kstep(self, step, n: int):
         """The k-step round function for ``n`` interval ends: ``step`` when
-        given, else K1 on its own rows ("fused"), or K3 into one [n, W] row
-        buffer that every round of the call reuses, then K1 on the rows
-        ("dma")."""
-        if step is not None:
+        given, else None for K1's pair entry on its own rows ("fused"), or K3
+        into one [n, W] row buffer that every round of the call reuses, then
+        K1 on the rows ("dma")."""
+        if step is not None or self.gather == "fused":
             return step
-        if self.gather == "fused":
-            return lf_round
         rows = torch.empty((n, self.entries.shape[1]), dtype=torch.int32, device=self.device)
 
         def gathered(entries, iv, code, dollar, k, d):
@@ -233,7 +247,7 @@ class SearchEngine(torch.nn.Module):
             # the leftover leading characters, right to left, one per round
             tail_codes = head.flip(1).to(torch.int64).T.contiguous()
             iv = _rounds(iv, tail_codes, self.tail_entries, self.tail_dollar,
-                         1, self.tail_d, step or lf_round)
+                         1, self.tail_d, step)
         return iv
 
     def _need_varlen_tail(self) -> None:
@@ -286,7 +300,7 @@ class SearchEngine(torch.nn.Module):
             col = (Lp - lengths + rem - 1 - t).clamp(0, Lp - 1)
             chars = qc.gather(1, col.T).T.to(torch.int64).contiguous()
             iv = _rounds(iv, chars, self.tail_entries, self.tail_dollar, 1,
-                         self.tail_d, step or lf_round, t < rem)
+                         self.tail_d, step, t < rem)
         return iv
 
     def _stream(self, queries, wave: int | None, fn, cols: tuple = (2,)) -> np.ndarray:

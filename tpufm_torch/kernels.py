@@ -33,6 +33,8 @@ SIGNATURES = {
         "tpufm_lf_round": [_P, _LL, _I, _I, _I, _P, _P, _P, _P, _LL, _P],
         # rows, row_words, k, nb, iv, code, dollar, out, n, stream
         "tpufm_lf_round_rows": [_P, _I, _I, _I, _P, _P, _P, _P, _LL, _P],
+        # entries, nrows, row_words, k, nb, iv, code, dollar, out, n reads, stream
+        "tpufm_lf_round_pairs": [_P, _LL, _I, _I, _I, _P, _P, _P, _P, _LL, _P],
     },
     "row_gather": {
         # table, nrows, row_words, idx, out, n, vec, stream
@@ -40,8 +42,8 @@ SIGNATURES = {
     },
     "locate_walk": {
         # rows, nrows, row_words, nb, samples, n_samples, dollar, p, out, n,
-        # sample_rate, stream
-        "tpufm_locate_walk": [_P, _LL, _I, _I, _P, _LL, _P, _P, _P, _LL, _I, _P],
+        # sample_rate, next_lane, stream
+        "tpufm_locate_walk": [_P, _LL, _I, _I, _P, _LL, _P, _P, _P, _LL, _I, _P, _P],
     },
 }
 
