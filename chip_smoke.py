@@ -41,8 +41,9 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      from one native suffix sort, the rows padded to 24 words as the
      engines hold them: all 10,000,001 BWT rows, bwtsize and rows past the
      table (clamped) equal to the suffix array and to the plain walk on the
-     card; both timed at 1,048,576 random rows and at all rows; one hop
-     timed (a lane of 31 hops against one of none) for the latency floor
+     card; both timed at 1,048,576 random rows and at all rows, the kernel
+     also at 262,144 (one fused-locate wave); one hop timed (a lane of 31
+     hops against one of none) for the latency floor
  10. locate through the CLI on phase 4's reads, max-hits 16: two-pass with
      ``--store``, then ``--from-store --fused`` and ``--fused --rc``; the
      .pos files byte-identical, every true start found, the first 65,536
@@ -137,6 +138,7 @@ GATHER_CASES = [
 VARLEN_READS, VARLEN_MIN, VARLEN_MAX = 1 << 20, 50, 151
 SAMPLE_RATE, MAX_HITS = 32, 16
 WALK_ROWS = 1 << 20  # the walk lanes of a 1M-read locate
+WALK_WAVE = 1 << 18  # the walk lanes of one fused-locate wave (about a row a read)
 WIDE_READS, WIDE_LEN, WIDE_HITS = 1 << 16, 10, 8
 MM_READS, MM_PLAIN = 1 << 16, 4096
 #: the rounds of phase 4's first wave whose (iv, code) phase 3b captures
@@ -195,9 +197,24 @@ def bound_ms(nbytes: int) -> float:
 
 def touched_bytes(table: torch.Tensor, rows: torch.Tensor) -> int:
     """Bytes of the distinct rows of ``table`` that ``rows`` (clamped into
-    the table) reads, each once."""
+    the table) reads, each once and whole, as K3 copies them."""
     distinct = torch.unique(rows.clamp(0, table.shape[0] - 1)).numel()
     return distinct * table.shape[1] * table.element_size()
+
+
+def k1_table_bytes(iv: torch.Tensor, code: torch.Tensor, k: int, d: int, nrows: int) -> int:
+    """Bytes of the fused table that K1 must read for the ends ``iv`` (int64
+    [N] or [N, 2], the code of a read shared by its ends), each word once:
+    of every distinct row, the plane words of the windows the ends' prefixes
+    cover there (2k a window, as many windows as the end of that row that
+    covers the most), and each distinct (row, code) counter."""
+    ends = iv.reshape(-1)
+    codes = code.repeat_interleave(ends.numel() // code.numel()) & (4**k - 1)
+    rows = (ends // d).clamp(max=nrows - 1)
+    windows = torch.zeros(nrows, dtype=torch.int64, device=iv.device).scatter_reduce_(
+        0, rows, (ends % d + 31) // 32, "amax")
+    counters = torch.unique(rows * 4**k + codes).numel()
+    return 4 * (2 * k * int(windows.sum()) + counters)
 
 
 def cuda_ms(fn, reps: int = 7, run: int | None = None) -> float:
@@ -263,8 +280,9 @@ def check_k1(rng, k: int, d: int, dev) -> dict:
         "max_abs_err": err,
         "ms": cuda_ms(lambda: lf_round(*args, k, d)),
         "plain_ms": cuda_ms(lambda: lf_round_reference(*args, k, d)),
-        # iv, code and out (int64), and the rows the ends read
-        "bound_ms": bound_ms(3 * 8 * iv.numel() + touched_bytes(entries, iv // d)),
+        # iv, code and out (int64, the port's interface: int32 would halve
+        # them), and the table words the ends need
+        "bound_ms": bound_ms(3 * 8 * iv.numel() + k1_table_bytes(iv, args[2], k, d, entries.shape[0])),
     }
 
 
@@ -300,8 +318,9 @@ def k1_main_shape(engine, reads: np.ndarray, want: np.ndarray, dev) -> list:
             "ms": cuda_ms(lambda: lf_round_pairs(*args)),
             "plain_ms": cuda_ms(lambda: lf_round_pairs_reference(*args)),
             "per_end_ms": cuda_ms(lambda: lf_round(engine.entries, flat, codes2, engine.dollar, K, D)),
-            # iv [2] and out [2] and code (int64) a read, and the rows read
-            "bound_ms": bound_ms(5 * 8 * iv.shape[0] + touched_bytes(engine.entries, blocks)),
+            # iv [2], out [2] and code a read (int64, the port's interface),
+            # and the table words the ends need
+            "bound_ms": bound_ms(5 * 8 * iv.shape[0] + k1_table_bytes(iv, code, K, D, engine.entries.shape[0])),
         })
     return out
 
@@ -402,8 +421,9 @@ def write_fastq(path, codes: np.ndarray, lengths: np.ndarray) -> None:
 def check_walk(loc, sa: np.ndarray, dev) -> dict:
     """K4 over every BWT row, bwtsize and rows past the table (clamped):
     equal to the suffix array and to the plain walk; both timed at
-    WALK_ROWS random rows and at all rows, on the rows as LocateEngine holds
-    them on the device (padded to 24 words). Beside the bytes bound, the
+    WALK_ROWS random rows and at all rows, the kernel also at the first
+    WALK_WAVE of them, on the rows as LocateEngine holds them on the device
+    (padded to 24 words). Beside the bytes bound, the
     latency floor: the longest trip of the random rows times one hop, a hop
     timed as the difference between one lane that walks SAMPLE_RATE - 1
     hops and one that walks none, over SAMPLE_RATE - 1."""
@@ -434,9 +454,11 @@ def check_walk(loc, sa: np.ndarray, dev) -> dict:
         "max_abs_err": err, "rows": int(p.shape[0]),
         "ms": cuda_ms(lambda: locate_walk(*tables, rnd, D, SAMPLE_RATE)),
         "plain_ms": cuda_ms(lambda: locate_walk_reference(*tables, rnd, D, SAMPLE_RATE)),
+        "wave_ms": cuda_ms(lambda: locate_walk(*tables, rnd[:WALK_WAVE], D, SAMPLE_RATE)),
         "all_ms": cuda_ms(lambda: locate_walk(*tables, p, D, SAMPLE_RATE)),
         "all_plain_ms": cuda_ms(lambda: locate_walk_reference(*tables, p, D, SAMPLE_RATE)),
-        # p and out (int64) a lane, the locate rows and the samples once
+        # p and out (int64) a lane, the locate rows and the samples once:
+        # ~16M hops over 52K rows visit every row at many offsets
         "bound_ms": bound_ms(2 * 8 * WALK_ROWS + sum(x.numel() * x.element_size() for x in tables[:2])),
         "mean_trip": float(trips.mean()), "longest_trip": int(trips.max()),
         "hop_ms": hop_ms, "latency_floor_ms": int(trips.max()) * hop_ms,
@@ -667,7 +689,8 @@ def main() -> None:
         print(f"[9 K4 vs plain] sample rate {SAMPLE_RATE}, d={D}: all {REF_BASES + 1} BWT rows plus "
               f"bwtsize and 3 rows past it walked, equal to the suffix array and bit-identical to the "
               f"plain walk; {WALK_ROWS} random rows: kernel {walk['ms']:.4f} ms, plain "
-              f"{walk['plain_ms']:.4f} ms; bound {walk['bound_ms']:.4f} ms (bytes), latency floor "
+              f"{walk['plain_ms']:.4f} ms; {WALK_WAVE} (a fused-locate wave): kernel {walk['wave_ms']:.4f} ms; "
+              f"bound {walk['bound_ms']:.4f} ms (bytes), latency floor "
               f"{walk['latency_floor_ms']:.4f} ms (longest trip {walk['longest_trip']} hops, mean "
               f"{walk['mean_trip']:.2f}, x {walk['hop_ms'] * 1e3:.3f} us a hop); all {walk['rows']} rows: "
               f"kernel {walk['all_ms']:.4f} ms, "
@@ -907,6 +930,7 @@ def main() -> None:
             "latency_floor_ms": walk["latency_floor_ms"],
             "hop_ms": walk["hop_ms"],
             "longest_trip": walk["longest_trip"],
+            "wave_ms": walk["wave_ms"],
             "all_rows_ms": walk["all_ms"],
             "all_rows_plain_ms": walk["all_plain_ms"],
             "launches_per_pass": per_pass("locate_walk"),

@@ -96,7 +96,7 @@ def test_port_imports_and_searches_without_jax_or_tpufm(sa_method):
 
 def test_package_sources_never_import_jax_or_tpufm():
     banned = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|tpufm)\b", re.M)
-    for path in [*(REPO / "tpufm_torch").rglob("*.py"), REPO / "chip_smoke.py", REPO / "kernel_times.py"]:
+    for path in [*(REPO / "tpufm_torch").rglob("*.py"), REPO / "chip_smoke.py"]:
         assert not banned.search(path.read_text()), path
 
 
@@ -117,11 +117,26 @@ def test_chip_smoke_fails_alone(tmp_path):
     assert '"ok"' not in proc.stdout
 
 
-def test_kernel_times_fails_without_gpu():
+@pytest.mark.parametrize("pairs", [False, True])
+def test_chip_smoke_k1_bound_counts_the_words_ends_need(pairs, monkeypatch):
+    """K1's bound reads, of each distinct row, the plane words of the most
+    windows an end of that row covers and each distinct (row, code) counter:
+    held against a loop over the ends."""
     import torch
 
-    if torch.cuda.is_available():
-        pytest.skip("a GPU is present: kernel_times would run for real")
-    proc = _run(["kernel_times.py"], REPO)
-    assert proc.returncode != 0
-    assert "needs a CUDA card" in proc.stderr
+    monkeypatch.syspath_prepend(str(REPO))
+    import chip_smoke
+
+    k, d, nrows = 2, 64, 7
+    rng = np.random.default_rng(5)
+    n = 40
+    iv = rng.integers(0, d * nrows + 20, size=(n, 2) if pairs else n)
+    code = rng.integers(0, 64, size=n)
+    windows, counters = {}, set()
+    for end, c in zip(iv.reshape(-1), np.repeat(code, 2) if pairs else code):
+        row = min(end // d, nrows - 1)
+        windows[row] = max(windows.get(row, 0), -(-(end % d) // 32))
+        counters.add((row, c % 4**k))
+    want = 4 * (2 * k * sum(windows.values()) + len(counters))
+    got = chip_smoke.k1_table_bytes(torch.from_numpy(iv), torch.from_numpy(code), k, d, nrows)
+    assert got == want

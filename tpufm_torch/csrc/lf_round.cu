@@ -32,9 +32,12 @@
 // a 2048-end tile).
 //
 // Bound. HBM-bound as reckoned: each input read once, each output written
-// once. Per read the pair entry moves int64 iv [2], code and out [2] (40 B)
-// and, once, the table rows it touches: at 1M reads of the 10 Mbase k=3
-// d=192 table (52,085 x 100 words, 20.8 MB) 62.7 MB, 18.7 us at 3.35 TB/s.
+// once. Per read the pair entry moves int64 iv [2], code and out [2] (40 B,
+// the port's interface: int32 would halve them) and, once, the table words
+// its ends need (of each row, the plane words of the windows its ends'
+// prefixes cover, and each distinct counter): at 1M reads of phase 4's
+// round 18 on the 10 Mbase k=3 d=192 table 41.9 + 10.9 MB, 15.8 us at
+// 3.35 TB/s.
 // What limits it is the L2: the table lives there (21 MB of 50 MB), and a
 // round asks it for every read's plane block (5 sectors at k=3 d=192) and
 // counter. Loading them a word at a time per lane would make up to 37

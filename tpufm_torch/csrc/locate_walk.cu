@@ -29,7 +29,8 @@
 // sample_rate - 1 hops and the sample) times one dependent hop. At 1M lanes
 // it stays far above both: ~16M hops each read a 96-byte row (three sectors)
 // from L2, and the rate at which L2 serves such scattered rows is the
-// likely limit (not measured: no L2 counters were read).
+// likely limit (not measured: no L2 counters were read; shared-memory bank
+// conflicts were ruled out, lf_round.cuh).
 // The design works on requests and idle lanes:
 //   * One memory round trip a hop, a row's sectors each requested once. At
 //     each step the warp stages the rows of its 32 lanes' hops in shared
@@ -45,7 +46,11 @@
 //     a new chunk), so the warp stages 32 rows a step until the queue
 //     drains. With one lane a thread, a warp would be held to its slowest
 //     lane (mean trip ~15.5 hops, up to 31 at s=32), about half of its
-//     lane-slots idle.
+//     lane-slots idle. On the H100 the same walk without refill was as
+//     fast at 262,144 lanes, a fused-locate wave (0.1965-0.1975 ms against
+//     0.1876-0.2077), and slower at 1M lanes (0.6711-0.6736 against
+//     0.5167-0.5178) and over all 10M rows (5.92-5.94 against 3.75), the
+//     two-pass locate's walks.
 //   * The last iteration's hop is skipped: its row would never be tested.
 // In design experiments on the H100, one lane loading its own whole row as
 // 16-byte vectors (a row width fixed at compile time) walked faster than
