@@ -29,17 +29,153 @@ def _table(rng, E, W):
     return rng.integers(0, 2**32, (E, W), dtype=np.uint32)
 
 
-def test_row_gather_reference_matches_dma_gather(rng):
+#: the kernel's tile at W=128 on its 16-byte path
+_T128 = rg_mod.tile_rows("int4", 128)
+
+
+# N not a multiple of the TPU's 1024-entry chunk, nor of the kernel's tile
+@pytest.mark.parametrize("N", [1500, _T128 + 1, 5 * _T128 - 1])
+def test_row_gather_reference_matches_dma_gather(rng, N):
     E, W = 500, 128
+    assert N % _T128 and N % 1024
     table = _table(rng, E, W)
-    # N not a multiple of the TPU's 1024-entry chunk
-    idx = rng.integers(0, E, 1500, dtype=np.int32)
+    idx = rng.integers(0, E, N, dtype=np.int32)
     want = np.asarray(make_dma_gather(E, W, interpret=True)(jnp.asarray(table), jnp.asarray(idx)))
     np.testing.assert_array_equal(want, np.asarray(jnp.take(jnp.asarray(table), jnp.asarray(idx), axis=0)))
-    got = rg_mod.row_gather_reference(
-        torch.from_numpy(table.view(np.int32)), torch.from_numpy(idx.astype(np.int64))
-    )
-    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+    t, i = torch.from_numpy(table.view(np.int32)), torch.from_numpy(idx.astype(np.int64))
+    np.testing.assert_array_equal(rg_mod.row_gather_reference(t, i).numpy().view(np.uint32), want)
+    np.testing.assert_array_equal(rg_mod.row_gather(t, i).numpy().view(np.uint32), want)
+
+
+@pytest.mark.parametrize("W,table_ptr,out_ptr,path", [
+    (100, 0, 0, "int4"), (128, 16, 32, "int4"), (4, 48, 16, "int4"),
+    (6, 0, 0, "word4"), (100, 4, 0, "word4"), (1, 0, 0, "word4"), (3, 12, 16, "word4"),
+    (100, 0, 4, "word"), (6, 0, 8, "word"), (128, 4, 12, "word"),
+])
+def test_copy_path(W, table_ptr, out_ptr, path):
+    assert rg_mod.copy_path(W, table_ptr, out_ptr) == path
+
+
+def test_bulk_design_takes_the_16_byte_path_only():
+    assert rg_mod.copy_path(100, 0, 0, "bulk") == "bulk"
+    assert rg_mod.copy_path(6, 0, 0, "bulk") == "word4"
+    assert rg_mod.copy_path(100, 0, 4, "bulk") == "word"
+    # one row's ring does not fit a block's shared memory: the flat copy
+    assert rg_mod.bulk_tile_rows(1 << 14) == 0
+    assert rg_mod.copy_path(1 << 14, 0, 0, "bulk") == "int4"
+    rows = rg_mod.bulk_tile_rows(100)
+    assert 1 <= rows <= 32 and rg_mod.bulk_shared_bytes(100, rows) <= rg_mod.BLOCK_SHARED_BYTES
+
+
+_PATH_WIDTHS = [(p, W) for W in (1, 3, 6, 8, 100, 128, 200, 5000, 1 << 20)
+                for p in ("int4", "word4", "word") if p != "int4" or W % 4 == 0]
+
+
+@pytest.mark.parametrize("path,W", _PATH_WIDTHS)
+def test_tile_rows(path, W):
+    rows = rg_mod.tile_rows(path, W)
+    words = rg_mod.THREADS * rg_mod.UNROLL * 4
+    assert 1 <= rows <= rg_mod.MAX_TILE_ROWS
+    # a tile fills at most one pass of the block, unless one row (or the 4
+    # rows of a word4 tile) is wider
+    assert rows * W <= words or rows == (4 if path == "word4" else 1)
+    # and at least half a pass where its rows allow
+    assert rows * W > words // 2 or rows == rg_mod.MAX_TILE_ROWS or rows * W <= 4 * W
+    if path == "word4":  # every tile's output starts 16-byte aligned
+        assert rows % 4 == 0 and rows * W * 4 % 16 == 0
+
+
+def test_tile_rows_at_the_search_and_word_shapes():
+    assert rg_mod.tile_rows("int4", 100) == 40  # 1000 of a pass's 1024 units
+    assert rg_mod.tile_rows("int4", 128) == 32
+    assert rg_mod.tile_rows("word4", 6) == 680
+    assert rg_mod.tile_rows("word", 6) == 682
+
+
+@pytest.mark.parametrize("n", [1, 39, 40, 41, 40 * 132 * 6, 40 * 132 * 6 + 1, 2 << 20])
+def test_grid_blocks(n):
+    sms, rows = 132, rg_mod.tile_rows("int4", 100)
+    blocks = rg_mod.grid_blocks("int4", n, 100, rows, sms)
+    tiles = -(-n // rows)
+    assert 1 <= blocks <= min(tiles, sms * rg_mod.FLAT_BLOCKS_PER_SM)
+    assert blocks == min(tiles, sms * rg_mod.FLAT_BLOCKS_PER_SM)
+    if n == 2 << 20:  # the search's 2M rows: each block loops over many tiles
+        assert tiles > 60 * blocks
+
+
+def test_bulk_grid_holds_its_rings():
+    W, sms = 100, 132
+    rows = rg_mod.bulk_tile_rows(W)
+    blocks = rg_mod.grid_blocks("bulk", 2 << 20, W, rows, sms)
+    per_sm = -(-blocks // sms)
+    assert per_sm * (rg_mod.bulk_shared_bytes(W, rows) + rg_mod.BLOCK_RESERVED_BYTES) <= rg_mod.SM_SHARED_BYTES
+    assert rg_mod.grid_blocks("bulk", 5, W, rows, sms) == 1
+
+
+def _emulate(plan, table, idx):
+    """The flat kernel's copy as row_gather.cu runs it, in numpy: blocks
+    loop over tiles of plan.tile_rows rows; the tile's output is one run of
+    words whose element f (a 16-byte unit, a 4-word vector or a word) comes
+    from row src[f // per_row]; a word4 vector walks its 4 words across row
+    ends, and the last tile's 0-3 odd words go one at a time. Each output
+    word must be written exactly once."""
+    E, W = table.shape
+    n = idx.shape[0]
+    out = np.zeros(n * W, dtype=np.uint32)
+    written = np.zeros(n * W, dtype=np.int64)
+    flat = table.reshape(-1)
+    tiles = -(-n // plan.tile_rows)
+
+    def put(at, words):
+        out[at] = words
+        written[at] += 1
+
+    for b in range(plan.blocks):
+        for tile in range(b, tiles, plan.blocks):
+            first = tile * plan.tile_rows
+            rows = min(plan.tile_rows, n - first)
+            base = first * W
+            row = np.clip(idx[first:first + rows], 0, E - 1)
+            if plan.path == "int4":
+                per_row = W // 4
+                src = row * per_row  # in 16-byte units
+                f = np.arange(rows * per_row)
+                r = f // per_row
+                unit = src[r] + f - r * per_row
+                for k in range(4):
+                    put(base + 4 * f + k, flat[4 * unit + k])
+            elif plan.path == "word4":
+                src = row * W
+                q = np.arange(rows * W // 4)
+                r = 4 * q // W
+                c = 4 * q - r * W
+                for k in range(4):
+                    carry = c == W
+                    c[carry], r[carry] = 0, r[carry] + 1
+                    put(base + 4 * q + k, flat[src[r] + c])
+                    c += 1
+                f = np.arange(4 * q.shape[0], rows * W)
+                put(base + f, flat[src[f // W] + f % W])
+            else:
+                src = row * W
+                f = np.arange(rows * W)
+                put(base + f, flat[src[f // W] + f % W])
+    assert (written == 1).all()
+    return out.reshape(n, W)
+
+
+@pytest.mark.parametrize("path,W", [("int4", 100), ("int4", 8), ("word4", 6), ("word4", 1), ("word4", 3),
+                                    ("word", 6), ("word", 100)])
+def test_tiles_cover_every_row_once(rng, path, W):
+    E = 50
+    table = _table(rng, E, W)
+    for n in (1, 7, 1000, 4099):
+        idx = rng.integers(-3, E + 3, n)
+        rows = rg_mod.tile_rows(path, W)
+        plan = rg_mod.Plan(path, rows, rg_mod.grid_blocks(path, n, W, rows, sms=2))
+        np.testing.assert_array_equal(_emulate(plan, table, idx), table[np.clip(idx, 0, E - 1)])
+        if path == "word4":  # every tile's run starts 16-byte aligned
+            assert rows * W % 4 == 0
 
 
 @pytest.mark.parametrize("W", [6, 100])

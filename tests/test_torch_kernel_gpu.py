@@ -113,26 +113,51 @@ def test_lf_round_kernel_on_locate_rows(cuda, d, width, n):
     _check_k1(cuda, table, t.dollar, codes.shape[0] + 1, 1, d, n)
 
 
-@pytest.mark.parametrize("path", ["vector", "words"])
-@pytest.mark.parametrize("W", [6, 100, 128])
-@pytest.mark.parametrize("n", [1, 31, 4099])
-def test_row_gather_kernel_matches_plain(cuda, n, W, path):
-    E = 1000
-    rng = np.random.default_rng(n * W)
+def _gather_rows(cuda, n: str, W: int, path: str) -> int:
+    """The row count named by ``n``: a number, or one about the tile T of
+    the copy ``path`` takes at width W ("T-1", "T", "T+1"), or "wrap": more
+    rows than the persistent grid copies in one round of tiles."""
+    if n.isdigit():
+        return int(n)
+    p = rg_mod.plan(1 << 40, W, 0 if path != "words" else 4, 0 if path != "out+4" else 4,
+                    rg_mod._sms(cuda), rg_mod.DESIGN)
+    per_round = p.blocks * p.tile_rows * (rg_mod.BULK_WARPS if p.path == "bulk" else 1)
+    return {"T-1": p.tile_rows - 1, "T": p.tile_rows, "T+1": p.tile_rows + 1,
+            "wrap": per_round + p.tile_rows + 1}[n] or 1
+
+
+@pytest.mark.parametrize("design", ["flat", "bulk"])
+@pytest.mark.parametrize("E", [1000, 1])
+# vector: table and out 16-byte aligned; words: the table 4 B past a 16-byte
+# boundary; out+4: the output 4 B past one
+@pytest.mark.parametrize("path", ["vector", "words", "out+4"])
+# below one 16-byte unit, the word path's 6, the search's 100, and 200 (not
+# a power of two, above 128)
+@pytest.mark.parametrize("W", [1, 3, 6, 8, 100, 128, 200])
+@pytest.mark.parametrize("n", ["1", "31", "T-1", "T", "T+1", "4099", "wrap"])
+def test_row_gather_kernel_matches_plain(cuda, monkeypatch, n, W, path, E, design):
+    monkeypatch.setattr(rg_mod, "DESIGN", design)
+    n = _gather_rows(cuda, n, W, path)
+    rng = np.random.default_rng(n * W + E)
     # one word of slack: the "words" table starts 4 B past a 16-byte boundary
     flat = torch.from_numpy(rng.integers(-(2**31), 2**31, size=E * W + 1, dtype=np.int64).astype(np.int32)).to(cuda)
-    table = (flat[:-1] if path == "vector" else flat[1:]).view(E, W)
+    table = (flat[1:] if path == "words" else flat[:-1]).view(E, W)
     idx = rng.integers(0, E, size=n)
-    idx[: min(n, 3)] = [E + 5, E, -1][: min(n, 3)]  # clamped into the table
+    idx[: min(n, 4)] = [E + 5, E, -1, 2**31 + 7][: min(n, 4)]  # clamped into the table
     idx = torch.from_numpy(idx).to(cuda)
-    out = torch.empty((n, W), dtype=torch.int32, device=cuda)
-    assert rg_mod.vector_path(table, out) == (path == "vector" and W % 4 == 0)
+    buf = torch.empty(n * W + 1, dtype=torch.int32, device=cuda)
+    out = (buf[1:] if path == "out+4" else buf[:-1]).view(n, W)
+    want = {"vector": "int4" if W % 4 == 0 else "word4", "words": "word4", "out+4": "word"}[path]
+    if want == "int4" and design == "bulk":
+        want = "bulk"
+    assert rg_mod.plan(n, W, table.data_ptr(), out.data_ptr(), rg_mod._sms(cuda), design).path == want
     before = rg_mod.LAUNCHES
     got = rg_mod.row_gather(table, idx, out=out)
     torch.cuda.synchronize()
     assert got is out and rg_mod.LAUNCHES == before + 1
     assert torch.equal(got, rg_mod.row_gather_reference(table, idx))
     assert torch.equal(rg_mod.row_gather(table, idx), got)
+    assert rg_mod.LAUNCHES == before + 2
 
 
 @pytest.mark.parametrize("n", [1, 31, 4099])

@@ -10,17 +10,110 @@ as a JAX gather clamps them.
 
 ``row_gather`` is the wrapper the engine calls: a CPU tensor goes to the
 plain PyTorch version ``row_gather_reference``; a CUDA tensor launches the
-kernel in tpufm_torch/csrc/row_gather.cu (16-byte units where W % 4 == 0
-and both bases are 16-byte aligned, else 4-byte words) or raises.
+kernel in tpufm_torch/csrc/row_gather.cu or raises. The kernel copies tiles
+of consecutive rows, whose output is one contiguous run of words, over a
+persistent grid; ``plan`` picks its copy path and its tile and grid sizes
+(pure arithmetic, tested on the CPU): 16-byte units where W % 4 == 0 and
+both bases are 16-byte aligned, else words, stored 4 at a time where the
+output is 16-byte aligned.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
 #: kernel launches made by ``row_gather`` in this process (plain-path calls
 #: on CPU tensors do not count)
 LAUNCHES = 0
+
+#: the kernel's path codes (``Path`` in row_gather.cu)
+PATHS = {"int4": 0, "word4": 1, "word": 2, "bulk": 3}
+#: threads of a flat-copy block and the elements each keeps in flight
+#: (kThreads, kUnroll), and the blocks an SM holds (kFlatBlocksPerSM)
+THREADS, UNROLL, FLAT_BLOCKS_PER_SM = 256, 4, 6
+#: at most this many rows a flat tile (their indices sit in shared memory)
+MAX_TILE_ROWS = 1024
+#: bulk copy: warps a block, stages a warp's ring, bytes a stage aims at,
+#: and the barrier bytes (kBulkWarps, kStages, kBarrierBytes)
+BULK_WARPS, BULK_STAGES, BULK_STAGE_BYTES, BULK_BARRIER_BYTES = 4, 4, 8192, 128
+#: shared memory of one SM and of one block (H100), and what the runtime
+#: keeps of it for each resident block
+SM_SHARED_BYTES, BLOCK_SHARED_BYTES, BLOCK_RESERVED_BYTES = 233472, 232448, 1024
+
+#: the 16-byte path's copy design ("flat" or "bulk"), the kernel's cache
+#: and index variant (bits: 1 evict-first stores, 2 evict-last table loads,
+#: 4 next tile's indices prefetched; the bulk copy takes bit 1 only) and a
+#: forced word path ("word" where the word4 path would run): module
+#: settings so that one run can time each
+DESIGN = "flat"
+FLAGS = 3
+PATH_OVERRIDE = None
+
+
+class Plan(NamedTuple):
+    path: str  # a key of PATHS
+    tile_rows: int
+    blocks: int
+
+
+def copy_path(W: int, table_ptr: int, out_ptr: int, design: str = "flat") -> str:
+    """The kernel's copy path for rows of W words at these base addresses:
+    16-byte units ("int4", or "bulk" for the bulk design) where W % 4 == 0
+    and both bases are 16-byte aligned; else words, stored 4 at a time
+    where the output is 16-byte aligned ("word4"), else one at a time."""
+    if out_ptr % 16:
+        return "word"
+    if W % 4 == 0 and table_ptr % 16 == 0:
+        return design if design == "bulk" and bulk_tile_rows(W) > 0 else "int4"
+    return "word4"
+
+
+def bulk_tile_rows(W: int) -> int:
+    """Rows a bulk stage holds: about BULK_STAGE_BYTES of them, one lane
+    each (at most 32), and 0 if one row's ring does not fit a block."""
+    rows = max(1, min(32, BULK_STAGE_BYTES // (4 * W)))
+    return rows if bulk_shared_bytes(W, rows) <= BLOCK_SHARED_BYTES else 0
+
+
+def bulk_shared_bytes(W: int, rows: int) -> int:
+    return BULK_BARRIER_BYTES + BULK_WARPS * BULK_STAGES * rows * 4 * W
+
+
+def tile_rows(path: str, W: int) -> int:
+    """Rows of a tile: for a flat path, as many as fill one pass of the
+    block (THREADS * UNROLL elements of 4 words, or of one word on the word
+    path), at least 1 and at most MAX_TILE_ROWS; word4 tiles hold a
+    multiple of 4 rows, so that every tile's output starts 16-byte aligned."""
+    if path == "bulk":
+        return bulk_tile_rows(W)
+    words = THREADS * UNROLL * 4
+    rows = min(MAX_TILE_ROWS, max(1, words // W))
+    return max(4, rows // 4 * 4) if path == "word4" else rows
+
+
+def grid_blocks(path: str, n: int, W: int, rows: int, sms: int) -> int:
+    """The persistent grid: as many blocks as the SMs hold at once, and no
+    more than there are tiles (a bulk block takes BULK_WARPS tiles a
+    round)."""
+    tiles = -(-n // rows)
+    if path == "bulk":
+        per_sm = SM_SHARED_BYTES // (bulk_shared_bytes(W, rows) + BLOCK_RESERVED_BYTES)
+        return max(1, min(-(-tiles // BULK_WARPS), sms * per_sm))
+    return max(1, min(tiles, sms * FLAT_BLOCKS_PER_SM))
+
+
+def plan(n: int, W: int, table_ptr: int, out_ptr: int, sms: int, design: str = "flat") -> Plan:
+    path = copy_path(W, table_ptr, out_ptr, design)
+    rows = tile_rows(path, W)
+    return Plan(path, rows, grid_blocks(path, n, W, rows, sms))
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def row_gather_reference(table, idx, out=None) -> torch.Tensor:
@@ -29,12 +122,6 @@ def row_gather_reference(table, idx, out=None) -> torch.Tensor:
     if out is None:
         return table[rows]
     return torch.index_select(table, 0, rows, out=out)
-
-
-def vector_path(table, out) -> bool:
-    """Whether the kernel copies 16-byte units: rows of a multiple of 4
-    words and both bases 16-byte aligned. Otherwise it copies words."""
-    return table.shape[1] % 4 == 0 and table.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
 
 
 def _check(table, idx, out) -> None:
@@ -74,11 +161,17 @@ def row_gather(table, idx, out=None) -> torch.Tensor:
     from tpufm_torch import kernels
 
     lib = kernels.library("row_gather")
+    p = plan(idx.shape[0], table.shape[1], table.data_ptr(), out.data_ptr(), _sms(idx.device), DESIGN)
+    if PATH_OVERRIDE and p.path == "word4":
+        rows = tile_rows(PATH_OVERRIDE, table.shape[1])
+        p = Plan(PATH_OVERRIDE, rows, grid_blocks(PATH_OVERRIDE, idx.shape[0], table.shape[1], rows, _sms(idx.device)))
+    flags = FLAGS & 1 if p.path == "bulk" else FLAGS
+
     with torch.cuda.device(idx.device):
         stream = torch.cuda.current_stream(idx.device).cuda_stream
         err = lib.tpufm_row_gather(
-            table.data_ptr(), table.shape[0], table.shape[1], idx.data_ptr(),
-            out.data_ptr(), idx.shape[0], int(vector_path(table, out)), stream,
+            table.data_ptr(), table.shape[0], table.shape[1], idx.data_ptr(), out.data_ptr(),
+            idx.shape[0], PATHS[p.path], p.tile_rows, p.blocks, flags, stream,
         )
     if err:
         raise RuntimeError(f"row_gather kernel launch failed: {kernels.error_string('row_gather', err)}")
