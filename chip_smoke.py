@@ -23,11 +23,16 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      ends
   5. any-length reads: 65,536 x 151 bp (one k=1 tail round per read)
   6. K1's rows entry (``lf_round_rows``, 2M ends, k=3 and k=1 d=192) and K3
-     (``row_gather``) against their plain versions on the card, bit-identical
-     and timed with CUDA events: K3 at the search's shape (52,085 x 100
-     words, 2M rows), with 6-word rows (the 4-byte word path), at probe 5's
-     shape and over probe 35's (E, W) grid, rows/s and GB/s beside the plain
-     ``table[idx]``; every index stream includes E and E+5 (clamped)
+     (``row_gather``, tiles of rows over a persistent grid) against their
+     plain versions on the card, bit-identical and timed with CUDA events:
+     K3 at the search's shape (52,085 x 100 words, 2M rows), with 6-word
+     rows (its word path), at probe 5's shape and over probe 35's (E, W)
+     grid; each case prints the kernel's time, rows/s and GB/s, its bound
+     and the share of it reached, ``index_select``'s time and the kernel's
+     speed against it, ``out.zero_()`` (the same output bytes written
+     alone) and the plain ``table[idx]``; every index stream includes E and
+     E+5 (clamped); the kernels line's ``row_gather.rates`` has each case
+     with its ``share``
   7. the gathered-row engines on phase 4's index and reads:
      ``SearchEngine(gather="dma")`` (K3 then K1's rows entry per round) and
      the CLI's ``--engine pallas`` (torch indexing then K1's rows entry);
@@ -134,8 +139,7 @@ GATHER_CASES = [
     ("search", 52_085, 100, 2 << 20),
     ("words", 52_085, 6, 2 << 20),
     ("P5", 156_256, 128, 1 << 17),
-] + [("P35", E, W, 1 << 20) for E in (208_000, 2_000_000) for W in (8, 32, 88, 128)] + [
-    ("hot", 64, 100, 2 << 20)]
+] + [("P35", E, W, 1 << 20) for E in (208_000, 2_000_000) for W in (8, 32, 88, 128)]
 VARLEN_READS, VARLEN_MIN, VARLEN_MAX = 1 << 20, 50, 151
 SAMPLE_RATE, MAX_HITS = 32, 16
 WALK_ROWS = 1 << 20  # the walk lanes of a 1M-read locate
@@ -362,61 +366,24 @@ def check_rows(rng, k: int, d: int, dev) -> dict:
     }
 
 
-#: K3 with plain (not evict-first) stores and evict-last table loads
-PLAIN_STORES = {"FLAGS": 2}
-
-
-def gather_variants(path: str) -> dict:
-    """K3's designs timed against each other at a case of this copy path,
-    by label: the row_gather module settings of each (FLAGS: 1 evict-first
-    stores, 2 evict-last table loads, 4 the next tile's indices
-    prefetched). The first is the default."""
-    if path == "int4":
-        return {"ef_el": {"FLAGS": 3}, "ef": {"FLAGS": 1}, "el": {"FLAGS": 2}, "plain": {"FLAGS": 0},
-                "ef_el_pf": {"FLAGS": 7}, "bulk_ef": {"DESIGN": "bulk", "FLAGS": 1},
-                "bulk_plain": {"DESIGN": "bulk", "FLAGS": 0}}
-    word = {"PATH_OVERRIDE": "word"}
-    return {"word4_ef_el": {"FLAGS": 3}, "word4_ef": {"FLAGS": 1}, "word4_el": {"FLAGS": 2},
-            "word4_plain": {"FLAGS": 0}, "word4_ef_el_pf": {"FLAGS": 7},
-            "word_ef_el": {"FLAGS": 3, **word}, "word_plain": {"FLAGS": 0, **word}}
-
-
-def with_gather(settings: dict, fn):
-    """``fn()`` with the row_gather module set to ``settings``, then back."""
-    saved = {k: getattr(rg_mod, k) for k in settings}
-    for k, v in settings.items():
-        setattr(rg_mod, k, v)
-    try:
-        return fn()
-    finally:
-        for k, v in saved.items():
-            setattr(rg_mod, k, v)
-
-
 def check_gather(gen, label: str, E: int, W: int, N: int, dev) -> dict:
     """K3 against the plain ``table[idx]`` on a seeded table and index
-    stream that includes E and E+5 (clamped to the last row): bit-identical
-    in every design and store policy, each timed, with the plain version
-    and ``index_select``; GB/s counts the rows read and written and the
-    8-byte indices."""
+    stream that includes E and E+5 (clamped to the last row): bit-identical,
+    timed beside the plain version, ``index_select`` and ``out.zero_()``
+    (the same output bytes written alone); GB/s counts the rows read and
+    written and the 8-byte indices."""
     table = torch.randint(-(1 << 31), 1 << 31, (E, W), dtype=torch.int32, device=dev, generator=gen)
     idx = torch.randint(0, E, (N,), dtype=torch.int64, device=dev, generator=gen)
     idx[:2] = torch.tensor([E, E + 5])
     out = torch.empty((N, W), dtype=torch.int32, device=dev)
+    got = row_gather(table, idx, out=out)
     want = row_gather_reference(table, idx)
-    path = rg_mod.plan(N, W, table.data_ptr(), out.data_ptr(), rg_mod._sms(dev)).path
-    variants, err = {}, 0
-    for name, setting in gather_variants(path).items():
-        out.fill_(0)
-        got = with_gather(setting, lambda: row_gather(table, idx, out=out))
-        torch.cuda.synchronize()
-        err = max(err, int((got.to(torch.int64) - want.to(torch.int64)).abs().max()))
-        if err != 0 or not torch.equal(got, want):
-            raise AssertionError(f"row_gather {label} E={E} W={W} N={N} {name}: kernel differs from plain "
-                                 f"(max abs err {err})")
-        variants[name] = with_gather(setting, lambda: cuda_ms(lambda: row_gather(table, idx, out=out)))
-    ms = next(iter(variants.values()))
-    write_floor_ms = cuda_ms(lambda: out.zero_())  # the same output bytes, written alone
+    torch.cuda.synchronize()
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    if err != 0 or not torch.equal(got, want):
+        raise AssertionError(f"row_gather {label} E={E} W={W} N={N}: kernel differs from plain (max abs err {err})")
+    ms = cuda_ms(lambda: row_gather(table, idx, out=out))
+    write_ms = cuda_ms(lambda: out.zero_())
     plain_ms = cuda_ms(lambda: row_gather_reference(table, idx))
     # the one PyTorch call of the same function: index_select on indices
     # already in range (it refuses E and E+5)
@@ -426,34 +393,13 @@ def check_gather(gen, label: str, E: int, W: int, N: int, dev) -> dict:
     # out and idx, and the distinct rows read
     bound = bound_ms(N * W * 4 + 8 * N + touched_bytes(table, idx))
     return {
-        "case": label, "E": E, "W": W, "N": N, "path": path,
+        "case": label, "E": E, "W": W, "N": N,
+        "path": rg_mod.plan(N, W, table.data_ptr(), out.data_ptr(), rg_mod._sms(dev)).path,
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-        "bound_ms": bound, "share": bound / ms, "variants_ms": variants, "write_floor_ms": write_floor_ms,
+        "bound_ms": bound, "share": bound / ms, "write_ms": write_ms,
         "rows_per_s": N / (ms / 1e3), "GB_per_s": gb / (ms / 1e3),
         "plain_rows_per_s": N / (plain_ms / 1e3), "plain_GB_per_s": gb / (plain_ms / 1e3),
     }
-
-
-def gather_round(rng, dev) -> dict:
-    """K3 into a row buffer, then K1's rows entry on it (one gathered-row
-    round at the search's shape, 2M ends), with K3's stores evict-first and
-    not: whether the policy helps or hurts the rows entry that reads the
-    buffer. Each pair timed as the engine runs it, back to back."""
-    entries, iv, code, dollar = k1_inputs(rng, K, D, REF_BASES + 1, K1_ENDS, dev)  # 100-word rows
-    rows =torch.empty((iv.shape[0], entries.shape[1]), dtype=torch.int32, device=dev)
-    blocks = iv // D
-    want = lf_round_reference(entries, iv, code, dollar, K, D)
-
-    def pair():
-        return lf_round_rows(row_gather(entries, blocks, out=rows), iv, code, dollar, K, D)
-
-    res = {}
-    for ef in (True, False, True, False):
-        setting = {} if ef else PLAIN_STORES
-        if not torch.equal(with_gather(setting, pair), want):
-            raise AssertionError(f"gathered round (evict-first {ef}): differs from plain")
-        res.setdefault("ef_ms" if ef else "no_ef_ms", []).append(with_gather(setting, lambda: cuda_ms(pair)))
-    return res
 
 
 def timed_passes(fn, iterations: int = 3):
@@ -642,7 +588,6 @@ def main() -> None:
         for case in GATHER_CASES:
             gathers.append(check_gather(gen, *case, dev))
             torch.cuda.empty_cache()
-        round_ef = gather_round(rng, dev)
         print(f"[6 rows entry and K3 vs plain] lf_round_rows {K1_ENDS} ends: k=3 d=192 bit-identical, "
               f"kernel {rows3['ms']:.4f} ms (bound {rows3['bound_ms']:.4f} ms), plain {rows3['plain_ms']:.4f} "
               f"ms; k=1 d=192 bit-identical, kernel {rows1['ms']:.4f} ms (bound {rows1['bound_ms']:.4f} ms), "
@@ -652,13 +597,9 @@ def main() -> None:
             print(f"    {g['case']:6s} E={g['E']:>9} W={g['W']:>3} N={g['N']:>7} {g['path']:5s}: kernel "
                   f"{g['ms']:.4f} ms = {g['rows_per_s']:.4g} rows/s = {g['GB_per_s']:.4g} GB/s, bound "
                   f"{g['bound_ms']:.4f} ms ({g['share'] * 100:.1f}% of it); index_select "
-                  f"{g['library_ms']:.4f} ms (kernel {g['library_ms'] / g['ms']:.2f}x as fast); plain "
-                  f"table[idx] {g['plain_ms']:.4f} ms = {g['plain_rows_per_s']:.4g} rows/s = "
-                  f"{g['plain_GB_per_s']:.4g} GB/s; out.zero_() {g['write_floor_ms']:.4f} ms; designs " + ", ".join(
-                      f"{k} {v:.4f}" for k, v in g["variants_ms"].items()) + " ms", flush=True)
-        print(f"    a gathered round at the search's shape (K3 then the rows entry, {K1_ENDS} ends): K3 stores "
-              f"evict-first {', '.join(f'{v:.4f}' for v in round_ef['ef_ms'])} ms, plain stores "
-              f"{', '.join(f'{v:.4f}' for v in round_ef['no_ef_ms'])} ms", flush=True)
+                  f"{g['library_ms']:.4f} ms (the kernel {g['library_ms'] / g['ms']:.2f}x as fast); "
+                  f"out.zero_() {g['write_ms']:.4f} ms; plain table[idx] {g['plain_ms']:.4f} ms = "
+                  f"{g['plain_rows_per_s']:.4g} rows/s = {g['plain_GB_per_s']:.4g} GB/s", flush=True)
         print(f"    phase {time.perf_counter() - t0:.2f} s", flush=True)
 
         t0 = time.perf_counter()
@@ -673,13 +614,6 @@ def main() -> None:
                         {"row_gather": need_rows, "lf_round_rows": need_rows, "lf_round_pairs": lut_launches})
         if not np.array_equal(dma_res, run.results):
             raise AssertionError(f"gather engine: {(dma_res != run.results).any(1).sum()} reads differ from phase 4")
-        # K3's stores evict-first (the default) against plain stores, in turns
-        ef_s = {True: [dma_s], False: []}
-        for ef in (False, True, False):
-            res_ef, s = with_gather({} if ef else PLAIN_STORES, lambda: timed_passes(lambda: dma.search(reads)))
-            if not np.array_equal(res_ef, run.results):
-                raise AssertionError(f"gather engine (evict-first {ef}): reads differ from phase 4")
-            ef_s[ef].append(s)
         del dma
         reset_counts()
         pallas = cli.main(["search", fmi, qry, str(READ_LEN), str(READS), "--lut", str(LUT_M),
@@ -692,9 +626,7 @@ def main() -> None:
                 f"--engine pallas: {(pallas.results != run.results).any(1).sum()} reads differ from phase 4")
         print(f"[7 gathered-row engines] {READS} x {READ_LEN} bp, all intervals equal to phase 4's: "
               f"gather=\"dma\" {dma_s:.6f} s/pass ({READS / dma_s:.0f} reads/s), launches "
-              f"{by_path['gather']} (>= {need_rows} K3 and rows), peak device memory {dma_peak} B; K3 stores "
-              f"evict-first {', '.join(f'{s:.6f}' for s in ef_s[True])} s/pass, plain stores "
-              f"{', '.join(f'{s:.6f}' for s in ef_s[False])} s/pass; "
+              f"{by_path['gather']} (>= {need_rows} K3 and rows), peak device memory {dma_peak} B; "
               f"--engine pallas {pallas.seconds_per_pass:.6f} s/pass ({READS / pallas.seconds_per_pass:.0f} "
               f"reads/s), launches {by_path['pallas']}; phase 4 fused {run.seconds_per_pass:.6f} s/pass; "
               f"phase {time.perf_counter() - t0:.2f} s", flush=True)

@@ -56,17 +56,6 @@ def test_copy_path(W, table_ptr, out_ptr, path):
     assert rg_mod.copy_path(W, table_ptr, out_ptr) == path
 
 
-def test_bulk_design_takes_the_16_byte_path_only():
-    assert rg_mod.copy_path(100, 0, 0, "bulk") == "bulk"
-    assert rg_mod.copy_path(6, 0, 0, "bulk") == "word4"
-    assert rg_mod.copy_path(100, 0, 4, "bulk") == "word"
-    # one row's ring does not fit a block's shared memory: the flat copy
-    assert rg_mod.bulk_tile_rows(1 << 14) == 0
-    assert rg_mod.copy_path(1 << 14, 0, 0, "bulk") == "int4"
-    rows = rg_mod.bulk_tile_rows(100)
-    assert 1 <= rows <= 32 and rg_mod.bulk_shared_bytes(100, rows) <= rg_mod.BLOCK_SHARED_BYTES
-
-
 _PATH_WIDTHS = [(p, W) for W in (1, 3, 6, 8, 100, 128, 200, 5000, 1 << 20)
                 for p in ("int4", "word4", "word") if p != "int4" or W % 4 == 0]
 
@@ -95,21 +84,22 @@ def test_tile_rows_at_the_search_and_word_shapes():
 @pytest.mark.parametrize("n", [1, 39, 40, 41, 40 * 132 * 6, 40 * 132 * 6 + 1, 2 << 20])
 def test_grid_blocks(n):
     sms, rows = 132, rg_mod.tile_rows("int4", 100)
-    blocks = rg_mod.grid_blocks("int4", n, 100, rows, sms)
+    blocks = rg_mod.grid_blocks(n, rows, sms)
     tiles = -(-n // rows)
-    assert 1 <= blocks <= min(tiles, sms * rg_mod.FLAT_BLOCKS_PER_SM)
-    assert blocks == min(tiles, sms * rg_mod.FLAT_BLOCKS_PER_SM)
+    assert 1 <= blocks <= min(tiles, sms * rg_mod.BLOCKS_PER_SM)
+    assert blocks == min(tiles, sms * rg_mod.BLOCKS_PER_SM)
     if n == 2 << 20:  # the search's 2M rows: each block loops over many tiles
         assert tiles > 60 * blocks
 
 
-def test_bulk_grid_holds_its_rings():
-    W, sms = 100, 132
-    rows = rg_mod.bulk_tile_rows(W)
-    blocks = rg_mod.grid_blocks("bulk", 2 << 20, W, rows, sms)
-    per_sm = -(-blocks // sms)
-    assert per_sm * (rg_mod.bulk_shared_bytes(W, rows) + rg_mod.BLOCK_RESERVED_BYTES) <= rg_mod.SM_SHARED_BYTES
-    assert rg_mod.grid_blocks("bulk", 5, W, rows, sms) == 1
+@pytest.mark.parametrize("W,table_ptr,out_ptr", [(100, 0, 0), (6, 0, 0), (6, 4, 8), (128, 0, 4)])
+def test_plan(W, table_ptr, out_ptr):
+    n, sms = 2 << 20, 132
+    p = rg_mod.plan(n, W, table_ptr, out_ptr, sms)
+    assert p.path == rg_mod.copy_path(W, table_ptr, out_ptr)
+    assert p.tile_rows == rg_mod.tile_rows(p.path, W)
+    assert p.blocks == rg_mod.grid_blocks(n, p.tile_rows, sms)
+    assert p.path in rg_mod.PATHS
 
 
 def _emulate(plan, table, idx):
@@ -164,15 +154,15 @@ def _emulate(plan, table, idx):
     return out.reshape(n, W)
 
 
-@pytest.mark.parametrize("path,W", [("int4", 100), ("int4", 8), ("word4", 6), ("word4", 1), ("word4", 3),
-                                    ("word", 6), ("word", 100)])
+@pytest.mark.parametrize("path,W", [("int4", 100), ("int4", 8), ("int4", 4), ("word4", 6), ("word4", 1),
+                                    ("word4", 3), ("word4", 100), ("word", 6), ("word", 100), ("word", 1)])
 def test_tiles_cover_every_row_once(rng, path, W):
     E = 50
     table = _table(rng, E, W)
     for n in (1, 7, 1000, 4099):
         idx = rng.integers(-3, E + 3, n)
         rows = rg_mod.tile_rows(path, W)
-        plan = rg_mod.Plan(path, rows, rg_mod.grid_blocks(path, n, W, rows, sms=2))
+        plan = rg_mod.Plan(path, rows, rg_mod.grid_blocks(n, rows, sms=2))
         np.testing.assert_array_equal(_emulate(plan, table, idx), table[np.clip(idx, 0, E - 1)])
         if path == "word4":  # every tile's run starts 16-byte aligned
             assert rows * W % 4 == 0

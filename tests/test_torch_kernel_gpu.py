@@ -8,8 +8,10 @@ and no JAX:
 The LF round kernel (all three entries: per read, per end on its own rows,
 and on rows gathered beforehand; on host-width rows, which take its word
 path where they are not 16-byte aligned, and on the engines' device rows,
-padded to a multiple of 4 words), the row gather kernel (both copy paths:
-16-byte units and 4-byte words) and the locate walk kernel (lane refill
+padded to a multiple of 4 words), the row gather kernel (its three copy
+paths: 16-byte units, words stored 4 at a time, and words; row counts at,
+around and past its tile and its persistent grid; clamped indices) and
+the locate walk kernel (lane refill
 across warps holding walks of 0 and sample_rate - 1 hops) must equal their
 plain PyTorch versions on the same CUDA tensors, and the engine's searches
 on the card
@@ -119,14 +121,11 @@ def _gather_rows(cuda, n: str, W: int, path: str) -> int:
     rows than the persistent grid copies in one round of tiles."""
     if n.isdigit():
         return int(n)
-    p = rg_mod.plan(1 << 40, W, 0 if path != "words" else 4, 0 if path != "out+4" else 4,
-                    rg_mod._sms(cuda), rg_mod.DESIGN)
-    per_round = p.blocks * p.tile_rows * (rg_mod.BULK_WARPS if p.path == "bulk" else 1)
+    p = rg_mod.plan(1 << 40, W, 0 if path != "words" else 4, 0 if path != "out+4" else 4, rg_mod._sms(cuda))
     return {"T-1": p.tile_rows - 1, "T": p.tile_rows, "T+1": p.tile_rows + 1,
-            "wrap": per_round + p.tile_rows + 1}[n] or 1
+            "wrap": p.blocks * p.tile_rows + p.tile_rows + 1}[n] or 1
 
 
-@pytest.mark.parametrize("design", ["flat", "bulk"])
 @pytest.mark.parametrize("E", [1000, 1])
 # vector: table and out 16-byte aligned; words: the table 4 B past a 16-byte
 # boundary; out+4: the output 4 B past one
@@ -135,8 +134,7 @@ def _gather_rows(cuda, n: str, W: int, path: str) -> int:
 # a power of two, above 128)
 @pytest.mark.parametrize("W", [1, 3, 6, 8, 100, 128, 200])
 @pytest.mark.parametrize("n", ["1", "31", "T-1", "T", "T+1", "4099", "wrap"])
-def test_row_gather_kernel_matches_plain(cuda, monkeypatch, n, W, path, E, design):
-    monkeypatch.setattr(rg_mod, "DESIGN", design)
+def test_row_gather_kernel_matches_plain(cuda, n, W, path, E):
     n = _gather_rows(cuda, n, W, path)
     rng = np.random.default_rng(n * W + E)
     # one word of slack: the "words" table starts 4 B past a 16-byte boundary
@@ -148,9 +146,7 @@ def test_row_gather_kernel_matches_plain(cuda, monkeypatch, n, W, path, E, desig
     buf = torch.empty(n * W + 1, dtype=torch.int32, device=cuda)
     out = (buf[1:] if path == "out+4" else buf[:-1]).view(n, W)
     want = {"vector": "int4" if W % 4 == 0 else "word4", "words": "word4", "out+4": "word"}[path]
-    if want == "int4" and design == "bulk":
-        want = "bulk"
-    assert rg_mod.plan(n, W, table.data_ptr(), out.data_ptr(), rg_mod._sms(cuda), design).path == want
+    assert rg_mod.plan(n, W, table.data_ptr(), out.data_ptr(), rg_mod._sms(cuda)).path == want
     before = rg_mod.LAUNCHES
     got = rg_mod.row_gather(table, idx, out=out)
     torch.cuda.synchronize()

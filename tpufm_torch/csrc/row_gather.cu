@@ -4,40 +4,46 @@
 // built by make_dma_gather, :80), which feeds XLAEngine(gather="dma"), and
 // the rate probes that run its computation (.bench/probe5.py:13,
 // .bench/probe35.py:23). The clamp is the one a JAX gather applies to the
-// rows the engine normally takes, and K1's own (lf_round.cu).
+// rows the engine normally takes, and K1's own (lf_round.cu). The Pallas
+// kernel's semaphore ring and 1024-entry index chunks are TPU devices and
+// are not carried over.
 //
 // Bound. HBM-bound, pure data movement: n * row_words * 4 B written in
 // order, 8 B of index a row, and the distinct rows read once; at the
 // search's shape (2M rows of the 52,085 x 100-word table) 876.5 MB, 261.6
-// us at 3.35 TB/s. The 21 MB table stays in the 50 MB L2, so the time is
-// the output stream's: it must leave as whole lines, with enough row reads
-// in flight to feed it.
+// us at 3.35 TB/s. The 21 MB table fits the 50 MB L2, so the output stream
+// sets the pace: it must leave as whole lines while every row read finds
+// the table still in L2.
 //
 // Design. The output of T consecutive rows (a tile) is one contiguous run
-// of T * row_words words. A block (flat copy) or a warp (bulk copy) owns a
-// tile at a time over a persistent grid: it loads the tile's T indices with
-// one coalesced load and clamps them once, so no row waits on a dependent
-// index load of its own. The wrapper (engine/row_gather.py) picks the path
-// and the tile and grid sizes; this file checks what it relies on.
-//   - Flat copy, every path. Thread f of the tile writes output element f
-//     (a 16-byte unit, a 4-word vector or a word) and reads it from row
-//     src[f / per_row] held in shared memory. Neighbouring threads write
-//     neighbouring elements, so the stores are whole lines; each thread
-//     issues kUnroll loads (word path: 4 * kUnroll) before its first store,
-//     stepping its (row, column) without a division. Paths: int4 (row_words %
-//     4 == 0, table and out 16-byte aligned: 16-byte loads and stores),
-//     word4 (out 16-byte aligned, tiles of a multiple of 4 rows: four word
-//     loads, one 16-byte store), word (anything else: word loads and stores).
-//   - Bulk copy (int4 rows only). Lane r of a warp issues one
-//     cp.async.bulk for row r of the tile into a stage in shared memory,
-//     completing on the stage's mbarrier; lane 0 then writes the whole
-//     stage to out with one cp.async.bulk store. A ring of kStages stages
-//     keeps kAhead tiles of loads in flight while a tile stores.
-// Variants, chosen by the flags of tpufm_row_gather so that one run can time
-// each: evict-first stores (bit 0: __stcs, or an L2 evict_first policy on
-// the bulk store), so that the output stream does not push the table out of
-// L2; evict-last table loads (bit 1, flat copy); the next tile's indices
-// loaded before this tile's copy (bit 2, flat copy).
+// of T * row_words words. A block owns a tile at a time over a persistent
+// grid: it loads the tile's T indices with one coalesced load into shared
+// memory and clamps them once, so no row waits on an index load of its own.
+// Thread f of the tile then writes element f of the run (a 16-byte unit, a
+// 4-word vector or a word) and reads it from row src[f / per_row];
+// neighbouring threads write neighbouring elements, so every store
+// instruction covers whole lines, and each thread issues kUnroll loads
+// before its first store, stepping its (row, column) without a division.
+// The wrapper (engine/row_gather.py) picks the path and the tile and grid
+// sizes; this file checks what it relies on. Paths: int4 (row_words % 4 ==
+// 0, table and out 16-byte aligned: 16-byte loads and stores), word4 (out
+// 16-byte aligned, tiles of a multiple of 4 rows: four word loads, one
+// 16-byte store), word (any other: word loads and stores, 4 * kUnroll a
+// thread).
+//
+// Cache policy. Stores are evict-first (__stcs) and table loads carry an
+// L2 evict_last policy, so that the output stream does not push the table
+// out of L2. K1's rows entry reads this output next in the gathered-row
+// engine; at its shape the buffer (839 MB) leaves L2 long before it is
+// read, and evict-first stores made K3 followed by the rows entry 4-5%
+// faster (PERF.md section 6, chip_smoke.py phase 6 of the commit that
+// timed the variants).
+//
+// Tried and not kept (times in PERF.md): a cp.async.bulk copy of each row
+// into a ring of shared-memory stages with one bulk store per tile (as
+// fast at wide rows, slower at the search's shape and at 8-word rows);
+// the next tile's indices loaded before this tile's copy (no gain); 8
+// blocks an SM (32 registers: spills).
 //
 // Types. Indices are int64: a 3.2 Gbase table has about 17M rows and the
 // interval ends they come from pass 2^31. Table words are the uint32 bits
@@ -48,50 +54,33 @@
 
 namespace {
 
-constexpr int kThreads = 256;       // threads of a flat-copy block
-constexpr int kUnroll = 4;          // elements a flat-copy thread keeps in flight
-constexpr int kFlatBlocksPerSM = 6; // resident flat blocks an SM must hold
-constexpr int kBulkWarps = 4;       // warps of a bulk-copy block, one ring each
-constexpr int kStages = 4;          // stages of a warp's ring
-constexpr int kAhead = 2;           // tiles of loads in flight ahead of the store
-constexpr int kBarrierBytes = kBulkWarps * kStages * 8;
+constexpr int kThreads = 256;        // threads of a block
+constexpr int kUnroll = 4;           // 16-byte elements a thread keeps in flight
+constexpr int kBlocksPerSM = 6;      // resident blocks an SM must hold (40 registers)
 
-enum Path { kInt4 = 0, kWord4 = 1, kWord = 2, kBulk = 3 };
+enum Path { kInt4 = 0, kWord4 = 1, kWord = 2 };
 
 __device__ __forceinline__ long long clamp_row(long long r, long long nrows) {
   return r < 0 ? 0 : (r >= nrows ? nrows - 1 : r);
 }
 
-template <bool EF, typename T>
-__device__ __forceinline__ void put(T* p, T v) {
-  if (EF) __stcs(p, v);
-  else *p = v;
+__device__ __forceinline__ uint64_t evict_last_policy() {
+  uint64_t pol;
+  asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(pol));
+  return pol;
 }
 
-template <bool EL>
 __device__ __forceinline__ int4 get(const int4* p, uint64_t pol) {
-  if (!EL) return __ldg(p);
   int4 v;
   asm("ld.global.nc.L2::cache_hint.v4.s32 {%0, %1, %2, %3}, [%4], %5;"
       : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(p), "l"(pol));
   return v;
 }
 
-template <bool EL>
 __device__ __forceinline__ uint32_t get(const uint32_t* p, uint64_t pol) {
-  if (!EL) return __ldg(p);
   uint32_t v;
   asm("ld.global.nc.L2::cache_hint.u32 %0, [%1], %2;" : "=r"(v) : "l"(p), "l"(pol));
   return v;
-}
-
-// Clamped first source element (in `table` units) of each row of tile t.
-__device__ __forceinline__ void load_src(long long* src, const long long* idx, long long t,
-                                         int tile_rows, long long n, long long nrows, int per_row) {
-  const long long first = t * tile_rows;
-  const int rows = (int)min((long long)tile_rows, n - first);
-  for (int r = threadIdx.x; r < rows; r += kThreads)
-    src[r] = clamp_row(__ldcs(idx + first + r), nrows) * per_row;
 }
 
 // Copies the tile's run of `total` elements (16-byte units or words) to
@@ -99,7 +88,7 @@ __device__ __forceinline__ void load_src(long long* src, const long long* idx, l
 // from[src[r] + c]. A thread finds (r, c) of its first element with one
 // division a pass and steps it by kThreads elements after; it issues U
 // loads before its first store.
-template <bool EF, bool EL, int U, typename T>
+template <int U, typename T>
 __device__ __forceinline__ void copy_run(const T* __restrict__ from, const long long* src, int per_row,
                                          int total, T* __restrict__ to, uint64_t pol) {
   const int dq = kThreads / per_row, dr = kThreads - dq * per_row;
@@ -108,19 +97,18 @@ __device__ __forceinline__ void copy_run(const T* __restrict__ from, const long 
     T v[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      if (base + u * kThreads < total) v[u] = get<EL>(from + src[r] + c, pol);
+      if (base + u * kThreads < total) v[u] = get(from + src[r] + c, pol);
       r += dq;
       c += dr;
       if (c >= per_row) { c -= per_row; ++r; }
     }
 #pragma unroll
     for (int u = 0; u < U; ++u)
-      if (base + u * kThreads < total) put<EF>(to + base + u * kThreads, v[u]);
+      if (base + u * kThreads < total) __stcs(to + base + u * kThreads, v[u]);
   }
 }
 
 // The word4 path: 4-word vectors of the run, each from one or more rows.
-template <bool EF, bool EL>
 __device__ __forceinline__ void copy_word4(const uint32_t* __restrict__ table, int row_words,
                                            const long long* src, int rows, uint32_t* __restrict__ to,
                                            uint64_t pol) {
@@ -139,7 +127,7 @@ __device__ __forceinline__ void copy_word4(const uint32_t* __restrict__ table, i
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
           if (c == row_words) { c = 0; ++r; }
-          w[k] = get<EL>(table + src[r] + c, pol);
+          w[k] = get(table + src[r] + c, pol);
           ++c;
         }
         v[u] = make_int4((int)w[0], (int)w[1], (int)w[2], (int)w[3]);
@@ -148,184 +136,49 @@ __device__ __forceinline__ void copy_word4(const uint32_t* __restrict__ table, i
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int q = base + u * kThreads + threadIdx.x;
-      if (q < vectors) put<EF>(to4 + q, v[u]);
+      if (q < vectors) __stcs(to4 + q, v[u]);
     }
   }
   const int f = 4 * vectors + threadIdx.x;  // the last tile's 0-3 odd words
   if (f < total) {
     const int r = f / row_words;
-    put<EF>(to + f, get<EL>(table + src[r] + (f - r * row_words), pol));
+    __stcs(to + f, get(table + src[r] + (f - r * row_words), pol));
   }
 }
 
-// Flat copy over a persistent grid, one tile per block iteration. With PF,
-// each thread loads its share of the next tile's indices before copying
-// this tile, and stores them into the other half of src after (one barrier
-// a tile); without, the indices are loaded after the copy (two barriers).
-template <int PATH, bool EF, bool EL, bool PF>
-__global__ void __launch_bounds__(kThreads, kFlatBlocksPerSM)
-flat_kernel(const uint32_t* __restrict__ table, long long nrows, int row_words,
-            const long long* __restrict__ idx, uint32_t* __restrict__ out,
-            long long n, int tile_rows) {
-  extern __shared__ long long src[];
-  const int per_row = PATH == kInt4 ? row_words / 4 : row_words;  // source units a row
+template <int PATH>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+row_gather_kernel(const uint32_t* __restrict__ table, long long nrows, int row_words,
+                  const long long* __restrict__ idx, uint32_t* __restrict__ out,
+                  long long n, int tile_rows) {
+  extern __shared__ long long src[];  // first source element of each row of the tile
+  const int per_row = PATH == kInt4 ? row_words / 4 : row_words;  // source elements a row
   const long long tiles = (n + tile_rows - 1) / tile_rows;
-  uint64_t pol = 0;
-  if (EL) asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(pol));
-  long long* cur = src;
-  long long* nxt = PF ? src + tile_rows : src;
-  long long tile = blockIdx.x;
-  if (tile < tiles) load_src(cur, idx, tile, tile_rows, n, nrows, per_row);
-  __syncthreads();
-  for (; tile < tiles; tile += gridDim.x) {
-    const long long next = tile + gridDim.x;
-    long long pre[kUnroll];
-    const int next_rows = PF && next < tiles ? (int)min((long long)tile_rows, n - next * tile_rows) : 0;
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int r = threadIdx.x + u * kThreads;
-      if (r < next_rows) pre[u] = __ldcs(idx + next * tile_rows + r);
-    }
+  const uint64_t pol = evict_last_policy();
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const long long first = tile * tile_rows;
     const int rows = (int)min((long long)tile_rows, n - first);
+    for (int r = threadIdx.x; r < rows; r += kThreads)
+      src[r] = clamp_row(__ldcs(idx + first + r), nrows) * per_row;
+    __syncthreads();
     uint32_t* to = out + first * row_words;
     if (PATH == kInt4)
-      copy_run<EF, EL, kUnroll>(reinterpret_cast<const int4*>(table), cur, per_row, rows * per_row,
-                                reinterpret_cast<int4*>(to), pol);
+      copy_run<kUnroll>(reinterpret_cast<const int4*>(table), src, per_row, rows * per_row,
+                        reinterpret_cast<int4*>(to), pol);
     else if (PATH == kWord)
-      copy_run<EF, EL, 4 * kUnroll>(table, cur, per_row, rows * per_row, to, pol);
+      copy_run<4 * kUnroll>(table, src, per_row, rows * per_row, to, pol);
     else
-      copy_word4<EF, EL>(table, row_words, cur, rows, to, pol);
-    if (PF) {
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int r = threadIdx.x + u * kThreads;
-        if (r < next_rows) nxt[r] = clamp_row(pre[u], nrows) * per_row;
-      }
-      __syncthreads();
-      long long* t = cur;
-      cur = nxt;
-      nxt = t;
-    } else {
-      __syncthreads();  // src is rewritten by the next tile
-      if (next < tiles) load_src(cur, idx, next, tile_rows, n, nrows, per_row);
-      __syncthreads();
-    }
+      copy_word4(table, row_words, src, rows, to, pol);
+    __syncthreads();  // src is rewritten by the next tile
   }
 }
 
-__device__ __forceinline__ uint32_t smem(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_wait(const uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem(bar)), "r"(parity) : "memory");
-}
-
-// Bulk copy: each warp runs its own ring of kStages stages of tile_rows rows.
-template <bool EF>
-__global__ void __launch_bounds__(kBulkWarps * 32)
-bulk_kernel(const unsigned char* __restrict__ table, long long nrows, int row_bytes,
-            const long long* __restrict__ idx, unsigned char* __restrict__ out,
-            long long n, int tile_rows) {
-  extern __shared__ __align__(128) unsigned char shm[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  uint64_t* full = reinterpret_cast<uint64_t*>(shm) + warp * kStages;
-  const int stage_bytes = tile_rows * row_bytes;
-  unsigned char* ring = shm + kBarrierBytes + (size_t)warp * kStages * stage_bytes;
-  if (lane == 0) {
-    for (int s = 0; s < kStages; ++s)
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(smem(full + s)) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  }
-  __syncwarp();
-  uint64_t policy = 0;
-  if (EF) asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(policy));
-
-  const long long tiles = (n + tile_rows - 1) / tile_rows;
-  const long long step = (long long)gridDim.x * kBulkWarps;
-  const long long tile0 = (long long)blockIdx.x * kBulkWarps + warp;
-  const long long mine = tile0 < tiles ? (tiles - 1 - tile0) / step + 1 : 0;
-  for (long long i = 0; i < mine + kAhead; ++i) {
-    if (i < mine) {  // loads of tile i into stage i % kStages
-      const long long first = (tile0 + i * step) * tile_rows;
-      const int rows = (int)min((long long)tile_rows, n - first);
-      unsigned char* stage = ring + (i % kStages) * stage_bytes;
-      uint64_t* bar = full + i % kStages;
-      // the stage's last store (tile i - kStages) has read it: at most
-      // kStages - kAhead - 1 newer store groups may still be pending
-      if (lane == 0) asm volatile("cp.async.bulk.wait_group.read %0;" :: "n"(kStages - kAhead - 1) : "memory");
-      long long r = 0;
-      if (lane < rows) r = clamp_row(__ldcs(idx + first + lane), nrows);
-      if (lane == 0)
-        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-                     :: "r"(smem(bar)), "r"(rows * row_bytes) : "memory");
-      __syncwarp();
-      if (lane < rows)
-        asm volatile(
-            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
-            :: "r"(smem(stage + lane * row_bytes)), "l"(table + r * row_bytes), "r"(row_bytes),
-               "r"(smem(bar))
-            : "memory");
-    }
-    if (i >= kAhead && lane == 0) {  // store of tile j = i - kAhead
-      const long long j = i - kAhead;
-      const long long first = (tile0 + j * step) * tile_rows;
-      const int rows = (int)min((long long)tile_rows, n - first);
-      mbar_wait(full + j % kStages, (uint32_t)((j / kStages) & 1));
-      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-      const uint32_t from = smem(ring + (j % kStages) * stage_bytes);
-      if (EF)
-        asm volatile("cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint [%0], [%1], %2, %3;"
-                     :: "l"(out + first * row_bytes), "r"(from), "r"(rows * row_bytes), "l"(policy)
-                     : "memory");
-      else
-        asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
-                     :: "l"(out + first * row_bytes), "r"(from), "r"(rows * row_bytes) : "memory");
-      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-    }
-    __syncwarp();
-  }
-  if (lane == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
-}
-
-using FlatKernel = void (*)(const uint32_t*, long long, int, const long long*, uint32_t*, long long, int);
-
-// flags: bit 0 evict-first stores, bit 1 evict-last table loads, bit 2
-// index prefetch
 template <int PATH>
-int launch_flat(const void* table, long long nrows, int row_words, const void* idx, void* out,
-                long long n, int tile_rows, int blocks, int flags, cudaStream_t s) {
-  static const FlatKernel variants[8] = {
-      flat_kernel<PATH, false, false, false>, flat_kernel<PATH, true, false, false>,
-      flat_kernel<PATH, false, true, false>, flat_kernel<PATH, true, true, false>,
-      flat_kernel<PATH, false, false, true>, flat_kernel<PATH, true, false, true>,
-      flat_kernel<PATH, false, true, true>, flat_kernel<PATH, true, true, true>};
-  const size_t shm = (size_t)tile_rows * sizeof(long long) * ((flags & 4) ? 2 : 1);
-  FlatKernel kernel = variants[flags & 7];
-  kernel<<<blocks, kThreads, shm, s>>>(static_cast<const uint32_t*>(table), nrows, row_words,
-                                       static_cast<const long long*>(idx),
-                                       static_cast<uint32_t*>(out), n, tile_rows);
-  return (int)cudaGetLastError();
-}
-
-template <bool EF>
-int launch_bulk(const void* table, long long nrows, int row_words, const void* idx, void* out,
-                long long n, int tile_rows, int blocks, cudaStream_t s) {
-  const size_t shm = kBarrierBytes + (size_t)kBulkWarps * kStages * tile_rows * row_words * 4;
-  const cudaError_t e = cudaFuncSetAttribute(bulk_kernel<EF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             (int)shm);
-  if (e != cudaSuccess) return (int)e;
-  bulk_kernel<EF><<<blocks, kBulkWarps * 32, shm, s>>>(
-      static_cast<const unsigned char*>(table), nrows, row_words * 4,
-      static_cast<const long long*>(idx), static_cast<unsigned char*>(out), n, tile_rows);
+int launch(const void* table, long long nrows, int row_words, const void* idx, void* out,
+           long long n, int tile_rows, int blocks, cudaStream_t s) {
+  row_gather_kernel<PATH><<<blocks, kThreads, (size_t)tile_rows * sizeof(long long), s>>>(
+      static_cast<const uint32_t*>(table), nrows, row_words, static_cast<const long long*>(idx),
+      static_cast<uint32_t*>(out), n, tile_rows);
   return (int)cudaGetLastError();
 }
 
@@ -333,34 +186,28 @@ int launch_bulk(const void* table, long long nrows, int row_words, const void* i
 
 // Launches K3 on `stream` and returns cudaGetLastError() (0 on success).
 // table: uint32 [nrows, row_words]; idx: int64 [n]; out: uint32 [n, row_words].
-// path 0 (int4) and 3 (bulk) need row_words % 4 == 0 and 16-byte aligned
-// table and out; 1 (word4) a 16-byte aligned out and tile_rows % 4 == 0;
-// 3 at most 32 rows a tile. blocks: the persistent grid (flat: blocks of
-// kThreads; bulk: of kBulkWarps warps). flags: see launch_flat (bulk: bit 0).
-// Does not synchronise.
+// path 0 (int4) needs row_words % 4 == 0 and 16-byte aligned table and out;
+// 1 (word4) a 16-byte aligned out and tile_rows % 4 == 0; 2 (word) nothing.
+// tile_rows: rows a tile (at most 4096, so that their indices fit shared
+// memory); blocks: the persistent grid of kThreads-thread blocks. Does not
+// synchronise.
 extern "C" int tpufm_row_gather(const void* table, long long nrows, int row_words,
                                 const void* idx, void* out, long long n, int path,
-                                int tile_rows, int blocks, int flags, void* stream) {
+                                int tile_rows, int blocks, void* stream) {
   if (n <= 0) return 0;
-  if (nrows <= 0 || row_words <= 0 || tile_rows <= 0 || blocks <= 0)
+  if (nrows <= 0 || row_words <= 0 || tile_rows <= 0 || tile_rows > 4096 || blocks <= 0)
     return (int)cudaErrorInvalidValue;
   const uintptr_t t = reinterpret_cast<uintptr_t>(table), o = reinterpret_cast<uintptr_t>(out);
-  const bool ef = flags & 1;
-  if ((flags & 4) && tile_rows > kThreads * kUnroll) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (path) {
     case kInt4:
       if (row_words % 4 || t % 16 || o % 16) return (int)cudaErrorInvalidValue;
-      return launch_flat<kInt4>(table, nrows, row_words, idx, out, n, tile_rows, blocks, flags, s);
+      return launch<kInt4>(table, nrows, row_words, idx, out, n, tile_rows, blocks, s);
     case kWord4:
       if (o % 16 || tile_rows % 4) return (int)cudaErrorInvalidValue;
-      return launch_flat<kWord4>(table, nrows, row_words, idx, out, n, tile_rows, blocks, flags, s);
+      return launch<kWord4>(table, nrows, row_words, idx, out, n, tile_rows, blocks, s);
     case kWord:
-      return launch_flat<kWord>(table, nrows, row_words, idx, out, n, tile_rows, blocks, flags, s);
-    case kBulk:
-      if (row_words % 4 || t % 16 || o % 16 || tile_rows > 32) return (int)cudaErrorInvalidValue;
-      return ef ? launch_bulk<true>(table, nrows, row_words, idx, out, n, tile_rows, blocks, s)
-                : launch_bulk<false>(table, nrows, row_words, idx, out, n, tile_rows, blocks, s);
+      return launch<kWord>(table, nrows, row_words, idx, out, n, tile_rows, blocks, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -12,10 +12,13 @@ as a JAX gather clamps them.
 plain PyTorch version ``row_gather_reference``; a CUDA tensor launches the
 kernel in tpufm_torch/csrc/row_gather.cu or raises. The kernel copies tiles
 of consecutive rows, whose output is one contiguous run of words, over a
-persistent grid; ``plan`` picks its copy path and its tile and grid sizes
-(pure arithmetic, tested on the CPU): 16-byte units where W % 4 == 0 and
-both bases are 16-byte aligned, else words, stored 4 at a time where the
-output is 16-byte aligned.
+persistent grid, a block a tile at a time: its indices loaded once into
+shared memory, its output written in whole lines, evict-first, while the
+table's rows are read with an evict-last policy so that they stay in L2.
+``plan`` picks the copy path and the tile and grid sizes (pure arithmetic,
+tested on the CPU): 16-byte units where W % 4 == 0 and both bases are
+16-byte aligned, else words, stored 4 at a time where the output is
+16-byte aligned.
 """
 
 from __future__ import annotations
@@ -30,27 +33,12 @@ import torch
 LAUNCHES = 0
 
 #: the kernel's path codes (``Path`` in row_gather.cu)
-PATHS = {"int4": 0, "word4": 1, "word": 2, "bulk": 3}
-#: threads of a flat-copy block and the elements each keeps in flight
-#: (kThreads, kUnroll), and the blocks an SM holds (kFlatBlocksPerSM)
-THREADS, UNROLL, FLAT_BLOCKS_PER_SM = 256, 4, 6
-#: at most this many rows a flat tile (their indices sit in shared memory)
+PATHS = {"int4": 0, "word4": 1, "word": 2}
+#: threads of a block, the 16-byte elements each keeps in flight, and the
+#: blocks an SM holds (kThreads, kUnroll, kBlocksPerSM in row_gather.cu)
+THREADS, UNROLL, BLOCKS_PER_SM = 256, 4, 6
+#: at most this many rows a tile (their indices sit in shared memory)
 MAX_TILE_ROWS = 1024
-#: bulk copy: warps a block, stages a warp's ring, bytes a stage aims at,
-#: and the barrier bytes (kBulkWarps, kStages, kBarrierBytes)
-BULK_WARPS, BULK_STAGES, BULK_STAGE_BYTES, BULK_BARRIER_BYTES = 4, 4, 8192, 128
-#: shared memory of one SM and of one block (H100), and what the runtime
-#: keeps of it for each resident block
-SM_SHARED_BYTES, BLOCK_SHARED_BYTES, BLOCK_RESERVED_BYTES = 233472, 232448, 1024
-
-#: the 16-byte path's copy design ("flat" or "bulk"), the kernel's cache
-#: and index variant (bits: 1 evict-first stores, 2 evict-last table loads,
-#: 4 next tile's indices prefetched; the bulk copy takes bit 1 only) and a
-#: forced word path ("word" where the word4 path would run): module
-#: settings so that one run can time each
-DESIGN = "flat"
-FLAGS = 3
-PATH_OVERRIDE = None
 
 
 class Plan(NamedTuple):
@@ -59,56 +47,35 @@ class Plan(NamedTuple):
     blocks: int
 
 
-def copy_path(W: int, table_ptr: int, out_ptr: int, design: str = "flat") -> str:
+def copy_path(W: int, table_ptr: int, out_ptr: int) -> str:
     """The kernel's copy path for rows of W words at these base addresses:
-    16-byte units ("int4", or "bulk" for the bulk design) where W % 4 == 0
-    and both bases are 16-byte aligned; else words, stored 4 at a time
-    where the output is 16-byte aligned ("word4"), else one at a time."""
+    16-byte units ("int4") where W % 4 == 0 and both bases are 16-byte
+    aligned; else words, stored 4 at a time where the output is 16-byte
+    aligned ("word4"), else one at a time ("word")."""
     if out_ptr % 16:
         return "word"
-    if W % 4 == 0 and table_ptr % 16 == 0:
-        return design if design == "bulk" and bulk_tile_rows(W) > 0 else "int4"
-    return "word4"
-
-
-def bulk_tile_rows(W: int) -> int:
-    """Rows a bulk stage holds: about BULK_STAGE_BYTES of them, one lane
-    each (at most 32), and 0 if one row's ring does not fit a block."""
-    rows = max(1, min(32, BULK_STAGE_BYTES // (4 * W)))
-    return rows if bulk_shared_bytes(W, rows) <= BLOCK_SHARED_BYTES else 0
-
-
-def bulk_shared_bytes(W: int, rows: int) -> int:
-    return BULK_BARRIER_BYTES + BULK_WARPS * BULK_STAGES * rows * 4 * W
+    return "int4" if W % 4 == 0 and table_ptr % 16 == 0 else "word4"
 
 
 def tile_rows(path: str, W: int) -> int:
-    """Rows of a tile: for a flat path, as many as fill one pass of the
-    block (THREADS * UNROLL elements of 4 words, or of one word on the word
-    path), at least 1 and at most MAX_TILE_ROWS; word4 tiles hold a
-    multiple of 4 rows, so that every tile's output starts 16-byte aligned."""
-    if path == "bulk":
-        return bulk_tile_rows(W)
-    words = THREADS * UNROLL * 4
-    rows = min(MAX_TILE_ROWS, max(1, words // W))
+    """Rows of a tile: as many as fill one pass of the block (THREADS *
+    UNROLL 16-byte elements, 4 words each), at least 1 and at most
+    MAX_TILE_ROWS; word4 tiles hold a multiple of 4 rows, so that every
+    tile's output starts 16-byte aligned."""
+    rows = min(MAX_TILE_ROWS, max(1, THREADS * UNROLL * 4 // W))
     return max(4, rows // 4 * 4) if path == "word4" else rows
 
 
-def grid_blocks(path: str, n: int, W: int, rows: int, sms: int) -> int:
+def grid_blocks(n: int, rows: int, sms: int) -> int:
     """The persistent grid: as many blocks as the SMs hold at once, and no
-    more than there are tiles (a bulk block takes BULK_WARPS tiles a
-    round)."""
-    tiles = -(-n // rows)
-    if path == "bulk":
-        per_sm = SM_SHARED_BYTES // (bulk_shared_bytes(W, rows) + BLOCK_RESERVED_BYTES)
-        return max(1, min(-(-tiles // BULK_WARPS), sms * per_sm))
-    return max(1, min(tiles, sms * FLAT_BLOCKS_PER_SM))
+    more than there are tiles."""
+    return max(1, min(-(-n // rows), sms * BLOCKS_PER_SM))
 
 
-def plan(n: int, W: int, table_ptr: int, out_ptr: int, sms: int, design: str = "flat") -> Plan:
-    path = copy_path(W, table_ptr, out_ptr, design)
+def plan(n: int, W: int, table_ptr: int, out_ptr: int, sms: int) -> Plan:
+    path = copy_path(W, table_ptr, out_ptr)
     rows = tile_rows(path, W)
-    return Plan(path, rows, grid_blocks(path, n, W, rows, sms))
+    return Plan(path, rows, grid_blocks(n, rows, sms))
 
 
 @functools.lru_cache(maxsize=None)
@@ -161,17 +128,12 @@ def row_gather(table, idx, out=None) -> torch.Tensor:
     from tpufm_torch import kernels
 
     lib = kernels.library("row_gather")
-    p = plan(idx.shape[0], table.shape[1], table.data_ptr(), out.data_ptr(), _sms(idx.device), DESIGN)
-    if PATH_OVERRIDE and p.path == "word4":
-        rows = tile_rows(PATH_OVERRIDE, table.shape[1])
-        p = Plan(PATH_OVERRIDE, rows, grid_blocks(PATH_OVERRIDE, idx.shape[0], table.shape[1], rows, _sms(idx.device)))
-    flags = FLAGS & 1 if p.path == "bulk" else FLAGS
-
+    p = plan(idx.shape[0], table.shape[1], table.data_ptr(), out.data_ptr(), _sms(idx.device))
     with torch.cuda.device(idx.device):
         stream = torch.cuda.current_stream(idx.device).cuda_stream
         err = lib.tpufm_row_gather(
             table.data_ptr(), table.shape[0], table.shape[1], idx.data_ptr(), out.data_ptr(),
-            idx.shape[0], PATHS[p.path], p.tile_rows, p.blocks, flags, stream,
+            idx.shape[0], PATHS[p.path], p.tile_rows, p.blocks, stream,
         )
     if err:
         raise RuntimeError(f"row_gather kernel launch failed: {kernels.error_string('row_gather', err)}")

@@ -37,8 +37,8 @@ SIGNATURES = {
         "tpufm_lf_round_pairs": [_P, _LL, _I, _I, _I, _P, _P, _P, _P, _LL, _P],
     },
     "row_gather": {
-        # table, nrows, row_words, idx, out, n, path, tile_rows, blocks, flags, stream
-        "tpufm_row_gather": [_P, _LL, _I, _P, _P, _LL, _I, _I, _I, _I, _P],
+        # table, nrows, row_words, idx, out, n, path, tile_rows, blocks, stream
+        "tpufm_row_gather": [_P, _LL, _I, _P, _P, _LL, _I, _I, _I, _P],
     },
     "locate_walk": {
         # rows, nrows, row_words, nb, samples, n_samples, dollar, p, out, n,
