@@ -26,8 +26,9 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      (``row_gather``, tiles of rows over a persistent grid) against their
      plain versions on the card, bit-identical and timed with CUDA events:
      K3 at the search's shape (52,085 x 100 words, 2M rows), with 6-word
-     rows (its word path), at probe 5's shape and over probe 35's (E, W)
-     grid; each case prints the kernel's time, rows/s and GB/s, its bound
+     rows (its word path), at probe 5's shape, over probe 35's (E, W) grid
+     and, as a control, at the search's widths on a 2 MB table that stays
+     whole in L2; each case prints the kernel's time, rows/s and GB/s, its bound
      and the share of it reached, ``index_select``'s time and the kernel's
      speed against it, ``out.zero_()`` (the same output bytes written
      alone) and the plain ``table[idx]``; every index stream includes E and
@@ -134,12 +135,14 @@ K1_ENDS = 2 << 20
 SEED = 20261016
 #: K3 cases (label, rows E, words W, gathered rows N): the search's shape
 #: (the 10 Mbase k=3 d=192 table, both ends of 1M reads), 6-word rows (the
-#: word path), probe 5's shape and probe 35's (E, W) grid
+#: word path), probe 5's shape, probe 35's (E, W) grid, and a control: the
+#: search's widths on a 2 MB table, which stays whole in L2
 GATHER_CASES = [
     ("search", 52_085, 100, 2 << 20),
     ("words", 52_085, 6, 2 << 20),
     ("P5", 156_256, 128, 1 << 17),
-] + [("P35", E, W, 1 << 20) for E in (208_000, 2_000_000) for W in (8, 32, 88, 128)]
+] + [("P35", E, W, 1 << 20) for E in (208_000, 2_000_000) for W in (8, 32, 88, 128)] + [
+    ("2MB", 5_000, 100, 2 << 20)]
 VARLEN_READS, VARLEN_MIN, VARLEN_MAX = 1 << 20, 50, 151
 SAMPLE_RATE, MAX_HITS = 32, 16
 WALK_ROWS = 1 << 20  # the walk lanes of a 1M-read locate

@@ -29,8 +29,8 @@ def _table(rng, E, W):
     return rng.integers(0, 2**32, (E, W), dtype=np.uint32)
 
 
-#: the kernel's tile at W=128 on its 16-byte path
-_T128 = rg_mod.tile_rows("int4", 128)
+#: the kernel's tile at W=128
+_T128 = rg_mod.tile_rows(128)
 
 
 # N not a multiple of the TPU's 1024-entry chunk, nor of the kernel's tile
@@ -49,41 +49,33 @@ def test_row_gather_reference_matches_dma_gather(rng, N):
 
 @pytest.mark.parametrize("W,table_ptr,out_ptr,path", [
     (100, 0, 0, "int4"), (128, 16, 32, "int4"), (4, 48, 16, "int4"),
-    (6, 0, 0, "word4"), (100, 4, 0, "word4"), (1, 0, 0, "word4"), (3, 12, 16, "word4"),
+    (6, 0, 0, "word"), (100, 4, 0, "word"), (1, 0, 0, "word"), (3, 12, 16, "word"),
     (100, 0, 4, "word"), (6, 0, 8, "word"), (128, 4, 12, "word"),
 ])
 def test_copy_path(W, table_ptr, out_ptr, path):
     assert rg_mod.copy_path(W, table_ptr, out_ptr) == path
 
 
-_PATH_WIDTHS = [(p, W) for W in (1, 3, 6, 8, 100, 128, 200, 5000, 1 << 20)
-                for p in ("int4", "word4", "word") if p != "int4" or W % 4 == 0]
-
-
-@pytest.mark.parametrize("path,W", _PATH_WIDTHS)
-def test_tile_rows(path, W):
-    rows = rg_mod.tile_rows(path, W)
+@pytest.mark.parametrize("W", [1, 3, 4, 6, 8, 100, 128, 200, 4095, 4096, 5000, 1 << 20])
+def test_tile_rows(W):
+    rows = rg_mod.tile_rows(W)
     words = rg_mod.THREADS * rg_mod.UNROLL * 4
     assert 1 <= rows <= rg_mod.MAX_TILE_ROWS
-    # a tile fills at most one pass of the block, unless one row (or the 4
-    # rows of a word4 tile) is wider
-    assert rows * W <= words or rows == (4 if path == "word4" else 1)
-    # and at least half a pass where its rows allow
-    assert rows * W > words // 2 or rows == rg_mod.MAX_TILE_ROWS or rows * W <= 4 * W
-    if path == "word4":  # every tile's output starts 16-byte aligned
-        assert rows % 4 == 0 and rows * W * 4 % 16 == 0
+    # a tile fills at most one pass of the block, unless one row is wider,
+    # and more than half a pass unless MAX_TILE_ROWS caps it
+    assert rows * W <= words or rows == 1
+    assert rows * W > words // 2 or rows in (1, rg_mod.MAX_TILE_ROWS)
 
 
 def test_tile_rows_at_the_search_and_word_shapes():
-    assert rg_mod.tile_rows("int4", 100) == 40  # 1000 of a pass's 1024 units
-    assert rg_mod.tile_rows("int4", 128) == 32
-    assert rg_mod.tile_rows("word4", 6) == 680
-    assert rg_mod.tile_rows("word", 6) == 682
+    assert rg_mod.tile_rows(100) == 40  # 1000 of a pass's 1024 units
+    assert rg_mod.tile_rows(128) == 32
+    assert rg_mod.tile_rows(6) == 682
 
 
 @pytest.mark.parametrize("n", [1, 39, 40, 41, 40 * 132 * 6, 40 * 132 * 6 + 1, 2 << 20])
 def test_grid_blocks(n):
-    sms, rows = 132, rg_mod.tile_rows("int4", 100)
+    sms, rows = 132, rg_mod.tile_rows(100)
     blocks = rg_mod.grid_blocks(n, rows, sms)
     tiles = -(-n // rows)
     assert 1 <= blocks <= min(tiles, sms * rg_mod.BLOCKS_PER_SM)
@@ -97,75 +89,59 @@ def test_plan(W, table_ptr, out_ptr):
     n, sms = 2 << 20, 132
     p = rg_mod.plan(n, W, table_ptr, out_ptr, sms)
     assert p.path == rg_mod.copy_path(W, table_ptr, out_ptr)
-    assert p.tile_rows == rg_mod.tile_rows(p.path, W)
+    assert p.tile_rows == rg_mod.tile_rows(W)
     assert p.blocks == rg_mod.grid_blocks(n, p.tile_rows, sms)
     assert p.path in rg_mod.PATHS
 
 
 def _emulate(plan, table, idx):
-    """The flat kernel's copy as row_gather.cu runs it, in numpy: blocks
-    loop over tiles of plan.tile_rows rows; the tile's output is one run of
-    words whose element f (a 16-byte unit, a 4-word vector or a word) comes
-    from row src[f // per_row]; a word4 vector walks its 4 words across row
-    ends, and the last tile's 0-3 odd words go one at a time. Each output
-    word must be written exactly once."""
+    """The kernel's copy as row_gather.cu runs it, in numpy: blocks loop
+    over tiles of plan.tile_rows rows; the tile's output is one run whose
+    element f (a 16-byte unit or a word) is element c of the tile's row r,
+    r and c stepped by THREADS elements from the thread's first element as
+    the kernel steps them. Each output word must be written exactly once."""
     E, W = table.shape
     n = idx.shape[0]
     out = np.zeros(n * W, dtype=np.uint32)
     written = np.zeros(n * W, dtype=np.int64)
     flat = table.reshape(-1)
+    unit = 4 if plan.path == "int4" else 1  # words an element
+    per_row = W // unit
     tiles = -(-n // plan.tile_rows)
-
-    def put(at, words):
-        out[at] = words
-        written[at] += 1
-
+    dq, dr = divmod(rg_mod.THREADS, per_row)
     for b in range(plan.blocks):
         for tile in range(b, tiles, plan.blocks):
             first = tile * plan.tile_rows
             rows = min(plan.tile_rows, n - first)
-            base = first * W
-            row = np.clip(idx[first:first + rows], 0, E - 1)
-            if plan.path == "int4":
-                per_row = W // 4
-                src = row * per_row  # in 16-byte units
-                f = np.arange(rows * per_row)
-                r = f // per_row
-                unit = src[r] + f - r * per_row
-                for k in range(4):
-                    put(base + 4 * f + k, flat[4 * unit + k])
-            elif plan.path == "word4":
-                src = row * W
-                q = np.arange(rows * W // 4)
-                r = 4 * q // W
-                c = 4 * q - r * W
-                for k in range(4):
-                    carry = c == W
-                    c[carry], r[carry] = 0, r[carry] + 1
-                    put(base + 4 * q + k, flat[src[r] + c])
-                    c += 1
-                f = np.arange(4 * q.shape[0], rows * W)
-                put(base + f, flat[src[f // W] + f % W])
-            else:
-                src = row * W
-                f = np.arange(rows * W)
-                put(base + f, flat[src[f // W] + f % W])
+            src = np.clip(idx[first:first + rows], 0, E - 1) * per_row
+            total = rows * per_row
+            base = np.arange(min(rg_mod.THREADS, total))  # each thread's first element
+            r, c = base // per_row, base % per_row
+            while base.size:
+                keep = base < total
+                base, r, c = base[keep], r[keep], c[keep]
+                for k in range(unit):
+                    at = (first * W) + unit * base + k
+                    out[at] = flat[unit * (src[r] + c) + k]
+                    written[at] += 1
+                base = base + rg_mod.THREADS
+                r, c = r + dq, c + dr
+                r, c = np.where(c >= per_row, r + 1, r), np.where(c >= per_row, c - per_row, c)
     assert (written == 1).all()
     return out.reshape(n, W)
 
 
-@pytest.mark.parametrize("path,W", [("int4", 100), ("int4", 8), ("int4", 4), ("word4", 6), ("word4", 1),
-                                    ("word4", 3), ("word4", 100), ("word", 6), ("word", 100), ("word", 1)])
+@pytest.mark.parametrize("path,W", [("int4", 100), ("int4", 8), ("int4", 4), ("int4", 2048),
+                                    ("word", 6), ("word", 1), ("word", 3), ("word", 100), ("word", 300),
+                                    ("word", 5000)])
 def test_tiles_cover_every_row_once(rng, path, W):
     E = 50
     table = _table(rng, E, W)
     for n in (1, 7, 1000, 4099):
         idx = rng.integers(-3, E + 3, n)
-        rows = rg_mod.tile_rows(path, W)
+        rows = rg_mod.tile_rows(W)
         plan = rg_mod.Plan(path, rows, rg_mod.grid_blocks(n, rows, sms=2))
         np.testing.assert_array_equal(_emulate(plan, table, idx), table[np.clip(idx, 0, E - 1)])
-        if path == "word4":  # every tile's run starts 16-byte aligned
-            assert rows * W % 4 == 0
 
 
 @pytest.mark.parametrize("W", [6, 100])

@@ -8,11 +8,11 @@ and no JAX:
 The LF round kernel (all three entries: per read, per end on its own rows,
 and on rows gathered beforehand; on host-width rows, which take its word
 path where they are not 16-byte aligned, and on the engines' device rows,
-padded to a multiple of 4 words), the row gather kernel (its three copy
-paths: 16-byte units, words stored 4 at a time, and words; row counts at,
-around and past its tile and its persistent grid; clamped indices) and
-the locate walk kernel (lane refill
-across warps holding walks of 0 and sample_rate - 1 hops) must equal their
+padded to a multiple of 4 words), the row gather kernel (both copy paths,
+16-byte units and words, on aligned and offset tables and outputs; row
+counts at, around and past its tile and its persistent grid; clamped
+indices) and the locate walk kernel (lane refill across warps holding
+walks of 0 and sample_rate - 1 hops) must equal their
 plain PyTorch versions on the same CUDA tensors, and the engine's searches
 on the card
 (fixed length on both gather paths, and variable length), its fused
@@ -145,7 +145,7 @@ def test_row_gather_kernel_matches_plain(cuda, n, W, path, E):
     idx = torch.from_numpy(idx).to(cuda)
     buf = torch.empty(n * W + 1, dtype=torch.int32, device=cuda)
     out = (buf[1:] if path == "out+4" else buf[:-1]).view(n, W)
-    want = {"vector": "int4" if W % 4 == 0 else "word4", "words": "word4", "out+4": "word"}[path]
+    want = "int4" if path == "vector" and W % 4 == 0 else "word"
     assert rg_mod.plan(n, W, table.data_ptr(), out.data_ptr(), rg_mod._sms(cuda)).path == want
     before = rg_mod.LAUNCHES
     got = rg_mod.row_gather(table, idx, out=out)

@@ -19,17 +19,16 @@
 // of T * row_words words. A block owns a tile at a time over a persistent
 // grid: it loads the tile's T indices with one coalesced load into shared
 // memory and clamps them once, so no row waits on an index load of its own.
-// Thread f of the tile then writes element f of the run (a 16-byte unit, a
-// 4-word vector or a word) and reads it from row src[f / per_row];
-// neighbouring threads write neighbouring elements, so every store
-// instruction covers whole lines, and each thread issues kUnroll loads
-// before its first store, stepping its (row, column) without a division.
+// Thread f of the tile then writes element f of the run (a 16-byte unit or
+// a word) and reads it from row src[f / per_row]; neighbouring threads
+// write neighbouring elements, so every store instruction covers whole
+// lines, and each thread issues kUnroll loads before its first store,
+// stepping its (row, column) without a division.
 // The wrapper (engine/row_gather.py) picks the path and the tile and grid
 // sizes; this file checks what it relies on. Paths: int4 (row_words % 4 ==
-// 0, table and out 16-byte aligned: 16-byte loads and stores), word4 (out
-// 16-byte aligned, tiles of a multiple of 4 rows: four word loads, one
-// 16-byte store), word (any other: word loads and stores, 4 * kUnroll a
-// thread).
+// 0, table and out 16-byte aligned: 16-byte loads and stores) and word (any
+// other: word loads and stores, 4 * kUnroll a thread; a warp's store still
+// covers one whole 128-byte run of the output).
 //
 // Cache policy. Stores are evict-first (__stcs) and table loads carry an
 // L2 evict_last policy, so that the output stream does not push the table
@@ -43,7 +42,8 @@
 // into a ring of shared-memory stages with one bulk store per tile (as
 // fast at wide rows, slower at the search's shape and at 8-word rows);
 // the next tile's indices loaded before this tile's copy (no gain); 8
-// blocks an SM (32 registers: spills).
+// blocks an SM (32 registers: spills); on the word path, four word loads
+// into one 16-byte store (as fast as word stores at 6-word rows).
 //
 // Types. Indices are int64: a 3.2 Gbase table has about 17M rows and the
 // interval ends they come from pass 2^31. Table words are the uint32 bits
@@ -58,7 +58,7 @@ constexpr int kThreads = 256;        // threads of a block
 constexpr int kUnroll = 4;           // 16-byte elements a thread keeps in flight
 constexpr int kBlocksPerSM = 6;      // resident blocks an SM must hold (40 registers)
 
-enum Path { kInt4 = 0, kWord4 = 1, kWord = 2 };
+enum Path { kInt4 = 0, kWord = 1 };
 
 __device__ __forceinline__ long long clamp_row(long long r, long long nrows) {
   return r < 0 ? 0 : (r >= nrows ? nrows - 1 : r);
@@ -108,44 +108,6 @@ __device__ __forceinline__ void copy_run(const T* __restrict__ from, const long 
   }
 }
 
-// The word4 path: 4-word vectors of the run, each from one or more rows.
-__device__ __forceinline__ void copy_word4(const uint32_t* __restrict__ table, int row_words,
-                                           const long long* src, int rows, uint32_t* __restrict__ to,
-                                           uint64_t pol) {
-  const int total = rows * row_words;
-  const int vectors = total / 4;  // whole 4-word vectors; tiles before the last have no rest
-  int4* to4 = reinterpret_cast<int4*>(to);
-  for (int base = 0; base < vectors; base += kThreads * kUnroll) {
-    int4 v[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int q = base + u * kThreads + threadIdx.x;
-      if (q < vectors) {
-        int r = 4 * q / row_words;
-        int c = 4 * q - r * row_words;
-        uint32_t w[4];
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          if (c == row_words) { c = 0; ++r; }
-          w[k] = get(table + src[r] + c, pol);
-          ++c;
-        }
-        v[u] = make_int4((int)w[0], (int)w[1], (int)w[2], (int)w[3]);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int q = base + u * kThreads + threadIdx.x;
-      if (q < vectors) __stcs(to4 + q, v[u]);
-    }
-  }
-  const int f = 4 * vectors + threadIdx.x;  // the last tile's 0-3 odd words
-  if (f < total) {
-    const int r = f / row_words;
-    __stcs(to + f, get(table + src[r] + (f - r * row_words), pol));
-  }
-}
-
 template <int PATH>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 row_gather_kernel(const uint32_t* __restrict__ table, long long nrows, int row_words,
@@ -165,10 +127,8 @@ row_gather_kernel(const uint32_t* __restrict__ table, long long nrows, int row_w
     if (PATH == kInt4)
       copy_run<kUnroll>(reinterpret_cast<const int4*>(table), src, per_row, rows * per_row,
                         reinterpret_cast<int4*>(to), pol);
-    else if (PATH == kWord)
-      copy_run<4 * kUnroll>(table, src, per_row, rows * per_row, to, pol);
     else
-      copy_word4(table, row_words, src, rows, to, pol);
+      copy_run<4 * kUnroll>(table, src, per_row, rows * per_row, to, pol);
     __syncthreads();  // src is rewritten by the next tile
   }
 }
@@ -187,7 +147,7 @@ int launch(const void* table, long long nrows, int row_words, const void* idx, v
 // Launches K3 on `stream` and returns cudaGetLastError() (0 on success).
 // table: uint32 [nrows, row_words]; idx: int64 [n]; out: uint32 [n, row_words].
 // path 0 (int4) needs row_words % 4 == 0 and 16-byte aligned table and out;
-// 1 (word4) a 16-byte aligned out and tile_rows % 4 == 0; 2 (word) nothing.
+// path 1 (word) takes any.
 // tile_rows: rows a tile (at most 4096, so that their indices fit shared
 // memory); blocks: the persistent grid of kThreads-thread blocks. Does not
 // synchronise.
@@ -203,9 +163,6 @@ extern "C" int tpufm_row_gather(const void* table, long long nrows, int row_word
     case kInt4:
       if (row_words % 4 || t % 16 || o % 16) return (int)cudaErrorInvalidValue;
       return launch<kInt4>(table, nrows, row_words, idx, out, n, tile_rows, blocks, s);
-    case kWord4:
-      if (o % 16 || tile_rows % 4) return (int)cudaErrorInvalidValue;
-      return launch<kWord4>(table, nrows, row_words, idx, out, n, tile_rows, blocks, s);
     case kWord:
       return launch<kWord>(table, nrows, row_words, idx, out, n, tile_rows, blocks, s);
     default:

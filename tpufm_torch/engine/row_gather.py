@@ -17,8 +17,7 @@ shared memory, its output written in whole lines, evict-first, while the
 table's rows are read with an evict-last policy so that they stay in L2.
 ``plan`` picks the copy path and the tile and grid sizes (pure arithmetic,
 tested on the CPU): 16-byte units where W % 4 == 0 and both bases are
-16-byte aligned, else words, stored 4 at a time where the output is
-16-byte aligned.
+16-byte aligned, else words.
 """
 
 from __future__ import annotations
@@ -33,7 +32,7 @@ import torch
 LAUNCHES = 0
 
 #: the kernel's path codes (``Path`` in row_gather.cu)
-PATHS = {"int4": 0, "word4": 1, "word": 2}
+PATHS = {"int4": 0, "word": 1}
 #: threads of a block, the 16-byte elements each keeps in flight, and the
 #: blocks an SM holds (kThreads, kUnroll, kBlocksPerSM in row_gather.cu)
 THREADS, UNROLL, BLOCKS_PER_SM = 256, 4, 6
@@ -50,20 +49,15 @@ class Plan(NamedTuple):
 def copy_path(W: int, table_ptr: int, out_ptr: int) -> str:
     """The kernel's copy path for rows of W words at these base addresses:
     16-byte units ("int4") where W % 4 == 0 and both bases are 16-byte
-    aligned; else words, stored 4 at a time where the output is 16-byte
-    aligned ("word4"), else one at a time ("word")."""
-    if out_ptr % 16:
-        return "word"
-    return "int4" if W % 4 == 0 and table_ptr % 16 == 0 else "word4"
+    aligned, else words ("word")."""
+    return "int4" if W % 4 == 0 and table_ptr % 16 == 0 and out_ptr % 16 == 0 else "word"
 
 
-def tile_rows(path: str, W: int) -> int:
+def tile_rows(W: int) -> int:
     """Rows of a tile: as many as fill one pass of the block (THREADS *
     UNROLL 16-byte elements, 4 words each), at least 1 and at most
-    MAX_TILE_ROWS; word4 tiles hold a multiple of 4 rows, so that every
-    tile's output starts 16-byte aligned."""
-    rows = min(MAX_TILE_ROWS, max(1, THREADS * UNROLL * 4 // W))
-    return max(4, rows // 4 * 4) if path == "word4" else rows
+    MAX_TILE_ROWS."""
+    return min(MAX_TILE_ROWS, max(1, THREADS * UNROLL * 4 // W))
 
 
 def grid_blocks(n: int, rows: int, sms: int) -> int:
@@ -73,9 +67,8 @@ def grid_blocks(n: int, rows: int, sms: int) -> int:
 
 
 def plan(n: int, W: int, table_ptr: int, out_ptr: int, sms: int) -> Plan:
-    path = copy_path(W, table_ptr, out_ptr)
-    rows = tile_rows(path, W)
-    return Plan(path, rows, grid_blocks(n, rows, sms))
+    rows = tile_rows(W)
+    return Plan(copy_path(W, table_ptr, out_ptr), rows, grid_blocks(n, rows, sms))
 
 
 @functools.lru_cache(maxsize=None)
