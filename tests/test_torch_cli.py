@@ -208,3 +208,126 @@ def test_count_and_search_refuse_a_locate_store(tmp_path, ref):
     for cmd in ("count", "search"):
         with pytest.raises(SystemExit, match="not a search index"):
             torch_cli.main([cmd, str(tmp_path / "P.locate.tpufm"), str(fa), "70", "1", "--device", "cpu"])
+
+
+def _tree_bytes(path):
+    """{relative name: bytes} of a file, or of every file under a directory
+    (a .tpufm store)."""
+    if path.is_dir():
+        return {str(p.relative_to(path)): p.read_bytes() for p in sorted(path.rglob("*")) if p.is_file()}
+    return {"": path.read_bytes()}
+
+
+@pytest.mark.parametrize(
+    "output,extra",
+    [(None, []), (None, ["--auto", "--tail", "--save-ref"]), ("ref.npz", ["--tail"]),
+     ("ref.tpufm", ["--auto", "--save-ref"]), ("ref.fmi", ["--k", "1", "--d", "32", "--tail"]),
+     ("ref.npz", ["--k", "3", "--d", "96", "--sa", "doubling"])],
+    ids=["default-name", "auto-tail-save-ref", "npz-tail", "tpufm-auto", "k1-tail", "npz-doubling"],
+)
+def test_build_byte_identical(tmp_path, monkeypatch, capsys, output, extra):
+    """``build`` writes tpufm's index file (.fmi by the reference's default
+    name, .npz, .tpufm), its .tail.npz and the re-emitted reference byte for
+    byte; the zip members of an .npz carry the write time, so the clock is
+    held still for both writers."""
+    import time
+
+    monkeypatch.setattr(time, "time", lambda: 1_700_000_000.0)
+    codes = np.random.default_rng(4).integers(0, 4, size=3000, dtype=np.uint8)
+    outs = {}
+    for name, main in (("jax", jax_cli.main), ("torch", torch_cli.main)):
+        d = tmp_path / name
+        d.mkdir()
+        write_reference(d / "ref.fa", decode_bases(codes))
+        args = ["build", str(d / "ref.fa"), "3000", *extra]
+        if output:
+            args += ["--output", str(d / output)]
+        run = main(args)
+        outs[name] = {str(p.relative_to(d)): _tree_bytes(p) for p in sorted(d.iterdir())}
+    assert outs["torch"] == outs["jax"]
+    names = set(outs["torch"])
+    assert ("ref.fa.3000.fa" in names) == ("--save-ref" in extra)
+    assert any(n.endswith(".tail.npz") for n in names) == ("--tail" in extra)
+    default = "ref.fa.3000.192fmi3steps.fmi" if "--auto" in extra else "ref.fa.3000.64fmi2steps.fmi"
+    assert run.output.endswith(output or default)
+    out = capsys.readouterr().out
+    assert out.count("auto config: k=3 d=192 (recommend lut_m=12)") == (2 if "--auto" in extra else 0)
+
+
+@pytest.mark.parametrize("extra", [[], ["--seed", "9", "--output", "reads.qry"],
+                                   ["--paired"], ["--paired", "--insert-min", "40", "--insert-max", "90",
+                                                  "--output", "pairs.qry"]],
+                         ids=["single", "single-seed", "paired", "paired-insert"])
+def test_genreads_byte_identical(tmp_path, monkeypatch, extra):
+    codes = np.random.default_rng(6).integers(0, 4, size=3000, dtype=np.uint8)
+    outs = {}
+    for name, main in (("jax", jax_cli.main), ("torch", torch_cli.main)):
+        d = tmp_path / name
+        d.mkdir()
+        write_reference(d / "ref.fa", decode_bases(codes))
+        monkeypatch.chdir(d)
+        main(["genreads", "ref.fa", "3000", "30", "50", *extra])
+        outs[name] = {p.name: p.read_bytes() for p in sorted(d.iterdir())}
+    assert outs["torch"] == outs["jax"]
+    assert len(outs["torch"]) == (3 if "--paired" in extra else 2)
+
+
+def _bench_args(main, monkeypatch, module, argv):
+    """The parsed arguments ``bench`` would run with."""
+    seen = []
+    monkeypatch.setattr(module, "cmd_bench", seen.append)
+    main(["bench", *argv])
+    args = vars(seen[0])
+    args.pop("fn")
+    return args
+
+
+@pytest.mark.parametrize("argv", [[], ["--genome", "--lut", "0", "--locate", "--fused", "--mesh", "1"]])
+def test_bench_parser_equals_tpufm(monkeypatch, argv):
+    want = _bench_args(jax_cli.main, monkeypatch, jax_cli, argv)
+    got = _bench_args(torch_cli.main, monkeypatch, torch_cli, argv)
+    assert got.pop("device") == "cuda"
+    assert got == want
+
+
+def test_bench_prints_one_json_line(capsys):
+    import json
+
+    record = torch_cli.main(["bench", "--refsize", "20000", "--numqueries", "256", "--length", "24",
+                             "--lut", "4", "--iterations", "1", "--device", "cpu"])
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 1 and json.loads(lines[0]) == record
+    assert record["metric"] == ("k-step backward-search steps/s/chip (k=2, d=64, 256 reads x 24 bp, "
+                                "engine=xla)")
+    detail = record["detail"]
+    assert detail["bit_exact_vs_oracle"] and detail["bit_exact_vs_plain_full"]
+    assert detail["device"] == "cpu" and detail["verified_reads"] == 256
+
+
+def test_bench_needs_the_card_by_default():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="cuda"):
+        torch_cli.main(["bench", "--refsize", "1000", "--numqueries", "8", "--length", "24"])
+
+
+@pytest.mark.parametrize(
+    "argv,item",
+    [(["bench", "--edits", "1"], "item 2"), (["bench", "--mismatches", "2"], "item 2"),
+     (["bench", "--paired"], "item 2"), (["bench", "--sharded"], "item 6"),
+     (["bench", "--multichip"], "item 6"), (["bench", "--locate", "--mesh", "4"], "item 6"),
+     (["build", "REF", "100", "--on-device"], "item 4"), (["build", "REF", "100", "--sa", "device"], "item 4"),
+     (["build", "REF", "100", "--mesh", "2"], "item 6"), (["build", "REF", "100", "--store-sharded"], "item 6"),
+     (["build", "REF", "100", "--sa", "sharded"], "item 6")],
+    ids=["edits", "mismatches2", "paired", "sharded", "multichip", "locate-mesh", "on-device",
+         "sa-device", "mesh", "store-sharded", "sa-sharded"],
+)
+def test_unported_flags_exit_naming_their_item(argv, item):
+    with pytest.raises(SystemExit) as exit_info:
+        torch_cli.main([*argv, "--device", "cpu"] if argv[0] == "bench" else argv)
+    assert f"ROADMAP Queue 1 {item}" in str(exit_info.value.code)
+
+
+def test_bench_engine_not_ported_raises():
+    with pytest.raises(ValueError, match="Queue 1 item 5"):
+        torch_cli.main(["bench", "--engine", "xla-ac", "--device", "cpu"])

@@ -303,3 +303,25 @@ def test_locate_mismatch_on_card_matches_plain(cuda):
         assert ((wins[hits] != q).sum(1) <= 1).all()
     counts = SearchEngine(index, cuda).count(queries, mismatches=1, wave=16)
     np.testing.assert_array_equal(counts, ((wins[None] != queries[:, None]).sum(2) <= 1).sum(1))
+
+
+def test_bench_records_on_card(cuda):
+    """``run_bench`` (both engines) and ``run_bench_search_locate`` at 1 Mbase
+    on the card: every bit-exactness field true, the card named, and each
+    record's kernel launched (K1's pair entry, its rows entry, K4)."""
+    from tpufm_torch import bench
+
+    name = torch.cuda.get_device_name(cuda)
+    for engine, counter in (("xla", "PAIRS_LAUNCHES"), ("pallas", "ROWS_LAUNCHES")):
+        before = getattr(lf_mod, counter)
+        r = bench.run_bench(refsize=1_000_000, k=3, d=192, num_queries=1 << 16, query_len=120,
+                            iterations=2, engine=engine, lut_m=12, device=cuda)
+        assert getattr(lf_mod, counter) > before
+        d = r["detail"]
+        assert d["bit_exact_vs_oracle"] and d["bit_exact_vs_oracle_sample"] and d["bit_exact_vs_plain_full"]
+        assert d["device"] == name and d["verified_reads"] == 1 << 16 and len(d["pass_seconds"]) == 2
+    before = loc_mod.LAUNCHES
+    r = bench.run_bench_search_locate(refsize=1_000_000, k=3, d=192, num_queries=1 << 16, iterations=2,
+                                      lut_m=12, max_hits=16, device=cuda)
+    assert loc_mod.LAUNCHES > before
+    assert r["detail"]["bit_exact_vs_oracle"] and r["detail"]["device"] == name

@@ -6,8 +6,13 @@ The package stands alone: it imports neither jax nor tpufm, and carries its
 own host side (index construction, file formats, read I/O, numpy oracle).
 
 Layers:
-  tpufm_torch.cli               — ``python -m tpufm_torch.cli search|count|
-                                  locate ...``
+  tpufm_torch.cli               — ``python -m tpufm_torch.cli build|genreads|
+                                  search|count|locate|bench ...``
+  tpufm_torch.bench             — tpufm's single-device bench records (search,
+                                  genome, locate, fused locate, Hamming <= 1),
+                                  timed by tpufm_torch.timer; (k, d, LUT) of
+                                  ``build --auto`` and ``--genome`` from
+                                  tpufm_torch.config
   tpufm_torch.engine.search_locate — SearchLocateEngine: reads to text
                                   positions in one pass, exact or within
                                   Hamming distance 1

@@ -1,0 +1,557 @@
+"""Bench records of the port on one device: the reference's TIME: protocol
+(the mean of N timed passes over a fixed read batch,
+common/searchQueries.c:78-118) and one JSON-ready record per run.
+
+Counterpart of tpufm/bench.py's single-device records, with its function
+names, arguments, defaults and record schema (``metric``, ``value``,
+``unit``, ``vs_baseline``, ``detail``): ``run_bench`` (:225),
+``run_bench_genome`` (:347), ``run_bench_locate`` (:539),
+``run_bench_search_locate`` (:610) and ``run_bench_mismatch`` (:683), over
+the pieces they share, ``gather_traffic_bytes`` (:108), ``_time_search``
+(:123) and ``_verify_and_measure`` (:176). Where they differ:
+
+- A record runs on one torch device, ``device`` (cuda unless the caller
+  asks for the CPU; no fallback). Its detail adds ``device`` (the card's
+  name, or "cpu"), ``power_limit_w`` (nvidia-smi's, or None),
+  ``pass_seconds`` (every timed pass, each ending at a device barrier) and
+  ``seconds_per_pass_median``; ``seconds_per_pass`` stays their mean, as
+  the TIME: protocol defines it. ``run_bench`` on ``xla`` adds
+  ``host_seconds_per_pass``: the mean of as many ``SearchEngine.search``
+  passes, reads in host memory to intervals in host memory (the CLI's
+  TIME: line), beside the device-resident pass.
+- The full-batch check runs the port's plain rounds (a LUT-free engine on
+  the bench's device, every round ``lf_round_reference``) and is reported
+  as ``bit_exact_vs_plain_full``; tpufm's runs its CPU engine.
+- The speed of light is against the H100's HBM, ``HBM_BYTES_PER_S``
+  (``hbm_bytes_per_s`` in the detail).
+- The port has no build of the reference's CPU binaries: every
+  ``reference_cpu_*`` field is None and ``vs_baseline`` is the fraction of
+  the speed of light, tpufm's own fallback when it finds none.
+- The genome record builds its index on the host (SA-IS); tpufm's device
+  build is not ported.
+- ``run_bench_locate`` runs on one device; ``run_bench_mismatch``'s naive
+  Hamming scan runs on the bench's device.
+
+Not ported yet (ROADMAP, Queue 1): the engines xla-ac, xla-paired and
+xla-split and ``pad_words`` (item 5); the seed, edit and paired records
+(item 2); the sharded and multi-device records (item 6).
+"""
+
+from __future__ import annotations
+
+import os
+import statistics
+import subprocess
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from tpufm_torch.config import recommend_config
+from tpufm_torch.device import resolve_device
+from tpufm_torch.engine.lf_round import lf_round_indexed, lf_round_reference
+from tpufm_torch.engine.locate import LocateEngine
+from tpufm_torch.engine.search import SearchEngine
+from tpufm_torch.engine.search_locate import SearchLocateEngine
+from tpufm_torch.host.formats import load_store, save_store
+from tpufm_torch.host.index import IndexConfig, build_index
+from tpufm_torch.host.locate import build_locate, locate_hits, locate_oracle
+from tpufm_torch.host.oracle import search_oracle
+from tpufm_torch.host.seqio import generate_reads
+from tpufm_torch.host.suffix_array import suffix_array
+from tpufm_torch.timer import timed_device_passes
+
+#: HBM rate of one H100 SXM (NVIDIA's data sheet): the speed of light's rate
+HBM_BYTES_PER_S = 3.35e12
+#: reads of the oracle sample every search record checks
+ORACLE_SAMPLE = 65536
+#: the padded batch up to which ``_time_search`` keeps every wave on the device
+WAVED_MAX_BYTES = 2 << 30
+#: windows of the naive Hamming scan compared in one step (bounds its temporaries)
+_SCAN_WINDOWS = 1 << 24
+
+
+def power_limit_w(device: torch.device) -> float | None:
+    """The card's power limit in watts, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints it; None on
+    the CPU or where nvidia-smi gives no number."""
+    if device.type != "cuda":
+        return None
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60,
+        ).stdout.strip().splitlines()
+    except (OSError, subprocess.SubprocessError):
+        return None
+    index = torch.cuda.current_device() if device.index is None else device.index
+    if index >= len(out):
+        return None
+    try:
+        return float(out[index].rsplit(",", 1)[1].split()[0])
+    except (IndexError, ValueError):
+        return None
+
+
+def _device_fields(device: torch.device, pass_seconds: list) -> dict:
+    """The detail fields every record of the port adds."""
+    return {
+        "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
+        "power_limit_w": power_limit_w(device),
+        "pass_seconds": list(pass_seconds),
+        "seconds_per_pass_median": statistics.median(pass_seconds),
+    }
+
+
+def _passes(fn, iterations: int):
+    """(per-pass seconds, the last pass's result) of ``fn`` after one
+    warm-up pass, each pass ending at a device barrier."""
+    last = [None]
+
+    def run():
+        last[0] = fn()
+        return last[0]
+
+    _, _, times = timed_device_passes(run, iterations=iterations)
+    return times, last[0]
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """Device int64 results holding uint32 values -> host uint32."""
+    return t.cpu().numpy().astype(np.uint32)
+
+
+def gather_traffic_bytes(eng, num_queries: int, query_len: int) -> int | None:
+    """Payload bytes an engine's k-step rounds read per pass: per round each
+    interval end fetches one table row, as wide as the engine holds it on the
+    device (``entries.shape[1]`` words, a multiple of 4), plus one 8 B LUT
+    interval per read. None for an engine without a k-step table, or with a
+    k=1 tail (tpufm/bench.py:108)."""
+    if getattr(eng, "entries", None) is None or getattr(eng, "tail_d", None):
+        return None
+    rounds = (query_len - eng.lut_m) // eng.k
+    row_bytes = 4 * eng.entries.shape[1]
+    return num_queries * (rounds * 2 * row_bytes + (8 if eng.lut_m else 0))
+
+
+def _time_search(eng: SearchEngine, queries: np.ndarray, engine: str, iterations: int):
+    """(per-pass seconds, uint32 [B, 2] host intervals) of ``iterations``
+    passes after one warm-up pass (tpufm/bench.py:123). On ``xla``: up to
+    one wave, ``search_device`` on reads already on the device; past it,
+    ``search_device_waved`` on the reads zero-padded to whole waves, while
+    they fit ``WAVED_MAX_BYTES``. Otherwise, and always for ``pallas``
+    (rounds by ``lf_round_indexed``, as the CLI's ``--engine pallas``),
+    ``engine.search`` from host reads to host intervals."""
+    num_queries, query_len = queries.shape
+    queries = np.require(queries, np.uint8, ["C", "W"])
+    if engine == "xla":
+        wave = eng.WAVE
+        if num_queries <= wave:
+            qd = torch.from_numpy(queries).to(eng.device)
+            times, out = _passes(lambda: eng.search_device(qd), iterations)
+            return times, _host(out)
+        pad = -num_queries % wave
+        if (num_queries + pad) * query_len <= WAVED_MAX_BYTES:
+            qpad = np.concatenate([queries, np.zeros((pad, query_len), np.uint8)]) if pad else queries
+            qd = torch.from_numpy(qpad).to(eng.device)
+            times, out = _passes(lambda: eng.search_device_waved(qd), iterations)
+            return times, _host(out[:num_queries])
+    step = lf_round_indexed if engine == "pallas" else None
+    return _passes(lambda: eng.search(queries, step=step), iterations)
+
+
+def verify_full_plain(index, queries: np.ndarray, host_out: np.ndarray, device: torch.device) -> bool:
+    """Bit-exactness of the whole result batch against the port's plain
+    rounds: a LUT-free engine on ``device`` whose every round is
+    ``lf_round_reference`` (the (L, R) contract does not depend on the LUT
+    or the round's implementation)."""
+    plain = SearchEngine(index, device).search(queries, step=lf_round_reference)
+    return bool(np.array_equal(host_out, plain))
+
+
+def _verify_and_measure(index, eng, queries, host_out, search_s, seed,
+                        full_verify, k: int, query_len: int) -> dict:
+    """The fields every search record shares (tpufm/bench.py:176): the
+    oracle sample (``ORACLE_SAMPLE`` reads drawn with seed + 2 against the
+    numpy oracle), the full batch against the plain rounds (unless
+    ``full_verify`` is False, or None and TPUFM_BENCH_FULL_VERIFY=0), rates,
+    the speed of light and the gathered bytes."""
+    num_queries = queries.shape[0]
+    n_oracle = min(num_queries, ORACLE_SAMPLE)
+    vidx = np.sort(np.random.default_rng(seed + 2).choice(num_queries, n_oracle, replace=False))
+    exact_oracle = bool((host_out[vidx] == search_oracle(index, queries[vidx])).all())
+    if full_verify is None:
+        full_verify = os.environ.get("TPUFM_BENCH_FULL_VERIFY", "1") != "0"
+    exact_full = verify_full_plain(index, queries, host_out, eng.device) if full_verify else None
+    rounds = query_len // k
+    steps_s = num_queries * rounds / search_s
+    bytes_per_step = 2 * (4 + 4 * index.config.bitmap_words)
+    sol_steps_s = HBM_BYTES_PER_S / bytes_per_step
+    traffic = gather_traffic_bytes(eng, num_queries, query_len)
+    return {
+        "steps_per_s": steps_s,
+        "sol_steps_per_s": sol_steps_s,
+        "fields": {
+            "reads_per_s": round(num_queries / search_s),
+            "seconds_per_pass": search_s,
+            "speed_of_light_steps_per_s": round(sol_steps_s),
+            "hbm_bytes_per_s": HBM_BYTES_PER_S,
+            "fraction_of_sol": round(steps_s / sol_steps_s, 4),
+            "achieved_hbm_gbps": round(traffic / search_s / 1e9, 2) if traffic else None,
+            "gathered_bytes_per_pass": traffic,
+            "bit_exact_vs_oracle": exact_oracle and exact_full is not False,
+            "bit_exact_vs_oracle_sample": exact_oracle,
+            "bit_exact_vs_plain_full": exact_full,
+            "verified_reads": num_queries if full_verify else n_oracle,
+            "verified_reads_oracle": n_oracle,
+        },
+    }
+
+
+def _reference_codes(refsize: int, seed: int):
+    """The seeded random reference and the generator that made it (the
+    records draw further values from it, as tpufm's do)."""
+    rng = np.random.default_rng(seed)
+    return rng, rng.integers(0, 4, size=refsize, dtype=np.uint8)
+
+
+def run_bench(
+    refsize: int = 10_000_000,
+    k: int = 2,
+    d: int = 64,
+    num_queries: int = 131072,
+    query_len: int = 120,
+    iterations: int = 5,
+    seed: int = 0,
+    engine: str = "xla",
+    lut_m: int = 0,
+    pad_words: int | None = None,
+    compare_reference: bool = True,
+    full_verify: bool | None = None,
+    device: str | torch.device = "cuda",
+) -> dict:
+    """k-step backward-search steps/s on one device (tpufm/bench.py:225):
+    a seeded random reference of ``refsize`` bases, its (k, d) index built on
+    the host, ``num_queries`` reads of ``query_len`` sampled with seed + 1,
+    ``iterations`` timed passes. ``engine``: "xla" (K1 loads its own rows)
+    or "pallas" (rows gathered by torch indexing, then K1's rows entry).
+    ``compare_reference`` is tpufm's switch for its reference CPU run; the
+    port has no build of the reference, so the reference fields are None
+    either way."""
+    if engine in ("xla-ac", "xla-paired", "xla-split"):
+        raise ValueError(
+            f"engine {engine!r} is not ported yet (ROADMAP Queue 1 item 5: the "
+            "remaining engine variants); use 'xla' or 'pallas'"
+        )
+    if engine not in ("xla", "pallas"):
+        raise ValueError(f"unknown engine {engine!r}")
+    if pad_words is not None:
+        raise ValueError("pad_words is not ported yet (ROADMAP Queue 1 item 5); the "
+                         "engine pads its rows to a multiple of 4 words")
+    dev = resolve_device(device)
+    _, codes = _reference_codes(refsize, seed)
+    t0 = time.perf_counter()
+    index = build_index(codes, IndexConfig(k=k, d=d))
+    build_s = time.perf_counter() - t0
+    queries = generate_reads(codes, query_len, num_queries, seed=seed + 1)
+
+    eng = SearchEngine(index, dev, lut_m=lut_m)
+    times, host_out = _time_search(eng, queries, engine, iterations)
+    search_s = sum(times) / len(times)
+    vm = _verify_and_measure(index, eng, queries, host_out, search_s, seed,
+                             full_verify, k, query_len)
+    steps_s, sol_steps_s = vm["steps_per_s"], vm["sol_steps_per_s"]
+    detail = {
+        **_device_fields(dev, times),
+        "reference_cpu_seconds_per_pass": None,
+        "reference_cpu_seconds_per_pass_node": None,
+        "reference_cpu_cores": None,
+        "reference_cpu_cores_node": None,
+        "reference_protocol_node": "24-core OpenMP node (likwid -C 0-23)",
+        "vs_baseline_single_core": None,
+        "vs_baseline_node": None,
+        "node_equivalent_caveat": (
+            "no reference CPU run (the port has no build of the reference "
+            "binaries): vs_baseline is the fraction of the HBM speed of "
+            "light of one GPU"
+        ),
+        "build_seconds": round(build_s, 1),
+        "repair_fraction": None,
+        "iterations": iterations,
+    }
+    if engine == "xla":
+        detail["host_seconds_per_pass"], _, _ = timed_device_passes(
+            lambda: eng.search(queries), iterations=iterations, warmup=0)
+    detail.update(vm["fields"])
+    if engine == "pallas":  # as tpufm's record: its PallasEngine counts no traffic
+        detail.update(gathered_bytes_per_pass=None, achieved_hbm_gbps=None)
+    return {
+        "metric": f"k-step backward-search steps/s/chip (k={k}, d={d}, "
+        f"{num_queries} reads x {query_len} bp, engine={engine})",
+        "value": round(steps_s),
+        "unit": "steps/s",
+        "vs_baseline": round(steps_s / sol_steps_s, 4),
+        "detail": detail,
+    }
+
+
+def run_bench_genome(
+    refsize: int = 250_000_000,
+    k: int | None = None,
+    d: int | None = None,
+    num_queries: int = 1 << 20,
+    query_len: int = 120,
+    iterations: int = 5,
+    seed: int = 0,
+    lut_m: int | None = None,
+    compare_reference: bool = True,
+    full_verify: bool | None = None,
+    cache_dir=None,
+    device: str | torch.device = "cuda",
+) -> dict:
+    """Genome-scale record (tpufm/bench.py:347): a seeded random reference of
+    ``refsize`` bases whose table does not stay in the card's L2; k, d and
+    lut_m from ``recommend_config`` unless given. The index is built on the
+    host (SA-IS; the device build is not ported, ROADMAP Queue 1 item 4) and
+    cached with its prefix LUT under ``cache_dir`` (default .bench/genome) by
+    tpufm's own names, ``idx_{refsize}_k{k}_d{d}_s{seed}.tpufm`` and
+    ``lut_{refsize}_k{k}_d{d}_s{seed}_m{lut_m}.npz``, byte-compatible with
+    tpufm's, so that either package reuses the other's cache."""
+    dev = resolve_device(device)
+    rec = recommend_config(refsize, query_len=query_len)
+    k = rec["k"] if k is None else k
+    d = d or rec["d"]
+    lut_m = rec["lut_m"] if lut_m is None else lut_m
+    cache = Path(cache_dir or Path(__file__).resolve().parent.parent / ".bench" / "genome")
+    cache.mkdir(parents=True, exist_ok=True)
+    _, codes = _reference_codes(refsize, seed)
+
+    store = cache / f"idx_{refsize}_k{k}_d{d}_s{seed}.tpufm"
+    cached = store.exists()
+    t0 = time.perf_counter()
+    if cached:
+        index = load_store(store)
+        build_s = 0.0
+    else:
+        index = build_index(codes, IndexConfig(k=k, d=d))
+        build_s = time.perf_counter() - t0
+        save_store(store, index)
+
+    queries = generate_reads(codes, query_len, num_queries, seed=seed + 1)
+    eng = SearchEngine(index, dev, lut_m=lut_m,
+                       lut_cache=str(cache / f"lut_{refsize}_k{k}_d{d}_s{seed}_m{lut_m}"))
+    times, host_out = _time_search(eng, queries, "xla", iterations)
+    search_s = sum(times) / len(times)
+    vm = _verify_and_measure(index, eng, queries, host_out, search_s, seed,
+                             full_verify, k, query_len)
+    steps_s, sol_steps_s = vm["steps_per_s"], vm["sol_steps_per_s"]
+    detail = {
+        **_device_fields(dev, times),
+        "refsize": refsize,
+        "d": d,
+        "lut_m": lut_m,
+        "reference_cpu_seconds_per_pass": None,
+        "reference_cpu_cores": None,
+        "vs_baseline_single_core": None,
+        "reference_fed_tpufm_fmi_image": False,
+        "build_seconds": round(build_s, 1),
+        "index_cached": cached,
+        "iterations": iterations,
+    }
+    detail.update(vm["fields"])
+    return {
+        "metric": f"genome-scale backward-search steps/s/chip (k={k}, d={d}, "
+        f"{num_queries} reads x {query_len} bp, {refsize} bases, HBM regime)",
+        "value": round(steps_s),
+        "unit": "steps/s",
+        "vs_baseline": round(steps_s / sol_steps_s, 4),
+        "detail": detail,
+    }
+
+
+def run_bench_locate(
+    refsize: int = 10_000_000,
+    d: int = 128,
+    sample_rate: int = 32,
+    num_rows: int = 2 << 20,
+    iterations: int = 5,
+    seed: int = 0,
+    n_devices: int | None = None,
+    device: str | torch.device = "cuda",
+) -> dict:
+    """positions/s of the sampled-SA walk (K4) over ``num_rows`` random BWT
+    rows already on the device (tpufm/bench.py:539). One device only: the
+    weak-scaling efficiency is 1 by definition, and n_devices > 1 raises."""
+    if n_devices is not None and n_devices > 1:
+        raise ValueError(f"n_devices={n_devices}: multi-GPU locate is not ported yet "
+                         "(ROADMAP Queue 1 item 6)")
+    dev = resolve_device(device)
+    rng, codes = _reference_codes(refsize, seed)
+    t0 = time.perf_counter()
+    loc = build_locate(codes, sample_rate=sample_rate, d=d)
+    build_s = time.perf_counter() - t0
+    rows = rng.integers(0, refsize + 1, size=num_rows, dtype=np.uint32)
+
+    eng = LocateEngine(loc, dev)
+    rd = torch.from_numpy(rows.astype(np.int64)).to(dev)
+    times, out = _passes(lambda: eng.walk(rd), iterations)
+    loc_s = sum(times) / len(times)
+    out = _host(out)
+    n_verify = min(num_rows, ORACLE_SAMPLE)
+    vidx = np.sort(np.random.default_rng(seed + 2).choice(num_rows, n_verify, replace=False))
+    exact = bool((out[vidx] == locate_oracle(loc, rows[vidx])).all())
+
+    pos_s = num_rows / loc_s
+    return {
+        "metric": f"sampled-SA locate positions/s over 1 device(s) "
+        f"(d={d}, s={sample_rate}, {num_rows} rows, {refsize} bases)",
+        "value": round(pos_s),
+        "unit": "positions/s",
+        "vs_baseline": 1.0,
+        "detail": {
+            **_device_fields(dev, times),
+            "devices": 1,
+            "scaling_efficiency": 1.0,
+            "positions_per_s_one_chip": round(pos_s),
+            "positions_per_s_per_chip": round(pos_s),
+            "seconds_per_pass": loc_s,
+            "build_seconds": round(build_s, 1),
+            "bit_exact_vs_oracle": exact,
+            "verified_rows": n_verify,
+        },
+    }
+
+
+def run_bench_search_locate(
+    refsize: int = 10_000_000,
+    k: int = 3,
+    d: int = 128,
+    sample_rate: int = 32,
+    num_queries: int = 1 << 20,
+    query_len: int = 120,
+    iterations: int = 5,
+    seed: int = 0,
+    lut_m: int = 0,
+    max_hits: int = 4,
+    device: str | torch.device = "cuda",
+) -> dict:
+    """Fused search + locate reads/s (``SearchLocateEngine.search_locate``,
+    host reads to host positions; tpufm/bench.py:610), one suffix sort for
+    the index and the locate tables; a uniform sample of 8,192 reads checked
+    against the host oracles (``search_oracle``, then ``locate_hits``)."""
+    dev = resolve_device(device)
+    _, codes = _reference_codes(refsize, seed)
+    t0 = time.perf_counter()
+    sa = suffix_array(codes)
+    index = build_index(codes, IndexConfig(k=k, d=d), sa=sa)
+    loc = build_locate(codes, sample_rate=sample_rate, d=d, sa=sa)
+    del sa
+    build_s = time.perf_counter() - t0
+    queries = generate_reads(codes, query_len, num_queries, seed=seed + 1)
+
+    eng = SearchLocateEngine(index, loc, dev, max_hits=max_hits, lut_m=lut_m)
+    times, (iv, pos) = _passes(lambda: eng.search_locate(queries), iterations)
+    mean_s = sum(times) / len(times)
+
+    n_verify = min(num_queries, 8192)
+    vidx = np.sort(np.random.default_rng(seed + 2).choice(num_queries, n_verify, replace=False))
+    iv_o = search_oracle(index, queries[vidx])
+    pos_o = locate_hits(loc, iv_o, max_hits=max_hits)
+    exact = bool((iv[vidx] == iv_o).all() and (pos[vidx] == pos_o).all())
+
+    reads_s = num_queries / mean_s
+    return {
+        "metric": f"fused search+locate reads/s (k={k}, d={d}, "
+        f"s={sample_rate}, max_hits={max_hits}, lut={lut_m}, "
+        f"{num_queries} x {query_len} bp, {refsize} bases)",
+        "value": round(reads_s),
+        "unit": "reads/s",
+        "vs_baseline": None,
+        "detail": {
+            **_device_fields(dev, times),
+            "reads_per_s": round(reads_s),
+            "positions_per_s": round(reads_s * max_hits),
+            "seconds_per_pass": mean_s,
+            "build_seconds": round(build_s, 1),
+            "bit_exact_vs_oracle": exact,
+            "verified_reads": n_verify,
+            "max_hits": max_hits,
+        },
+    }
+
+
+def hamming1_counts(codes: np.ndarray, reads: np.ndarray, device: torch.device) -> np.ndarray:
+    """uint32 [B] occurrences of each read within Hamming distance 1, by the
+    naive scan: every text window against the read, on ``device`` (the scan
+    tpufm's bench makes with numpy; no index involved)."""
+    L = reads.shape[1]
+    windows = torch.from_numpy(np.ascontiguousarray(codes)).to(device).unfold(0, L, 1)
+    reads = torch.from_numpy(np.ascontiguousarray(reads)).to(device)
+    counts = torch.zeros(reads.shape[0], dtype=torch.int64, device=device)
+    for start in range(0, windows.shape[0], _SCAN_WINDOWS):
+        part = windows[start:start + _SCAN_WINDOWS]
+        for j, q in enumerate(reads):
+            counts[j] += ((part != q).sum(dim=1) <= 1).sum()
+    return counts.cpu().numpy().astype(np.uint32)
+
+
+def run_bench_mismatch(
+    refsize: int = 10_000_000,
+    k: int = 3,
+    d: int = 128,
+    num_queries: int = 1 << 16,
+    query_len: int = 120,
+    iterations: int = 3,
+    seed: int = 0,
+    lut_m: int = 0,
+    error_rate: float = 1.0,
+    device: str | torch.device = "cuda",
+) -> dict:
+    """Hamming <= 1 count reads/s (``SearchEngine.count(mismatches=1)``,
+    each read's 3L+1 variants searched as lanes; tpufm/bench.py:683).
+    ``error_rate``: the share of the reads given one planted substitution,
+    which exact search misses and the count must recover; 512 reads checked
+    against the naive scan (``hamming1_counts``)."""
+    dev = resolve_device(device)
+    rng, codes = _reference_codes(refsize, seed)
+    t0 = time.perf_counter()
+    index = build_index(codes, IndexConfig(k=k, d=d))
+    build_s = time.perf_counter() - t0
+    queries = np.array(generate_reads(codes, query_len, num_queries, seed=seed + 1))
+    n_err = int(num_queries * error_rate)
+    if n_err:
+        pos = rng.integers(0, query_len, size=n_err)
+        off = rng.integers(1, 4, size=n_err).astype(np.uint8)
+        rows = np.arange(n_err)
+        queries[rows, pos] = (queries[rows, pos] + off) & 3
+
+    eng = SearchEngine(index, dev, lut_m=lut_m)
+    times, cnt = _passes(lambda: eng.count(queries, mismatches=1), iterations)
+    mean_s = sum(times) / len(times)
+
+    n_verify = min(num_queries, 512)
+    vidx = np.sort(np.random.default_rng(seed + 2).choice(num_queries, n_verify, replace=False))
+    exact = bool((cnt[vidx] == hamming1_counts(codes, queries[vidx], dev)).all())
+
+    reads_s = num_queries / mean_s
+    fan = 3 * query_len + 1
+    return {
+        "metric": f"Hamming<=1 count reads/s (k={k}, d={d}, lut={lut_m}, "
+        f"{num_queries} x {query_len} bp, {refsize} bases, "
+        f"{fan} variants/read)",
+        "value": round(reads_s),
+        "unit": "reads/s",
+        "vs_baseline": None,  # the reference has no approximate matching
+        "detail": {
+            **_device_fields(dev, times),
+            "reads_per_s": round(reads_s),
+            "variant_lanes_per_s": round(reads_s * fan),
+            "seconds_per_pass": mean_s,
+            "build_seconds": round(build_s, 1),
+            "bit_exact_vs_naive": exact,
+            "verified_reads": n_verify,
+            "planted_error_reads": n_err,
+            "recovered": int((cnt > 0).sum()),
+        },
+    }

@@ -1,5 +1,11 @@
-"""Command line of the port on one device: search, count and locate.
+"""Command line of the port on one device: build, genreads, search, count,
+locate and bench.
 
+    python -m tpufm_torch.cli build REF REFSIZE [--k K] [--d D] [--auto]
+        [--output OUT.fmi|.npz|.tpufm] [--sa auto|native|doubling] [--tail]
+        [--save-ref]
+    python -m tpufm_torch.cli genreads REF REFSIZE LENGTH NUM [--seed S]
+        [--output OUT] [--paired] [--insert-min A] [--insert-max B]
     python -m tpufm_torch.cli search INDEX QUERIES L N [--lut M] [--tail PATH]
         [--rc] [--iterations I] [--output OUT] [--device cuda|cpu]
         [--engine xla|pallas]
@@ -10,8 +16,19 @@
         [--sample-rate S] [--max-hits H] [--fused] [--lut M] [--rc]
         [--mismatches 0|1] [--store PREFIX] [--from-store PREFIX]
         [--output OUT] [--device cuda|cpu]
+    python -m tpufm_torch.cli bench [--refsize N] [--k K] [--d D]
+        [--numqueries N] [--length L] [--iterations I] [--seed S]
+        [--engine xla|pallas] [--lut M] [--mismatches 0|1] [--genome]
+        [--locate [--fused] [--max-hits H] [--sample-rate S]]
+        [--device cuda|cpu]
 
-Counterparts of ``tpufm search`` (``cmd_search``, tpufm/cli.py:338-387) with
+Counterparts of ``tpufm build`` (``cmd_build``, tpufm/cli.py:54, on the
+host: one suffix sort serves the index and its k=1 tail; files
+byte-identical), ``tpufm genreads`` (``cmd_genreads``, :174; the same reads
+and files on the same seed), ``tpufm bench`` (``cmd_bench``, :508: the same
+dispatch and argument checks, one JSON line of tpufm_torch.bench's record;
+the modes not ported yet exit non-zero naming their ROADMAP item),
+``tpufm search`` (``cmd_search``, tpufm/cli.py:338-387) with
 its single-chip engines: ``--engine xla`` (the default; K1 loads its own
 rows) and ``--engine pallas`` (``PallasEngine``, cli.py:444-447: torch
 indexing gathers every end's row, then K1 computes on the gathered rows;
@@ -31,27 +48,44 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import sys
 import time
 
 import numpy as np
 
+from tpufm_torch import bench
+from tpufm_torch.config import recommend_config
 from tpufm_torch.device import resolve_device
 from tpufm_torch.engine.lf_round import lf_round_indexed
 from tpufm_torch.engine.locate import LocateEngine
 from tpufm_torch.engine.search import SearchEngine
 from tpufm_torch.engine.search_locate import SearchLocateEngine
-from tpufm_torch.host.formats import load_npz, load_store, read_fmi, save_store
+from tpufm_torch.host.formats import load_npz, load_store, read_fmi, save_npz, save_store, write_fmi
 from tpufm_torch.host.index import AltCountersIndex, IndexConfig, KStepFMIndex, build_index, derive_tail
 from tpufm_torch.host.locate import build_locate
 from tpufm_torch.host.seqio import (
+    decode_bases,
+    generate_read_pairs,
+    generate_reads,
     load_queries,
     read_reference,
     reverse_complement,
+    write_reads_fasta,
+    write_reference,
     write_results,
 )
 from tpufm_torch.host.suffix_array import suffix_array
+
+
+@dataclasses.dataclass
+class BuildRun:
+    """What ``build`` did, for callers that drive the CLI in process."""
+
+    index: KStepFMIndex
+    tail: KStepFMIndex | None  # the k=1 tail index of --tail
+    output: str  # the index file (the tail is <output>.tail.npz)
 
 
 @dataclasses.dataclass
@@ -271,6 +305,139 @@ def cmd_locate(args) -> LocateRun:
     return LocateRun(pos, intervals, seconds)
 
 
+def cmd_build(args) -> BuildRun:
+    """The k-step FM-index of a FASTA reference, built on the host, as an
+    .fmi image (the default name ``<ref>.<refsize>.<d>fmi<k>steps.fmi``), an
+    .npz archive or a .tpufm store; with --tail also its k=1 tail index
+    (``<out>.tail.npz``) from the same suffix sort; with --save-ref the
+    reference re-emitted as ``<ref>.<refsize>.fa`` (tpufm/cli.py:54)."""
+    if args.on_device or args.sa == "device":
+        sys.exit("build --on-device / --sa device: the device build is not ported yet "
+                 "(ROADMAP Queue 1 item 4); drop them to build on the host")
+    if args.mesh or args.store_sharded or args.sa == "sharded":
+        sys.exit("build --mesh / --store-sharded / --sa sharded: the multi-GPU build is not "
+                 "ported yet (ROADMAP Queue 1 item 6); drop them to build on the host")
+    codes = read_reference(args.reference, args.refsize)
+    if args.auto:
+        rec = recommend_config(args.refsize)
+        args.k, args.d = rec["k"], rec["d"]
+        print(f"auto config: k={args.k} d={args.d} (recommend lut_m={rec['lut_m']})")
+    t0 = time.perf_counter()
+    method = "native" if args.sa == "auto" else args.sa
+    # one suffix sort for the index and its tail; at k=1 the index is the tail
+    want_tail = args.tail and args.k != 1
+    sa = suffix_array(codes, method) if want_tail else None
+    index = build_index(codes, IndexConfig(k=args.k, d=args.d), sa_method=method, sa=sa)
+    tail = build_index(codes, IndexConfig(k=1, d=args.d), sa=sa) if want_tail else None
+    if args.tail and args.k == 1:
+        tail = index
+    del sa
+    print(f"built k={args.k} d={args.d} bwtsize={index.bwtsize} "
+          f"entries={index.nentries} in {time.perf_counter() - t0:.1f}s")
+    out = args.output or f"{args.reference}.{args.refsize}.{args.d}fmi{args.k}steps.fmi"
+    if out.endswith(".tpufm"):
+        save_store(out, index)
+    elif out.endswith(".npz"):
+        save_npz(out, index)
+    else:
+        write_fmi(out, index)
+    print(f"wrote {out}")
+    if tail is not None:
+        save_npz(f"{out}.tail.npz", tail)
+        print(f"wrote {out}.tail.npz (k=1 any-length tail index)")
+    if args.save_ref:
+        write_reference(f"{args.reference}.{args.refsize}.fa", decode_bases(codes))
+    return BuildRun(index, tail, out)
+
+
+def cmd_genreads(args) -> None:
+    """Reads sampled from a FASTA reference as a .qry multi-FASTA with
+    '>ridN start-end' headers (default name ``Q-<num>_B-<length>_R-<refsize>
+    .qry``), or with --paired FR pairs as ``<out>_1.qry`` and ``<out>_2.qry``
+    (tpufm/cli.py:174)."""
+    codes = read_reference(args.reference, args.refsize)
+    if args.paired:
+        r1, r2, (ls, rs, minus) = generate_read_pairs(
+            codes, args.length, args.num, args.insert_min, args.insert_max,
+            seed=args.seed, return_truth=True,
+        )
+        base = args.output or f"Q-{args.num}_B-{args.length}_R-{args.refsize}"
+        if base.endswith(".qry"):
+            base = base[:-4]
+        write_reads_fasta(base + "_1.qry", r1, np.where(minus, rs, ls))
+        write_reads_fasta(base + "_2.qry", r2, np.where(minus, ls, rs))
+        print(f"wrote {base}_1.qry + {base}_2.qry ({args.num} FR pairs x {args.length} bp, "
+              f"insert [{args.insert_min}, {args.insert_max}])")
+        return
+    reads, starts = generate_reads(codes, args.length, args.num, seed=args.seed, return_starts=True)
+    out = args.output or f"Q-{args.num}_B-{args.length}_R-{args.refsize}.qry"
+    write_reads_fasta(out, reads, starts)
+    print(f"wrote {out} ({args.num} reads x {args.length} bp)")
+
+
+def cmd_bench(args) -> dict:
+    """One bench record (tpufm_torch.bench), printed as one JSON line, by
+    tpufm's dispatch (tpufm/cli.py:508): --genome, --mismatches 1,
+    --locate --fused, --locate, else the search record. The modes not
+    ported yet exit non-zero naming their ROADMAP item."""
+    if args.mismatches < 0 or args.edits < 0:
+        sys.exit("--mismatches/--edits must be >= 0")
+    resolve_device(args.device)  # no CPU fallback: fail before any build
+    if args.genome:
+        record = bench.run_bench_genome(
+            refsize=args.refsize if args.refsize is not None else 250_000_000,
+            num_queries=args.numqueries,
+            query_len=args.length,
+            iterations=args.iterations,
+            seed=args.seed,
+            lut_m=args.lut,
+            device=args.device,
+        )
+        print(json.dumps(record))
+        return record
+    args.refsize = args.refsize if args.refsize is not None else 10_000_000
+    args.lut = args.lut if args.lut is not None else 0
+    if args.edits and args.mismatches:
+        sys.exit("--edits (indel-aware) and --mismatches (substitutions "
+                 "only) are different distance models; pass one")
+    if args.paired_bench:
+        if args.edits or args.mismatches or args.locate or args.sharded or args.multichip:
+            sys.exit("--paired is its own bench mode; drop "
+                     "--edits/--mismatches/--locate/--sharded/--multichip")
+        sys.exit("bench --paired is not ported yet (ROADMAP Queue 1 item 2: approximate "
+                 "matching and pairing)")
+    if (args.edits or args.mismatches >= 2) and (args.locate or args.sharded or args.multichip):
+        sys.exit("bench --edits/--mismatches>=2 are single-chip records; "
+                 "drop --locate/--sharded/--multichip")
+    if args.edits or args.mismatches >= 2:
+        sys.exit("bench --edits and --mismatches >= 2 are not ported yet (ROADMAP Queue 1 "
+                 "item 2: approximate matching)")
+    common = dict(refsize=args.refsize, iterations=args.iterations, seed=args.seed, device=args.device)
+    multi_gpu = ("bench --sharded, --multichip and --locate over --mesh N are not ported "
+                 "yet (ROADMAP Queue 1 item 6: multi-GPU)")
+    if args.mismatches:
+        record = bench.run_bench_mismatch(
+            k=args.k, d=args.d, num_queries=args.numqueries, query_len=args.length,
+            lut_m=args.lut, **common)
+    elif args.locate and args.fused:
+        record = bench.run_bench_search_locate(
+            k=args.k, d=args.d, sample_rate=args.sample_rate, num_queries=args.numqueries,
+            query_len=args.length, lut_m=args.lut, max_hits=args.max_hits, **common)
+    elif args.locate:
+        if args.multichip or (args.mesh or 1) > 1:
+            sys.exit(multi_gpu)
+        record = bench.run_bench_locate(
+            d=args.d, sample_rate=args.sample_rate, num_rows=args.numqueries, n_devices=1, **common)
+    elif args.sharded or args.multichip:
+        sys.exit(multi_gpu)
+    else:
+        record = bench.run_bench(
+            k=args.k, d=args.d, num_queries=args.numqueries, query_len=args.length,
+            engine=args.engine, lut_m=args.lut, **common)
+    print(json.dumps(record))
+    return record
+
+
 def _positive(text: str) -> int:
     value = int(text)
     if value < 1:
@@ -307,6 +474,40 @@ def _add_device(p) -> None:
 def main(argv=None):
     p = argparse.ArgumentParser(prog="python -m tpufm_torch.cli")
     sub = p.add_subparsers(dest="cmd", required=True)
+    b = sub.add_parser("build", help="build a k-step FM-index from FASTA (on the host)")
+    b.add_argument("reference")
+    b.add_argument("refsize", type=int)
+    b.add_argument("--k", type=int, default=2)
+    b.add_argument("--d", type=int, default=64)
+    b.add_argument("--auto", action="store_true",
+                   help="(k, d) from recommend_config for this refsize")
+    b.add_argument("--output", default=None,
+                   help=".fmi (reference format), .npz, or .tpufm (memory-mapped store)")
+    b.add_argument("--sa", default="auto", choices=["auto", "native", "doubling", "device", "sharded"],
+                   help="suffix sort: auto = native (SA-IS); device and sharded are not ported")
+    b.add_argument("--on-device", action="store_true", help="not ported (the device build)")
+    b.add_argument("--mesh", type=int, default=0, help="not ported (the multi-GPU build)")
+    b.add_argument("--store-sharded", action="store_true", help="not ported (per-shard stores)")
+    b.add_argument("--save-ref", action="store_true",
+                   help="also write the reference as <ref>.<refsize>.fa")
+    b.add_argument("--tail", action="store_true",
+                   help="also build a k=1 tail index (<out>.tail.npz) so that "
+                        "search accepts any query length")
+    b.set_defaults(fn=cmd_build)
+
+    g = sub.add_parser("genreads", help="sample a query workload")
+    g.add_argument("reference")
+    g.add_argument("refsize", type=int)
+    g.add_argument("length", type=int)
+    g.add_argument("num", type=int)
+    g.add_argument("--seed", type=int, default=0)
+    g.add_argument("--output", default=None)
+    g.add_argument("--paired", action="store_true",
+                   help="sample FR read pairs instead: <out>_1.qry + <out>_2.qry")
+    g.add_argument("--insert-min", type=int, default=200, help="--paired: smallest fragment length")
+    g.add_argument("--insert-max", type=int, default=600, help="--paired: largest fragment length")
+    g.set_defaults(fn=cmd_genreads)
+
     s = sub.add_parser("search", help="batch exact backward search")
     _add_io(s, iterations=5)
     s.add_argument("--engine", default="xla", choices=["xla", "pallas"],
@@ -349,6 +550,48 @@ def main(argv=None):
     lc.add_argument("--output", default=None)
     _add_device(lc)
     lc.set_defaults(fn=cmd_locate)
+
+    be = sub.add_parser("bench", help="synthetic benchmark, one JSON line")
+    be.add_argument("--refsize", type=int, default=None,
+                    help="reference bases (default 10 Mbase; 250 Mbase with --genome)")
+    be.add_argument("--k", type=int, default=2)
+    be.add_argument("--d", type=int, default=64)
+    be.add_argument("--numqueries", type=int, default=131072)
+    be.add_argument("--length", type=int, default=120)
+    be.add_argument("--iterations", type=_positive, default=5)
+    be.add_argument("--seed", type=int, default=0)
+    be.add_argument("--engine", default="xla",
+                    help="xla (K1 loads its own rows) or pallas (rows gathered by torch "
+                         "indexing, then K1's rows entry)")
+    be.add_argument("--lut", type=int, default=None,
+                    help="prefix-LUT m (default: none; with --genome, recommend_config's "
+                         "pick — pass 0 for LUT-free)")
+    be.add_argument("--mismatches", type=int, default=0,
+                    help="1 = the Hamming<=1 count record; >= 2 is not ported")
+    be.add_argument("--edits", type=int, default=0, metavar="E", help="not ported")
+    be.add_argument("--seed-hits", type=int, default=32, help="with --mismatches>=2 / --edits")
+    be.add_argument("--paired", dest="paired_bench", action="store_true", help="not ported")
+    be.add_argument("--insert-min", type=int, default=250)
+    be.add_argument("--insert-max", type=int, default=450)
+    be.add_argument("--genome", action="store_true",
+                    help="the genome-scale record: a 250 Mbase index built on the host and "
+                         "cached under .bench/genome; k/d/lut from recommend_config")
+    be.add_argument("--multichip", action="store_true", help="not ported")
+    be.add_argument("--sharded", action="store_true", help="not ported")
+    be.add_argument("--routing", default="allgather", choices=["allgather", "ring", "a2a"],
+                    help="with --sharded")
+    be.add_argument("--locate", action="store_true",
+                    help="the sampled-SA walk record (positions/s; --numqueries = rows)")
+    be.add_argument("--fused", action="store_true",
+                    help="with --locate: the one-pass search+locate record")
+    be.add_argument("--max-hits", type=int, default=4,
+                    help="with --locate --fused: positions per read")
+    be.add_argument("--sample-rate", type=int, default=32,
+                    help="locate SA sampling rate (with --locate)")
+    be.add_argument("--mesh", type=int, default=None, metavar="N",
+                    help="device count for --locate: 1 (more is not ported)")
+    _add_device(be)
+    be.set_defaults(fn=cmd_bench)
     args = p.parse_args(argv)
     return args.fn(args)
 

@@ -3,13 +3,14 @@
 Counterpart of the fused branch of ``make_search_fn``
 (tpufm/engine/xla.py:505-546), ``_tail_scan`` (:279), ``build_prefix_lut``
 (:909), ``make_search_varlen_fn`` (:312-392) and the fused path of
-``XLAEngine`` (:549-797, :833). A batch starts from the m-mer prefix LUT (or
-the full interval), takes (L - m) / k rounds on the k-step table and L mod k
-rounds on the k=1 tail table; every round is one LF round over both interval
-ends of every read. A variable-length batch is right-aligned and masks each
-round per read. ``count`` (``XLAEngine.count``, :866-906) gives occurrence
-counts, exact or within Hamming distance 1 (each read's 3L+1 variants
-searched as lanes of one batch).
+``XLAEngine`` (:549-797, :833, ``search_device_waved`` :837). A batch
+starts from the m-mer prefix LUT (or the full interval), takes (L - m) / k
+rounds on the k-step table and L mod k rounds on the k=1 tail table; every
+round is one LF round over both interval ends of every read. A
+variable-length batch is right-aligned and masks each round per read.
+``count`` (``XLAEngine.count``, :866-906) gives occurrence counts, exact
+or within Hamming distance 1 (each read's 3L+1 variants searched as lanes
+of one batch).
 
 The k-step rounds run one of two ways (``gather``): "fused", K1's pair entry
 loading its own rows (``lf_round_pairs``, one read per thread); or "dma",
@@ -249,6 +250,22 @@ class SearchEngine(torch.nn.Module):
             iv = _rounds(iv, tail_codes, self.tail_entries, self.tail_dollar,
                          1, self.tail_d, step)
         return iv
+
+    def search_device_waved(self, queries: torch.Tensor, wave: int | None = None) -> torch.Tensor:
+        """uint8 [B, L] reads on this engine's device, B a multiple of
+        ``wave`` (default ``WAVE``) -> int64 [B, 2] intervals on the device:
+        ``search_device`` wave by wave into one output, so that a round's
+        temporaries stay at wave size (``XLAEngine.search_device_waved``,
+        xla.py:837). Nothing goes through the host."""
+        wave = wave or self.WAVE
+        B = queries.shape[0]
+        if B % wave:
+            raise ValueError(f"batch {B} not a multiple of wave {wave}")
+        self._check_queries(queries)
+        out = torch.empty((B, 2), dtype=torch.int64, device=self.device)
+        for start in range(0, B, wave):
+            out[start:start + wave] = self.search_device(queries[start:start + wave])
+        return out
 
     def _need_varlen_tail(self) -> None:
         if self.k > 1 and self.tail_d is None:

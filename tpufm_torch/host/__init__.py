@@ -8,9 +8,11 @@ port needs nothing of the tpufm package:
                                   tpufm/index/builder.py)
   tpufm_torch.host.suffix_array — SA-IS (csrc/sais.cpp) and numpy doubling
   tpufm_torch.host.formats      — .fmi, .npz and .tpufm index files (and
-                                  .tpufm stores of locate tables)
+                                  .tpufm stores of locate tables), read
+                                  and written
   tpufm_torch.host.seqio        — 2-bit encoding, FASTA/FASTQ reads,
-                                  sampled reads, .res results
+                                  sampled reads and read pairs, .res
+                                  results
   tpufm_torch.host.oracle       — plain numpy backward search, the ground
                                   truth the device search is held against
   tpufm_torch.host.locate       — sampled-SA locate tables (build_locate)

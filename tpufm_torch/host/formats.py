@@ -1,7 +1,7 @@
 """Index files: the .fmi images, the .npz archive and the .tpufm store.
 
 Counterparts of tpufm/index/formats.py (``read_fmi`` :112, ``write_fmi`` :56,
-``load_npz`` :234) and tpufm/index/store.py (``save_store`` :67,
+``save_npz`` :218, ``load_npz`` :234) and tpufm/index/store.py (``save_store`` :67,
 ``load_store`` :217: it reads kinds kstep, alt_counters and locate, and
 writes kstep and locate, each readable by tpufm). An .fmi
 image is a uint32 little-endian header {tag, k, bwtsize, ncounters,
@@ -151,8 +151,26 @@ def _fill_alt_counters(index: KStepFMIndex, occ_slim: np.ndarray) -> None:
     ).astype(np.uint32)
 
 
+def save_npz(path, index: KStepFMIndex) -> None:
+    """The .npz archive of an index: the arrays tpufm's ``save_npz`` writes,
+    in its order, so that the files are byte-identical (zip members carry
+    their write time)."""
+    np.savez_compressed(
+        path,
+        version=np.int32(1),
+        k=np.int32(index.config.k),
+        d=np.int32(index.config.d),
+        layout=np.bytes_(index.config.layout.value.encode()),
+        bwtsize=np.int64(index.bwtsize),
+        occ=index.occ,
+        bitmaps=index.bitmaps,
+        dollar_pos=index.dollar_pos,
+        dollar_base=index.dollar_base,
+    )
+
+
 def load_npz(path) -> KStepFMIndex:
-    """The .npz archive of an index (tpufm's save_npz)."""
+    """The .npz archive of an index (``save_npz``, tpufm's save_npz)."""
     with np.load(path) as z:
         cfg = IndexConfig(k=int(z["k"]), d=int(z["d"]),
                           layout=Layout(bytes(z["layout"]).decode()))

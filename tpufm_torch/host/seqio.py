@@ -3,7 +3,7 @@
 Counterparts of tpufm/utils/encoding.py (2-bit codes A=0 C=1 G=2 T=3),
 tpufm/io/fasta.py (``read_reference`` :37, ``write_reference`` :65,
 ``load_queries`` :125, ``load_queries_varlen`` :154), tpufm/io/genreads.py
-(``generate_reads`` :13, ``write_reads_fasta`` :92) and tpufm/io/results.py
+(``generate_reads`` :13, ``generate_read_pairs`` :30, ``write_reads_fasta`` :92) and tpufm/io/results.py
 (``write_results`` :10).
 """
 
@@ -153,6 +153,36 @@ def generate_reads(codes: np.ndarray, length: int, num: int, seed: int = 0,
     starts = np.random.default_rng(seed).integers(0, n - length + 1, size=num, dtype=np.int64)
     reads = codes[starts[:, None] + np.arange(length, dtype=np.int64)[None, :]]
     return (reads, starts) if return_starts else reads
+
+
+def generate_read_pairs(codes: np.ndarray, length: int, num: int, insert_min: int,
+                        insert_max: int, seed: int = 0, return_truth: bool = False):
+    """``num`` FR read pairs sampled with numpy's default_rng(seed): per
+    pair a fragment of uniform length in [max(insert_min, length),
+    insert_max], placed uniformly; R1 is its head and R2 the reverse
+    complement of its tail, swapped on odd pairs (R1 on the minus strand).
+    Returns (r1, r2) uint8 [num, length] and, with ``return_truth``, (left
+    start int64 [num], right start int64 [num], strand uint8 [num], 1 =
+    minus)."""
+    n = codes.shape[0]
+    lo = max(insert_min, length)
+    if not (length <= lo <= insert_max <= n):
+        raise ValueError(
+            f"need read length {length} <= insert range [{insert_min}, "
+            f"{insert_max}] <= reference size {n}"
+        )
+    rng = np.random.default_rng(seed)
+    frag = rng.integers(lo, insert_max + 1, size=num, dtype=np.int64)
+    starts = rng.integers(0, n - frag + 1, dtype=np.int64)
+    idx = np.arange(length, dtype=np.int64)[None, :]
+    head = codes[starts[:, None] + idx]
+    tail_rc = reverse_complement(codes[(starts + frag - length)[:, None] + idx])
+    minus = (np.arange(num) % 2).astype(bool)
+    r1 = np.where(minus[:, None], tail_rc, head)
+    r2 = np.where(minus[:, None], head, tail_rc)
+    if not return_truth:
+        return r1, r2
+    return r1, r2, (starts, starts + frag - length, minus.astype(np.uint8))
 
 
 def write_reads_fasta(path, reads: np.ndarray, starts=None) -> None:
