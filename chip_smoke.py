@@ -62,6 +62,16 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      one planted substitution; counts >= 1 and equal to the plain path on
      the first 4,096, every origin found, every position within one
      substitution of its read
+ 13. ``build --auto --tail`` of a seeded 1 Mbase FASTA through the CLI, its
+     .fmi byte-identical to ``write_fmi`` of the index built in process and
+     its .tail.npz equal to the k=1 index; ``genreads`` of 65,536 x 151 bp
+     and ``search`` on the built files, all equal to the oracle; then the
+     bench records through ``bench`` (tpufm_torch.bench), each printed on
+     its line with every ``bit_exact_*`` field true: the flagship (phase 4's
+     configuration and reads, ``seconds_per_pass`` on the device beside
+     ``host_seconds_per_pass`` host to host, every read checked against the
+     plain rounds), ``--locate --fused --max-hits 16`` at 1M reads,
+     ``--locate`` at 1M rows and ``--mismatches 1`` at 65,536 reads
 Every path is driven with all launch counts set to 0 just before it and
 read just after; a kernel of the path launched too few times fails the run.
 Then one JSON line of kernel figures (each kernel's time beside its bound:
@@ -76,6 +86,8 @@ read I/O and the numpy oracle are the port's own host modules
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import re
@@ -111,7 +123,7 @@ from tpufm_torch.engine.lf_round import (
     lf_round_rows_reference,
 )
 from tpufm_torch.engine.row_gather import row_gather, row_gather_reference
-from tpufm_torch.host.formats import load_store, write_fmi
+from tpufm_torch.host.formats import load_npz, load_store, write_fmi
 from tpufm_torch.host.index import IndexConfig, build_index, derive_tail
 from tpufm_torch.host.locate import build_locate, locate_hits
 from tpufm_torch.host.oracle import search_oracle
@@ -119,6 +131,7 @@ from tpufm_torch.host.suffix_array import suffix_array
 from tpufm_torch.host.seqio import (
     decode_bases,
     generate_reads,
+    load_queries,
     load_queries_varlen,
     read_reference,
     write_reads_fasta,
@@ -149,6 +162,11 @@ WALK_ROWS = 1 << 20  # the walk lanes of a 1M-read locate
 WALK_WAVE = 1 << 18  # the walk lanes of one fused-locate wave (about a row a read)
 WIDE_READS, WIDE_LEN, WIDE_HITS = 1 << 16, 10, 8
 MM_READS, MM_PLAIN = 1 << 16, 4096
+#: phase 13: the FASTA that ``build --auto --tail`` indexes and the reads
+#: ``genreads`` samples from it (151 bp: one k=1 tail round after the LUT)
+BUILD_BASES, BUILD_READS, BUILD_LEN = 1_000_000, 1 << 16, 151
+#: phase 13: timed passes of the bench records (the Hamming <= 1 record's own)
+BENCH_PASSES, MM_PASSES = 5, 3
 #: the rounds of phase 4's first wave whose (iv, code) phase 3b captures
 CAPTURED_ROUNDS = (1, 18)
 #: HBM rate of one H100 SXM (NVIDIA's data sheet): every kernel's bound is
@@ -474,6 +492,30 @@ def check_walk(loc, sa: np.ndarray, dev) -> dict:
         "mean_trip": float(trips.mean()), "longest_trip": int(trips.max()),
         "hop_ms": hop_ms, "latency_floor_ms": int(trips.max()) * hop_ms,
     }
+
+
+def bench_record(label: str, argv: list, need: dict, by_path: dict) -> dict:
+    """``python -m tpufm_torch.cli bench ARGV --device cuda`` in process,
+    the launch counts zeroed just before and read just after (kept under
+    ``label``): its one JSON line must be the record it returns, every
+    ``bit_exact_*`` field true and each kernel of ``need`` launched at least
+    that often. The record is printed on its own line after ``label``."""
+    out = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(out):
+        record = cli.main(["bench", *argv, "--device", "cuda"])
+    by_path[label] = read_counts()
+    lines = out.getvalue().splitlines()
+    if len(lines) != 1 or json.loads(lines[0]) != record:
+        raise AssertionError(f"bench {label}: printed {len(lines)} lines, not its record as one JSON line")
+    flags = {key: v for key, v in record["detail"].items() if key.startswith("bit_exact")}
+    if not flags or not all(v is True for v in flags.values()):
+        raise AssertionError(f"bench {label}: {flags}")
+    if record["detail"]["device"] != torch.cuda.get_device_name(0):
+        raise AssertionError(f"bench {label}: ran on {record['detail']['device']}")
+    expect_launches(f"bench {label}", by_path[label], need)
+    print(f"    {label}: {lines[0]}", flush=True)
+    return record
 
 
 def text_windows(codes: np.ndarray, pos: np.ndarray, L: int) -> np.ndarray:
@@ -855,6 +897,70 @@ def main() -> None:
               f"first {MM_PLAIN} equal to the plain path, every origin found, all {int(valid.sum())} "
               f"positions within Hamming 1; launches {by_path['count_mm1']} / {by_path['locate_mm1']}; "
               f"checks {time.perf_counter() - t1:.2f} s; phase {time.perf_counter() - t0:.2f} s", flush=True)
+        del cnt, mloc, sle, index_s, loc_store
+
+        t0 = time.perf_counter()
+        ref1 = os.path.join(tmp, "ref1m.fa")
+        codes1 = np.random.default_rng(SEED + 5).integers(0, 4, BUILD_BASES, dtype=np.uint8)
+        write_reference(ref1, decode_bases(codes1))
+        with contextlib.redirect_stdout(io.StringIO()):
+            built = cli.main(["build", ref1, str(BUILD_BASES), "--auto", "--tail"])
+        k_built, d_built = built.index.config.k, built.index.config.d
+        in_process = build_index(codes1, IndexConfig(k=k_built, d=d_built), sa_method="native")
+        fmi1 = os.path.join(tmp, "in_process.fmi")
+        write_fmi(fmi1, in_process)
+        if Path(built.output).read_bytes() != Path(fmi1).read_bytes():
+            raise AssertionError("build: the .fmi differs from write_fmi of the in-process index")
+        tail1 = load_npz(f"{built.output}.tail.npz")
+        want_tail = build_index(codes1, IndexConfig(k=1, d=d_built), sa_method="native")
+        for name in ("occ", "bitmaps", "dollar_pos", "dollar_base"):
+            if not np.array_equal(getattr(tail1, name), getattr(want_tail, name)):
+                raise AssertionError(f"build --tail: the k=1 tail's {name} differs from the in-process one")
+        qry1 = os.path.join(tmp, "reads1m.qry")
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(["genreads", ref1, str(BUILD_BASES), str(BUILD_LEN), str(BUILD_READS),
+                      "--seed", str(SEED), "--output", qry1])
+        reset_counts()
+        run1 = cli.main(["search", built.output, qry1, str(BUILD_LEN), str(BUILD_READS), "--lut", str(LUT_M),
+                         "--device", "cuda", "--iterations", "1", "--output", os.path.join(tmp, "reads1m.res")])
+        by_path["built_search"] = read_counts()
+        expect_launches("search on the built index", by_path["built_search"],
+                        {"lf_round_pairs": 2 * ((BUILD_LEN - LUT_M) // K + 1)})
+        reads1 = load_queries(qry1, BUILD_LEN, BUILD_READS)
+        if not np.array_equal(run1.results, search_oracle(in_process, reads1, tail_index=tail1)):
+            raise AssertionError("search on the built index: intervals differ from the oracle")
+        if not (run1.results[:, 1] > run1.results[:, 0]).all():
+            raise AssertionError("search on the built index: a sampled read is not found")
+        print(f"[13 build, genreads, bench] build --auto --tail of a {BUILD_BASES}-base FASTA (k={k_built} "
+              f"d={d_built}): .fmi byte-identical to write_fmi of the in-process index, tail equal; genreads "
+              f"{BUILD_READS} x {BUILD_LEN} bp, search --lut {LUT_M} (one k=1 tail round from the .tail.npz) "
+              f"all equal to the oracle, launches {by_path['built_search']}; "
+              f"{time.perf_counter() - t0:.2f} s. bench records:", flush=True)
+        del run1, reads1, in_process, tail1, want_tail
+
+        flagship = ["--refsize", str(REF_BASES), "--k", str(K), "--d", str(D), "--lut", str(LUT_M),
+                    "--length", str(READ_LEN), "--iterations", str(BENCH_PASSES)]
+        mm_config = [*flagship[:-2], "--iterations", str(MM_PASSES)]
+        rounds_a_pass = (READ_LEN - LUT_M) // K
+        main_rec = bench_record("bench", [*flagship, "--numqueries", str(READS)], {
+            "lf_round_pairs": (2 * BENCH_PASSES + 1) * rounds_a_pass * waves + lut_launches}, by_path)
+        if main_rec["detail"]["verified_reads"] != READS:
+            raise AssertionError(f"bench: {main_rec['detail']['verified_reads']} reads verified, not {READS}")
+        fused_waves = -(-READS // SearchLocateEngine.WAVE)
+        bench_record("bench_search_locate", [
+            *flagship, "--numqueries", str(READS), "--locate", "--fused", "--max-hits", str(MAX_HITS),
+            "--sample-rate", str(SAMPLE_RATE)], {
+            "lf_round_pairs": (BENCH_PASSES + 1) * rounds_a_pass * fused_waves + lut_launches,
+            "locate_walk": (BENCH_PASSES + 1) * fused_waves}, by_path)
+        bench_record("bench_locate", [
+            *flagship, "--numqueries", str(WALK_ROWS), "--locate", "--sample-rate", str(SAMPLE_RATE)],
+            {"locate_walk": BENCH_PASSES + 1}, by_path)
+        bench_record("bench_mismatch", [
+            *mm_config, "--numqueries", str(MM_READS), "--mismatches", "1"],
+            {"lf_round_pairs": (MM_PASSES + 1) * rounds_a_pass * mm_waves}, by_path)
+        print(f"    flagship: seconds_per_pass {main_rec['detail']['seconds_per_pass']:.6f} (reads on the "
+              f"device), host_seconds_per_pass {main_rec['detail']['host_seconds_per_pass']:.6f} (host to "
+              f"host); phase {time.perf_counter() - t0:.2f} s", flush=True)
 
     for pkg in ("jax", "tpufm"):
         if any(m == pkg or m.startswith(pkg + ".") for m in sys.modules):
@@ -865,7 +971,13 @@ def main() -> None:
     passes = {"search": ("main", 4, True), "varlen": ("varlen", 4, True),
               "fused_locate": ("search_locate_timed", 4, False),
               "two_pass_locate": ("two_pass_timed", 4, False),
-              "hamming1_count": ("count_mm1", 2, False), "gather_engine": ("gather", 4, True)}
+              "hamming1_count": ("count_mm1", 2, False), "gather_engine": ("gather", 4, True),
+              # the bench records: a warm-up and the timed passes (run_bench's
+              # search also its host passes), each record with its own LUT
+              "bench": ("bench", 2 * BENCH_PASSES + 1, True),
+              "bench_search_locate": ("bench_search_locate", BENCH_PASSES + 1, True),
+              "bench_locate": ("bench_locate", BENCH_PASSES + 1, False),
+              "bench_mismatch": ("bench_mismatch", MM_PASSES + 1, True)}
 
     def per_pass(name: str) -> dict:
         return {label: (by_path[path][name] - (lut_launches if lut and name == "lf_round_pairs" else 0)) / n
