@@ -132,11 +132,17 @@ def test_run_bench_waved_and_host_paths(monkeypatch):
     """Past one wave: zero-padded whole waves on the device, and, past the
     waved byte limit, the host-to-host search; both verified in full."""
     monkeypatch.setattr(SearchEngine, "WAVE", 512)
+    batches = []
+    waved_fn = SearchEngine.search_device_waved
+    monkeypatch.setattr(SearchEngine, "search_device_waved",
+                        lambda self, q, wave=None: batches.append(q.shape[0]) or waved_fn(self, q, wave))
     kw = dict(refsize=20_000, k=2, d=64, num_queries=1300, query_len=24, iterations=1,
               lut_m=4, full_verify=True, device="cpu")
     waved = bench.run_bench(**kw)
+    assert batches == [1536, 1536]  # the warm-up and the timed pass, padded to 3 waves
     monkeypatch.setattr(bench, "WAVED_MAX_BYTES", 0)
     host = bench.run_bench(**kw)
+    assert len(batches) == 2
     for r in (waved, host):
         assert r["detail"]["bit_exact_vs_oracle"] and r["detail"]["bit_exact_vs_plain_full"]
         assert r["detail"]["verified_reads"] == 1300
