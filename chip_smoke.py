@@ -72,13 +72,32 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      ``host_seconds_per_pass`` host to host, every read checked against the
      plain rounds), ``--locate --fused --max-hits 16`` at 1M reads,
      ``--locate`` at 1M rows and ``--mismatches 1`` at 65,536 reads
+ 14. approximate matching on phase 10's stores (the text from the reference
+     FASTA): K5 (the Hamming verify) and K6 (the Myers verify) bit-identical
+     to their plain versions on the first wave of each path (65,536 reads x
+     96 lanes; 8,192 x 96) and on edge cases (every offset in a word, the
+     last valid start, windows past the text end, invalid lanes; L = 120 and
+     151, E = 1-3), both timed beside their bounds (K6: the larger of its
+     bytes and its integer operations over the INT32 rate); ``locate
+     --mismatches 2`` on 65,536 x 120 bp reads with two planted
+     substitutions (every origin found where not flagged, the first 4,096
+     equal to the plain path, 256 equal to the naive Hamming scan on the
+     card); ``locate --edits 2`` on 16,384 reads with two planted edits
+     (every site within 2 edits by the windowed DP, a site within 4 of
+     every origin not flagged, the first 1,024 equal to the plain path);
+     ``locate --paired`` on 131,072 FR pairs, insert 250-450 (every true
+     pair, all equal to the plain path, 64 equal to ``pair_oracle``), and
+     with ``--mismatches 2`` and ``--edits 1`` on 4,096 pairs; then the
+     ``bench --mismatches 2``, ``--edits 2`` and ``--paired`` records at
+     tpufm's defaults, each printed on its line with every check true
 Every path is driven with all launch counts set to 0 just before it and
 read just after; a kernel of the path launched too few times fails the run.
 Then one JSON line of kernel figures (each kernel's time beside its bound:
 the bytes the call must move, each input read once and each output written
-once, over 3.35 TB/s of HBM; the one PyTorch call of the same function where
-there is one; launches per pass on each path), and last the device JSON
-line.
+once, over 3.35 TB/s of HBM, or for K6 its integer operations over the
+INT32 rate where that is longer; the one PyTorch call of the same function
+where there is one; launches per pass on each path), and last the device
+JSON line.
 Nothing here imports jax or the JAX package tpufm: the index builder, the
 read I/O and the numpy oracle are the port's own host modules
 (tpufm_torch.host).
@@ -101,17 +120,27 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from tpufm_torch import SearchEngine, cli, kernels
+from tpufm_torch import SearchEngine, bench, cli, kernels
+from tpufm_torch.engine import edit as edit_mod
 from tpufm_torch.engine import lf_round as lf_mod
 from tpufm_torch.engine import locate as loc_mod
 from tpufm_torch.engine import row_gather as rg_mod
+from tpufm_torch.engine import seed as seed_mod
+from tpufm_torch.engine.edit import EditExtendEngine, build_peq, myers_verify, myers_verify_reference
 from tpufm_torch.engine.locate import (
     LocateEngine,
     locate_tables_from_index,
     locate_walk,
     locate_walk_reference,
 )
+from tpufm_torch.engine.paired import PairedEndEngine, pair_oracle
 from tpufm_torch.engine.search_locate import SearchLocateEngine
+from tpufm_torch.engine.seed import (
+    SeedExtendEngine,
+    hamming_to_text,
+    hamming_to_text_reference,
+    pack_query_words,
+)
 from tpufm_torch.bitops import from_u32_bits
 from tpufm_torch.engine.codes import fuse_prefix_codes, fuse_round_codes
 from tpufm_torch.engine.lf_round import (
@@ -130,6 +159,7 @@ from tpufm_torch.host.oracle import search_oracle
 from tpufm_torch.host.suffix_array import suffix_array
 from tpufm_torch.host.seqio import (
     decode_bases,
+    generate_read_pairs,
     generate_reads,
     load_queries,
     load_queries_varlen,
@@ -169,6 +199,26 @@ BUILD_BASES, BUILD_READS, BUILD_LEN = 1_000_000, 1 << 16, 151
 BENCH_PASSES, MM_PASSES = 5, 3
 #: the rounds of phase 4's first wave whose (iv, code) phase 3b captures
 CAPTURED_ROUNDS = (1, 18)
+#: phase 14: seed-and-extend reads (each with APPROX_M planted substitutions),
+#: those held against the plain path and the naive scan; edit-distance reads
+#: (APPROX_E planted edits) and those held against the plain path; FR pairs
+#: and the pairs of the approximate pairing runs
+APPROX_M, APPROX_E = 2, 2
+SEED_READS, SEED_PLAIN, SEED_NAIVE = 1 << 16, 4096, 256
+EDIT_READS, EDIT_PLAIN = 1 << 14, 1024
+PAIRS, PAIRS_APPROX, PAIRS_ORACLE = 1 << 17, 4096, 64
+INSERT_MIN, INSERT_MAX = 250, 450
+#: phase 14: the lanes of the synthetic edge-case grids of K5 and K6
+EDGE_READS, EDGE_LANES = 64, 96
+#: one H100 SXM's INT32 issue rate: 64 INT32 lanes an SM (a quarter of its
+#: 128 FP32 lanes doing 2 flops an FMA: 67 TFLOP/s, NVIDIA's data sheet, so
+#: the clock is 1.98 GHz) x 132 SMs x 1.98e9
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+#: K6's integer operations a scan step: 30 a word of the bit vectors and 18
+#: for the step (counted in tpufm_torch/csrc/myers_verify.cu)
+K6_OPS_PER_WORD, K6_OPS_PER_STEP = 30, 18
+#: the records' fields that must be true besides the bit_exact_* ones
+VERIFY_FIELDS = ("sound_vs_dp_oracle", "origin_recovered_sample")
 #: HBM rate of one H100 SXM (NVIDIA's data sheet): every kernel's bound is
 #: the bytes its call must move, each input read once and each output
 #: written once, over this rate
@@ -181,6 +231,8 @@ COUNTS = {
     "lf_round_rows": (lf_mod, "ROWS_LAUNCHES"),
     "row_gather": (rg_mod, "LAUNCHES"),
     "locate_walk": (loc_mod, "LAUNCHES"),
+    "hamming_verify": (seed_mod, "LAUNCHES"),
+    "myers_verify": (edit_mod, "LAUNCHES"),
 }
 
 
@@ -498,8 +550,8 @@ def bench_record(label: str, argv: list, need: dict, by_path: dict) -> dict:
     """``python -m tpufm_torch.cli bench ARGV --device cuda`` in process,
     the launch counts zeroed just before and read just after (kept under
     ``label``): its one JSON line must be the record it returns, every
-    ``bit_exact_*`` field true and each kernel of ``need`` launched at least
-    that often. The record is printed on its own line after ``label``."""
+    ``bit_exact_*`` field and every one of ``VERIFY_FIELDS`` true and each
+    kernel of ``need`` launched at least that often. The record is printed on its own line after ``label``."""
     out = io.StringIO()
     reset_counts()
     with contextlib.redirect_stdout(out):
@@ -508,7 +560,7 @@ def bench_record(label: str, argv: list, need: dict, by_path: dict) -> dict:
     lines = out.getvalue().splitlines()
     if len(lines) != 1 or json.loads(lines[0]) != record:
         raise AssertionError(f"bench {label}: printed {len(lines)} lines, not its record as one JSON line")
-    flags = {key: v for key, v in record["detail"].items() if key.startswith("bit_exact")}
+    flags = {key: v for key, v in record["detail"].items() if key.startswith("bit_exact") or key in VERIFY_FIELDS}
     if not flags or not all(v is True for v in flags.values()):
         raise AssertionError(f"bench {label}: {flags}")
     if record["detail"]["device"] != torch.cuda.get_device_name(0):
@@ -521,6 +573,253 @@ def bench_record(label: str, argv: list, need: dict, by_path: dict) -> dict:
 def text_windows(codes: np.ndarray, pos: np.ndarray, L: int) -> np.ndarray:
     """uint8 [N, L]: the text at each position."""
     return codes[pos.astype(np.int64)[:, None] + np.arange(L, dtype=np.int64)[None, :]]
+
+
+def check_k5(text_words, pos, qwords, valid, L: int, what: str, timed: bool) -> dict:
+    """K5 against its plain version on one candidate grid: bit-identical;
+    with ``timed``, both timed beside the bytes bound: the valid mask and
+    out over every lane (the function writes every lane), and per valid
+    lane W + 1 text words, the read's W words (int64) and pos."""
+    got = hamming_to_text(text_words, pos, qwords, valid, L)
+    want = hamming_to_text_reference(text_words, pos, qwords, valid, L)
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    if err != 0 or not torch.equal(got, want):
+        raise AssertionError(f"K5 {what}: kernel differs from plain on {int((got != want).sum())} lanes "
+                             f"(max abs err {err})")
+    out = {"lanes": pos.numel(), "valid": int(valid.sum()), "max_abs_err": err}
+    if timed:
+        W = qwords.shape[1]
+        nbytes = out["valid"] * ((W + 1) * 4 + W * 8 + 8) + pos.numel() * (1 + 4)
+        out.update(ms=cuda_ms(lambda: hamming_to_text(text_words, pos, qwords, valid, L)),
+                   plain_ms=cuda_ms(lambda: hamming_to_text_reference(text_words, pos, qwords, valid, L)),
+                   bound_ms=bound_ms(nbytes), bound_by="bytes")
+    return out
+
+
+def check_k6(text_words, n_text: int, peq, lo, hi, valid, L: int, E: int, what: str, timed: bool) -> dict:
+    """K6 against its plain version on one candidate grid: bit-identical;
+    with ``timed``, both timed beside the bound, the larger of the bytes
+    (the valid mask, dist and start over every lane, and per valid lane its
+    TL/16 + 2 text words, its read's peq row (int64), lo and hi) and the
+    integer operations of the valid lanes' scans over the INT32 rate."""
+    got = myers_verify(text_words, n_text, peq, lo, hi, valid, L, E)
+    want = myers_verify_reference(text_words, n_text, peq, lo, hi, valid, L, E)
+    torch.cuda.synchronize()
+    err = max(int((got[0].long() - want[0]).abs().max()), int((got[1] - want[1]).abs().max()))
+    if err != 0 or not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError(f"K6 {what}: kernel differs from plain (max abs err {err})")
+    out = {"lanes": lo.numel(), "valid": int(valid.sum()), "max_abs_err": err, "L": L, "E": E}
+    if timed:
+        W, TL = peq.shape[-1], L + 3 * E
+        nbytes = out["valid"] * ((TL // 16 + 2) * 4 + 4 * W * 8 + 16) + lo.numel() * (1 + 4 + 8)
+        ops = out["valid"] * TL * (K6_OPS_PER_WORD * W + K6_OPS_PER_STEP)
+        by_bytes, by_ops = bound_ms(nbytes), ops / INT32_OPS_PER_S * 1e3
+        out.update(ms=cuda_ms(lambda: myers_verify(text_words, n_text, peq, lo, hi, valid, L, E)),
+                   plain_ms=cuda_ms(lambda: myers_verify_reference(text_words, n_text, peq, lo, hi, valid, L, E)),
+                   bound_ms=max(by_bytes, by_ops), bound_by="operations" if by_ops >= by_bytes else "bytes",
+                   bytes_bound_ms=by_bytes, ops_bound_ms=by_ops, ops=ops)
+    return out
+
+
+def kernel_edges(text_words, codes: np.ndarray, dev, rng) -> int:
+    """K5 and K6 against their plain versions on synthetic grids over the
+    reference's packed text at L = 120 and 151 (K6 at E = 1, 2, 3): starts
+    at every offset in a word, the last valid start n - L, windows past the
+    text end, invalid lanes. Returns the lanes checked."""
+    n, lanes = codes.shape[0], 0
+    shape = (EDGE_READS, EDGE_LANES)
+    for L in (120, 151):
+        pos = rng.integers(0, n - L + 1, size=shape)
+        pos[0, :16] = 16 * 1000 + np.arange(16)
+        pos[1, :3] = [n - L, n - L + 7, n]
+        reads = codes[pos[:, :1] % (n - L + 1) + np.arange(L)]
+        reads[::2, ::10] ^= 1
+        valid = rng.random(shape) < 0.75
+        valid[:2] = True
+        t = [torch.from_numpy(a).to(dev) for a in (pos.astype(np.int64), reads, valid)]
+        lanes += check_k5(text_words, t[0], pack_query_words(t[1]), t[2], L, f"edges L={L}", False)["lanes"]
+        for E in (1, 2, 3):
+            a = rng.integers(-E, n + E, size=shape)
+            a[0, :4] = [n - 1 + E, n - 1, n - L, -E]
+            origin = rng.integers(0, n - L - E, size=EDGE_READS)
+            a[1:, 1] = origin[1:]
+            reads = codes[origin[:, None] + np.arange(L)]
+            reads[:, ::37] ^= 1
+            valid = rng.random(shape) < 0.75
+            valid[:, 1] = valid[0, :4] = True
+            lo, hi = np.maximum(a - E, 0), np.minimum(a + E, n - 1)
+            peq = build_peq(torch.from_numpy(reads[:, ::-1].copy()).to(dev), -(-L // 32))
+            t = [torch.from_numpy(x).to(dev) for x in (lo, hi, valid)]
+            lanes += check_k6(text_words, n, peq, *t, L, E, f"edges L={L} E={E}", False)["lanes"]
+    return lanes
+
+
+def same_arrays(what: str, got, want) -> None:
+    for a, b in zip(got, want):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"{what}: differs from the plain path")
+
+
+def approximate(tmp: str, ref: str, codes: np.ndarray, store: str, dev, by_path: dict, lut_launches: int) -> dict:
+    """Phase 14 (see the module docstring): K5 and K6 against their plain
+    versions, then ``locate --mismatches 2``, ``--edits 2`` and
+    ``--paired`` (also with --mismatches 2 and --edits 1) through the CLI
+    on phase 10's stores and the reference's text, each against the plain
+    path and its oracle; returns the kernels' figures."""
+    n = codes.shape[0]
+    index_s = load_store(f"{store}.search.tpufm")
+    loc_s = load_store(f"{store}.locate.tpufm")
+    common = ["--from-store", store, "--lut", str(LUT_M), "--max-hits", str(MAX_HITS), "--device", "cuda"]
+    plain = dict(step=lf_round_reference, walk=locate_walk_reference)
+    rng = np.random.default_rng(SEED + 6)
+    seed_rounds = ((READ_LEN // (APPROX_M + 1)) // K * K - LUT_M) // K  # the seeds' k-step rounds
+    found = {}
+
+    t0 = time.perf_counter()
+    sreads, sstarts = generate_reads(codes, READ_LEN, SEED_READS, seed=SEED + 6, return_starts=True)
+    cols = np.argsort(rng.random((SEED_READS, READ_LEN)), axis=1)[:, :APPROX_M]
+    rows = np.arange(SEED_READS)[:, None]
+    sreads[rows, cols] = (sreads[rows, cols] + rng.integers(1, 4, size=(SEED_READS, APPROX_M))) % 4
+    sqry = os.path.join(tmp, "mm2.qry")
+    write_reads_fasta(sqry, sreads, sstarts)
+    reset_counts()
+    srun = cli.main(["locate", ref, str(REF_BASES), sqry, str(READ_LEN), str(SEED_READS),
+                     "--mismatches", str(APPROX_M), *common, "--output", os.path.join(tmp, "mm2.pos")])
+    by_path["locate_mm2"] = read_counts()
+    swaves = -(-SEED_READS // SeedExtendEngine.WAVE)
+    expect_launches("locate --mismatches 2", by_path["locate_mm2"], {
+        "lf_round_pairs": seed_rounds * swaves + lut_launches, "locate_walk": swaves, "hamming_verify": swaves})
+    spos, sovf = srun.positions, srun.overflow
+    if not ((spos == sstarts[:, None]).any(axis=1) | sovf).all():
+        raise AssertionError("locate --mismatches 2: an origin is missing from a read not flagged")
+    seng = SeedExtendEngine(index_s, loc_s, codes, mismatches=APPROX_M, max_hits=MAX_HITS, lut_m=LUT_M,
+                            device=dev)
+    same_arrays("locate --mismatches 2", (srun.positions[:SEED_PLAIN], srun.counts[:SEED_PLAIN],
+                                          sovf[:SEED_PLAIN]),
+                seng.locate_approx(sreads[:SEED_PLAIN], verify=hamming_to_text_reference, **plain))
+    vidx = np.sort(np.random.default_rng(SEED + 7).choice(SEED_READS, SEED_NAIVE, replace=False))
+    for i, want in zip(vidx, bench.hamming_hits(codes, sreads[vidx], APPROX_M, dev)):
+        got = spos[i][spos[i] != 0xFFFFFFFF]
+        ok = np.isin(got, want).all() if sovf[i] else (
+            srun.counts[i] == want.size and np.array_equal(got, want[:got.size]))
+        if not ok:
+            raise AssertionError(f"locate --mismatches 2: read {i} differs from the naive Hamming scan")
+    q = torch.from_numpy(sreads[:SeedExtendEngine.WAVE]).to(dev)
+    cand, uniq, qwords, _ = seng.candidates(q)
+    k5 = check_k5(seng.text_words, torch.where(uniq, cand, 0), qwords, uniq, READ_LEN, "bench shape", True)
+    edge_lanes = kernel_edges(seng.text_words, codes, dev, rng)
+    found["seed"] = {"seconds": srun.seconds, "overflow": int(sovf.sum()), "positions": int((spos != 0xFFFFFFFF).sum())}
+    print(f"[14 approximate matching] seed-and-extend: locate --mismatches {APPROX_M} --lut {LUT_M} on "
+          f"{SEED_READS} x {READ_LEN} bp, each with {APPROX_M} planted substitutions: pass {srun.seconds:.6f} s "
+          f"({SEED_READS / srun.seconds:.0f} reads/s), {int(sovf.sum())} reads flagged, every origin of the others "
+          f"found; first {SEED_PLAIN} equal to the plain path (plain rounds, walk, verify), {SEED_NAIVE} equal "
+          f"to the naive Hamming scan on the card; launches {by_path['locate_mm2']}; K5 at the bench shape "
+          f"({k5['lanes']} lanes, {k5['valid']} valid): bit-identical, kernel {k5['ms']:.4f} ms (bound "
+          f"{k5['bound_ms']:.4f} ms, {k5['bound_ms'] / k5['ms'] * 100:.1f}% of it), plain {k5['plain_ms']:.4f} "
+          f"ms; K5 and K6 bit-identical on {edge_lanes} edge-case lanes; {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    del seng, q, cand, uniq, qwords
+
+    t0 = time.perf_counter()
+    ereads, origins = bench.edit_reads(codes, np.random.default_rng(SEED + 8), READ_LEN, APPROX_E, EDIT_READS)
+    eqry = os.path.join(tmp, "e2.qry")
+    write_reads_fasta(eqry, ereads, origins)
+    reset_counts()
+    erun = cli.main(["locate", ref, str(REF_BASES), eqry, str(READ_LEN), str(EDIT_READS),
+                     "--edits", str(APPROX_E), *common, "--output", os.path.join(tmp, "e2.pos")])
+    by_path["locate_e2"] = read_counts()
+    ewaves = -(-EDIT_READS // EditExtendEngine.WAVE)
+    expect_launches("locate --edits 2", by_path["locate_e2"], {
+        "lf_round_pairs": seed_rounds * ewaves + lut_launches, "locate_walk": ewaves, "myers_verify": ewaves})
+    sound, sensitive = bench.edit_sites_check(codes, ereads, erun.positions, erun.overflow, origins, APPROX_E, dev)
+    if not (sound and sensitive):
+        raise AssertionError(f"locate --edits 2: sites within {APPROX_E} edits {sound}, origins near a site "
+                             f"{sensitive}")
+    eeng = EditExtendEngine(index_s, loc_s, codes, edits=APPROX_E, max_hits=MAX_HITS, lut_m=LUT_M, device=dev)
+    same_arrays("locate --edits 2", (erun.positions[:EDIT_PLAIN], erun.counts[:EDIT_PLAIN],
+                                     erun.overflow[:EDIT_PLAIN]),
+                eeng.locate_edits(ereads[:EDIT_PLAIN], verify=myers_verify_reference, **plain))
+    q = torch.from_numpy(ereads[:EditExtendEngine.WAVE]).to(dev)
+    lo, hi, valid, peq, _ = eeng.candidates(q)
+    k6 = check_k6(eeng.text_words, n, peq, lo, hi, valid, READ_LEN, APPROX_E, "bench shape", True)
+    found["edit"] = {"seconds": erun.seconds, "overflow": int(erun.overflow.sum()),
+                     "sites": int((erun.positions != 0xFFFFFFFF).sum())}
+    print(f"    edit distance: locate --edits {APPROX_E} on {EDIT_READS} x {READ_LEN} bp, each with {APPROX_E} "
+          f"planted edits: pass {erun.seconds:.6f} s ({EDIT_READS / erun.seconds:.0f} reads/s), "
+          f"{found['edit']['sites']} sites, every one within {APPROX_E} edits by the windowed DP, a site within "
+          f"{2 * APPROX_E} of every origin not flagged ({found['edit']['overflow']} flagged); first {EDIT_PLAIN} "
+          f"equal to the plain path; launches {by_path['locate_e2']}; K6 at the bench shape ({k6['lanes']} "
+          f"lanes, {k6['valid']} valid): bit-identical, kernel {k6['ms']:.4f} ms (bound {k6['bound_ms']:.4f} "
+          f"ms by {k6['bound_by']}: operations {k6['ops_bound_ms']:.4f}, bytes {k6['bytes_bound_ms']:.4f}; "
+          f"{k6['bound_ms'] / k6['ms'] * 100:.1f}% of it), plain {k6['plain_ms']:.4f} ms; "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    del eeng, q, lo, hi, valid, peq
+
+    t0 = time.perf_counter()
+    r1, r2, (ls, rs, minus) = generate_read_pairs(codes, READ_LEN, PAIRS, INSERT_MIN, INSERT_MAX,
+                                                  seed=SEED + 9, return_truth=True)
+    q1, q2 = os.path.join(tmp, "pairs_1.qry"), os.path.join(tmp, "pairs_2.qry")
+    write_reads_fasta(q1, r1)
+    write_reads_fasta(q2, r2)
+    window = ["--insert-min", str(INSERT_MIN), "--insert-max", str(INSERT_MAX)]
+    reset_counts()
+    prun = cli.main(["locate", ref, str(REF_BASES), q1, str(READ_LEN), str(PAIRS), "--paired", q2, *window,
+                     *common, "--output", os.path.join(tmp, "pairs.pairs")])
+    by_path["locate_paired"] = read_counts()
+    pwaves = -(-4 * PAIRS // SearchLocateEngine.WAVE)
+    rounds = (READ_LEN - LUT_M) // K
+    expect_launches("locate --paired", by_path["locate_paired"], {
+        "lf_round_pairs": rounds * pwaves + lut_launches, "locate_walk": pwaves})
+    truth = bench.truth_pairs_found(prun.pairs, prun.strand, ls, rs, minus)
+    if truth != PAIRS:
+        raise AssertionError(f"locate --paired: {PAIRS - truth} true pairs missing")
+    peng = PairedEndEngine(index_s, loc_s, INSERT_MIN, INSERT_MAX, max_hits=MAX_HITS, lut_m=LUT_M, device=dev)
+    same_arrays("locate --paired", (prun.pairs, prun.strand, prun.counts, prun.overflow),
+                peng.pair(r1, r2, **plain))
+    del peng
+    vidx = np.sort(np.random.default_rng(SEED + 10).choice(PAIRS, PAIRS_ORACLE, replace=False))
+    want = pair_oracle(codes, r1[vidx], r2[vidx], INSERT_MIN, INSERT_MAX, device=dev)
+    if not bench.pairs_match_oracle(prun.pairs[vidx], prun.strand[vidx], prun.counts[vidx], prun.overflow[vidx],
+                                    want):
+        raise AssertionError("locate --paired: the sample differs from pair_oracle")
+    found["paired"] = {"seconds": prun.seconds, "properly_paired": int((prun.counts > 0).sum())}
+    a1 = r1[:PAIRS_APPROX].copy()
+    a1[:, READ_LEN // 2] = (a1[:, READ_LEN // 2] + 1) % 4  # one substitution in every R1 mate
+    a2 = r2[:PAIRS_APPROX]
+    qa1, qa2 = os.path.join(tmp, "apairs_1.qry"), os.path.join(tmp, "apairs_2.qry")
+    write_reads_fasta(qa1, a1)
+    write_reads_fasta(qa2, a2)
+    for label, extra, kind, verify, kernel, wave in (
+            ("paired_mm2", {"mismatches": 2}, "--mismatches", hamming_to_text_reference, "hamming_verify",
+             SeedExtendEngine.WAVE),
+            ("paired_e1", {"edits": 1}, "--edits", myers_verify_reference, "myers_verify", EditExtendEngine.WAVE)):
+        value = str(next(iter(extra.values())))
+        reset_counts()
+        run = cli.main(["locate", ref, str(REF_BASES), qa1, str(READ_LEN), str(PAIRS_APPROX), "--paired", qa2,
+                        *window, kind, value, *common, "--output", os.path.join(tmp, f"{label}.pairs")])
+        by_path[label] = read_counts()
+        waves = -(-4 * PAIRS_APPROX // wave)
+        expect_launches(f"locate --paired {kind} {value}", by_path[label], {
+            "lf_round_pairs": seed_rounds * waves + lut_launches, "locate_walk": waves, kernel: waves})
+        t = bench.truth_pairs_found(run.pairs, run.strand, ls[:PAIRS_APPROX], rs[:PAIRS_APPROX],
+                                    minus[:PAIRS_APPROX])
+        if t != PAIRS_APPROX:
+            raise AssertionError(f"locate --paired {kind} {value}: {PAIRS_APPROX - t} true pairs missing")
+        eng = PairedEndEngine(index_s, loc_s, INSERT_MIN, INSERT_MAX, max_hits=MAX_HITS, lut_m=LUT_M, text=codes,
+                              device=dev, **extra)
+        same_arrays(f"locate --paired {kind} {value}", (run.pairs, run.strand, run.counts, run.overflow),
+                    eng.pair(a1, a2, verify=verify, **plain))
+        found[label] = {"seconds": run.seconds}
+        del eng
+    print(f"    paired: locate --paired on {PAIRS} FR pairs x {READ_LEN} bp, insert [{INSERT_MIN}, {INSERT_MAX}]: "
+          f"pass {prun.seconds:.6f} s ({PAIRS / prun.seconds:.0f} pairs/s), {found['paired']['properly_paired']} "
+          f"properly paired, every true pair recovered, all equal to the plain path, {PAIRS_ORACLE} equal to "
+          f"pair_oracle; launches {by_path['locate_paired']}; --mismatches 2 and --edits 1 on {PAIRS_APPROX} pairs "
+          f"with a substitution in every R1 mate: passes {found['paired_mm2']['seconds']:.6f} / "
+          f"{found['paired_e1']['seconds']:.6f} s, every true pair recovered, equal to the plain path, launches "
+          f"{by_path['paired_mm2']} / {by_path['paired_e1']}; {time.perf_counter() - t0:.2f} s", flush=True)
+    return {"k5": k5, "k6": k6, "edge_lanes": edge_lanes, "paths": found}
 
 
 def main() -> None:
@@ -962,6 +1261,29 @@ def main() -> None:
               f"device), host_seconds_per_pass {main_rec['detail']['host_seconds_per_pass']:.6f} (host to "
               f"host); phase {time.perf_counter() - t0:.2f} s", flush=True)
 
+        t0 = time.perf_counter()
+        approx = approximate(tmp, ref, codes, store, dev, by_path, lut_launches)
+        # the bench records at tpufm's defaults (k=2 d=64, no LUT, 131,072 reads or pairs, 5 passes)
+        t1 = time.perf_counter()
+        print("    bench records:", flush=True)
+        bench_waves = {"seed": 2, "edit": 16, "paired": 2}  # 131,072 reads (x 4 for pairs) a record
+        kstep = 120 // 2  # k=2 rounds of a whole read
+        seed_k2 = (120 // 3) // 2  # and of a seed
+        bench_record("bench_seed", ["--mismatches", str(APPROX_M)], {
+            "hamming_verify": (BENCH_PASSES + 1) * bench_waves["seed"],
+            "locate_walk": (BENCH_PASSES + 1) * bench_waves["seed"],
+            "lf_round_pairs": (BENCH_PASSES + 1) * bench_waves["seed"] * seed_k2}, by_path)
+        bench_record("bench_edit", ["--edits", str(APPROX_E)], {
+            "myers_verify": (BENCH_PASSES + 1) * bench_waves["edit"],
+            "locate_walk": (BENCH_PASSES + 1) * bench_waves["edit"],
+            "lf_round_pairs": (BENCH_PASSES + 1) * bench_waves["edit"] * seed_k2}, by_path)
+        paired_rec = bench_record("bench_paired", ["--paired"], {
+            "locate_walk": (BENCH_PASSES + 1) * bench_waves["paired"],
+            "lf_round_pairs": (BENCH_PASSES + 1) * bench_waves["paired"] * kstep}, by_path)
+        if paired_rec["detail"]["truth_pairs_recovered"] != 131072:
+            raise AssertionError(f"bench --paired: {paired_rec['detail']['truth_pairs_recovered']} true pairs")
+        print(f"    records {time.perf_counter() - t1:.2f} s; phase {time.perf_counter() - t0:.2f} s", flush=True)
+
     for pkg in ("jax", "tpufm"):
         if any(m == pkg or m.startswith(pkg + ".") for m in sys.modules):
             raise AssertionError(f"{pkg} was imported")
@@ -977,7 +1299,13 @@ def main() -> None:
               "bench": ("bench", 2 * BENCH_PASSES + 1, True),
               "bench_search_locate": ("bench_search_locate", BENCH_PASSES + 1, True),
               "bench_locate": ("bench_locate", BENCH_PASSES + 1, False),
-              "bench_mismatch": ("bench_mismatch", MM_PASSES + 1, True)}
+              "bench_mismatch": ("bench_mismatch", MM_PASSES + 1, True),
+              # phase 14: one CLI pass each, which builds the LUT; the records run no LUT
+              "seed_locate": ("locate_mm2", 1, True), "edit_locate": ("locate_e2", 1, True),
+              "paired_locate": ("locate_paired", 1, True), "paired_mm2": ("paired_mm2", 1, True),
+              "paired_e1": ("paired_e1", 1, True), "bench_seed": ("bench_seed", BENCH_PASSES + 1, False),
+              "bench_edit": ("bench_edit", BENCH_PASSES + 1, False),
+              "bench_paired": ("bench_paired", BENCH_PASSES + 1, False)}
 
     def per_pass(name: str) -> dict:
         return {label: (by_path[path][name] - (lut_launches if lut and name == "lf_round_pairs" else 0)) / n
@@ -1059,6 +1387,42 @@ def main() -> None:
             "all_rows_plain_ms": walk["all_plain_ms"],
             "launches_per_pass": per_pass("locate_walk"),
             "launches_by_path": {path: c["locate_walk"] for path, c in by_path.items()},
+        },
+        {
+            "name": "hamming_verify",
+            "route": "cuda",
+            "source": "tpufm_torch/csrc/hamming_verify.cu",
+            "replaces": "tpufm/engine/seed.py:94 (jnp hamming_to_text, no pallas_call)",
+            "launches": by_path["locate_mm2"]["hamming_verify"],
+            "max_abs_err": approx["k5"]["max_abs_err"],
+            "ms": approx["k5"]["ms"],
+            "plain_ms": approx["k5"]["plain_ms"],
+            "bound_ms": approx["k5"]["bound_ms"],
+            "bound_by": approx["k5"]["bound_by"],
+            "library_ms": None,
+            "shape": f"phase 14's first seed wave: {approx['k5']['lanes']} lanes, {approx['k5']['valid']} valid, "
+                     f"L={READ_LEN}",
+            "launches_per_pass": per_pass("hamming_verify"),
+            "launches_by_path": {path: c["hamming_verify"] for path, c in by_path.items()},
+        },
+        {
+            "name": "myers_verify",
+            "route": "cuda",
+            "source": "tpufm_torch/csrc/myers_verify.cu",
+            "replaces": "tpufm/engine/edit.py:105 (jnp lax.scan make_myers_verify_fn, no pallas_call)",
+            "launches": by_path["locate_e2"]["myers_verify"],
+            "max_abs_err": approx["k6"]["max_abs_err"],
+            "ms": approx["k6"]["ms"],
+            "plain_ms": approx["k6"]["plain_ms"],
+            "bound_ms": approx["k6"]["bound_ms"],
+            "bound_by": approx["k6"]["bound_by"],
+            "library_ms": None,
+            "bytes_bound_ms": approx["k6"]["bytes_bound_ms"],
+            "ops_bound_ms": approx["k6"]["ops_bound_ms"],
+            "shape": f"phase 14's first edit wave: {approx['k6']['lanes']} lanes, {approx['k6']['valid']} valid, "
+                     f"L={READ_LEN} E={APPROX_E}",
+            "launches_per_pass": per_pass("myers_verify"),
+            "launches_by_path": {path: c["myers_verify"] for path, c in by_path.items()},
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -233,3 +233,77 @@ def test_records_need_the_card_by_default():
         pytest.skip("a GPU is present: the default device is usable")
     with pytest.raises(RuntimeError, match="cuda"):
         bench.run_bench(refsize=1000, num_queries=8, query_len=24)
+
+
+#: the approximate records' reference: their checks scan the whole text per
+#: verified read in tpufm (numpy), so it is smaller than REFSIZE
+APPROX_REFSIZE = 40_000
+
+
+@pytest.mark.parametrize("lut,m", [(0, 2), (4, 3)])
+def test_run_bench_seed_record_equals_tpufm(lut, m):
+    kw = dict(refsize=APPROX_REFSIZE, k=2, d=64, sample_rate=8, num_queries=256, query_len=30, iterations=2,
+              lut_m=lut, mismatches=m, max_hits=4)
+    want = jax_bench.run_bench_seed(**kw)
+    got = bench.run_bench_seed(**kw, device="cpu")
+    _check_record(got, want, set(), ("verified_reads", "planted_error_reads", "overflow_reads", "recovered",
+                                     "bit_exact_vs_naive"))
+    assert got["detail"]["verified_reads"] == 256 and got["vs_baseline"] is None
+
+
+@pytest.mark.parametrize("E", [1, 2])
+def test_run_bench_edit_record_equals_tpufm(E):
+    """No bit-exactness field in this record: its two checks (every site
+    within E edits by the windowed DP, where tpufm runs the full oracle,
+    and a site near each origin) must equal tpufm's and be true."""
+    kw = dict(refsize=APPROX_REFSIZE, k=2, d=64, sample_rate=8, num_queries=128, query_len=30, iterations=2,
+              lut_m=4, edits=E)
+    want = jax_bench.run_bench_edit(**kw)
+    got = bench.run_bench_edit(**kw, device="cpu")
+    gd, wd = got["detail"], want["detail"]
+    assert set(got) == set(want) and set(gd) == set(wd) | ADDED
+    assert got["metric"] == want["metric"] and got["unit"] == want["unit"]
+    for name in ("sound_vs_dp_oracle", "origin_recovered_sample", "verified_reads", "overflow_reads", "recovered"):
+        assert gd[name] == wd[name], name
+    assert gd["sound_vs_dp_oracle"] is True and gd["origin_recovered_sample"] is True
+    assert gd["device"] == "cpu" and len(gd["pass_seconds"]) == 2
+    json.dumps(got)
+
+
+def test_run_bench_paired_record_equals_tpufm():
+    kw = dict(refsize=APPROX_REFSIZE, k=2, d=64, sample_rate=8, num_pairs=512, query_len=30, insert_min=60,
+              insert_max=200, iterations=2, lut_m=4, max_hits=4)
+    want = jax_bench.run_bench_paired(**kw)
+    got = bench.run_bench_paired(**kw, device="cpu")
+    _check_record(got, want, set(), ("truth_pairs_recovered", "bit_exact_vs_oracle", "verified_pairs",
+                                     "properly_paired", "overflow_pairs"))
+    assert got["detail"]["truth_pairs_recovered"] == 512
+
+
+def test_edit_sites_check_catches_a_wrong_site():
+    """The edit record's checks fail on a site that is no alignment and on
+    a read whose sites are all far from its origin."""
+    rng = np.random.default_rng(4)
+    codes = rng.integers(0, 4, size=2000, dtype=np.uint8)
+    origins = np.array([100, 700])
+    reads = np.stack([codes[s:s + 30] for s in origins])
+    good = np.array([[100, 0xFFFFFFFF], [700, 0xFFFFFFFF]], np.uint32)
+    flags = np.zeros(2, bool)
+    cpu = torch.device("cpu")
+    assert bench.edit_sites_check(codes, reads, good, flags, origins, 1, cpu) == (True, True)
+    far = good.copy()
+    far[1, 0] = 1500
+    assert bench.edit_sites_check(codes, reads, far, flags, origins, 1, cpu) == (False, False)
+    assert bench.edit_sites_check(codes, reads, far, np.array([False, True]), origins, 1, cpu)[1] is True
+
+
+def test_hamming_hits_matches_a_loop():
+    rng = np.random.default_rng(10)
+    codes = rng.integers(0, 4, size=2500, dtype=np.uint8)
+    reads = np.stack([codes[s:s + 9] for s in rng.integers(0, 2490, size=12)])
+    reads[::2, 4] = (reads[::2, 4] + 1) % 4
+    for m in (0, 1, 2):
+        got = bench.hamming_hits(codes, reads, m, torch.device("cpu"))
+        for q, g in zip(reads, got):
+            want = [i for i in range(2500 - 8) if (codes[i:i + 9] != q).sum() <= m]
+            assert g.dtype == np.uint32 and g.tolist() == want

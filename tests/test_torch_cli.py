@@ -168,12 +168,141 @@ def test_locate_stores_load_across(tmp_path, ref, writer):
     assert (tmp_path / "a.pos").read_bytes() == (tmp_path / "b.pos").read_bytes()
 
 
-@pytest.mark.parametrize("option", [["--mismatches", "2"], ["--edits", "1"], ["--sam"], ["--mesh", "4"]])
+@pytest.mark.parametrize("option", [["--sam"], ["--bam"], ["--contigs"], ["--mesh", "4"]])
 def test_locate_refuses_options_outside_the_slice(tmp_path, ref, option):
+    """SAM/BAM output and the contig map exit naming their queue item; an
+    option the port does not define is argparse's usage error."""
     _, fa = ref
     with pytest.raises(SystemExit) as exit_info:
         torch_cli.main(["locate", str(fa), "3000", "q.qry", "24", "8", *option, "--device", "cpu"])
-    assert exit_info.value.code == 2  # argparse's usage error
+    if option[0] == "--mesh":
+        assert exit_info.value.code == 2
+    else:
+        assert "ROADMAP Queue 1 item 3" in str(exit_info.value.code)
+
+
+def _mutated_reads(codes, L, n, seed, kind):
+    """(reads, starts): text windows with two substitutions each ("sub"), or
+    with two edits each (substitution, deletion or insertion) cut to L."""
+    rng = np.random.default_rng(seed)
+    starts = rng.integers(0, len(codes) - L - 2, size=n)
+    reads = []
+    for s0 in starts:
+        w = list(codes[s0 : s0 + L + 2])
+        for p in rng.choice(L, size=2, replace=False):
+            op = 0 if kind == "sub" else rng.integers(0, 3)
+            if op == 0:
+                w[p] = (w[p] + int(rng.integers(1, 4))) & 3
+            elif op == 1:
+                del w[p]
+            else:
+                w.insert(p, int(rng.integers(0, 4)))
+        reads.append(np.array(w[:L], np.uint8))
+    return np.stack(reads), starts
+
+
+@pytest.mark.parametrize(
+    "extra",
+    [["--mismatches", "2"], ["--mismatches", "3", "--lut", "4"], ["--mismatches", "2", "--rc"],
+     ["--edits", "1"], ["--edits", "2", "--rc"], ["--edits", "2", "--lut", "4", "--seed-hits", "8"]],
+    ids=["m2", "m3-lut", "m2-rc", "e1", "e2-rc", "e2-lut-cap"],
+)
+def test_locate_approx_pos_byte_identical(tmp_path, ref, capsys, extra):
+    """``locate --mismatches m >= 2`` and ``--edits E`` (30 bp reads with two
+    planted substitutions or edits) write tpufm's .pos bytes, plus .pos.rc
+    with --rc, which expands before the approximate pass as tpufm's does."""
+    codes, fa = ref
+    reads, starts = _mutated_reads(codes, 30, 40, seed=len(extra), kind="edit" if "--edits" in extra else "sub")
+    qry = tmp_path / "q.qry"
+    write_reads_fasta(qry, reads, starts)
+    args = ["locate", str(fa), "3000", str(qry), "30", "40", "--k", "2", "--d", "64",
+            "--sample-rate", "8", "--max-hits", "6", *extra]
+    jax_cli.main(args + ["--output", str(tmp_path / "jax.pos")])
+    run = torch_cli.main(args + ["--device", "cpu", "--output", str(tmp_path / "torch.pos")])
+    suffixes = ["", ".rc"] if "--rc" in extra else [""]
+    for suffix in suffixes:
+        assert (tmp_path / f"torch.pos{suffix}").read_bytes() == (tmp_path / f"jax.pos{suffix}").read_bytes()
+    assert run.positions.shape == (40 * len(suffixes), 6) and run.intervals is None
+    assert run.counts.shape == run.overflow.shape == (40 * len(suffixes),)
+    if "--mismatches" in extra:  # every origin is a site (not so under edits: the leftmost start wins)
+        for line, s in zip(_pos_lines(tmp_path / "torch.pos"), starts):
+            assert int(s) in line
+    out = capsys.readouterr().out
+    assert out.count("40 queries, max 6 hits each") == 2
+    assert out.count("seed-hits=8 cap") in (0, 2)
+
+
+def _pairs_files(tmp_path, codes, n, seed):
+    from tpufm.io.genreads import generate_read_pairs
+
+    r1, r2 = generate_read_pairs(codes, 30, n, 100, 400, seed=seed)
+    r1 = np.array(r1)
+    r1[::3, 11] = (r1[::3, 11] + 1) % 4  # a substitution in a third of the R1 mates
+    write_reads_fasta(tmp_path / "r1.qry", r1)
+    write_reads_fasta(tmp_path / "r2.qry", r2)
+    return tmp_path / "r1.qry", tmp_path / "r2.qry"
+
+
+@pytest.mark.parametrize(
+    "extra",
+    [[], ["--mismatches", "1"], ["--mismatches", "2"], ["--edits", "1"], ["--lut", "4", "--max-pairs", "2"]],
+    ids=["exact", "m1", "m2", "e1", "lut-max-pairs"],
+)
+def test_locate_paired_byte_identical(tmp_path, ref, capsys, extra):
+    """``locate --paired R2`` writes tpufm's <queries>.pairs bytes (one line a
+    pair of reads, ``left:right:strand`` tokens) with each position source."""
+    codes, fa = ref
+    r1, r2 = _pairs_files(tmp_path, codes, 32, seed=len(extra))
+    args = ["locate", str(fa), "3000", str(r1), "30", "32", "--k", "2", "--d", "64", "--sample-rate", "8",
+            "--paired", str(r2), "--insert-min", "100", "--insert-max", "400", *extra]
+    jax_cli.main(args + ["--output", str(tmp_path / "jax.pairs")])
+    run = torch_cli.main(args + ["--device", "cpu"])
+    assert (tmp_path / "r1.qry.pairs").read_bytes() == (tmp_path / "jax.pairs").read_bytes()
+    assert run.pairs.shape[:2] == run.strand.shape == (32, 2 if "--max-pairs" in extra else 4)
+    exact = not extra or extra[0] == "--lut"
+    assert (run.counts > 0).sum() >= (21 if exact else 32)  # the unmutated pairs at least
+    out = capsys.readouterr().out
+    assert out.count("32 read pairs, ") == 2
+
+
+@pytest.mark.parametrize("extra", [["--mismatches", "2"], ["--edits", "1"], ["--paired", "R2", "--edits", "1"]],
+                         ids=["m2", "e1", "paired-e1"])
+def test_locate_approx_from_store(tmp_path, ref, extra):
+    """With --from-store the verify pass reads the text from the reference
+    FASTA (the same positions as a build from it); with no FASTA there, the
+    port exits with tpufm's message."""
+    codes, fa = ref
+    r1, r2 = _pairs_files(tmp_path, codes, 16, seed=3)
+    extra = [str(r2) if x == "R2" else x for x in extra]
+    tail = [str(r1), "30", "16", "--k", "2", "--d", "64", "--sample-rate", "8", *extra]
+    jax_cli.main(["locate", str(fa), "3000", *tail, "--store", str(tmp_path / "P"),
+                  "--output", str(tmp_path / "built")])
+    torch_cli.main(["locate", str(fa), "3000", *tail, "--from-store", str(tmp_path / "P"),
+                    "--output", str(tmp_path / "loaded"), "--device", "cpu"])
+    assert (tmp_path / "loaded").read_bytes() == (tmp_path / "built").read_bytes()
+    codes_ = []
+    for main, dev in ((jax_cli.main, []), (torch_cli.main, ["--device", "cpu"])):
+        with pytest.raises(SystemExit) as exit_info:
+            main(["locate", "-", "0", *tail, "--from-store", str(tmp_path / "P"), *dev])
+        codes_.append(exit_info.value.code)
+    assert codes_[0] == codes_[1] and "reference FASTA" in codes_[1]
+
+
+@pytest.mark.parametrize(
+    "extra",
+    [["--edits", "1", "--mismatches", "1"], ["--mismatches", "-1"], ["--paired", "R2", "--rc"]],
+    ids=["two-models", "negative", "paired-rc"],
+)
+def test_locate_approx_errors_as_tpufm(tmp_path, ref, extra):
+    codes, fa = ref
+    r1, r2 = _pairs_files(tmp_path, codes, 4, seed=1)
+    extra = [str(r2) if x == "R2" else x for x in extra]
+    args = ["locate", str(fa), "3000", str(r1), "30", "4", "--k", "2", "--d", "64", *extra]
+    with pytest.raises(SystemExit) as theirs:
+        jax_cli.main(args)
+    with pytest.raises(SystemExit) as ours:
+        torch_cli.main(args + ["--device", "cpu"])
+    assert isinstance(ours.value.code, str) and ours.value.code == theirs.value.code
 
 
 @pytest.mark.parametrize(
@@ -313,13 +442,12 @@ def test_bench_needs_the_card_by_default():
 
 @pytest.mark.parametrize(
     "argv,item",
-    [(["bench", "--edits", "1"], "item 2"), (["bench", "--mismatches", "2"], "item 2"),
-     (["bench", "--paired"], "item 2"), (["bench", "--sharded"], "item 6"),
+    [(["bench", "--sharded"], "item 6"),
      (["bench", "--multichip"], "item 6"), (["bench", "--locate", "--mesh", "4"], "item 6"),
      (["build", "REF", "100", "--on-device"], "item 4"), (["build", "REF", "100", "--sa", "device"], "item 4"),
      (["build", "REF", "100", "--mesh", "2"], "item 6"), (["build", "REF", "100", "--store-sharded"], "item 6"),
      (["build", "REF", "100", "--sa", "sharded"], "item 6")],
-    ids=["edits", "mismatches2", "paired", "sharded", "multichip", "locate-mesh", "on-device",
+    ids=["sharded", "multichip", "locate-mesh", "on-device",
          "sa-device", "mesh", "store-sharded", "sa-sharded"],
 )
 def test_unported_flags_exit_naming_their_item(argv, item):
@@ -331,3 +459,38 @@ def test_unported_flags_exit_naming_their_item(argv, item):
 def test_bench_engine_not_ported_raises():
     with pytest.raises(ValueError, match="Queue 1 item 5"):
         torch_cli.main(["bench", "--engine", "xla-ac", "--device", "cpu"])
+
+
+@pytest.mark.parametrize(
+    "argv,metric",
+    [(["--mismatches", "2"], "seed-extend locate reads/s (m=2, k=2, d=64, lut=4, s=8, seed_hits=32, "
+                             "64 x 30 bp, 20000 bases)"),
+     (["--edits", "1"], "edit-distance locate reads/s (E=1, k=2, d=64, lut=4, s=8, seed_hits=32, "
+                        "64 x 30 bp, 20000 bases)"),
+     (["--paired", "--insert-min", "60", "--insert-max", "200"],
+      "paired-end placement pairs/s (k=2, d=64, lut=4, insert [60, 200], 64 x 2 x 30 bp, 20000 bases)")],
+    ids=["seed", "edit", "paired"],
+)
+def test_bench_approx_modes_print_their_record(capsys, argv, metric):
+    """``bench --mismatches 2 | --edits 1 | --paired`` dispatch as tpufm's
+    does and print the record as one JSON line."""
+    import json
+
+    record = torch_cli.main(["bench", "--refsize", "20000", "--numqueries", "64", "--length", "30",
+                             "--lut", "4", "--sample-rate", "8", "--iterations", "1", *argv, "--device", "cpu"])
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 1 and json.loads(lines[0]) == record
+    assert record["metric"] == metric and record["detail"]["device"] == "cpu"
+    checks = [v for key, v in record["detail"].items()
+              if key.startswith("bit_exact") or key in ("sound_vs_dp_oracle", "origin_recovered_sample")]
+    assert checks and all(v is True for v in checks)
+
+
+@pytest.mark.parametrize("argv", [["--edits", "1", "--locate"], ["--mismatches", "2", "--sharded"],
+                                  ["--paired", "--edits", "1"]])
+def test_bench_approx_mode_conflicts_exit_as_tpufm(argv):
+    with pytest.raises(SystemExit) as theirs:
+        jax_cli.main(["bench", *argv])
+    with pytest.raises(SystemExit) as ours:
+        torch_cli.main(["bench", *argv, "--device", "cpu"])
+    assert ours.value.code == theirs.value.code

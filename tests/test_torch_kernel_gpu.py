@@ -17,8 +17,13 @@ plain PyTorch versions on the same CUDA tensors, and the engine's searches
 on the card
 (fixed length on both gather paths, and variable length), its fused
 search+locate and its Hamming <= 1 locate must equal the plain path and the
-numpy oracle. Intervals, positions and table words are integers and compare
-exactly (tolerance 0).
+numpy oracle. The seed-and-extend Hamming verify kernel (K5) and the Myers
+verifier (K6: registers for reads up to 256 bp, the scratch buffer past
+them) must equal their plain versions on windows at every 16-base offset,
+the last valid start, windows past the text end and invalid lanes; the seed,
+edit and paired engines on the card must equal their plain path and their
+oracles. Intervals, positions, distances and table words are integers and
+compare exactly (tolerance 0).
 """
 
 import functools
@@ -28,9 +33,12 @@ import pytest
 import torch
 
 from tpufm_torch import SearchEngine
+from tpufm_torch.engine import edit as edit_mod
 from tpufm_torch.engine import lf_round as lf_mod
 from tpufm_torch.engine import locate as loc_mod
 from tpufm_torch.engine import row_gather as rg_mod
+from tpufm_torch.engine import seed as seed_mod
+from tpufm_torch.engine.paired import PairedEndEngine, pair_oracle
 from tpufm_torch.engine.search import _rows
 from tpufm_torch.engine.search_locate import SearchLocateEngine
 from tpufm_torch.engine.tables import tables_from_index
@@ -325,3 +333,169 @@ def test_bench_records_on_card(cuda):
                                       lut_m=12, max_hits=16, device=cuda)
     assert loc_mod.LAUNCHES > before
     assert r["detail"]["bit_exact_vs_oracle"] and r["detail"]["device"] == name
+
+
+def _verify_text(n, seed):
+    codes = np.random.default_rng(seed).integers(0, 4, size=n, dtype=np.uint8)
+    return codes, torch.from_numpy(seed_mod.pack_text_words(codes).view(np.int32))
+
+
+@pytest.mark.parametrize("B,C", [(37, 13), (2048, 96)])
+@pytest.mark.parametrize("L", [1, 15, 16, 17, 30, 61, 120, 151, 300])
+def test_hamming_verify_kernel_matches_plain(cuda, L, B, C):
+    """K5 on a grid of B reads x C lanes: starts at every 16-base offset, the
+    last valid start n - L, starts past it (the word index clamps, as the
+    JAX gather clamps) and invalid lanes (L + 1)."""
+    n = 1999
+    codes, text = _verify_text(n, L)
+    rng = np.random.default_rng(B + L)
+    pos = rng.integers(0, n - L + 1, size=(B, C))
+    pos.flat[: min(pos.size, 32)] = np.arange(16 * 2, 16 * 2 + 32)[: min(pos.size, 32)]  # offsets 0-15
+    pos[0, 0], pos[-1, -1] = n - L, n + 40
+    reads = rng.integers(0, 4, size=(B, L), dtype=np.uint8)
+    reads[::2] = codes[pos[::2, 0, None] % (n - L + 1) + np.arange(L)]  # some near matches
+    valid = rng.random((B, C)) < 0.7
+    t, p, v = text.to(cuda), torch.from_numpy(pos).to(cuda), torch.from_numpy(valid).to(cuda)
+    q = seed_mod.pack_query_words(torch.from_numpy(reads).to(cuda))
+    before = seed_mod.LAUNCHES
+    got = seed_mod.hamming_to_text(t, p, q, v, L)
+    torch.cuda.synchronize()
+    assert seed_mod.LAUNCHES == before + 1
+    want = seed_mod.hamming_to_text_reference(t, p, q, v, L)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    inside = valid & (pos <= n - L)
+    windows = codes[pos[inside][:, None] + np.arange(L)]
+    np.testing.assert_array_equal(got.cpu().numpy()[inside], (windows != np.repeat(reads, C, 0)[inside.reshape(-1)]).sum(1))
+    assert (got.cpu().numpy()[~valid] == L + 1).all()
+
+
+@pytest.mark.parametrize("L,E", [(17, 1), (32, 1), (33, 2), (64, 3), (120, 1), (120, 2), (120, 3), (151, 1),
+                                 (151, 2), (151, 3), (256, 2), (257, 1), (300, 2)])
+def test_myers_verify_kernel_matches_plain(cuda, L, E):
+    """K6 against its plain version on B reads x C lanes: anchors across the
+    text, windows past its end, invalid lanes; reads of 257 and 300 bp take
+    the scratch-buffer path (W > 8)."""
+    n = 1500
+    codes, text = _verify_text(n, L + E)
+    rng = np.random.default_rng(L * 7 + E)
+    B, C = 23, 9
+    a = rng.integers(-E, n - 1 + E + 1, size=(B, C))
+    a[0, :3] = [n - 1 + E, n - 1, n - L // 2]  # windows past the text end
+    reads = rng.integers(0, 4, size=(B, L), dtype=np.uint8)
+    for b in range(0, B, 2):  # mutated text windows: small distances occur
+        s0 = int(rng.integers(0, n - L - E))
+        a[b, 1:] = s0
+        w = list(codes[s0 : s0 + L + E])
+        for _ in range(E):
+            p = int(rng.integers(0, len(w) - 1))
+            w.insert(p, int(rng.integers(0, 4))) if rng.random() < 0.5 else w.__delitem__(p)
+        reads[b] = (w + [0] * L)[:L]
+    lo, hi = np.maximum(a - E, 0), np.minimum(a + E, n - 1)
+    valid = rng.random((B, C)) < 0.8
+    W = -(-L // 32)
+    args = [torch.from_numpy(x).to(cuda) for x in (lo, hi, valid)]
+    peq = edit_mod.build_peq(torch.from_numpy(reads[:, ::-1].copy()).to(cuda), W)
+    t = text.to(cuda)
+    before = edit_mod.LAUNCHES
+    dist, start = edit_mod.myers_verify(t, n, peq, *args, L, E)
+    torch.cuda.synchronize()
+    assert edit_mod.LAUNCHES == before + 1
+    want_d, want_s = edit_mod.myers_verify_reference(t, n, peq, *args, L, E)
+    assert torch.equal(dist, want_d) and torch.equal(start, want_s)
+    assert (dist.cpu().numpy()[~valid] == L + 1).all() and (start.cpu().numpy()[~valid] == 0xFFFFFFFF).all()
+    assert (dist.cpu().numpy()[::2][valid[::2]] <= E).any()  # the mutated windows are found
+
+
+def _approx_setup(k=3, d=64, n=3000, seed=5):
+    codes = np.random.default_rng(seed).integers(0, 4, size=n, dtype=np.uint8)
+    sa = suffix_array(codes, "doubling")
+    return (codes, build_index(codes, IndexConfig(k=k, d=d), sa=sa),
+            build_locate(codes, sample_rate=8, d=d, sa=sa))
+
+
+def _planted(codes, L, m, n_reads, seed):
+    rng = np.random.default_rng(seed)
+    starts = rng.integers(0, len(codes) - L + 1, size=n_reads)
+    qs = np.stack([codes[s : s + L].copy() for s in starts])
+    for i in range(n_reads):
+        for p in rng.choice(L, size=m, replace=False):
+            qs[i, p] = (qs[i, p] + rng.integers(1, 4)) & 3
+    return qs, starts
+
+
+_PLAIN = dict(step=lf_mod.lf_round_reference, walk=loc_mod.locate_walk_reference)
+
+
+@pytest.mark.parametrize("m,L,lut_m", [(2, 30, 0), (2, 120, 12), (3, 151, 6), (3, 30, 12)])  # 6-base seeds: no LUT
+def test_seed_extend_on_card_matches_plain_and_oracle(cuda, m, L, lut_m):
+    codes, index, loc = _approx_setup()
+    qs, starts = _planted(codes, L, m, 200, seed=L)
+    eng = seed_mod.SeedExtendEngine(index, loc, codes, mismatches=m, seed_hits=64, max_hits=8,
+                                    lut_m=lut_m, device=cuda)
+    before = (seed_mod.LAUNCHES, loc_mod.LAUNCHES)
+    got = eng.locate_approx(qs, wave=64)
+    assert seed_mod.LAUNCHES - before[0] == 4 and loc_mod.LAUNCHES - before[1] == 4
+    plain = eng.locate_approx(qs, verify=seed_mod.hamming_to_text_reference, **_PLAIN)
+    for a, b in zip(got, plain):
+        np.testing.assert_array_equal(a, b)
+    counts, want = seed_mod.seed_extend_oracle(codes, qs, m)
+    assert not got[2].any()
+    np.testing.assert_array_equal(got[1], counts)
+    for row, w, s in zip(got[0], want, starts):
+        np.testing.assert_array_equal(row[row != 0xFFFFFFFF], w[:8])
+        assert s in row
+
+
+@pytest.mark.parametrize("E,L,lut_m", [(1, 30, 0), (2, 120, 12), (3, 151, 6), (2, 300, 6)])
+def test_edit_extend_on_card_matches_plain_and_oracle(cuda, E, L, lut_m):
+    codes, index, loc = _approx_setup()
+    rng = np.random.default_rng(E + L)
+    qs, origins = [], rng.integers(0, len(codes) - L - E, size=120)
+    for s0 in origins:
+        w = list(codes[s0 : s0 + L + E])
+        for _ in range(E):
+            p = int(rng.integers(0, len(w) - 1))
+            w.insert(p, int(rng.integers(0, 4))) if rng.random() < 0.5 else w.__delitem__(p)
+        qs.append(np.array(w[:L], np.uint8))
+    qs = np.stack(qs)
+    eng = edit_mod.EditExtendEngine(index, loc, codes, edits=E, seed_hits=64, max_hits=8, lut_m=lut_m,
+                                    device=cuda)
+    before = edit_mod.LAUNCHES
+    got = eng.locate_edits(qs, wave=50)
+    assert edit_mod.LAUNCHES - before == 3
+    plain = eng.locate_edits(qs, verify=edit_mod.myers_verify_reference, **_PLAIN)
+    for a, b in zip(got, plain):
+        np.testing.assert_array_equal(a, b)
+    want = edit_mod.edit_extend_oracle(codes, qs, E)
+    for i, row in enumerate(got[0]):
+        sites = row[row != 0xFFFFFFFF].astype(np.int64)
+        assert (want[i, sites] <= E).all()
+        assert sites.size and np.abs(sites - origins[i]).min() <= 2 * E
+
+
+@pytest.mark.parametrize("source", [{}, {"mismatches": 1}, {"mismatches": 2}, {"edits": 1}],
+                         ids=["exact", "m1", "m2", "e1"])
+@pytest.mark.parametrize("L1,L2", [(30, 30), (30, 24)])
+def test_paired_on_card_matches_plain_and_oracle(cuda, source, L1, L2):
+    from tpufm_torch.host.seqio import generate_read_pairs
+
+    codes, index, loc = _approx_setup(k=2)
+    r1, r2, (ls, rs, minus) = generate_read_pairs(codes, max(L1, L2), 96, 100, 300, seed=L2,
+                                                   return_truth=True)
+    r1, r2 = r1[:, :L1], r2[:, :L2]
+    text = codes if source.get("mismatches", 0) >= 2 or source.get("edits") else None
+    eng = PairedEndEngine(index, loc, 100, 300, max_hits=8, max_pairs=4, text=text, device=cuda, **source)
+    got = eng.pair(r1, r2, wave=40)
+    verify = {"mismatches": {2: seed_mod.hamming_to_text_reference}, "edits": {1: edit_mod.myers_verify_reference}}
+    extra = {"verify": verify[key][val] for key, val in source.items() if val in verify.get(key, {})}
+    plain = eng.pair(r1, r2, wave=40, **_PLAIN, **extra)
+    for a, b in zip(got, plain):
+        np.testing.assert_array_equal(a, b)
+    if not source:
+        want = pair_oracle(codes, r1, r2, 100, 300, device=cuda)
+        for i, triples in enumerate(want):
+            found = {(int(l), int(r), int(s)) for (l, r), s in zip(got[0][i], got[1][i]) if l != 0xFFFFFFFF}
+            assert got[2][i] == len(triples) and found <= set(triples)
+    if L1 == L2:  # the truth pairs are whole reads only then
+        hit = (got[0][..., 0] == ls[:, None]) & (got[0][..., 1] == rs[:, None]) & (got[1] == minus[:, None])
+        assert hit.any(axis=1).all()

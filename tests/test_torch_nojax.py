@@ -2,10 +2,11 @@
 import of jax and of the JAX package tpufm, then imports tpufm_torch, its
 CLI, its kernel loader, every engine module and chip_smoke, builds an index
 and locate tables with the port's own host side, runs a small CPU search on
-both gather paths, a variable-length one, a fused search+locate and a
-Hamming <= 1 count, and checks them against the port's numpy oracles and a
-naive scan of the text; the parent holds the result against tpufm's builder
-and oracle.
+both gather paths, a variable-length one, a fused search+locate, a
+Hamming <= 1 count, a seed-and-extend locate at two substitutions, an
+edit-distance locate and a paired placement, and checks them against the
+port's numpy oracles and naive scans of the text; the parent holds the
+result against tpufm's builder and oracle.
 chip_smoke itself refuses to run without a GPU, or without the repo around
 it. Intervals are integers and compare exactly (tolerance 0)."""
 
@@ -42,6 +43,10 @@ import chip_smoke
 import tpufm_torch, tpufm_torch.cli, tpufm_torch.kernels
 import tpufm_torch.engine.lf_round, tpufm_torch.engine.row_gather
 import tpufm_torch.engine.locate, tpufm_torch.engine.mismatch
+import tpufm_torch.engine.seed, tpufm_torch.engine.edit, tpufm_torch.engine.paired
+from tpufm_torch.engine.edit import EditExtendEngine, windowed_edit_dist
+from tpufm_torch.engine.paired import PairedEndEngine, pair_oracle
+from tpufm_torch.engine.seed import SeedExtendEngine, seed_extend_oracle
 from tpufm_torch import SearchEngine
 from tpufm_torch.engine.search_locate import SearchLocateEngine
 from tpufm_torch.host.index import IndexConfig, build_index, derive_tail
@@ -52,7 +57,8 @@ from tpufm_torch.host.suffix_array import suffix_array
 rng = np.random.default_rng(7)
 codes = rng.integers(0, 4, size=1000, dtype=np.uint8)
 index = build_index(codes, IndexConfig(k=3, d=64), sa_method=sys.argv[1])
-queries = np.stack([codes[s : s + 24] for s in rng.integers(0, 976, size=20)])
+starts = rng.integers(0, 976, size=20)
+queries = np.stack([codes[s : s + 24] for s in starts])
 res = SearchEngine(index, "cpu", lut_m=6).search(queries)
 assert np.array_equal(res, search_oracle(index, queries))
 assert np.array_equal(SearchEngine(index, "cpu", lut_m=6, gather="dma").search(queries), res)
@@ -68,6 +74,26 @@ assert np.array_equal(pos, locate_hits(loc, iv, 4))
 wins = np.lib.stride_tricks.sliding_window_view(codes, 24)
 mm = SearchEngine(index, "cpu", lut_m=6).count(queries, mismatches=1, wave=7)
 assert np.array_equal(mm, ((wins[None] != queries[:, None]).sum(2) <= 1).sum(1))
+sub = queries.copy()
+sub[:, [3, 17]] = (sub[:, [3, 17]] + 1) % 4  # two substitutions a read
+pos, cnt, ovf = SeedExtendEngine(index, loc, codes, mismatches=2, max_hits=8, device="cpu").locate_approx(sub)
+want_cnt, want_pos = seed_extend_oracle(codes, sub, 2)
+assert np.array_equal(cnt, want_cnt) and not ovf.any()
+assert all(np.array_equal(r[r != 0xFFFFFFFF], w[:8]) for r, w in zip(pos, want_pos))
+ind = np.concatenate([queries[:, :10], queries[:, 11:], codes[starts + 24, None]], axis=1)  # a deletion
+sites, _, ovf = EditExtendEngine(index, loc, codes, edits=1, device="cpu").locate_edits(ind)
+import torch
+ct = torch.from_numpy(codes)
+for read, row in zip(ind, sites):
+    got = row[row != 0xFFFFFFFF].astype(np.int64)
+    assert got.size and (windowed_edit_dist(ct, torch.from_numpy(np.repeat(read[None], got.size, 0)),
+                                            torch.from_numpy(got), 1) <= 1).all()
+left = starts[:8] % 800  # fragments of 170 bases: R1 its head, R2 its tail reverse-complemented
+r1 = codes[left[:, None] + np.arange(20)]
+r2 = (3 - codes[left[:, None] + 150 + np.arange(20)][:, ::-1]).astype(np.uint8)
+pairs, strand, counts, _ = PairedEndEngine(index, loc, 0, 400, device="cpu").pair(r1, r2)
+want = pair_oracle(codes, r1, r2, 0, 400)
+assert [int(c) for c in counts] == [len(w) for w in want] and all(c >= 1 for c in counts)
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpufm")]
 print(json.dumps(res.tolist()))
 """

@@ -9,10 +9,17 @@ Layers:
   tpufm_torch.cli               — ``python -m tpufm_torch.cli build|genreads|
                                   search|count|locate|bench ...``
   tpufm_torch.bench             — tpufm's single-device bench records (search,
-                                  genome, locate, fused locate, Hamming <= 1),
+                                  genome, locate, fused locate, Hamming <= 1,
+                                  seed-and-extend, edit distance, paired),
                                   timed by tpufm_torch.timer; (k, d, LUT) of
                                   ``build --auto`` and ``--genome`` from
                                   tpufm_torch.config
+  tpufm_torch.engine.paired     — PairedEndEngine: FR pairs under an insert
+                                  window from any of the position sources
+  tpufm_torch.engine.seed       — SeedExtendEngine: Hamming distance m >= 1 by
+                                  pigeonhole seeds, the walk and K5's verify
+  tpufm_torch.engine.edit       — EditExtendEngine: edit distance E >= 1, the
+                                  same seeds and K6's Myers verify
   tpufm_torch.engine.search_locate — SearchLocateEngine: reads to text
                                   positions in one pass, exact or within
                                   Hamming distance 1

@@ -6,9 +6,11 @@ Counterpart of tpufm/bench.py's single-device records, with its function
 names, arguments, defaults and record schema (``metric``, ``value``,
 ``unit``, ``vs_baseline``, ``detail``): ``run_bench`` (:225),
 ``run_bench_genome`` (:347), ``run_bench_locate`` (:539),
-``run_bench_search_locate`` (:610) and ``run_bench_mismatch`` (:683), over
-the pieces they share, ``gather_traffic_bytes`` (:108), ``_time_search``
-(:123) and ``_verify_and_measure`` (:176). Where they differ:
+``run_bench_search_locate`` (:610), ``run_bench_mismatch`` (:683),
+``run_bench_seed`` (:767), ``run_bench_edit`` (:872) and
+``run_bench_paired`` (:981), over the pieces they share,
+``gather_traffic_bytes`` (:108), ``_time_search`` (:123) and
+``_verify_and_measure`` (:176). Where they differ:
 
 - A record runs on one torch device, ``device`` (cuda unless the caller
   asks for the CPU; no fallback). Its detail adds ``device`` (the card's
@@ -29,12 +31,18 @@ the pieces they share, ``gather_traffic_bytes`` (:108), ``_time_search``
   the speed of light, tpufm's own fallback when it finds none.
 - The genome record builds its index on the host (SA-IS); tpufm's device
   build is not ported.
-- ``run_bench_locate`` runs on one device; ``run_bench_mismatch``'s naive
-  Hamming scan runs on the bench's device.
+- ``run_bench_locate`` runs on one device; the naive scans of
+  ``run_bench_mismatch``, ``run_bench_seed`` (``hamming_hits``) and
+  ``run_bench_paired`` (``pair_oracle``'s occurrences) run on the bench's
+  device.
+- ``run_bench_edit`` checks each sampled site with the DP only over the
+  window codes[s : s + L + E] (``windowed_edit_dist``), where tpufm runs
+  its oracle over the whole text: the same <= E verdicts, as an alignment
+  ending past the window costs more than E edits.
 
 Not ported yet (ROADMAP, Queue 1): the engines xla-ac, xla-paired and
-xla-split and ``pad_words`` (item 5); the seed, edit and paired records
-(item 2); the sharded and multi-device records (item 6).
+xla-split and ``pad_words`` (item 5); the sharded and multi-device records
+(item 6).
 """
 
 from __future__ import annotations
@@ -50,15 +58,18 @@ import torch
 
 from tpufm_torch.config import recommend_config
 from tpufm_torch.device import resolve_device
+from tpufm_torch.engine.edit import EditExtendEngine, windowed_edit_dist
 from tpufm_torch.engine.lf_round import lf_round_indexed, lf_round_reference
 from tpufm_torch.engine.locate import LocateEngine
+from tpufm_torch.engine.paired import PairedEndEngine, pair_oracle
 from tpufm_torch.engine.search import SearchEngine
 from tpufm_torch.engine.search_locate import SearchLocateEngine
+from tpufm_torch.engine.seed import SeedExtendEngine
 from tpufm_torch.host.formats import load_store, save_store
 from tpufm_torch.host.index import IndexConfig, build_index
 from tpufm_torch.host.locate import build_locate, locate_hits, locate_oracle
 from tpufm_torch.host.oracle import search_oracle
-from tpufm_torch.host.seqio import generate_reads
+from tpufm_torch.host.seqio import generate_read_pairs, generate_reads
 from tpufm_torch.host.suffix_array import suffix_array
 from tpufm_torch.timer import timed_device_passes
 
@@ -481,19 +492,26 @@ def run_bench_search_locate(
     }
 
 
-def hamming1_counts(codes: np.ndarray, reads: np.ndarray, device: torch.device) -> np.ndarray:
-    """uint32 [B] occurrences of each read within Hamming distance 1, by the
-    naive scan: every text window against the read, on ``device`` (the scan
-    tpufm's bench makes with numpy; no index involved)."""
+def hamming_hits(codes: np.ndarray, reads: np.ndarray, dist: int, device: torch.device) -> list:
+    """Per read, the ascending uint32 start positions of the text windows
+    within Hamming distance ``dist`` of it, by the naive scan: every window
+    against the read, on ``device`` (the scan tpufm's bench makes with
+    numpy; no index involved)."""
     L = reads.shape[1]
-    windows = torch.from_numpy(np.ascontiguousarray(codes)).to(device).unfold(0, L, 1)
+    windows = torch.from_numpy(np.require(codes, np.uint8, ["C", "W"])).to(device).unfold(0, L, 1)
     reads = torch.from_numpy(np.ascontiguousarray(reads)).to(device)
-    counts = torch.zeros(reads.shape[0], dtype=torch.int64, device=device)
+    hits = [[] for _ in range(reads.shape[0])]
     for start in range(0, windows.shape[0], _SCAN_WINDOWS):
         part = windows[start:start + _SCAN_WINDOWS]
         for j, q in enumerate(reads):
-            counts[j] += ((part != q).sum(dim=1) <= 1).sum()
-    return counts.cpu().numpy().astype(np.uint32)
+            hits[j].append(((part != q).sum(dim=1) <= dist).nonzero()[:, 0] + start)
+    return [torch.cat(h).cpu().numpy().astype(np.uint32) for h in hits]
+
+
+def hamming1_counts(codes: np.ndarray, reads: np.ndarray, device: torch.device) -> np.ndarray:
+    """uint32 [B] occurrences of each read within Hamming distance 1, by the
+    naive scan (``hamming_hits``)."""
+    return np.array([h.size for h in hamming_hits(codes, reads, 1, device)], dtype=np.uint32)
 
 
 def run_bench_mismatch(
@@ -553,5 +571,273 @@ def run_bench_mismatch(
             "verified_reads": n_verify,
             "planted_error_reads": n_err,
             "recovered": int((cnt > 0).sum()),
+        },
+    }
+
+
+def _locate_setup(refsize: int, k: int, d: int, sample_rate: int, seed: int):
+    """(generator, codes, index, locate tables, build seconds): the seeded
+    reference and, from one suffix sort, its index and locate tables."""
+    rng, codes = _reference_codes(refsize, seed)
+    t0 = time.perf_counter()
+    sa = suffix_array(codes)
+    index = build_index(codes, IndexConfig(k=k, d=d), sa=sa)
+    loc = build_locate(codes, sample_rate=sample_rate, d=d, sa=sa)
+    return rng, codes, index, loc, time.perf_counter() - t0
+
+
+def run_bench_seed(
+    refsize: int = 10_000_000,
+    k: int = 3,
+    d: int = 128,
+    sample_rate: int = 32,
+    num_queries: int = 1 << 16,
+    query_len: int = 120,
+    iterations: int = 3,
+    seed: int = 0,
+    lut_m: int = 0,
+    mismatches: int = 2,
+    seed_hits: int = 32,
+    max_hits: int = 4,
+    error_rate: float = 1.0,
+    device: str | torch.device = "cuda",
+) -> dict:
+    """Seed-and-extend locate reads/s (``SeedExtendEngine.locate_approx``,
+    host reads to host positions; tpufm/bench.py:767). ``error_rate``: the
+    share of the reads given exactly m planted substitutions (positions
+    drawn without replacement), which exact search misses. 256 reads
+    checked against the naive Hamming scan on the bench's device
+    (``hamming_hits``): counts and positions equal, or for an
+    overflow-flagged read every position real."""
+    dev = resolve_device(device)
+    m = mismatches
+    rng, codes, index, loc, build_s = _locate_setup(refsize, k, d, sample_rate, seed)
+    queries = np.array(generate_reads(codes, query_len, num_queries, seed=seed + 1))
+    n_err = int(num_queries * error_rate)
+    if n_err:
+        pos = np.argsort(rng.random((n_err, query_len)), axis=1)[:, :m]
+        off = rng.integers(1, 4, size=(n_err, m)).astype(np.uint8)
+        rows = np.arange(n_err)[:, None]
+        queries[rows, pos] = (queries[rows, pos] + off) & 3
+
+    eng = SeedExtendEngine(index, loc, codes, mismatches=m, seed_hits=seed_hits, max_hits=max_hits,
+                           lut_m=lut_m, device=dev)
+    times, (positions, counts, overflow) = _passes(lambda: eng.locate_approx(queries), iterations)
+    mean_s = sum(times) / len(times)
+
+    n_verify = min(num_queries, 256)
+    vidx = np.sort(np.random.default_rng(seed + 2).choice(num_queries, n_verify, replace=False))
+    exact = True
+    for i, want in zip(vidx, hamming_hits(codes, queries[vidx], m, dev)):
+        got = positions[i][positions[i] != 0xFFFFFFFF]
+        if overflow[i]:  # a lower bound: every reported position is real
+            exact &= bool(np.isin(got, want).all())
+        else:
+            exact &= int(counts[i]) == want.size and bool((got == want[:got.size]).all())
+
+    reads_s = num_queries / mean_s
+    return {
+        "metric": f"seed-extend locate reads/s (m={m}, k={k}, d={d}, "
+        f"lut={lut_m}, s={sample_rate}, seed_hits={seed_hits}, "
+        f"{num_queries} x {query_len} bp, {refsize} bases)",
+        "value": round(reads_s),
+        "unit": "reads/s",
+        "vs_baseline": None,  # the reference has no approximate matching
+        "detail": {
+            **_device_fields(dev, times),
+            "reads_per_s": round(reads_s),
+            "seed_lanes_per_s": round(reads_s * (m + 1)),
+            "seconds_per_pass": mean_s,
+            "build_seconds": round(build_s, 1),
+            "bit_exact_vs_naive": exact,
+            "verified_reads": n_verify,
+            "planted_error_reads": n_err,
+            "overflow_reads": int(overflow.sum()),
+            "recovered": int((counts > 0).sum()),
+        },
+    }
+
+
+def edit_reads(codes: np.ndarray, rng, L: int, E: int, num: int):
+    """(reads uint8 [num, L], origins int64 [num]): windows of L + E bases
+    at uniform origins, each given E random edits (substitution, deletion
+    or insertion) and cut to L, drawn from ``rng`` in tpufm's order
+    (tpufm/bench.py:907-920)."""
+    origins = rng.integers(0, codes.shape[0] - L - E, size=num)
+    reads = np.empty((num, L), np.uint8)
+    for i, s0 in enumerate(origins):
+        w = list(codes[s0:s0 + L + E])
+        for _ in range(E):
+            op = rng.integers(0, 3)
+            p = int(rng.integers(0, len(w) - 1))
+            if op == 0:
+                w[p] = (w[p] + int(rng.integers(1, 4))) & 3
+            elif op == 1:
+                del w[p]
+            else:
+                w.insert(p, int(rng.integers(0, 4)))
+        reads[i] = w[:L]
+    return reads, origins
+
+
+def edit_sites_check(codes: np.ndarray, reads: np.ndarray, positions: np.ndarray, overflow: np.ndarray,
+                     origins: np.ndarray, E: int, device: torch.device):
+    """(sound, sensitive) of an edit-distance site list: every reported
+    site within E edits of its read, by ``windowed_edit_dist`` on
+    ``device`` (the verdicts of tpufm's full ``edit_extend_oracle``), and
+    every read not flagged ``overflow`` with a site within 2E of its
+    origin (the verifier reports the leftmost least-distance start of a
+    window, up to 2E left of the origin)."""
+    valid = positions != 0xFFFFFFFF
+    rows = np.repeat(np.arange(reads.shape[0]), valid.sum(axis=1))
+    sound = True
+    if rows.size:
+        dist = windowed_edit_dist(
+            torch.from_numpy(np.require(codes, np.uint8, ["C", "W"])).to(device),
+            torch.from_numpy(reads[rows]).to(device),
+            torch.from_numpy(positions[valid].astype(np.int64)).to(device), E)
+        sound = bool((dist <= E).all())
+    near = np.where(valid, np.abs(positions.astype(np.int64) - origins[:, None]), np.iinfo(np.int64).max)
+    sensitive = bool(((near.min(axis=1) <= 2 * E) | overflow).all())
+    return sound, sensitive
+
+
+def run_bench_edit(
+    refsize: int = 10_000_000,
+    k: int = 3,
+    d: int = 128,
+    sample_rate: int = 32,
+    num_queries: int = 1 << 14,
+    query_len: int = 120,
+    iterations: int = 3,
+    seed: int = 0,
+    lut_m: int = 0,
+    edits: int = 2,
+    seed_hits: int = 32,
+    max_hits: int = 4,
+    device: str | torch.device = "cuda",
+) -> dict:
+    """Edit-distance locate reads/s (``EditExtendEngine.locate_edits``, host
+    reads to host sites; tpufm/bench.py:872). Every read carries E planted
+    mixed edits (``edit_reads``). 128 reads checked: every site within E
+    edits and a site within 2E of each origin not flagged
+    (``edit_sites_check``). tpufm runs its full DP oracle over the whole
+    text for the first; the windowed DP gives the same verdicts."""
+    dev = resolve_device(device)
+    E = edits
+    rng, codes, index, loc, build_s = _locate_setup(refsize, k, d, sample_rate, seed)
+    reads, origins = edit_reads(codes, rng, query_len, E, num_queries)
+
+    eng = EditExtendEngine(index, loc, codes, edits=E, seed_hits=seed_hits, max_hits=max_hits,
+                           lut_m=lut_m, device=dev)
+    times, (positions, counts, overflow) = _passes(lambda: eng.locate_edits(reads), iterations)
+    mean_s = sum(times) / len(times)
+
+    n_verify = min(num_queries, 128)
+    vidx = np.sort(np.random.default_rng(seed + 2).choice(num_queries, n_verify, replace=False))
+    sound, sensitive = edit_sites_check(codes, reads[vidx], positions[vidx], overflow[vidx],
+                                        origins[vidx], E, dev)
+
+    reads_s = num_queries / mean_s
+    return {
+        "metric": f"edit-distance locate reads/s (E={E}, k={k}, d={d}, "
+        f"lut={lut_m}, s={sample_rate}, seed_hits={seed_hits}, "
+        f"{num_queries} x {query_len} bp, {refsize} bases)",
+        "value": round(reads_s),
+        "unit": "reads/s",
+        "vs_baseline": None,  # the reference has no approximate matching
+        "detail": {
+            **_device_fields(dev, times),
+            "reads_per_s": round(reads_s),
+            "myers_lanes_per_s": round(reads_s * (E + 1) * seed_hits),
+            "seconds_per_pass": mean_s,
+            "build_seconds": round(build_s, 1),
+            "sound_vs_dp_oracle": sound,
+            "origin_recovered_sample": sensitive,
+            "verified_reads": n_verify,
+            "overflow_reads": int(overflow.sum()),
+            "recovered": int((counts > 0).sum()),
+        },
+    }
+
+
+def truth_pairs_found(pairs: np.ndarray, strand: np.ndarray, left, right, minus) -> int:
+    """Read pairs whose true (left, right, strand) is among their pairs."""
+    hit = ((pairs[..., 0] == np.asarray(left)[:, None]) & (pairs[..., 1] == np.asarray(right)[:, None])
+           & (strand == np.asarray(minus).astype(np.uint8)[:, None]))
+    return int(hit.any(axis=1).sum())
+
+
+def pairs_match_oracle(pairs, strand, counts, overflow, want: list) -> bool:
+    """tpufm's check of a pair sample against ``pair_oracle``: every pair
+    real where overflow is set; else the count equal and, where it fits
+    max_pairs, the pair set equal."""
+    exact = True
+    for row, triples in enumerate(want):
+        got = {(int(l), int(r), int(s)) for (l, r), s in zip(pairs[row], strand[row]) if l != 0xFFFFFFFF}
+        if overflow[row]:
+            exact &= got <= set(triples)
+        else:
+            exact &= int(counts[row]) == len(triples)
+            if counts[row] <= pairs.shape[1]:
+                exact &= got == set(triples)
+    return exact
+
+
+def run_bench_paired(
+    refsize: int = 10_000_000,
+    k: int = 3,
+    d: int = 128,
+    sample_rate: int = 32,
+    num_pairs: int = 1 << 17,
+    query_len: int = 120,
+    insert_min: int = 250,
+    insert_max: int = 450,
+    iterations: int = 3,
+    seed: int = 0,
+    lut_m: int = 0,
+    max_hits: int = 4,
+    max_pairs: int = 4,
+    device: str | torch.device = "cuda",
+) -> dict:
+    """Paired-end placement pairs/s (``PairedEndEngine.pair``, host reads to
+    host pairs; tpufm/bench.py:981) on ``generate_read_pairs``' pairs with
+    their truth: every true (left, right, strand) counted, and 64 pairs
+    checked against ``pair_oracle`` (its scans on the bench's device)."""
+    dev = resolve_device(device)
+    _, codes, index, loc, build_s = _locate_setup(refsize, k, d, sample_rate, seed)
+    r1, r2, (ls, rs, minus) = generate_read_pairs(codes, query_len, num_pairs, insert_min, insert_max,
+                                                  seed=seed + 1, return_truth=True)
+    eng = PairedEndEngine(index, loc, insert_min, insert_max, max_hits=max_hits, max_pairs=max_pairs,
+                          lut_m=lut_m, device=dev)
+    times, (pairs, strand, counts, overflow) = _passes(lambda: eng.pair(r1, r2), iterations)
+    mean_s = sum(times) / len(times)
+
+    truth_found = truth_pairs_found(pairs, strand, ls, rs, minus)
+    n_verify = min(num_pairs, 64)
+    vidx = np.sort(np.random.default_rng(seed + 2).choice(num_pairs, n_verify, replace=False))
+    want = pair_oracle(codes, r1[vidx], r2[vidx], insert_min, insert_max, device=dev)
+    exact = pairs_match_oracle(pairs[vidx], strand[vidx], counts[vidx], overflow[vidx], want)
+
+    pairs_s = num_pairs / mean_s
+    return {
+        "metric": f"paired-end placement pairs/s (k={k}, d={d}, "
+        f"lut={lut_m}, insert [{insert_min}, {insert_max}], "
+        f"{num_pairs} x 2 x {query_len} bp, {refsize} bases)",
+        "value": round(pairs_s),
+        "unit": "pairs/s",
+        "vs_baseline": None,  # the reference has neither locate nor pairing
+        "detail": {
+            **_device_fields(dev, times),
+            "pairs_per_s": round(pairs_s),
+            "mate_reads_per_s": round(pairs_s * 2),
+            "strand_lanes_per_s": round(pairs_s * 4),  # engine batch lanes
+            "seconds_per_pass": mean_s,
+            "build_seconds": round(build_s, 1),
+            "truth_pairs_recovered": truth_found,
+            "bit_exact_vs_oracle": exact,
+            "verified_pairs": n_verify,
+            "properly_paired": int((counts > 0).sum()),
+            "overflow_pairs": int(overflow.sum()),
         },
     }

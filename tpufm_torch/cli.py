@@ -14,12 +14,15 @@ locate and bench.
         [--device cuda|cpu]
     python -m tpufm_torch.cli locate REF REFSIZE QUERIES L N [--k K] [--d D]
         [--sample-rate S] [--max-hits H] [--fused] [--lut M] [--rc]
-        [--mismatches 0|1] [--store PREFIX] [--from-store PREFIX]
-        [--output OUT] [--device cuda|cpu]
+        [--mismatches M | --edits E] [--seed-hits H] [--paired R2.qry
+        [--insert-min A] [--insert-max B] [--max-pairs P]]
+        [--store PREFIX] [--from-store PREFIX] [--output OUT]
+        [--device cuda|cpu]
     python -m tpufm_torch.cli bench [--refsize N] [--k K] [--d D]
         [--numqueries N] [--length L] [--iterations I] [--seed S]
-        [--engine xla|pallas] [--lut M] [--mismatches 0|1] [--genome]
-        [--locate [--fused] [--max-hits H] [--sample-rate S]]
+        [--engine xla|pallas] [--lut M] [--mismatches M | --edits E]
+        [--seed-hits H] [--paired [--insert-min A] [--insert-max B]]
+        [--genome] [--locate [--fused]] [--max-hits H] [--sample-rate S]
         [--device cuda|cpu]
 
 Counterparts of ``tpufm build`` (``cmd_build``, tpufm/cli.py:54, on the
@@ -35,12 +38,17 @@ indexing gathers every end's row, then K1 computes on the gathered rows;
 fixed lengths that k divides after the LUT only); of ``tpufm count``
 (``cmd_count``, :469-505); and of ``tpufm locate`` (``cmd_locate``,
 ``_locate_tables``, ``_locate_body``, :729-1154) in its exact two-pass,
-``--fused``, ``--rc`` and ``--mismatches 1`` forms, whose parser defines no
-other option. They read the same index files (.fmi, .npz, .tpufm), derive
-the k=1 tail the same way, share the ``<index>.lut<M>.npz`` LUT cache,
-print the same ``TIME:`` line (search and count: mean seconds per pass
-after one warm-up pass) and write byte-identical ``.res``, ``.cnt`` and
-``.pos`` files (minus-strand results of ``--rc`` in ``<out>.rc``).
+``--fused``, ``--rc``, Hamming (``--mismatches 1``, and ``>= 2`` by seed-
+and-extend), edit-distance (``--edits E``) and paired (``--paired R2``,
+writing ``<queries>.pairs``) forms, the approximate ones verified against
+the reference's text (read again from its FASTA with --from-store);
+``--sam``, ``--bam`` and ``--contigs`` exit naming their ROADMAP item, and
+the parser defines no other option. They read the same index files (.fmi,
+.npz, .tpufm), derive the k=1 tail the same way, share the
+``<index>.lut<M>.npz`` LUT cache, print the same ``TIME:`` line (search and
+count: mean seconds per pass after one warm-up pass) and write
+byte-identical ``.res``, ``.cnt``, ``.pos`` and ``.pairs`` files
+(minus-strand results of ``--rc`` in ``<out>.rc``).
 ``--device`` defaults to cuda and never falls back to the CPU.
 """
 
@@ -58,10 +66,13 @@ import numpy as np
 from tpufm_torch import bench
 from tpufm_torch.config import recommend_config
 from tpufm_torch.device import resolve_device
+from tpufm_torch.engine.edit import EditExtendEngine
 from tpufm_torch.engine.lf_round import lf_round_indexed
 from tpufm_torch.engine.locate import LocateEngine
+from tpufm_torch.engine.paired import PairedEndEngine
 from tpufm_torch.engine.search import SearchEngine
 from tpufm_torch.engine.search_locate import SearchLocateEngine
+from tpufm_torch.engine.seed import SeedExtendEngine
 from tpufm_torch.host.formats import load_npz, load_store, read_fmi, save_npz, save_store, write_fmi
 from tpufm_torch.host.index import AltCountersIndex, IndexConfig, KStepFMIndex, build_index, derive_tail
 from tpufm_torch.host.locate import build_locate
@@ -111,8 +122,21 @@ class LocateRun:
     """What ``locate`` did."""
 
     positions: np.ndarray  # uint32 [B, max_hits], or [2B, max_hits] with --rc
-    intervals: np.ndarray | None  # uint32 [B or 2B, 2]; None with --mismatches 1
+    intervals: np.ndarray | None  # uint32 [B or 2B, 2]; None when approximate
     seconds: float  # the one pass, reads in host memory to positions in host memory
+    counts: np.ndarray | None = None  # uint32: sites found (--mismatches >= 2, --edits)
+    overflow: np.ndarray | None = None  # bool: a seed interval past --seed-hits
+
+
+@dataclasses.dataclass
+class PairRun:
+    """What ``locate --paired`` did."""
+
+    pairs: np.ndarray  # uint32 [B, max_pairs, 2] (left, right) starts
+    strand: np.ndarray  # uint8 [B, max_pairs]: 0 R1 plus, 1 R1 minus, 2 padding
+    counts: np.ndarray  # uint32 [B] proper pairs found
+    overflow: np.ndarray  # bool [B]: the pair list is a lower bound
+    seconds: float  # the one pass, host reads to host pairs
 
 
 def load_index(path: str) -> KStepFMIndex | AltCountersIndex:
@@ -241,10 +265,11 @@ def cmd_count(args) -> CountRun:
 
 
 def locate_tables(args):
-    """(index, locate tables): loaded from ``PREFIX.search.tpufm`` and
-    ``PREFIX.locate.tpufm`` with --from-store, else built from the
-    reference with one suffix sort, and stored under --store
+    """(index, locate tables, codes): loaded from ``PREFIX.search.tpufm`` and
+    ``PREFIX.locate.tpufm`` with --from-store (codes None), else built from
+    the reference with one suffix sort, and stored under --store
     (tpufm/cli.py:744-807)."""
+    codes = None
     if args.from_store:
         index = load_store(f"{args.from_store}.search.tpufm")
         loc = load_store(f"{args.from_store}.locate.tpufm")
@@ -257,7 +282,7 @@ def locate_tables(args):
             save_store(f"{args.store}.search.tpufm", index)
             save_store(f"{args.store}.locate.tpufm", loc)
             print(f"stored {args.store}.search.tpufm + {args.store}.locate.tpufm")
-    return index, loc
+    return index, loc, codes
 
 
 def write_positions(path: str, rows: np.ndarray) -> None:
@@ -268,28 +293,63 @@ def write_positions(path: str, rows: np.ndarray) -> None:
             fp.write(" ".join(str(x) for x in row if x != 0xFFFFFFFF) + "\n")
 
 
-def cmd_locate(args) -> LocateRun:
+def cmd_locate(args) -> LocateRun | PairRun:
     """Search, then the text positions of up to --max-hits occurrences per
-    read: two passes (``SearchEngine.search``, then
-    ``LocateEngine.locate_hits``), one fused pass (``--fused``,
-    ``SearchLocateEngine.search_locate``), or within Hamming distance 1 in
-    one pass (``--mismatches 1``, ``SearchLocateEngine.locate_mismatch``)."""
+    read (tpufm/cli.py:729, ``_locate_body`` :809-1154): two passes
+    (``SearchEngine.search``, then ``LocateEngine.locate_hits``), one fused
+    pass (``--fused``, ``SearchLocateEngine.search_locate``), within Hamming
+    distance 1 (``--mismatches 1``, ``locate_mismatch``), within Hamming
+    distance m >= 2 (``SeedExtendEngine``), within edit distance E
+    (``--edits``, ``EditExtendEngine``), or FR pairs (``--paired R2``,
+    ``PairedEndEngine``, one ``left:right:strand`` token per pair, by
+    default in ``<queries>.pairs``)."""
+    if args.sam or args.bam or args.contigs:
+        sys.exit("locate --sam/--bam/--contigs are not ported yet (ROADMAP Queue 1 item 3: "
+                 "SAM/BAM output and the contig map)")
+    if args.mismatches < 0 or args.edits < 0:
+        sys.exit("--mismatches/--edits must be >= 0")
+    if args.edits and args.mismatches:
+        sys.exit("--edits (indel-aware) and --mismatches (substitutions "
+                 "only) are different distance models; pass one")
     device = resolve_device(args.device)
-    index, loc = locate_tables(args)
+    index, loc, codes = locate_tables(args)
     queries = np.require(
         load_queries(args.queries, args.qrysize, args.numqueries), np.uint8, ["C", "W"]
     )
     nq = queries.shape[0]
+    if args.paired:
+        return locate_paired(args, index, loc, codes, queries, device)
     if args.rc:
         queries = rc_expand(queries)
-    intervals = None
-    if args.mismatches or args.fused:
+    intervals = counts = overflow = None
+    if args.edits or args.mismatches >= 2:
+        what = "--edits" if args.edits else "--mismatches >= 2"
+        codes = reference_text(args, codes, f"{what} needs the reference FASTA for the verify pass "
+                                            "(pass its real path even with --from-store)")
+        if args.edits:
+            engine = EditExtendEngine(index, loc, codes, edits=args.edits, seed_hits=args.seed_hits,
+                                      max_hits=args.max_hits, lut_m=args.lut, device=device)
+            t0 = time.perf_counter()
+            pos, counts, overflow = engine.locate_edits(queries)
+        else:
+            engine = SeedExtendEngine(index, loc, codes, mismatches=args.mismatches,
+                                      seed_hits=args.seed_hits, max_hits=args.max_hits,
+                                      lut_m=args.lut, device=device)
+            t0 = time.perf_counter()
+            pos, counts, overflow = engine.locate_approx(queries)
+        seconds = time.perf_counter() - t0
+        if overflow.any():
+            kind = "site" if args.edits else "hit"
+            print(f"warning: {int(overflow.sum())} reads hit the seed-hits={args.seed_hits} cap; "
+                  f"their {kind} lists are lower bounds")
+    elif args.mismatches or args.fused:
         engine = SearchLocateEngine(index, loc, device, max_hits=args.max_hits, lut_m=args.lut)
         t0 = time.perf_counter()
         if args.mismatches:
             pos = engine.locate_mismatch(queries)
         else:
             intervals, pos = engine.search_locate(queries)
+        seconds = time.perf_counter() - t0
     else:
         # any length: the locate tables' k=1 index is the search's tail
         tail = loc.lf1 if args.qrysize % index.config.k else None
@@ -298,11 +358,58 @@ def cmd_locate(args) -> LocateRun:
         t0 = time.perf_counter()
         intervals = search.search(queries)
         pos = walker.locate_hits(intervals, max_hits=args.max_hits)
-    seconds = time.perf_counter() - t0
+        seconds = time.perf_counter() - t0
     out = args.output or f"{args.queries}.pos"
     print(f"{nq} queries, max {args.max_hits} hits each")
     emit_strands(out, pos, nq, write_positions)
-    return LocateRun(pos, intervals, seconds)
+    return LocateRun(pos, intervals, seconds, counts, overflow)
+
+
+def reference_text(args, codes, missing: str) -> np.ndarray:
+    """The reference's 2-bit codes for a verify pass: ``codes`` when the
+    tables were built from it, else read again from the FASTA (with
+    --from-store), exiting with ``missing`` when there is none."""
+    if codes is not None:
+        return codes
+    if not os.path.exists(args.reference):
+        sys.exit(missing)
+    return read_reference(args.reference, args.refsize or None)
+
+
+def locate_paired(args, index, loc, codes, queries: np.ndarray, device) -> PairRun:
+    """``locate --paired R2``: FR pairs of R1 (``queries``) and R2 under the
+    insert window, written one pair per ``left:right:strand`` token, one
+    line per read pair (tpufm/cli.py:903-1000)."""
+    if args.rc:
+        sys.exit("--paired covers both strands by definition; drop --rc")
+    approximate = args.mismatches >= 2 or args.edits
+    if approximate:
+        codes = reference_text(args, codes, "--paired approximate matching needs the reference "
+                                            "FASTA for the verify pass")
+    r2 = np.require(load_queries(args.paired, args.qrysize, args.numqueries), np.uint8, ["C", "W"])
+    engine = PairedEndEngine(
+        index, loc, args.insert_min, args.insert_max, max_hits=args.max_hits, max_pairs=args.max_pairs,
+        lut_m=args.lut, mismatches=args.mismatches, edits=args.edits, seed_hits=args.seed_hits,
+        text=codes if approximate else None, device=device,
+    )
+    t0 = time.perf_counter()
+    pairs, strand, counts, overflow = engine.pair(queries, r2)
+    seconds = time.perf_counter() - t0
+    if overflow.any():
+        print(f"warning: {int(overflow.sum())} read pairs have a mate in a repeat wider than "
+              f"max-hits={args.max_hits}; their pair lists are lower bounds")
+    nq = queries.shape[0]
+    out = args.output or f"{args.queries}.pairs"
+    with open(out, "w") as fp:
+        for i in range(nq):
+            fp.write(" ".join(
+                f"{int(pairs[i, j, 0])}:{int(pairs[i, j, 1])}:{'+' if strand[i, j] == 0 else '-'}"
+                for j in range(pairs.shape[1]) if pairs[i, j, 0] != 0xFFFFFFFF
+            ) + "\n")
+    print(f"{nq} read pairs, {int((counts > 0).sum())} properly paired "
+          f"(insert [{args.insert_min}, {args.insert_max}])")
+    print(f"wrote {out}")
+    return PairRun(pairs, strand, counts, overflow, seconds)
 
 
 def cmd_build(args) -> BuildRun:
@@ -400,22 +507,29 @@ def cmd_bench(args) -> dict:
     if args.edits and args.mismatches:
         sys.exit("--edits (indel-aware) and --mismatches (substitutions "
                  "only) are different distance models; pass one")
+    common = dict(refsize=args.refsize, iterations=args.iterations, seed=args.seed, device=args.device)
+    located = dict(k=args.k, d=args.d, sample_rate=args.sample_rate, query_len=args.length,
+                   lut_m=args.lut, max_hits=args.max_hits, **common)
     if args.paired_bench:
         if args.edits or args.mismatches or args.locate or args.sharded or args.multichip:
             sys.exit("--paired is its own bench mode; drop "
                      "--edits/--mismatches/--locate/--sharded/--multichip")
-        sys.exit("bench --paired is not ported yet (ROADMAP Queue 1 item 2: approximate "
-                 "matching and pairing)")
+        record = bench.run_bench_paired(num_pairs=args.numqueries, insert_min=args.insert_min,
+                                        insert_max=args.insert_max, **located)
+        print(json.dumps(record))
+        return record
     if (args.edits or args.mismatches >= 2) and (args.locate or args.sharded or args.multichip):
         sys.exit("bench --edits/--mismatches>=2 are single-chip records; "
                  "drop --locate/--sharded/--multichip")
-    if args.edits or args.mismatches >= 2:
-        sys.exit("bench --edits and --mismatches >= 2 are not ported yet (ROADMAP Queue 1 "
-                 "item 2: approximate matching)")
-    common = dict(refsize=args.refsize, iterations=args.iterations, seed=args.seed, device=args.device)
     multi_gpu = ("bench --sharded, --multichip and --locate over --mesh N are not ported "
                  "yet (ROADMAP Queue 1 item 6: multi-GPU)")
-    if args.mismatches:
+    if args.edits:
+        record = bench.run_bench_edit(num_queries=args.numqueries, edits=args.edits,
+                                      seed_hits=args.seed_hits, **located)
+    elif args.mismatches >= 2:
+        record = bench.run_bench_seed(num_queries=args.numqueries, mismatches=args.mismatches,
+                                      seed_hits=args.seed_hits, **located)
+    elif args.mismatches:
         record = bench.run_bench_mismatch(
             k=args.k, d=args.d, num_queries=args.numqueries, query_len=args.length,
             lut_m=args.lut, **common)
@@ -539,9 +653,31 @@ def main(argv=None):
     lc.add_argument("--rc", action="store_true",
                     help="also locate every read's reverse complement in the "
                          "same pass; minus-strand positions go to <out>.rc")
-    lc.add_argument("--mismatches", type=int, default=0, choices=[0, 1],
-                    help="1 = positions of occurrences within Hamming distance "
-                         "1, in one device pass")
+    lc.add_argument("--mismatches", type=int, default=0,
+                    help="positions of occurrences within this Hamming distance: 1 = "
+                         "on-device variant expansion; >= 2 = pigeonhole seed-and-extend "
+                         "(needs the reference FASTA for the verify pass, also with "
+                         "--from-store)")
+    lc.add_argument("--edits", type=int, default=0, metavar="E",
+                    help="indel-aware: distinct alignment start sites within edit distance "
+                         "E (pigeonhole seeds + the Myers verify; needs the reference FASTA, "
+                         "also with --from-store)")
+    lc.add_argument("--seed-hits", type=int, default=32,
+                    help="mismatches >= 2 / edits: per-seed interval cap; reads whose seeds "
+                         "exceed it are flagged (their hit list is a lower bound)")
+    lc.add_argument("--paired", default=None, metavar="R2.qry",
+                    help="paired-end FR placement: queries is R1, this is R2 (same length "
+                         "and count); writes <out> (default <queries>.pairs), one line per "
+                         "pair of left:right:strand tokens")
+    lc.add_argument("--insert-min", type=int, default=0,
+                    help="--paired: smallest proper fragment length")
+    lc.add_argument("--insert-max", type=int, default=1000,
+                    help="--paired: largest proper fragment length")
+    lc.add_argument("--max-pairs", type=int, default=4,
+                    help="--paired: proper pairs reported per read pair")
+    lc.add_argument("--sam", action="store_true", help="not ported (ROADMAP Queue 1 item 3)")
+    lc.add_argument("--bam", action="store_true", help="not ported (ROADMAP Queue 1 item 3)")
+    lc.add_argument("--contigs", action="store_true", help="not ported (ROADMAP Queue 1 item 3)")
     lc.add_argument("--store", default=None, metavar="PREFIX",
                     help="persist PREFIX.search.tpufm + PREFIX.locate.tpufm")
     lc.add_argument("--from-store", default=None, metavar="PREFIX",
@@ -567,10 +703,13 @@ def main(argv=None):
                     help="prefix-LUT m (default: none; with --genome, recommend_config's "
                          "pick — pass 0 for LUT-free)")
     be.add_argument("--mismatches", type=int, default=0,
-                    help="1 = the Hamming<=1 count record; >= 2 is not ported")
-    be.add_argument("--edits", type=int, default=0, metavar="E", help="not ported")
+                    help="1 = the Hamming<=1 count record; >= 2 = the seed-and-extend "
+                         "locate record")
+    be.add_argument("--edits", type=int, default=0, metavar="E",
+                    help="the edit-distance (Myers-verified seed-and-extend) record")
     be.add_argument("--seed-hits", type=int, default=32, help="with --mismatches>=2 / --edits")
-    be.add_argument("--paired", dest="paired_bench", action="store_true", help="not ported")
+    be.add_argument("--paired", dest="paired_bench", action="store_true",
+                    help="the paired-end FR placement record (--numqueries = pairs)")
     be.add_argument("--insert-min", type=int, default=250)
     be.add_argument("--insert-max", type=int, default=450)
     be.add_argument("--genome", action="store_true",
@@ -585,7 +724,8 @@ def main(argv=None):
     be.add_argument("--fused", action="store_true",
                     help="with --locate: the one-pass search+locate record")
     be.add_argument("--max-hits", type=int, default=4,
-                    help="with --locate --fused: positions per read")
+                    help="positions per read (--locate --fused, --mismatches>=2, --edits, "
+                         "--paired)")
     be.add_argument("--sample-rate", type=int, default=32,
                     help="locate SA sampling rate (with --locate)")
     be.add_argument("--mesh", type=int, default=None, metavar="N",

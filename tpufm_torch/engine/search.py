@@ -220,12 +220,14 @@ class SearchEngine(torch.nn.Module):
         if queries.device != self.device:
             raise ValueError(f"queries on {queries.device}, engine on {self.device}")
 
-    def search_device(self, queries: torch.Tensor, step=None) -> torch.Tensor:
+    def search_device(self, queries: torch.Tensor, step=None, use_lut: bool = True) -> torch.Tensor:
         """uint8 [B, L] 2-bit codes on this engine's device -> int64 [B, 2]
-        SA intervals (L, R), left on the device."""
+        SA intervals (L, R), left on the device. ``use_lut=False`` starts
+        every read from the full interval on the same tables, as a search
+        built without the LUT (the seed scan's short seeds, seed.py:154)."""
         self._check_queries(queries)
         L = queries.shape[1]
-        k, m = self.k, self.lut_m
+        k, m = self.k, self.lut_m if use_lut else 0
         r = (L - m) % k if m else L % k
         if r and self.tail_d is None:
             raise ValueError(

@@ -45,6 +45,15 @@ SIGNATURES = {
         # sample_rate, next_lane, stream
         "tpufm_locate_walk": [_P, _LL, _I, _I, _P, _LL, _P, _P, _P, _LL, _I, _P, _P],
     },
+    "hamming_verify": {
+        # text, nw, pos, qwords, valid, out, n, C, W, L, stream
+        "tpufm_hamming_verify": [_P, _LL, _P, _P, _P, _P, _LL, _LL, _I, _I, _P],
+    },
+    "myers_verify": {
+        # text, nw, n_text, peq, lo, hi, valid, dist, start, n, C, W, L, E,
+        # scratch, stream
+        "tpufm_myers_verify": [_P, _LL, _LL, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _P, _P],
+    },
 }
 
 _libraries: dict[str, ctypes.CDLL] = {}
