@@ -195,14 +195,6 @@ def seed_extend_oracle(codes, queries, mismatches: int):
     return np.asarray(counts, dtype=np.int64), positions
 
 
-def _text_tensor(text, device: torch.device) -> torch.Tensor:
-    """2-bit codes or prepacked uint32 words -> the packed text on ``device``."""
-    text = np.asarray(text)
-    if text.dtype != np.uint32:
-        text = pack_text_words(text)
-    return _words(text, device)
-
-
 class SeedEngine(torch.nn.Module):
     """The tables every seed-and-extend engine holds on one device: the
     search tables (``search_engine``, K1), the sampled-SA locate tables
@@ -216,7 +208,10 @@ class SeedEngine(torch.nn.Module):
             raise ValueError(f"seed_hits and max_hits must be >= 1, got {seed_hits}, {max_hits}")
         self.search_engine = SearchEngine(index, device, lut_m=lut_m)
         self.locate_engine = LocateEngine(loc, self.search_engine.device)
-        self.register_buffer("text_words", _text_tensor(text, self.search_engine.device))
+        text = np.asarray(text)  # 2-bit codes, or words already packed
+        if text.dtype != np.uint32:
+            text = pack_text_words(text)
+        self.register_buffer("text_words", _words(text, self.search_engine.device))
         self.seed_hits, self.max_hits = seed_hits, max_hits
         self.bwtsize = self.search_engine.bwtsize
 
