@@ -77,8 +77,11 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      to their plain versions on the first wave of each path (65,536 reads x
      96 lanes; 8,192 x 96) and on edge cases (every offset in a word, the
      last valid start, windows past the text end, invalid lanes; L = 120 and
-     151, E = 1-3), both timed beside their bounds (K6: the larger of its
-     bytes and its integer operations over the INT32 rate); ``locate
+     151, E = 1-3), both timed on the device (a CUDA graph of back-to-back
+     calls: their wrappers' host time is longer than the kernels) beside
+     their bounds (K6: the larger of its bytes and its integer operations
+     over the INT32 rate; and with one valid lane left, its latency
+     floor), and a wrapper call each; ``locate
      --mismatches 2`` on 65,536 x 120 bp reads with two planted
      substitutions (every origin found where not flagged, the first 4,096
      equal to the plain path, 256 equal to the naive Hamming scan on the
@@ -89,7 +92,11 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      pair, all equal to the plain path, 64 equal to ``pair_oracle``), and
      with ``--mismatches 2`` and ``--edits 1`` on 4,096 pairs; then the
      ``bench --mismatches 2``, ``--edits 2`` and ``--paired`` records at
-     tpufm's defaults, each printed on its line with every check true
+     tpufm's defaults, each printed on its line with every check true; one
+     more pass of the seed and the edit record under torch.profiler
+     (outside the counted runs): the device time by kernel and group (K1,
+     K4, K5, K6, the sorts, ``sorted_unique``, copies, the rest), its top
+     operations and the device's idle share of the record's pass
 Every path is driven with all launch counts set to 0 just before it and
 read just after; a kernel of the path launched too few times fails the run.
 Then one JSON line of kernel figures (each kernel's time beside its bound:
@@ -315,6 +322,31 @@ def cuda_ms(fn, reps: int = 7, run: int | None = None) -> float:
     if run is None:
         run = max(1, min(20, int(2.0 / max(first, 0.1))))
     return statistics.median(timed(run) for _ in range(reps))
+
+
+def graph_ms(fn, reps: int = 7, run: int = 20) -> float:
+    """Median milliseconds of one call of ``fn`` on the device alone:
+    ``run`` calls captured in a CUDA graph after a warm-up call, the graph
+    replayed between CUDA events, median of ``reps`` replays over ``run``.
+    For a kernel shorter than its wrapper's host time (checks, allocation,
+    the ctypes call), which ``cuda_ms`` would measure instead."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(run):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) / run)
+    return statistics.median(times)
 
 
 def k1_inputs(rng, k: int, d: int, bwtsize: int, n: int, dev):
@@ -570,6 +602,84 @@ def bench_record(label: str, argv: list, need: dict, by_path: dict) -> dict:
     return record
 
 
+@contextlib.contextmanager
+def keep_pass(kept: dict):
+    """Within: ``kept["fn"]`` is the pass of the last bench record run (the
+    function its timed passes call, engine and reads on board), so that
+    ``profile_pass`` can run one more pass outside the counted run."""
+    passes = bench._passes
+
+    def keeping(fn, iterations):
+        kept["fn"] = fn
+        return passes(fn, iterations)
+
+    bench._passes = keeping
+    try:
+        yield kept
+    finally:
+        bench._passes = passes
+
+
+#: the profile's groups of device operations: (label, test on the name)
+PROFILE_GROUPS = (
+    ("K1 lf_round", lambda n: "lf_round" in n), ("K4 locate_walk", lambda n: "locate_walk" in n),
+    ("K5 hamming_verify", lambda n: "hamming_verify" in n), ("K6 myers_verify", lambda n: "myers_verify" in n),
+    ("sorts", lambda n: "sort" in n.lower()), ("copies", lambda n: n.startswith(("Memcpy", "Memset"))),
+)
+
+
+def profile_pass(label: str, fn, pass_s: float) -> None:
+    """One pass of ``fn`` under torch.profiler, printed on two lines: the
+    device time (kernels, copies and sets) by group of ``PROFILE_GROUPS``
+    (the rest: elementwise, reductions, scatters) and of ``sorted_unique``
+    (the sort and neighbour dedup, its kernels those launched inside it),
+    the top operations, each with its share of the device time, and the
+    device's busy time against ``pass_s`` (the record's unprofiled mean
+    pass) and the profiled pass. Launches here are not counted on a path."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def labelled(f):
+        def run(*args, **kwargs):
+            with record_function("sorted_unique"):
+                return f(*args, **kwargs)
+        return run
+
+    plain = seed_mod.sorted_unique, edit_mod.sorted_unique
+    seed_mod.sorted_unique, edit_mod.sorted_unique = labelled(plain[0]), labelled(plain[1])
+    try:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        seed_mod.sorted_unique, edit_mod.sorted_unique = plain
+    events = prof.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    by_name: dict = {}
+    for e in events:  # the device's kernels, copies and sets; not the annotation's span
+        if e.device_type == cuda and e.name != "sorted_unique":
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
+    busy = sum(by_name.values())
+    if busy <= 0:
+        raise AssertionError(f"profile {label}: no device time traced")
+    groups = {g: 0.0 for g, _ in PROFILE_GROUPS}
+    groups["other"] = 0.0
+    for name, ms in by_name.items():
+        groups[next((g for g, test in PROFILE_GROUPS if test(name)), "other")] += ms
+    dedup = sum(e.device_time_total for e in events if e.name == "sorted_unique" and e.device_type != cuda) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    share = lambda ms: f"{ms:.4f} ms ({ms / busy * 100:.1f}%)"
+    print(f"    profile {label} (one pass): device busy {busy:.4f} ms of the record's {pass_s * 1e3:.4f} ms pass "
+          f"(idle {(1 - busy / (pass_s * 1e3)) * 100:.1f}%; the profiled pass {wall * 1e3:.4f} ms); by group: "
+          + ", ".join(f"{g} {share(ms)}" for g, ms in groups.items()) + f"; sorted_unique {share(dedup)}",
+          flush=True)
+    print(f"    profile {label} top device operations: "
+          + "; ".join(f"{name[:90]} {share(ms)}" for name, ms in top), flush=True)
+
+
 def text_windows(codes: np.ndarray, pos: np.ndarray, L: int) -> np.ndarray:
     """uint8 [N, L]: the text at each position."""
     return codes[pos.astype(np.int64)[:, None] + np.arange(L, dtype=np.int64)[None, :]]
@@ -579,7 +689,11 @@ def check_k5(text_words, pos, qwords, valid, L: int, what: str, timed: bool) -> 
     """K5 against its plain version on one candidate grid: bit-identical;
     with ``timed``, both timed beside the bytes bound: the valid mask and
     out over every lane (the function writes every lane), and per valid
-    lane W + 1 text words, the read's W words (int64) and pos."""
+    lane W + 1 text words, the read's W words (int64) and pos. The kernel's
+    ``ms`` is its device time (``graph_ms``), ``call_ms`` the wrapper's
+    back-to-back calls (``cuda_ms``), host time included, and
+    ``no_valid_ms`` the device time on the same grid with no lane valid
+    (the mask read and every output written: the stream alone)."""
     got = hamming_to_text(text_words, pos, qwords, valid, L)
     want = hamming_to_text_reference(text_words, pos, qwords, valid, L)
     torch.cuda.synchronize()
@@ -591,7 +705,9 @@ def check_k5(text_words, pos, qwords, valid, L: int, what: str, timed: bool) -> 
     if timed:
         W = qwords.shape[1]
         nbytes = out["valid"] * ((W + 1) * 4 + W * 8 + 8) + pos.numel() * (1 + 4)
-        out.update(ms=cuda_ms(lambda: hamming_to_text(text_words, pos, qwords, valid, L)),
+        out.update(ms=graph_ms(lambda: hamming_to_text(text_words, pos, qwords, valid, L)),
+                   call_ms=cuda_ms(lambda: hamming_to_text(text_words, pos, qwords, valid, L)),
+                   no_valid_ms=graph_ms(lambda: hamming_to_text(text_words, pos, qwords, torch.zeros_like(valid), L)),
                    plain_ms=cuda_ms(lambda: hamming_to_text_reference(text_words, pos, qwords, valid, L)),
                    bound_ms=bound_ms(nbytes), bound_by="bytes")
     return out
@@ -602,7 +718,12 @@ def check_k6(text_words, n_text: int, peq, lo, hi, valid, L: int, E: int, what: 
     with ``timed``, both timed beside the bound, the larger of the bytes
     (the valid mask, dist and start over every lane, and per valid lane its
     TL/16 + 2 text words, its read's peq row (int64), lo and hi) and the
-    integer operations of the valid lanes' scans over the INT32 rate."""
+    integer operations of the valid lanes' scans over the INT32 rate; and
+    the kernel on the same grid with one valid lane left (``one_lane_ms``:
+    one lane's scan in a chain, beside the grid's mask and outputs), the
+    latency floor of a design that runs each lane's steps in one thread.
+    Kernel times are device times (``graph_ms``); ``call_ms`` is the
+    wrapper's back-to-back calls (``cuda_ms``), host time included."""
     got = myers_verify(text_words, n_text, peq, lo, hi, valid, L, E)
     want = myers_verify_reference(text_words, n_text, peq, lo, hi, valid, L, E)
     torch.cuda.synchronize()
@@ -615,10 +736,14 @@ def check_k6(text_words, n_text: int, peq, lo, hi, valid, L: int, E: int, what: 
         nbytes = out["valid"] * ((TL // 16 + 2) * 4 + 4 * W * 8 + 16) + lo.numel() * (1 + 4 + 8)
         ops = out["valid"] * TL * (K6_OPS_PER_WORD * W + K6_OPS_PER_STEP)
         by_bytes, by_ops = bound_ms(nbytes), ops / INT32_OPS_PER_S * 1e3
-        out.update(ms=cuda_ms(lambda: myers_verify(text_words, n_text, peq, lo, hi, valid, L, E)),
+        one = torch.zeros_like(valid)
+        one.view(-1)[int(valid.reshape(-1).nonzero()[0])] = True
+        out.update(ms=graph_ms(lambda: myers_verify(text_words, n_text, peq, lo, hi, valid, L, E)),
+                   call_ms=cuda_ms(lambda: myers_verify(text_words, n_text, peq, lo, hi, valid, L, E)),
                    plain_ms=cuda_ms(lambda: myers_verify_reference(text_words, n_text, peq, lo, hi, valid, L, E)),
                    bound_ms=max(by_bytes, by_ops), bound_by="operations" if by_ops >= by_bytes else "bytes",
-                   bytes_bound_ms=by_bytes, ops_bound_ms=by_ops, ops=ops)
+                   bytes_bound_ms=by_bytes, ops_bound_ms=by_ops, ops=ops,
+                   one_lane_ms=graph_ms(lambda: myers_verify(text_words, n_text, peq, lo, hi, one, L, E)))
     return out
 
 
@@ -715,9 +840,9 @@ def approximate(tmp: str, ref: str, codes: np.ndarray, store: str, dev, by_path:
           f"({SEED_READS / srun.seconds:.0f} reads/s), {int(sovf.sum())} reads flagged, every origin of the others "
           f"found; first {SEED_PLAIN} equal to the plain path (plain rounds, walk, verify), {SEED_NAIVE} equal "
           f"to the naive Hamming scan on the card; launches {by_path['locate_mm2']}; K5 at the bench shape "
-          f"({k5['lanes']} lanes, {k5['valid']} valid): bit-identical, kernel {k5['ms']:.4f} ms (bound "
-          f"{k5['bound_ms']:.4f} ms, {k5['bound_ms'] / k5['ms'] * 100:.1f}% of it), plain {k5['plain_ms']:.4f} "
-          f"ms; K5 and K6 bit-identical on {edge_lanes} edge-case lanes; {time.perf_counter() - t0:.2f} s",
+          f"({k5['lanes']} lanes, {k5['valid']} valid): bit-identical, kernel {k5['ms']:.4f} ms on the device "
+          f"(bound {k5['bound_ms']:.4f} ms, {k5['bound_ms'] / k5['ms'] * 100:.1f}% of it; no lane valid "
+          f"{k5['no_valid_ms']:.4f} ms; a wrapper call {k5['call_ms']:.4f} ms), plain {k5['plain_ms']:.4f} ms; K5 and K6 bit-identical on {edge_lanes} edge-case lanes; {time.perf_counter() - t0:.2f} s",
           flush=True)
     del seng, q, cand, uniq, qwords
 
@@ -750,9 +875,11 @@ def approximate(tmp: str, ref: str, codes: np.ndarray, store: str, dev, by_path:
           f"{found['edit']['sites']} sites, every one within {APPROX_E} edits by the windowed DP, a site within "
           f"{2 * APPROX_E} of every origin not flagged ({found['edit']['overflow']} flagged); first {EDIT_PLAIN} "
           f"equal to the plain path; launches {by_path['locate_e2']}; K6 at the bench shape ({k6['lanes']} "
-          f"lanes, {k6['valid']} valid): bit-identical, kernel {k6['ms']:.4f} ms (bound {k6['bound_ms']:.4f} "
+          f"lanes, {k6['valid']} valid): bit-identical, kernel {k6['ms']:.4f} ms on the device (a wrapper call "
+          f"{k6['call_ms']:.4f} ms; bound {k6['bound_ms']:.4f} "
           f"ms by {k6['bound_by']}: operations {k6['ops_bound_ms']:.4f}, bytes {k6['bytes_bound_ms']:.4f}; "
-          f"{k6['bound_ms'] / k6['ms'] * 100:.1f}% of it), plain {k6['plain_ms']:.4f} ms; "
+          f"{k6['bound_ms'] / k6['ms'] * 100:.1f}% of it; one valid lane {k6['one_lane_ms']:.4f} ms), plain "
+          f"{k6['plain_ms']:.4f} ms; "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     del eeng, q, lo, hi, valid, peq
 
@@ -1269,14 +1396,19 @@ def main() -> None:
         bench_waves = {"seed": 2, "edit": 16, "paired": 2}  # 131,072 reads (x 4 for pairs) a record
         kstep = 120 // 2  # k=2 rounds of a whole read
         seed_k2 = (120 // 3) // 2  # and of a seed
-        bench_record("bench_seed", ["--mismatches", str(APPROX_M)], {
-            "hamming_verify": (BENCH_PASSES + 1) * bench_waves["seed"],
-            "locate_walk": (BENCH_PASSES + 1) * bench_waves["seed"],
-            "lf_round_pairs": (BENCH_PASSES + 1) * bench_waves["seed"] * seed_k2}, by_path)
-        bench_record("bench_edit", ["--edits", str(APPROX_E)], {
-            "myers_verify": (BENCH_PASSES + 1) * bench_waves["edit"],
-            "locate_walk": (BENCH_PASSES + 1) * bench_waves["edit"],
-            "lf_round_pairs": (BENCH_PASSES + 1) * bench_waves["edit"] * seed_k2}, by_path)
+        kept = {}
+        with keep_pass(kept):
+            seed_rec = bench_record("bench_seed", ["--mismatches", str(APPROX_M)], {
+                "hamming_verify": (BENCH_PASSES + 1) * bench_waves["seed"],
+                "locate_walk": (BENCH_PASSES + 1) * bench_waves["seed"],
+                "lf_round_pairs": (BENCH_PASSES + 1) * bench_waves["seed"] * seed_k2}, by_path)
+        profile_pass("bench --mismatches 2", kept.pop("fn"), seed_rec["detail"]["seconds_per_pass"])
+        with keep_pass(kept):
+            edit_rec = bench_record("bench_edit", ["--edits", str(APPROX_E)], {
+                "myers_verify": (BENCH_PASSES + 1) * bench_waves["edit"],
+                "locate_walk": (BENCH_PASSES + 1) * bench_waves["edit"],
+                "lf_round_pairs": (BENCH_PASSES + 1) * bench_waves["edit"] * seed_k2}, by_path)
+        profile_pass("bench --edits 2", kept.pop("fn"), edit_rec["detail"]["seconds_per_pass"])
         paired_rec = bench_record("bench_paired", ["--paired"], {
             "locate_walk": (BENCH_PASSES + 1) * bench_waves["paired"],
             "lf_round_pairs": (BENCH_PASSES + 1) * bench_waves["paired"] * kstep}, by_path)
@@ -1396,6 +1528,8 @@ def main() -> None:
             "launches": by_path["locate_mm2"]["hamming_verify"],
             "max_abs_err": approx["k5"]["max_abs_err"],
             "ms": approx["k5"]["ms"],
+            "call_ms": approx["k5"]["call_ms"],
+            "no_valid_ms": approx["k5"]["no_valid_ms"],
             "plain_ms": approx["k5"]["plain_ms"],
             "bound_ms": approx["k5"]["bound_ms"],
             "bound_by": approx["k5"]["bound_by"],
@@ -1413,12 +1547,14 @@ def main() -> None:
             "launches": by_path["locate_e2"]["myers_verify"],
             "max_abs_err": approx["k6"]["max_abs_err"],
             "ms": approx["k6"]["ms"],
+            "call_ms": approx["k6"]["call_ms"],
             "plain_ms": approx["k6"]["plain_ms"],
             "bound_ms": approx["k6"]["bound_ms"],
             "bound_by": approx["k6"]["bound_by"],
             "library_ms": None,
             "bytes_bound_ms": approx["k6"]["bytes_bound_ms"],
             "ops_bound_ms": approx["k6"]["ops_bound_ms"],
+            "latency_floor_ms": approx["k6"]["one_lane_ms"],
             "shape": f"phase 14's first edit wave: {approx['k6']['lanes']} lanes, {approx['k6']['valid']} valid, "
                      f"L={READ_LEN} E={APPROX_E}",
             "launches_per_pass": per_pass("myers_verify"),

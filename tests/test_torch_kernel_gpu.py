@@ -20,7 +20,10 @@ search+locate and its Hamming <= 1 locate must equal the plain path and the
 numpy oracle. The seed-and-extend Hamming verify kernel (K5) and the Myers
 verifier (K6: registers for reads up to 256 bp, the scratch buffer past
 them) must equal their plain versions on windows at every 16-base offset,
-the last valid start, windows past the text end and invalid lanes; the seed,
+the last valid start, windows past the text end and invalid lanes, and
+their tile compaction (2048 lanes a block) on grids with every lane valid,
+none, one at the last slot of each tile, a ragged end, fewer lanes than a
+tile, a read wider than a tile and a mask off its 16-byte boundary; the seed,
 edit and paired engines on the card must equal their plain path and their
 oracles. Intervals, positions, distances and table words are integers and
 compare exactly (tolerance 0).
@@ -404,6 +407,96 @@ def test_myers_verify_kernel_matches_plain(cuda, L, E):
     assert torch.equal(dist, want_d) and torch.equal(start, want_s)
     assert (dist.cpu().numpy()[~valid] == L + 1).all() and (start.cpu().numpy()[~valid] == 0xFFFFFFFF).all()
     assert (dist.cpu().numpy()[::2][valid[::2]] <= E).any()  # the mutated windows are found
+
+
+#: lanes a block of K5 and K6 packs (csrc/valid_tiles.cuh kTile)
+TILE = 2048
+#: valid masks of the tiling cases: (B, C, share valid, or "last" for one
+#: valid lane at the last slot of each tile); "unaligned" puts the mask off
+#: its 16-byte boundary (the kernels then read it a byte a lane)
+TILE_CASES = {
+    "all_valid": (40, 96, 1.0),
+    "none_valid": (40, 96, 0.0),
+    "last_of_each_tile": (64, 96, "last"),
+    "ragged_end": (37, 61, 0.7),
+    "under_one_tile": (5, 7, 0.7),
+    "read_wider_than_tile": (2, 2500, 0.5),
+    "unaligned_mask": (37, 61, 0.7),
+}
+
+
+def _tile_mask(case, rng, cuda):
+    """(valid bool [B, C] on the host, the same on the card) of a tiling case."""
+    B, C, share = TILE_CASES[case]
+    if share == "last":
+        valid = np.zeros(B * C, bool)
+        valid[TILE - 1 :: TILE] = True
+        valid = valid.reshape(B, C)
+    else:
+        valid = rng.random((B, C)) < share
+    v = torch.from_numpy(valid)
+    if case == "unaligned_mask":
+        v = torch.zeros(B * C + 1, dtype=torch.bool).to(cuda)[1:].copy_(v.reshape(-1)).reshape(B, C)
+        assert v.is_contiguous() and v.data_ptr() % 16
+        return valid, v
+    return valid, v.to(cuda)
+
+
+@pytest.mark.parametrize("case", list(TILE_CASES))
+@pytest.mark.parametrize("L", [1, 16, 17, 47, 64, 100, 120, 151, 160, 161, 300])
+def test_hamming_verify_tiles_match_plain(cuda, case, L):
+    """K5's tile compaction on the tiling cases, at every W it has a kernel
+    for (L <= 160: W = 1-10) and past them (its loop): bit-identical to the
+    plain version, L + 1 on every invalid lane."""
+    n = 1999
+    codes, text = _verify_text(n, L)
+    rng = np.random.default_rng(L)
+    valid, v = _tile_mask(case, rng, cuda)
+    B, C = valid.shape
+    pos = rng.integers(0, n - L + 1, size=(B, C))
+    pos.flat[:3] = [n - L, n - L + 5, n + 40]  # the last valid start and starts past it (clamped)
+    reads = codes[pos[:, -1, None] + np.arange(L)]
+    reads[:, ::11] ^= 1
+    t, p = text.to(cuda), torch.from_numpy(pos).to(cuda)
+    q = seed_mod.pack_query_words(torch.from_numpy(reads).to(cuda))
+    before = seed_mod.LAUNCHES
+    got = seed_mod.hamming_to_text(t, p, q, v, L)
+    torch.cuda.synchronize()
+    assert seed_mod.LAUNCHES == before + 1
+    assert torch.equal(got, seed_mod.hamming_to_text_reference(t, p, q, v, L))
+    assert (got.cpu().numpy()[~valid] == L + 1).all()
+
+
+@pytest.mark.parametrize("case", list(TILE_CASES))
+@pytest.mark.parametrize("L,E", [(17, 1), (40, 2), (90, 3), (120, 1), (120, 2), (151, 3), (180, 1), (220, 2),
+                                 (256, 3), (257, 1), (300, 2), (300, 3)])
+def test_myers_verify_tiles_match_plain(cuda, case, L, E):
+    """K6's tile compaction on the tiling cases at W = 1-10 (W > 8 keeps its
+    bit vectors in the scratch buffer, a slot a thread), E = 1-3:
+    bit-identical to the plain version, (L + 1, 0xFFFFFFFF) on every
+    invalid lane."""
+    n = 1500
+    codes, text = _verify_text(n, L + E)
+    rng = np.random.default_rng(L * 7 + E)
+    valid, v = _tile_mask(case, rng, cuda)
+    B, C = valid.shape
+    a = rng.integers(-E, n + E, size=(B, C))
+    a.flat[:3] = [n - 1 + E, n - 1, -E]  # windows past the text end, an anchor left of it
+    origin = rng.integers(0, n - L - E, size=B)
+    a[:, 1] = origin
+    reads = codes[origin[:, None] + np.arange(L)]
+    reads[:, ::37] ^= 1
+    lo, hi = np.maximum(a - E, 0), np.minimum(a + E, n - 1)
+    args = [torch.from_numpy(x).to(cuda) for x in (lo, hi)] + [v]
+    peq = edit_mod.build_peq(torch.from_numpy(reads[:, ::-1].copy()).to(cuda), -(-L // 32))
+    t = text.to(cuda)
+    before = edit_mod.LAUNCHES
+    dist, start = edit_mod.myers_verify(t, n, peq, *args, L, E)
+    torch.cuda.synchronize()
+    assert edit_mod.LAUNCHES == before + 1
+    want_d, want_s = edit_mod.myers_verify_reference(t, n, peq, *args, L, E)
+    assert torch.equal(dist, want_d) and torch.equal(start, want_s)
+    assert (dist.cpu().numpy()[~valid] == L + 1).all() and (start.cpu().numpy()[~valid] == 0xFFFFFFFF).all()
 
 
 def _approx_setup(k=3, d=64, n=3000, seed=5):

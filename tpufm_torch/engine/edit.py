@@ -150,16 +150,17 @@ def myers_verify(text_words, n_text: int, peq, lo, hi, valid, L: int, E: int):
     from tpufm_torch import kernels
 
     W = peq.shape[-1]
-    scratch = None
-    if W > MAX_REG_WORDS:
-        scratch = torch.empty((2, W, lo.numel()), dtype=torch.int32, device=lo.device)
     lib = kernels.library("myers_verify")
+    scratch, slots = None, 0
+    if W > MAX_REG_WORDS:  # a slot a thread of K6's grid, not a lane
+        slots = lib.tpufm_myers_verify_slots(lo.numel())
+        scratch = torch.empty((2, W, slots), dtype=torch.int32, device=lo.device)
     with torch.cuda.device(lo.device):
         stream = torch.cuda.current_stream(lo.device).cuda_stream
         err = lib.tpufm_myers_verify(
             text_words.data_ptr(), text_words.shape[0], n_text, peq.data_ptr(), lo.data_ptr(), hi.data_ptr(),
             valid.data_ptr(), dist.data_ptr(), start.data_ptr(), lo.numel(), lo.shape[1], W, L, E,
-            None if scratch is None else scratch.data_ptr(), stream,
+            None if scratch is None else scratch.data_ptr(), slots, stream,
         )
     if err:
         raise RuntimeError(f"myers_verify kernel launch failed: {kernels.error_string('myers_verify', err)}")

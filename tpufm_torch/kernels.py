@@ -51,10 +51,14 @@ SIGNATURES = {
     },
     "myers_verify": {
         # text, nw, n_text, peq, lo, hi, valid, dist, start, n, C, W, L, E,
-        # scratch, stream
-        "tpufm_myers_verify": [_P, _LL, _LL, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _P, _P],
+        # scratch, slots, stream
+        "tpufm_myers_verify": [_P, _LL, _LL, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _P, _LL, _P],
+        # n -> the scratch slots K6 needs
+        "tpufm_myers_verify_slots": [_LL],
     },
 }
+#: launchers that return something other than a cudaError_t (c_int)
+RESTYPES = {"tpufm_myers_verify_slots": _LL}
 
 _libraries: dict[str, ctypes.CDLL] = {}
 
@@ -136,7 +140,7 @@ def library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
             for fn, argtypes in SIGNATURES[stem].items():
                 getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
+                getattr(lib, fn).restype = RESTYPES.get(fn, ctypes.c_int)
             lib.tpufm_cuda_error_string.argtypes = [ctypes.c_int]
             lib.tpufm_cuda_error_string.restype = ctypes.c_char_p
             _libraries[stem] = lib
