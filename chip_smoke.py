@@ -97,6 +97,25 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      (outside the counted runs): the device time by kernel and group (K1,
      K4, K5, K6, the sorts, ``sorted_unique``, copies, the rest), its top
      operations and the device's idle share of the record's pass
+ 15. the aligner: phase 4's text as a 24-record FASTA (chr1..chr24, uneven
+     lengths), 150 bp FASTQ reads with qualities, a random half
+     reverse-complemented; ``align --store`` (the auto configuration, the
+     tables built) on 262,144 reads, a quarter with one planted
+     substitution (every error-free read inside one record primary at its
+     origin, FLAG 0/16, NM:i:0; no record at the origin of a read across
+     two records), then on the stores ``--mismatches 2`` on the same reads
+     (a record at every origin not flagged, NM the planted count), ``-2
+     --bam`` on 131,072 FR pairs, insert 250-450 (decoded with
+     ``read_sam_or_bam``: every pair proper at its origin, FLAG 99/147 or 83/163,
+     |TLEN| the fragment), ``--edits 2`` on 16,384 reads with two planted
+     edits (NM <= 2, CIGARs of 150 read bases, a record within 4 of every
+     origin) and 65,536 reads of 50-151 bp (CIGAR the read's length, every
+     read at its origin; the same run again as a new process, ``python -m
+     tpufm_torch.cli align``, its SAM byte-identical); each run's first
+     4,096 reads (pairs) equal to the plain path's through the same writer, each run's seconds, reads/s and
+     stages (tables, reads, reference, setup, engine, emit, encode, bgzf,
+     write), and the native SAM emitter against its Python loop on 65,536
+     reads
 Every path is driven with all launch counts set to 0 just before it and
 read just after; a kernel of the path launched too few times fails the run.
 Then one JSON line of kernel figures (each kernel's time beside its bound:
@@ -112,6 +131,7 @@ read I/O and the numpy oracle are the port's own host modules
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import io
 import json
@@ -159,10 +179,12 @@ from tpufm_torch.engine.lf_round import (
     lf_round_rows_reference,
 )
 from tpufm_torch.engine.row_gather import row_gather, row_gather_reference
+from tpufm_torch.host.contigs import read_contigs
 from tpufm_torch.host.formats import load_npz, load_store, write_fmi
 from tpufm_torch.host.index import IndexConfig, build_index, derive_tail
 from tpufm_torch.host.locate import build_locate, locate_hits
 from tpufm_torch.host.oracle import search_oracle
+from tpufm_torch.host.sam import sam_edit_records, sam_paired_records, sam_single_records
 from tpufm_torch.host.suffix_array import suffix_array
 from tpufm_torch.host.seqio import (
     decode_bases,
@@ -170,7 +192,10 @@ from tpufm_torch.host.seqio import (
     generate_reads,
     load_queries,
     load_queries_varlen,
+    load_query_quals,
     read_reference,
+    reverse_complement,
+    reverse_complement_varlen,
     write_reads_fasta,
     write_reference,
 )
@@ -217,6 +242,14 @@ PAIRS, PAIRS_APPROX, PAIRS_ORACLE = 1 << 17, 4096, 64
 INSERT_MIN, INSERT_MAX = 250, 450
 #: phase 14: the lanes of the synthetic edge-case grids of K5 and K6
 EDGE_READS, EDGE_LANES = 64, 96
+#: phase 15: the aligner on phase 4's text as a FASTA of ALIGN_RECORDS
+#: records; single reads (a quarter with one planted substitution), FR pairs,
+#: reads with two planted edits and trimmed reads; the reads (or pairs) of
+#: each run held against the plain path, and the reads the native SAM
+#: emitter is timed on against its Python loop
+ALIGN_RECORDS, ALIGN_LEN = 24, 150
+ALIGN_READS, ALIGN_PAIRS, ALIGN_EDIT_READS, ALIGN_VARLEN_READS = 1 << 18, 1 << 17, 1 << 14, 1 << 16
+ALIGN_PLAIN, EMIT_READS = 4096, 1 << 16
 #: one H100 SXM's INT32 issue rate: 64 INT32 lanes an SM (a quarter of its
 #: 128 FP32 lanes doing 2 flops an FMA: 67 TFLOP/s, NVIDIA's data sheet, so
 #: the clock is 1.98 GHz) x 132 SMs x 1.98e9
@@ -517,16 +550,19 @@ def timed_passes(fn, iterations: int = 3):
     return res, (time.perf_counter() - t0) / iterations
 
 
-def write_fastq(path, codes: np.ndarray, lengths: np.ndarray) -> None:
-    """Reads ``codes[j, :lengths[j]]`` as 4-line FASTQ records."""
+def write_fastq(path, codes: np.ndarray, lengths: np.ndarray, quals: np.ndarray | None = None) -> None:
+    """Reads ``codes[j, :lengths[j]]`` as 4-line FASTQ records named r<j>,
+    their qualities ``quals[j, :lengths[j]]`` (ASCII bytes) or all 'I'."""
     chunk = 1 << 16
     with open(path, "wb") as fp:
         for base in range(0, codes.shape[0], chunk):
             block = codes[base:base + chunk]
             seqs = decode_bases(block)
             W = block.shape[1]
+            qs = None if quals is None else np.ascontiguousarray(quals[base:base + chunk]).tobytes()
             fp.write(b"".join(
-                b"@r%d\n%s\n+\n%s\n" % (base + j, seqs[j * W:j * W + n], b"I" * n)
+                b"@r%d\n%s\n+\n%s\n" % (base + j, seqs[j * W:j * W + n],
+                                          b"I" * n if qs is None else qs[j * W:j * W + n])
                 for j, n in enumerate(lengths[base:base + chunk].tolist())
             ))
 
@@ -947,6 +983,310 @@ def approximate(tmp: str, ref: str, codes: np.ndarray, store: str, dev, by_path:
           f"{found['paired_e1']['seconds']:.6f} s, every true pair recovered, equal to the plain path, launches "
           f"{by_path['paired_mm2']} / {by_path['paired_e1']}; {time.perf_counter() - t0:.2f} s", flush=True)
     return {"k5": k5, "k6": k6, "edge_lanes": edge_lanes, "paths": found}
+
+
+def write_records(path: str, codes: np.ndarray, bounds: np.ndarray) -> None:
+    """``codes`` as a multi-FASTA: record chr<i+1> holds codes[bounds[i]:
+    bounds[i+1]], in 70-column lines."""
+    with open(path, "wb") as fp:
+        for i in range(len(bounds) - 1):
+            seq = decode_bases(codes[bounds[i]:bounds[i + 1]])
+            fp.write(b">chr%d\n" % (i + 1) + b"\n".join(seq[o:o + 70] for o in range(0, len(seq), 70)) + b"\n")
+
+
+def strand_reads(codes: np.ndarray, starts: np.ndarray, lengths: np.ndarray, minus: np.ndarray,
+                 width: int) -> np.ndarray:
+    """uint8 [N, width]: read j in its first lengths[j] columns, the text
+    codes[starts[j]:starts[j] + lengths[j]], reverse-complemented where
+    minus[j]."""
+    t = np.arange(width)[None, :]
+    idx = np.where(minus[:, None], starts[:, None] + lengths[:, None] - 1 - t, starts[:, None] + t)
+    out = codes[np.clip(idx, 0, codes.shape[0] - 1)]
+    return np.where(minus[:, None], 3 - out, out).astype(np.uint8)
+
+
+def sam_blocks(lines: list, n: int) -> list:
+    """The record field lists of SAM record ``lines`` (no header), by read:
+    QNAMEs are r<i>."""
+    blocks = [[] for _ in range(n)]
+    for line in lines:
+        f = line.split("\t")
+        blocks[int(f[0][1:])].append(f)
+    return blocks
+
+
+def same_text_start(what: str, body: list, plain: str, n: int) -> None:
+    """The record lines of the first ``n`` reads in ``body`` (a run's record
+    lines) must be exactly ``plain``, the plain path's records of those reads."""
+    want = plain.splitlines()
+    if body[:len(want)] != want or (len(body) > len(want) and body[len(want)].split("\t")[0] != f"r{n}"):
+        raise AssertionError(f"{what}: the SAM records of the first {n} reads differ from the plain path's")
+
+
+def origin(bounds: np.ndarray, starts: np.ndarray, span: int):
+    """(record index, 1-based offset, inside) of text positions ``starts``:
+    inside where a ``span``-long match from there stays in its record."""
+    rec = np.searchsorted(bounds, starts, side="right") - 1
+    return rec, starts - bounds[rec] + 1, starts + span <= bounds[rec + 1]
+
+
+def aligner(tmp: str, codes: np.ndarray, dev, by_path: dict) -> dict:
+    """Phase 15 (see the module docstring): ``align`` through the CLI on a
+    24-record FASTA of phase 4's text, five runs, each held against its
+    planted truth and, on its first ALIGN_PLAIN reads or pairs, against the
+    plain path through the same writer; returns each run's stages."""
+    n, L = codes.shape[0], ALIGN_LEN
+    rng = np.random.default_rng(SEED + 11)
+    weights = rng.uniform(0.5, 1.5, ALIGN_RECORDS)
+    bounds = np.concatenate([[0], np.cumsum(weights / weights.sum() * n).astype(np.int64)])
+    bounds[-1] = n
+    ref = os.path.join(tmp, "chroms.fa")
+    write_records(ref, codes, bounds)
+    store = os.path.join(tmp, "A")
+    plain = dict(step=lf_round_reference, walk=locate_walk_reference)
+    found = {}
+
+    def reads_file(name, reads, lengths):
+        path = os.path.join(tmp, name)
+        write_fastq(path, reads, lengths, rng.integers(33, 75, size=reads.shape, dtype=np.uint8))
+        return path
+
+    def run(label, argv, need):
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as said:
+            r = cli.main(["align", *argv, "--device", dev.type])
+        seconds = time.perf_counter() - t0
+        by_path[label] = read_counts()
+        expect_launches(f"align {label}", by_path[label], need)
+        found[label] = {"seconds": seconds, "stages": dict(r.stages)}
+        return r, seconds, said.getvalue()
+
+    def stage_line(label):
+        return ", ".join(f"{k} {v:.3f}" for k, v in found[label]["stages"].items())
+
+    B = ALIGN_READS
+    starts = rng.integers(0, n - L + 1, size=B)
+    minus = rng.random(B) < 0.5
+    reads = strand_reads(codes, starts, np.full(B, L), minus, L)
+    mutated = rng.random(B) < 0.25
+    col = rng.integers(0, L, size=B)
+    reads[mutated, col[mutated]] = (reads[mutated, col[mutated]] + rng.integers(1, 4, size=int(mutated.sum()))) % 4
+    fq = reads_file("se.fq", reads, np.full(B, L))
+    rec, pos1, inside = origin(bounds, starts, L)
+    lut = next(m for m in range(12 - 12 % K, 0, -K) if 4**m <= n)
+    lut_launches = (4**lut // min(4**lut, 1 << 20)) * (lut // K)
+    found["lut"] = {"m": lut, "launches": lut_launches}
+    rounds = (L - lut) // K
+    t0 = time.perf_counter()
+    se, se_s, said = run("align_se", [ref, fq, "--store", store, "-o", os.path.join(tmp, "se.sam")], {
+        "lf_round_pairs": rounds * -(-2 * B // SearchLocateEngine.WAVE) + lut_launches,
+        "locate_walk": -(-2 * B // SearchLocateEngine.WAVE)})
+    if f"k={K} d={D} lut={lut}" not in said:
+        raise AssertionError(f"align: the auto configuration is not k={K} d={D} lut={lut}: {said.splitlines()[0]}")
+    text = Path(se.output).read_text()
+    header = [x for x in text.splitlines() if x.startswith("@")]
+    body = text.splitlines()[len(header):]
+    if header[1:-1] != [f"@SQ\tSN:chr{i + 1}\tLN:{bounds[i + 1] - bounds[i]}" for i in range(ALIGN_RECORDS)]:
+        raise AssertionError("align: the @SQ lines differ from the records written")
+    blocks = sam_blocks(body, B)
+    for i in range(B):
+        first = blocks[i][0]
+        at_origin = [f for f in blocks[i] if f[2] == f"chr{rec[i] + 1}" and int(f[3]) == pos1[i]]
+        if not inside[i]:
+            ok = not at_origin
+        elif mutated[i]:
+            ok = first[1] == "4"
+        else:
+            ok = (first[1:4] == [str(16 * minus[i]), f"chr{rec[i] + 1}", str(pos1[i])] and first[-1] == "NM:i:0"
+                  and len(first[9]) == L)
+        if not ok:
+            raise AssertionError(f"align: read {i} is not where it was sampled from: {blocks[i]}")
+    index_s = load_store(f"{store}.search.tpufm")
+    loc_s = load_store(f"{store}.locate.tpufm")
+    cmap = read_contigs(ref)
+    P_ = ALIGN_PLAIN
+    names = [f"r{i}" for i in range(P_)]
+    quals = load_query_quals(fq, P_)
+    exact = argparse.Namespace(mismatches=0, edits=0)
+    eng = SearchLocateEngine(index_s, loc_s, dev, max_hits=MAX_HITS, lut_m=lut)
+    pos = cli.single_end_positions(exact, eng, reads[:P_], **plain)[0]
+    same_arrays("align (exact)", (pos[:P_], pos[P_:]), (se.positions[:P_], se.positions[B:B + P_]))
+    same_text_start("align (exact)", body, sam_single_records(names, reads[:P_], pos[:P_], pos[P_:], cmap,
+                                                               quals=quals), P_)
+    del eng
+    t1 = time.perf_counter()
+    sel = slice(0, EMIT_READS)
+    e_names = [f"r{i}" for i in range(EMIT_READS)]
+    e_quals = load_query_quals(fq, EMIT_READS)
+    emit = {}
+    for how in ("native", "python"):
+        t2 = time.perf_counter()
+        emit[how] = sam_single_records(e_names, reads[sel], se.positions[sel], se.positions[B:B + EMIT_READS], cmap,
+                                       quals=e_quals, emitter=how)
+        emit[f"{how}_s"] = time.perf_counter() - t2
+    if emit["native"] != emit["python"]:
+        raise AssertionError("sam_single_records: the native emitter and the Python loop differ")
+    print(f"[15 aligner] 24-record FASTA of phase 4's text ({int(np.diff(bounds).min())}-"
+          f"{int(np.diff(bounds).max())} bases a record), 150 bp FASTQ, half reverse-complemented; auto "
+          f"config k={K} d={D} lut={lut}:", flush=True)
+    print(f"    (a) align --store, {B} reads, a quarter with one substitution: {se_s:.3f} s host to host "
+          f"({B / se_s:.0f} reads/s), stages {stage_line('align_se')}; every error-free read in one record "
+          f"primary at its origin (FLAG 0/16, NM:i:0), every spanning read without a record there; first {P_} "
+          f"equal to the plain path; launches {by_path['align_se']}; emitter on {EMIT_READS} reads: native "
+          f"{emit['native_s']:.4f} s, Python loop {emit['python_s']:.4f} s, the same bytes; checks "
+          f"{time.perf_counter() - t1:.2f} s", flush=True)
+    found["emit"] = {"reads": EMIT_READS, "native_s": emit["native_s"], "python_s": emit["python_s"]}
+    del emit, text, body, blocks
+
+    t1 = time.perf_counter()
+    m2, m2_s, _ = run("align_m2", [ref, fq, "--from-store", store, "--mismatches", "2",
+                                   "-o", os.path.join(tmp, "m2.sam")], {
+        "lf_round_pairs": ((L // 3) // K * K - lut) // K * -(-2 * B // SeedExtendEngine.WAVE) + lut_launches,
+        "locate_walk": -(-2 * B // SeedExtendEngine.WAVE),
+        "hamming_verify": -(-2 * B // SeedExtendEngine.WAVE)})
+    body = [x for x in Path(m2.output).read_text().splitlines() if not x.startswith("@")]
+    blocks = sam_blocks(body, B)
+    flagged = m2.overflow[:B] | m2.overflow[B:]
+    for i in np.flatnonzero(inside & ~flagged):
+        want = [str(16 * minus[i]), f"chr{rec[i] + 1}", str(pos1[i])]
+        if not any([str(int(f[1]) & ~0x100), f[2], f[3]] == want and f[-1] == f"NM:i:{int(mutated[i])}"
+                   for f in blocks[i]):
+            raise AssertionError(f"align --mismatches 2: read {i} has no record at its origin: {blocks[i]}")
+    eng = SeedExtendEngine(index_s, loc_s, codes, mismatches=2, max_hits=MAX_HITS, lut_m=lut, device=dev)
+    pos, ovf = cli.single_end_positions(argparse.Namespace(mismatches=2, edits=0), eng, reads[:P_],
+                                        verify=hamming_to_text_reference, **plain)
+    same_arrays("align --mismatches 2", (pos[:P_], pos[P_:], ovf[:P_], ovf[P_:]),
+                (m2.positions[:P_], m2.positions[B:B + P_], m2.overflow[:P_], m2.overflow[B:B + P_]))
+    same_text_start("align --mismatches 2", body, sam_single_records(
+        names, reads[:P_], pos[:P_], pos[P_:], cmap, codes=codes, quals=quals), P_)
+    del eng, body, blocks
+    print(f"    (b) align --from-store --mismatches 2, the same reads: {m2_s:.3f} s ({B / m2_s:.0f} reads/s), "
+          f"stages {stage_line('align_m2')}; {int(flagged.sum())} reads flagged, every other read in one record "
+          f"has a record at its origin with NM its planted count; first {P_} equal to the plain path; launches "
+          f"{by_path['align_m2']}; checks {time.perf_counter() - t1:.2f} s", flush=True)
+
+    t1 = time.perf_counter()
+    NP = ALIGN_PAIRS
+    r1, r2, (ls, rs, pminus) = generate_read_pairs(codes, L, NP, INSERT_MIN, INSERT_MAX, seed=SEED + 12,
+                                                   return_truth=True)
+    q1, q2 = reads_file("pe_1.fq", r1, np.full(NP, L)), reads_file("pe_2.fq", r2, np.full(NP, L))
+    pe, pe_s, _ = run("align_paired", [ref, q1, "-2", q2, "--from-store", store, "--bam", "--insert-min",
+                                       str(INSERT_MIN), "--insert-max", str(INSERT_MAX),
+                                       "-o", os.path.join(tmp, "pe.bam")], {
+        "lf_round_pairs": rounds * -(-4 * NP // SearchLocateEngine.WAVE) + lut_launches,
+        "locate_walk": -(-4 * NP // SearchLocateEngine.WAVE)})
+    body = [x for x in cli.read_sam_or_bam(pe.output).splitlines() if not x.startswith("@")]  # BAM decoded
+    blocks = sam_blocks(body, NP)
+    lrec, lpos1, _ = origin(bounds, ls, L)
+    rrec, rpos1, _ = origin(bounds, rs, L)
+    frag = rs + L - ls
+    for i in np.flatnonzero((lrec == rrec) & (rs + L <= bounds[rrec + 1])):
+        a, b = blocks[i][0], blocks[i][1]
+        chrom = f"chr{lrec[i] + 1}"
+        want = ([str(0x53), chrom, str(rpos1[i]), str(-frag[i])], [str(0xA3), chrom, str(lpos1[i]), str(frag[i])]) \
+            if pminus[i] else ([str(0x63), chrom, str(lpos1[i]), str(frag[i])],
+                               [str(0x93), chrom, str(rpos1[i]), str(-frag[i])])
+        if [a[1], a[2], a[3], a[8]] != want[0] or [b[1], b[2], b[3], b[8]] != want[1]:
+            raise AssertionError(f"align -2: pair {i} is not proper at its origin: {blocks[i]}")
+    eng = PairedEndEngine(index_s, loc_s, INSERT_MIN, INSERT_MAX, max_hits=MAX_HITS, lut_m=lut, device=dev)
+    got = eng.pair(r1[:P_], r2[:P_], **plain)
+    same_arrays("align -2", got, (pe.pairs.pairs[:P_], pe.pairs.strand[:P_], pe.pairs.counts[:P_],
+                                  pe.pairs.overflow[:P_]))
+    same_text_start("align -2", body, sam_paired_records(
+        names, r1[:P_], r2[:P_], got[0], got[1], cmap, quals1=load_query_quals(q1, P_),
+        quals2=load_query_quals(q2, P_)), P_)
+    del eng, body, blocks
+    print(f"    (c) align -2 --from-store --bam, {NP} FR pairs, insert [{INSERT_MIN}, {INSERT_MAX}]: {pe_s:.3f} s "
+          f"({NP / pe_s:.0f} pairs/s), stages {stage_line('align_paired')}; decoded with read_sam_or_bam, every pair in "
+          f"one record proper at its origin (FLAG 99/147 or 83/163, |TLEN| the fragment); first {P_} equal to "
+          f"the plain path; launches {by_path['align_paired']}; checks {time.perf_counter() - t1:.2f} s",
+          flush=True)
+
+    t1 = time.perf_counter()
+    NE, E = ALIGN_EDIT_READS, 2
+    ereads, eorig = bench.edit_reads(codes, np.random.default_rng(SEED + 13), L, E, NE)
+    eminus = rng.random(NE) < 0.5
+    ereads[eminus] = reverse_complement(ereads[eminus])
+    eq = reads_file("e2.fq", ereads, np.full(NE, L))
+    e2, e2_s, _ = run("align_e2", [ref, eq, "--from-store", store, "--edits", str(E),
+                                   "-o", os.path.join(tmp, "e2.sam")], {
+        "lf_round_pairs": ((L // 3) // K * K - lut) // K * -(-2 * NE // EditExtendEngine.WAVE) + lut_launches,
+        "locate_walk": -(-2 * NE // EditExtendEngine.WAVE),
+        "myers_verify": -(-2 * NE // EditExtendEngine.WAVE)})
+    body = [x for x in Path(e2.output).read_text().splitlines() if not x.startswith("@")]
+    blocks = sam_blocks(body, NE)
+    erec, epos1, einside = origin(bounds, eorig, L + E)
+    einside &= epos1 > 2 * E
+    flagged = e2.overflow[:NE] | e2.overflow[NE:]
+    for i in range(NE):
+        mapped = [f for f in blocks[i] if f[1] != "4"]
+        for f in mapped:
+            ops = re.findall(r"(\d+)([MID])", f[5])
+            if int(f[-1][5:]) > E or sum(int(c) for c, op in ops if op in "MI") != L:
+                raise AssertionError(f"align --edits {E}: read {i} has a record past E or off its length: {f}")
+        if einside[i] and not flagged[i] and not any(
+                f[2] == f"chr{erec[i] + 1}" and abs(int(f[3]) - epos1[i]) <= 2 * E for f in mapped):
+            raise AssertionError(f"align --edits {E}: read {i} has no record within {2 * E} of its origin")
+    eng = EditExtendEngine(index_s, loc_s, codes, edits=E, max_hits=MAX_HITS, lut_m=lut, device=dev)
+    pos, ovf = cli.single_end_positions(argparse.Namespace(mismatches=0, edits=E), eng, ereads[:P_],
+                                        verify=myers_verify_reference, **plain)
+    same_arrays(f"align --edits {E}", (pos[:P_], pos[P_:], ovf[:P_], ovf[P_:]),
+                (e2.positions[:P_], e2.positions[NE:NE + P_], e2.overflow[:P_], e2.overflow[NE:NE + P_]))
+    same_text_start(f"align --edits {E}", body, sam_edit_records(
+        names, ereads[:P_], pos[:P_], pos[P_:], cmap, codes, E, quals=load_query_quals(eq, P_)), P_)
+    del eng, body, blocks
+    print(f"    (d) align --from-store --edits {E}, {NE} reads with {E} planted edits: {e2_s:.3f} s "
+          f"({NE / e2_s:.0f} reads/s), stages {stage_line('align_e2')}; every record NM <= {E} with a CIGAR of "
+          f"{L} read bases, a record within {2 * E} of every origin not flagged ({int(flagged.sum())} flagged); "
+          f"first {P_} equal to the plain path; launches {by_path['align_e2']}; checks "
+          f"{time.perf_counter() - t1:.2f} s", flush=True)
+
+    t1 = time.perf_counter()
+    NV = ALIGN_VARLEN_READS
+    vlen = rng.integers(VARLEN_MIN, VARLEN_MAX + 1, size=NV)
+    vstarts = rng.integers(0, n - VARLEN_MAX + 1, size=NV)
+    vminus = rng.random(NV) < 0.5
+    vq = reads_file("v.fq", strand_reads(codes, vstarts, vlen, vminus, VARLEN_MAX), vlen)
+    vbatch = load_queries_varlen(vq)
+    vrounds = (VARLEN_MAX + (-(VARLEN_MAX - lut) % K) - lut) // K
+    va, va_s, _ = run("align_varlen", [ref, vq, "--from-store", store, "-o", os.path.join(tmp, "v.sam")], {
+        "lf_round_pairs": vrounds + lut_launches, "locate_walk": 1})
+    body = [x for x in Path(va.output).read_text().splitlines() if not x.startswith("@")]
+    blocks = sam_blocks(body, NV)
+    vrec, vpos1, vinside = origin(bounds, vstarts, vlen)
+    for i in range(NV):
+        if any(f[1] != "4" and f[5] != f"{vlen[i]}M" for f in blocks[i]):
+            raise AssertionError(f"align (mixed lengths): read {i}'s CIGAR is not its length {vlen[i]}")
+        if vinside[i] and blocks[i][0][1:4] != [str(16 * vminus[i]), f"chr{vrec[i] + 1}", str(vpos1[i])]:
+            raise AssertionError(f"align (mixed lengths): read {i} is not at its origin: {blocks[i]}")
+    search = SearchEngine(index_s, dev, lut_m=lut, tail_index=loc_s.lf1)
+    vb = vbatch[:P_]
+    v2 = np.concatenate([vb, reverse_complement_varlen(vb)])
+    pos = LocateEngine(loc_s, dev).locate_hits(search.search_varlen(v2, step=lf_round_reference), MAX_HITS,
+                                               walk=locate_walk_reference)
+    same_arrays("align (mixed lengths)", (pos[:P_], pos[P_:]), (va.positions[:P_], va.positions[NV:NV + P_]))
+    same_text_start("align (mixed lengths)", body, sam_single_records(
+        names, vb, pos[:P_], pos[P_:], cmap, lengths=vlen[:P_], quals=load_query_quals(vq, P_)), P_)
+    del search, body, blocks
+    # the same run as a user starts it: a new process (interpreter, torch,
+    # the card, the built kernel libraries loaded, the first pass)
+    cold = os.path.join(tmp, "v_cold.sam")
+    t2 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "tpufm_torch.cli", "align", ref, vq, "--from-store", store,
+                           "-o", cold, "--device", dev.type], cwd=REPO, capture_output=True, text=True,
+                          timeout=600)
+    cold_s = time.perf_counter() - t2
+    if proc.returncode != 0 or Path(cold).read_bytes() != Path(va.output).read_bytes():
+        raise AssertionError(f"align in a new process: exit {proc.returncode}, or its SAM differs: {proc.stderr}")
+    found["align_varlen"]["new_process_seconds"] = cold_s
+    print(f"    (e) align --from-store, {NV} reads of {VARLEN_MIN}-{VARLEN_MAX} bp: {va_s:.3f} s "
+          f"({NV / va_s:.0f} reads/s), stages {stage_line('align_varlen')}; every CIGAR its read's length, "
+          f"every read in one record primary at its origin; first {P_} equal to the plain path; launches "
+          f"{by_path['align_varlen']}; the same command as a new process (python -m tpufm_torch.cli align): "
+          f"{cold_s:.3f} s, the same SAM bytes; checks {time.perf_counter() - t1 - cold_s:.2f} s; phase "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return found
 
 
 def main() -> None:
@@ -1416,31 +1756,37 @@ def main() -> None:
             raise AssertionError(f"bench --paired: {paired_rec['detail']['truth_pairs_recovered']} true pairs")
         print(f"    records {time.perf_counter() - t1:.2f} s; phase {time.perf_counter() - t0:.2f} s", flush=True)
 
+        align = aligner(tmp, codes, dev, by_path)
+
     for pkg in ("jax", "tpufm"):
         if any(m == pkg or m.startswith(pkg + ".") for m in sys.modules):
             raise AssertionError(f"{pkg} was imported")
     search_case = gathers[0]
     # launches per pass on the paths users run: (counted run, passes in it,
-    # whether it built the prefix LUT inside the count)
-    passes = {"search": ("main", 4, True), "varlen": ("varlen", 4, True),
-              "fused_locate": ("search_locate_timed", 4, False),
-              "two_pass_locate": ("two_pass_timed", 4, False),
-              "hamming1_count": ("count_mm1", 2, False), "gather_engine": ("gather", 4, True),
+    # the LUT build's launches inside the count, taken off)
+    lut_built, align_lut = lut_launches, align["lut"]["launches"]
+    passes = {"search": ("main", 4, lut_built), "varlen": ("varlen", 4, lut_built),
+              "fused_locate": ("search_locate_timed", 4, 0),
+              "two_pass_locate": ("two_pass_timed", 4, 0),
+              "hamming1_count": ("count_mm1", 2, 0), "gather_engine": ("gather", 4, lut_built),
               # the bench records: a warm-up and the timed passes (run_bench's
               # search also its host passes), each record with its own LUT
-              "bench": ("bench", 2 * BENCH_PASSES + 1, True),
-              "bench_search_locate": ("bench_search_locate", BENCH_PASSES + 1, True),
-              "bench_locate": ("bench_locate", BENCH_PASSES + 1, False),
-              "bench_mismatch": ("bench_mismatch", MM_PASSES + 1, True),
+              "bench": ("bench", 2 * BENCH_PASSES + 1, lut_built),
+              "bench_search_locate": ("bench_search_locate", BENCH_PASSES + 1, lut_built),
+              "bench_locate": ("bench_locate", BENCH_PASSES + 1, 0),
+              "bench_mismatch": ("bench_mismatch", MM_PASSES + 1, lut_built),
               # phase 14: one CLI pass each, which builds the LUT; the records run no LUT
-              "seed_locate": ("locate_mm2", 1, True), "edit_locate": ("locate_e2", 1, True),
-              "paired_locate": ("locate_paired", 1, True), "paired_mm2": ("paired_mm2", 1, True),
-              "paired_e1": ("paired_e1", 1, True), "bench_seed": ("bench_seed", BENCH_PASSES + 1, False),
-              "bench_edit": ("bench_edit", BENCH_PASSES + 1, False),
-              "bench_paired": ("bench_paired", BENCH_PASSES + 1, False)}
+              "seed_locate": ("locate_mm2", 1, lut_built), "edit_locate": ("locate_e2", 1, lut_built),
+              "paired_locate": ("locate_paired", 1, lut_built), "paired_mm2": ("paired_mm2", 1, lut_built),
+              "paired_e1": ("paired_e1", 1, lut_built), "bench_seed": ("bench_seed", BENCH_PASSES + 1, 0),
+              "bench_edit": ("bench_edit", BENCH_PASSES + 1, 0),
+              "bench_paired": ("bench_paired", BENCH_PASSES + 1, 0),
+              # phase 15: one align run each, which builds its own (9-mer) LUT
+              **{path: (path, 1, align_lut) for path in ("align_se", "align_m2", "align_paired", "align_e2",
+                                                         "align_varlen")}}
 
     def per_pass(name: str) -> dict:
-        return {label: (by_path[path][name] - (lut_launches if lut and name == "lf_round_pairs" else 0)) / n
+        return {label: (by_path[path][name] - (lut if name == "lf_round_pairs" else 0)) / n
                 for label, (path, n, lut) in passes.items()}
 
     r18 = k1_main[-1]

@@ -170,15 +170,24 @@ def test_locate_stores_load_across(tmp_path, ref, writer):
 
 @pytest.mark.parametrize("option", [["--sam"], ["--bam"], ["--contigs"], ["--mesh", "4"]])
 def test_locate_refuses_options_outside_the_slice(tmp_path, ref, option):
-    """SAM/BAM output and the contig map exit naming their queue item; an
-    option the port does not define is argparse's usage error."""
-    _, fa = ref
-    with pytest.raises(SystemExit) as exit_info:
-        torch_cli.main(["locate", str(fa), "3000", "q.qry", "24", "8", *option, "--device", "cpu"])
+    """SAM and BAM output and the contig map are ported: the port writes
+    tpufm's bytes (the '> 3000' header names the one record '3000'). An
+    option the port does not define (--mesh) is argparse's usage error."""
+    codes, fa = ref
+    qry = tmp_path / "q.qry"
+    reads, starts = generate_reads(codes, 24, 8, seed=13, return_starts=True)
+    write_reads_fasta(qry, reads, starts)
+    args = ["locate", str(fa), "3000", str(qry), "24", "8", *option]
     if option[0] == "--mesh":
+        with pytest.raises(SystemExit) as exit_info:
+            torch_cli.main([*args, "--device", "cpu"])
         assert exit_info.value.code == 2
-    else:
-        assert "ROADMAP Queue 1 item 3" in str(exit_info.value.code)
+        return
+    jax_cli.main([*args, "--output", str(tmp_path / "jax.out")])
+    torch_cli.main([*args, "--device", "cpu", "--output", str(tmp_path / "torch.out")])
+    assert (tmp_path / "torch.out").read_bytes() == (tmp_path / "jax.out").read_bytes()
+    if option[0] == "--contigs":
+        assert all(line.startswith("3000:") for line in (tmp_path / "torch.out").read_text().splitlines())
 
 
 def _mutated_reads(codes, L, n, seed, kind):

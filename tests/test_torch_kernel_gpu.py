@@ -592,3 +592,63 @@ def test_paired_on_card_matches_plain_and_oracle(cuda, source, L1, L2):
     if L1 == L2:  # the truth pairs are whole reads only then
         hit = (got[0][..., 0] == ls[:, None]) & (got[0][..., 1] == rs[:, None]) & (got[1] == minus[:, None])
         assert hit.any(axis=1).all()
+
+
+def _fastq(path, reads, rng):
+    with open(path, "w") as fp:
+        fp.write("".join(f"@a{i}\n{''.join('ACGT'[c] for c in r)}\n+\n"
+                         f"{''.join(chr(33 + int(x)) for x in rng.integers(0, 41, size=len(r)))}\n"
+                         for i, r in enumerate(reads)))
+    return str(path)
+
+
+@functools.lru_cache(maxsize=None)
+def _align_inputs(root: str):
+    """A 3-record reference and read files: 120 bp reads (a third with a
+    substitution, a third with a deletion), FR pairs, reads of 60-120 bp."""
+    import os
+
+    from tpufm_torch.host.seqio import generate_read_pairs
+
+    rng = np.random.default_rng(77)
+    recs = [rng.integers(0, 4, size=n, dtype=np.uint8) for n in (30_000, 12_000, 20_000)]
+    codes = np.concatenate(recs)
+    ref = os.path.join(root, "g.fa")
+    with open(ref, "w") as fp:
+        fp.write("".join(f">chr{i + 1}\n{''.join('ACGT'[c] for c in r)}\n" for i, r in enumerate(recs)))
+    starts = rng.integers(0, codes.shape[0] - 130, size=512)
+    fixed = [codes[s:s + 121].copy() for s in starts]
+    fixed = [np.delete(r, 40) if i % 3 == 2 else r[:120] for i, r in enumerate(fixed)]
+    for r in fixed[1::3]:
+        r[60] = (r[60] + 1) % 4
+    fixed = [(3 - r[::-1]) if i % 2 else r for i, r in enumerate(fixed)]
+    r1, r2 = generate_read_pairs(codes, 100, 256, 250, 450, seed=5)
+    mixed = [codes[s:s + n] for s, n in zip(starts, rng.integers(60, 121, size=512))]
+    return ref, {"fixed": _fastq(os.path.join(root, "f.fq"), fixed, rng),
+                 "r1": _fastq(os.path.join(root, "r1.fq"), r1, rng), "r2": _fastq(os.path.join(root, "r2.fq"), r2, rng),
+                 "mixed": _fastq(os.path.join(root, "m.fq"), mixed, rng)}
+
+
+@pytest.mark.parametrize("reads,extra", [
+    ("fixed", []), ("fixed", ["--mismatches", "1"]), ("fixed", ["--mismatches", "2"]), ("fixed", ["--edits", "2"]),
+    ("r1", ["-2", "R2", "--insert-min", "250", "--insert-max", "450"]),
+    ("r1", ["-2", "R2", "--edits", "1", "--bam"]), ("mixed", []), ("mixed", ["--mismatches", "2", "--bam"])],
+    ids=["exact", "m1", "m2", "e2", "paired", "paired-e1-bam", "mixed", "mixed-m2-bam"])
+def test_align_on_card_matches_cpu(cuda, tmp_path_factory, reads, extra):
+    """``align --device cuda`` writes the bytes that ``--device cpu`` writes,
+    and launches the kernels of its path."""
+    from tpufm_torch import cli
+
+    ref, files = _align_inputs(str(tmp_path_factory.getbasetemp()))
+    extra = [files["r2"] if x == "R2" else x for x in extra]
+    out = tmp_path_factory.mktemp("align")
+    argv = ["align", ref, files[reads], "--sample-rate", "8", *extra]
+    cli.main([*argv, "-o", str(out / "cpu.out"), "--device", "cpu"])
+    for mod, attr in ((lf_mod, "PAIRS_LAUNCHES"), (loc_mod, "LAUNCHES"), (seed_mod, "LAUNCHES"),
+                      (edit_mod, "LAUNCHES")):
+        setattr(mod, attr, 0)
+    cli.main([*argv, "-o", str(out / "cuda.out"), "--device", "cuda"])
+    assert (out / "cuda.out").read_bytes() == (out / "cpu.out").read_bytes()
+    assert lf_mod.PAIRS_LAUNCHES > 0 and loc_mod.LAUNCHES > 0
+    assert (seed_mod.LAUNCHES > 0) == ("--mismatches" in extra and extra[extra.index("--mismatches") + 1] == "2")
+    assert (edit_mod.LAUNCHES > 0) == ("--edits" in extra)

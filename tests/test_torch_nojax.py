@@ -4,9 +4,11 @@ CLI, its kernel loader, every engine module and chip_smoke, builds an index
 and locate tables with the port's own host side, runs a small CPU search on
 both gather paths, a variable-length one, a fused search+locate, a
 Hamming <= 1 count, a seed-and-extend locate at two substitutions, an
-edit-distance locate and a paired placement, and checks them against the
-port's numpy oracles and naive scans of the text; the parent holds the
-result against tpufm's builder and oracle.
+edit-distance locate, a paired placement and a small ``align --bam`` on a
+two-record reference (its SAM, BAM and contig-map modules imported), and
+checks them against the port's numpy oracles, naive scans of the text and
+each read's origin; the parent holds the result against tpufm's builder
+and oracle.
 chip_smoke itself refuses to run without a GPU, or without the repo around
 it. Intervals are integers and compare exactly (tolerance 0)."""
 
@@ -94,6 +96,23 @@ r2 = (3 - codes[left[:, None] + 150 + np.arange(20)][:, ::-1]).astype(np.uint8)
 pairs, strand, counts, _ = PairedEndEngine(index, loc, 0, 400, device="cpu").pair(r1, r2)
 want = pair_oracle(codes, r1, r2, 0, 400)
 assert [int(c) for c in counts] == [len(w) for w in want] and all(c >= 1 for c in counts)
+import os, tempfile
+import tpufm_torch.host.align, tpufm_torch.host.contigs, tpufm_torch.host.sam
+from tpufm_torch.host.bam import read_bam
+from tpufm_torch.host.seqio import decode_bases
+with tempfile.TemporaryDirectory() as d:  # align, two records, 24 bp FASTQ reads, BAM out
+    fa, fq, out = (os.path.join(d, x) for x in ("g.fa", "r.fq", "r.bam"))
+    with open(fa, "wb") as fp:
+        fp.write(b">c1\n" + decode_bases(codes[:600]) + b"\n>c2\n" + decode_bases(codes[600:]) + b"\n")
+    with open(fq, "w") as fp:
+        fp.write("".join(f"@a{i}\n{decode_bases(q).decode()}\n+\n{'I' * 24}\n" for i, q in enumerate(queries)))
+    tpufm_torch.cli.main(["align", fa, fq, "--sample-rate", "8", "--bam", "-o", out, "--device", "cpu"])
+    header, records = read_bam(out)
+    primary = {r[0]: r for r in records if not int(r[1]) & 0x100}
+    for i, s in enumerate(starts):
+        if s + 24 <= 600 or s >= 600:  # inside one record: placed at its origin
+            assert primary[f"a{i}"][1:4] == ["0", "c1" if s < 600 else "c2", str(s + 1 - 600 * (s >= 600))]
+    assert header.count("@SQ") == 2
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpufm")]
 print(json.dumps(res.tolist()))
 """

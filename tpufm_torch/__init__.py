@@ -7,7 +7,7 @@ own host side (index construction, file formats, read I/O, numpy oracle).
 
 Layers:
   tpufm_torch.cli               — ``python -m tpufm_torch.cli build|genreads|
-                                  search|count|locate|bench ...``
+                                  search|count|locate|align|bench ...``
   tpufm_torch.bench             — tpufm's single-device bench records (search,
                                   genome, locate, fused locate, Hamming <= 1,
                                   seed-and-extend, edit distance, paired),
@@ -38,7 +38,9 @@ Layers:
   tpufm_torch.kernels           — nvcc build (one library per csrc/*.cu,
                                   all at once) + ctypes binding
   tpufm_torch.host              — index build (SA-IS in csrc/sais.cpp), index
-                                  files, reads and results, the numpy oracle
+                                  files, reads and results, the numpy oracle;
+                                  the aligner's record map, re-alignment, SAM
+                                  (record emitter csrc/samemit.cpp) and BAM
 """
 
 from tpufm_torch.device import resolve_device

@@ -1,5 +1,5 @@
 """Command line of the port on one device: build, genreads, search, count,
-locate and bench.
+locate, align and bench.
 
     python -m tpufm_torch.cli build REF REFSIZE [--k K] [--d D] [--auto]
         [--output OUT.fmi|.npz|.tpufm] [--sa auto|native|doubling] [--tail]
@@ -16,8 +16,12 @@ locate and bench.
         [--sample-rate S] [--max-hits H] [--fused] [--lut M] [--rc]
         [--mismatches M | --edits E] [--seed-hits H] [--paired R2.qry
         [--insert-min A] [--insert-max B] [--max-pairs P]]
-        [--store PREFIX] [--from-store PREFIX] [--output OUT]
-        [--device cuda|cpu]
+        [--sam | --bam | --contigs] [--store PREFIX] [--from-store PREFIX]
+        [--output OUT] [--device cuda|cpu]
+    python -m tpufm_torch.cli align REF READS [-2 R2] [-o OUT] [--bam]
+        [--mismatches M | --edits E] [--store PREFIX | --from-store PREFIX]
+        [--max-hits H] [--seed-hits H] [--sample-rate S] [--lut M]
+        [--insert-min A] [--insert-max B] [--max-pairs P] [--device cuda|cpu]
     python -m tpufm_torch.cli bench [--refsize N] [--k K] [--d D]
         [--numqueries N] [--length L] [--iterations I] [--seed S]
         [--engine xla|pallas] [--lut M] [--mismatches M | --edits E]
@@ -36,20 +40,22 @@ its single-chip engines: ``--engine xla`` (the default; K1 loads its own
 rows) and ``--engine pallas`` (``PallasEngine``, cli.py:444-447: torch
 indexing gathers every end's row, then K1 computes on the gathered rows;
 fixed lengths that k divides after the LUT only); of ``tpufm count``
-(``cmd_count``, :469-505); and of ``tpufm locate`` (``cmd_locate``,
+(``cmd_count``, :469-505); of ``tpufm locate`` (``cmd_locate``,
 ``_locate_tables``, ``_locate_body``, :729-1154) in its exact two-pass,
 ``--fused``, ``--rc``, Hamming (``--mismatches 1``, and ``>= 2`` by seed-
 and-extend), edit-distance (``--edits E``) and paired (``--paired R2``,
 writing ``<queries>.pairs``) forms, the approximate ones verified against
-the reference's text (read again from its FASTA with --from-store);
-``--sam``, ``--bam`` and ``--contigs`` exit naming their ROADMAP item, and
-the parser defines no other option. They read the same index files (.fmi,
-.npz, .tpufm), derive the k=1 tail the same way, share the
-``<index>.lut<M>.npz`` LUT cache, print the same ``TIME:`` line (search and
-count: mean seconds per pass after one warm-up pass) and write
-byte-identical ``.res``, ``.cnt``, ``.pos`` and ``.pairs`` files
-(minus-strand results of ``--rc`` in ``<out>.rc``).
-``--device`` defaults to cuda and never falls back to the CPU.
+the reference's text (read again from its FASTA with --from-store), with
+``--contigs`` (``record:offset`` labels) and ``--sam`` / ``--bam``
+(tpufm_torch.host.sam and .bam); and of ``tpufm align`` (``cmd_align``,
+:1182-1478) on one device (``--mesh`` and ``--on-device`` exit naming
+their ROADMAP item). They read the same index files (.fmi, .npz, .tpufm),
+derive the k=1 tail the same way, share the ``<index>.lut<M>.npz`` LUT
+cache, print the same ``TIME:`` line (search and count: mean seconds per
+pass after one warm-up pass) and write byte-identical ``.res``, ``.cnt``,
+``.pos``, ``.pairs``, SAM and BAM files (minus-strand results of ``--rc``
+in ``<out>.rc``). ``--device`` defaults to cuda and never falls back to
+the CPU.
 """
 
 from __future__ import annotations
@@ -73,21 +79,34 @@ from tpufm_torch.engine.paired import PairedEndEngine
 from tpufm_torch.engine.search import SearchEngine
 from tpufm_torch.engine.search_locate import SearchLocateEngine
 from tpufm_torch.engine.seed import SeedExtendEngine
+from tpufm_torch.host.bam import bgzf_compress, read_bam, sam_to_bam
+from tpufm_torch.host.contigs import ContigMap, read_contigs
 from tpufm_torch.host.formats import load_npz, load_store, read_fmi, save_npz, save_store, write_fmi
 from tpufm_torch.host.index import AltCountersIndex, IndexConfig, KStepFMIndex, build_index, derive_tail
 from tpufm_torch.host.locate import build_locate
+from tpufm_torch.host.sam import sam_edit_records, sam_header, sam_paired_records, sam_single_records
 from tpufm_torch.host.seqio import (
+    VARLEN_PAD,
     decode_bases,
+    fasta_num_bases,
     generate_read_pairs,
     generate_reads,
     load_queries,
+    load_queries_varlen,
+    load_query_names,
+    load_query_names_packed,
+    load_query_quals,
+    load_query_quals_packed,
     read_reference,
     reverse_complement,
+    reverse_complement_varlen,
+    sniff_reads,
     write_reads_fasta,
     write_reference,
     write_results,
 )
 from tpufm_torch.host.suffix_array import suffix_array
+from tpufm_torch.timer import Stages
 
 
 @dataclasses.dataclass
@@ -137,6 +156,24 @@ class PairRun:
     counts: np.ndarray  # uint32 [B] proper pairs found
     overflow: np.ndarray  # bool [B]: the pair list is a lower bound
     seconds: float  # the one pass, host reads to host pairs
+
+
+@dataclasses.dataclass
+class SamRun:
+    """What ``align`` and ``locate --sam/--bam`` did."""
+
+    output: str  # the SAM or BAM file
+    #: host-clock seconds by stage: tables (built or loaded), reads (reads,
+    #: names, qualities), reference (record map, text), setup (engine:
+    #: tables to the device, LUT), engine (the passes, reads in host memory
+    #: to positions in host memory), emit (SAM text), encode and bgzf (BAM),
+    #: write
+    stages: Stages
+    #: reads of one length, and mixed lengths exact: uint32 [2B, max_hits],
+    #: the B forward rows first (None where grouped by length)
+    positions: np.ndarray | None = None
+    overflow: np.ndarray | None = None  # bool [2B]: a seed interval past --seed-hits
+    pairs: PairRun | None = None  # pairs of one mate length
 
 
 def load_index(path: str) -> KStepFMIndex | AltCountersIndex:
@@ -285,40 +322,64 @@ def locate_tables(args):
     return index, loc, codes
 
 
-def write_positions(path: str, rows: np.ndarray) -> None:
-    """One line per read: its positions, 0xFFFFFFFF (no hit) left out
-    (tpufm/cli.py:1140-1150)."""
+def write_positions(path: str, rows: np.ndarray, cmap: ContigMap | None = None, span_len: int = 0) -> None:
+    """One line per read: its positions, 0xFFFFFFFF (no hit) left out, or
+    with ``cmap`` their ``record:offset`` labels (``:spans`` where a
+    ``span_len``-long match crosses its record's end) (tpufm/cli.py:1140-1150)."""
+    rows = np.asarray(rows)
     with open(path, "w") as fp:
-        for row in np.asarray(rows).tolist():
-            fp.write(" ".join(str(x) for x in row if x != 0xFFFFFFFF) + "\n")
+        if cmap is None:
+            for row in rows.tolist():
+                fp.write(" ".join(str(x) for x in row if x != 0xFFFFFFFF) + "\n")
+            return
+        labels = cmap.format(rows, query_len=span_len)
+        H = rows.shape[1]
+        for i in range(rows.shape[0]):
+            fp.write(" ".join(s for s in labels[i * H:(i + 1) * H] if s is not None) + "\n")
 
 
-def cmd_locate(args) -> LocateRun | PairRun:
+def contig_map(args) -> ContigMap:
+    """The reference FASTA's record map, cut at --refsize, or exit where
+    there is no FASTA (tpufm/cli.py:815)."""
+    if not os.path.exists(args.reference):
+        sys.exit("--sam/--contigs need the reference FASTA to map record boundaries "
+                 "(pass its real path even with --from-store)")
+    return read_contigs(args.reference, args.refsize or None)
+
+
+def cmd_locate(args) -> LocateRun | PairRun | SamRun:
     """Search, then the text positions of up to --max-hits occurrences per
-    read (tpufm/cli.py:729, ``_locate_body`` :809-1154): two passes
+    read (tpufm/cli.py:729, ``_locate_body`` :810-1154): two passes
     (``SearchEngine.search``, then ``LocateEngine.locate_hits``), one fused
     pass (``--fused``, ``SearchLocateEngine.search_locate``), within Hamming
     distance 1 (``--mismatches 1``, ``locate_mismatch``), within Hamming
     distance m >= 2 (``SeedExtendEngine``), within edit distance E
     (``--edits``, ``EditExtendEngine``), or FR pairs (``--paired R2``,
     ``PairedEndEngine``, one ``left:right:strand`` token per pair, by
-    default in ``<queries>.pairs``)."""
-    if args.sam or args.bam or args.contigs:
-        sys.exit("locate --sam/--bam/--contigs are not ported yet (ROADMAP Queue 1 item 3: "
-                 "SAM/BAM output and the contig map)")
+    default in ``<queries>.pairs``). --contigs writes ``record:offset``
+    labels instead of absolute positions; --sam writes SAM records of both
+    strands (``locate_sam``, or with --paired the pairs' records), and
+    --bam the same records as BAM."""
+    if args.bam:
+        args.sam = True  # BAM is the binary form of the SAM records
     if args.mismatches < 0 or args.edits < 0:
         sys.exit("--mismatches/--edits must be >= 0")
     if args.edits and args.mismatches:
         sys.exit("--edits (indel-aware) and --mismatches (substitutions "
                  "only) are different distance models; pass one")
+    if args.sam and args.rc:
+        sys.exit("--sam reports both strands by definition; drop --rc")
     device = resolve_device(args.device)
-    index, loc, codes = locate_tables(args)
-    queries = np.require(
-        load_queries(args.queries, args.qrysize, args.numqueries), np.uint8, ["C", "W"]
-    )
+    stages = Stages()
+    with stages("tables"):
+        index, loc, codes = locate_tables(args)
+    with stages("reads"):
+        queries = np.require(load_queries(args.queries, args.qrysize, args.numqueries), np.uint8, ["C", "W"])
     nq = queries.shape[0]
     if args.paired:
-        return locate_paired(args, index, loc, codes, queries, device)
+        return locate_paired(args, index, loc, codes, queries, device, stages)
+    if args.sam:
+        return locate_sam(args, index, loc, codes, queries, device, stages)
     if args.rc:
         queries = rc_expand(queries)
     intervals = counts = overflow = None
@@ -359,9 +420,12 @@ def cmd_locate(args) -> LocateRun | PairRun:
         intervals = search.search(queries)
         pos = walker.locate_hits(intervals, max_hits=args.max_hits)
         seconds = time.perf_counter() - t0
+    # an edit alignment consumes up to L + E reference bases: the :spans
+    # label takes that bound (the SAM writers take each alignment's span)
+    cmap = contig_map(args) if args.contigs else None
     out = args.output or f"{args.queries}.pos"
     print(f"{nq} queries, max {args.max_hits} hits each")
-    emit_strands(out, pos, nq, write_positions)
+    emit_strands(out, pos, nq, lambda path, rows: write_positions(path, rows, cmap, args.qrysize + args.edits))
     return LocateRun(pos, intervals, seconds, counts, overflow)
 
 
@@ -376,40 +440,388 @@ def reference_text(args, codes, missing: str) -> np.ndarray:
     return read_reference(args.reference, args.refsize or None)
 
 
-def locate_paired(args, index, loc, codes, queries: np.ndarray, device) -> PairRun:
+def position_engine(args, index, loc, codes, device):
+    """The engine of ``single_end_positions`` for ``args``' distance model:
+    ``SeedExtendEngine`` (--mismatches >= 2), ``EditExtendEngine``
+    (--edits) or ``SearchLocateEngine`` (exact and --mismatches 1). It
+    takes no read length, so one engine serves every length of a run."""
+    if args.mismatches >= 2:
+        return SeedExtendEngine(index, loc, codes, mismatches=args.mismatches, seed_hits=args.seed_hits,
+                                max_hits=args.max_hits, lut_m=args.lut, device=device)
+    if args.edits:
+        return EditExtendEngine(index, loc, codes, edits=args.edits, seed_hits=args.seed_hits,
+                                max_hits=args.max_hits, lut_m=args.lut, device=device)
+    return SearchLocateEngine(index, loc, device, max_hits=args.max_hits, lut_m=args.lut)
+
+
+def single_end_positions(args, engine, queries: np.ndarray, **plain):
+    """Positions of both strands of a batch of reads of one length, in one
+    pass (tpufm/cli.py:265): (uint32 [2B, max_hits], the B forward rows
+    first, then their reverse complements; the seed overflow flags bool
+    [2B], or None for the exact and Hamming <= 1 engines). ``plain`` passes
+    ``step``, ``walk`` and ``verify`` on to the engine."""
+    q2 = np.concatenate([queries, reverse_complement(queries)])
+    if args.mismatches >= 2:
+        pos, _, overflow = engine.locate_approx(q2, **plain)
+        return pos, overflow
+    if args.edits:
+        pos, _, overflow = engine.locate_edits(q2, **plain)
+        return pos, overflow
+    if args.mismatches:
+        return engine.locate_mismatch(q2, **plain), None
+    return engine.search_locate(q2, **plain)[1], None
+
+
+def write_sam_or_bam(path: str, sam_text: str, as_bam: bool, stages: Stages) -> None:
+    """The SAM text written as it is, or encoded to BAM and bgzf-framed
+    (tpufm/cli.py:1481); ``stages`` gets the encode, bgzf and write times."""
+    if as_bam:
+        with stages("encode"):
+            raw = sam_to_bam(sam_text)
+        with stages("bgzf"):
+            data = bgzf_compress(raw)
+        with stages("write"), open(path, "wb") as fp:
+            fp.write(data)
+    else:
+        with stages("write"), open(path, "w") as fp:
+            fp.write(sam_text)
+
+
+def read_sam_or_bam(path: str) -> str:
+    """SAM text from a SAM or a BAM file, told apart by the bgzf magic
+    (tpufm/cli.py:1494)."""
+    with open(path, "rb") as fp:
+        magic = fp.read(4)
+    if magic == b"\x1f\x8b\x08\x04":
+        header, records = read_bam(path)
+        return header + "".join("\t".join(r) + "\n" for r in records)
+    with open(path) as fp:
+        return fp.read()
+
+
+def locate_sam(args, index, loc, codes, queries: np.ndarray, device, stages: Stages) -> SamRun:
+    """``locate --sam`` of single reads: both strands in one pass, forward
+    rows first, then one SAM block a read (tpufm/cli.py:838-882). The text
+    comes from the reference FASTA only for NM (--mismatches) and the
+    verify pass (--mismatches >= 2, --edits); exact records need only the
+    record map."""
+    nq = queries.shape[0]
+    with stages("reference"):
+        cmap = contig_map(args)
+        if args.from_store and (args.mismatches or args.edits):
+            codes = read_reference(args.reference, args.refsize or None)
+    with stages("setup"):
+        engine = position_engine(args, index, loc, codes, device)
+    with stages("engine"):
+        pos, overflow = single_end_positions(args, engine, queries)
+    with stages("reads"):
+        names = load_query_names_packed(args.queries, nq)
+        quals = load_query_quals_packed(args.queries, nq)
+    out = args.output or f"{args.queries}." + ("bam" if args.bam else "sam")
+    with stages("emit"):
+        text = sam_header(cmap, extra_pg="tpufm locate --sam")
+        if args.edits:
+            text += sam_edit_records(names, queries, pos[:nq], pos[nq:], cmap, codes, args.edits, quals=quals)
+        else:
+            text += sam_single_records(names, queries, pos[:nq], pos[nq:], cmap,
+                                       codes=codes if args.mismatches else None, quals=quals)
+    write_sam_or_bam(out, text, args.bam, stages)
+    if overflow is not None and overflow.any():
+        print(f"warning: {int(overflow.sum())} read strands hit the seed-hits={args.seed_hits} cap; "
+              "their SAM records are lower bounds")
+    print(f"{nq} reads, both strands")
+    print(f"wrote {out}")
+    return SamRun(out, stages, positions=pos, overflow=overflow)
+
+
+def locate_paired(args, index, loc, codes, queries: np.ndarray, device, stages: Stages) -> PairRun | SamRun:
     """``locate --paired R2``: FR pairs of R1 (``queries``) and R2 under the
-    insert window, written one pair per ``left:right:strand`` token, one
-    line per read pair (tpufm/cli.py:903-1000)."""
+    insert window (tpufm/cli.py:903-1000), written one ``left:right:strand``
+    token a pair and one line a read pair (``record:offset`` with
+    --contigs), or with --sam as SAM record pairs."""
     if args.rc:
         sys.exit("--paired covers both strands by definition; drop --rc")
-    approximate = args.mismatches >= 2 or args.edits
-    if approximate:
-        codes = reference_text(args, codes, "--paired approximate matching needs the reference "
-                                            "FASTA for the verify pass")
-    r2 = np.require(load_queries(args.paired, args.qrysize, args.numqueries), np.uint8, ["C", "W"])
-    engine = PairedEndEngine(
-        index, loc, args.insert_min, args.insert_max, max_hits=args.max_hits, max_pairs=args.max_pairs,
-        lut_m=args.lut, mismatches=args.mismatches, edits=args.edits, seed_hits=args.seed_hits,
-        text=codes if approximate else None, device=device,
-    )
+    verify = args.mismatches >= 2 or args.edits
+    with stages("reference"):
+        sam_cmap = contig_map(args) if args.sam else None
+        if verify or (args.sam and args.mismatches):
+            # the verify pass and the NM of Hamming records read the text
+            codes = reference_text(args, codes, "--paired approximate matching needs the reference "
+                                                "FASTA for the verify pass")
+    with stages("reads"):
+        r2 = np.require(load_queries(args.paired, args.qrysize, args.numqueries), np.uint8, ["C", "W"])
+    with stages("setup"):
+        engine = PairedEndEngine(
+            index, loc, args.insert_min, args.insert_max, max_hits=args.max_hits, max_pairs=args.max_pairs,
+            lut_m=args.lut, mismatches=args.mismatches, edits=args.edits, seed_hits=args.seed_hits,
+            text=codes if verify else None, device=device,
+        )
     t0 = time.perf_counter()
-    pairs, strand, counts, overflow = engine.pair(queries, r2)
+    with stages("engine"):
+        pairs, strand, counts, overflow = engine.pair(queries, r2)
     seconds = time.perf_counter() - t0
+    run = PairRun(pairs, strand, counts, overflow, seconds)
     if overflow.any():
         print(f"warning: {int(overflow.sum())} read pairs have a mate in a repeat wider than "
               f"max-hits={args.max_hits}; their pair lists are lower bounds")
     nq = queries.shape[0]
+    summary = (f"{nq} read pairs, {int((counts > 0).sum())} properly paired "
+               f"(insert [{args.insert_min}, {args.insert_max}])")
+    if args.sam:
+        out = args.output or f"{args.queries}." + ("bam" if args.bam else "sam")
+        with stages("reads"):
+            names = load_query_names(args.queries, nq)
+            quals1 = load_query_quals(args.queries, nq)
+            quals2 = load_query_quals(args.paired, nq)
+        with stages("emit"):
+            text = sam_header(sam_cmap, extra_pg="tpufm locate --paired --sam") + sam_paired_records(
+                names, queries, r2, pairs, strand, sam_cmap,
+                codes=codes if (args.mismatches or args.edits) else None, edits=args.edits,
+                quals1=quals1, quals2=quals2)
+        write_sam_or_bam(out, text, args.bam, stages)
+        print(summary)
+        print(f"wrote {out}")
+        return SamRun(out, stages, pairs=run)
+    cmap = contig_map(args) if args.contigs else None
     out = args.output or f"{args.queries}.pairs"
+    P = pairs.shape[1]
+    signs = np.where(strand == 0, "+", "-").tolist()
+    if cmap is not None:
+        labels = cmap.format(pairs.reshape(-1), query_len=args.qrysize)
+        tokens = [[f"{labels[2 * (i * P + j)]}:{labels[2 * (i * P + j) + 1]}:{signs[i][j]}"
+                   for j in range(P) if labels[2 * (i * P + j)] is not None] for i in range(nq)]
+    else:
+        pl = pairs.tolist()
+        tokens = [[f"{pl[i][j][0]}:{pl[i][j][1]}:{signs[i][j]}" for j in range(P) if pl[i][j][0] != 0xFFFFFFFF]
+                  for i in range(nq)]
     with open(out, "w") as fp:
-        for i in range(nq):
-            fp.write(" ".join(
-                f"{int(pairs[i, j, 0])}:{int(pairs[i, j, 1])}:{'+' if strand[i, j] == 0 else '-'}"
-                for j in range(pairs.shape[1]) if pairs[i, j, 0] != 0xFFFFFFFF
-            ) + "\n")
-    print(f"{nq} read pairs, {int((counts > 0).sum())} properly paired "
-          f"(insert [{args.insert_min}, {args.insert_max}])")
+        fp.write("".join(" ".join(t) + "\n" for t in tokens))
+    print(summary)
     print(f"wrote {out}")
-    return PairRun(pairs, strand, counts, overflow, seconds)
+    return run
+
+
+def _sniff_reads(path: str):
+    """(shortest, longest, count) of the reads of ``path``, or exit where
+    it holds none (tpufm/cli.py:1170)."""
+    lmin, lmax, count = sniff_reads(path)
+    if not count:
+        sys.exit(f"{path}: no reads found")
+    return lmin, lmax, count
+
+
+def cmd_align(args) -> SamRun:
+    """Reference FASTA and FASTA/FASTQ reads to SAM v1.6 (or BAM) in one
+    command (tpufm/cli.py:1182-1478): read lengths and counts sniffed from
+    the files, k=3 and d from ``recommend_config``, the prefix LUT the
+    largest m <= 12 that 3 divides, 4^m no larger than the reference and m
+    no longer than the shortest read. Reads of one length run through
+    ``locate --sam`` (exact, --mismatches N, --edits E, -2 R2); a
+    mixed-length set runs ``search_varlen`` and the walk (exact), one group
+    a length (approximate), or one group a pair of mate lengths (paired),
+    with the engine built once for all groups, and the blocks written in
+    input order."""
+    if args.mesh is not None:
+        sys.exit("align --mesh: multi-GPU alignment is not ported yet (ROADMAP Queue 1 item 6); "
+                 "drop --mesh to align on one device")
+    if args.on_device:
+        sys.exit("align --on-device: the device build is not ported yet (ROADMAP Queue 1 item 4); "
+                 "drop --on-device to build on the host")
+    device = resolve_device(args.device)
+    qmin, qlen, nreads = _sniff_reads(args.reads)
+    mixed = qmin != qlen
+    if args.from_store:
+        meta_path = os.path.join(f"{args.from_store}.search.tpufm", "meta.json")
+        try:
+            with open(meta_path) as fp:
+                meta = json.load(fp)
+        except OSError:
+            sys.exit(f"--from-store: cannot read {meta_path}")
+        k, d = int(meta["k"]), int(meta["d"])
+        refsize = int(meta["bwtsize"]) - 1
+    else:
+        if not os.path.exists(args.reference):
+            sys.exit(f"{args.reference}: no such reference FASTA")
+        refsize = fasta_num_bases(args.reference)
+        # k=3 at any length: the locate tables' k=1 index finishes the
+        # L mod 3 leftover characters
+        k, d = 3, recommend_config(refsize, query_len=qlen)["d"]
+    pair_mixed = False
+    if args.paired:
+        qmin2, qlen2, nreads2 = _sniff_reads(args.paired)
+        if nreads2 != nreads:
+            sys.exit(f"mate files disagree: {args.reads} has {nreads} reads, {args.paired} has {nreads2}")
+        pair_mixed = mixed or qmin2 != qlen2 or qlen2 != qlen
+        qmin = min(qmin, qmin2)  # the LUT must fit the shortest mate
+    if args.lut is not None:
+        lut = args.lut
+    elif qmin >= 24:
+        lut = next((m for m in range(12 - (12 % k), 0, -k) if 4**m <= refsize and m <= qmin), 0)
+    else:
+        lut = 0
+    print(f"align: {nreads} x " + (f"{qmin}-{qlen}" if mixed else f"{qlen}") + " bp"
+          + (" pairs" if args.paired else " reads") + f", reference {refsize} bases, k={k} d={d} lut={lut}")
+    ns = argparse.Namespace(
+        reference=args.reference, refsize=refsize, queries=args.reads, qrysize=qlen, numqueries=nreads,
+        k=k, d=d, sample_rate=args.sample_rate, max_hits=args.max_hits, fused=True, store=args.store,
+        from_store=args.from_store, rc=False, mismatches=args.mismatches, edits=args.edits,
+        seed_hits=args.seed_hits, paired=args.paired, insert_min=args.insert_min, insert_max=args.insert_max,
+        max_pairs=args.max_pairs, lut=lut, sam=True, bam=args.bam, contigs=False, output=args.output,
+        device=args.device,
+    )
+    if args.paired and pair_mixed:
+        return _align_paired_grouped(args, ns, device)
+    if mixed and (args.mismatches or args.edits):
+        return _align_grouped(args, ns, device)
+    if mixed:
+        return _align_varlen(args, ns, device)
+    return cmd_locate(ns)
+
+
+def _align_paired_grouped(args, ns, device) -> SamRun:
+    """Mixed-length or unequal-length mates (tpufm/cli.py:1278-1354): one
+    ``PairedEndEngine`` for the run, one pass a (L1, L2) pair of mate
+    lengths, the record blocks back in input order."""
+    stages = Stages()
+    need_text = bool(args.mismatches or args.edits)
+    with stages("tables"):
+        index, loc, codes = locate_tables(ns)
+    with stages("reference"):
+        if need_text and codes is None:
+            codes = read_reference(args.reference, ns.refsize or None)
+        cmap = read_contigs(args.reference, ns.refsize or None)
+    with stages("reads"):
+        b1 = load_queries_varlen(args.reads, ns.numqueries)
+        b2 = load_queries_varlen(args.paired, ns.numqueries)
+        names = load_query_names(args.reads, ns.numqueries)
+        quals1 = load_query_quals(args.reads, ns.numqueries)
+        quals2 = load_query_quals(args.paired, ns.numqueries)
+    l1 = (b1 != VARLEN_PAD).sum(axis=1)
+    l2 = (b2 != VARLEN_PAD).sum(axis=1)
+    with stages("setup"):
+        engine = PairedEndEngine(
+            index, loc, args.insert_min, args.insert_max, max_hits=args.max_hits, max_pairs=args.max_pairs,
+            lut_m=ns.lut, mismatches=args.mismatches, edits=args.edits, seed_hits=args.seed_hits,
+            text=codes if (args.mismatches >= 2 or args.edits) else None, device=device,
+        )
+    B = ns.numqueries
+    blocks = [None] * B
+    paired = overflowed = 0
+    combos = sorted({(int(a), int(b)) for a, b in zip(l1, l2)})
+    for L1, L2 in combos:
+        sel = np.flatnonzero((l1 == L1) & (l2 == L2))
+        r1g = np.ascontiguousarray(b1[sel, b1.shape[1] - L1:])
+        r2g = np.ascontiguousarray(b2[sel, b2.shape[1] - L2:])
+        with stages("engine"):
+            pairs, strand, counts, overflow = engine.pair(r1g, r2g)
+        paired += int((counts > 0).sum())
+        overflowed += int(overflow.sum())
+        with stages("emit"):
+            group = sam_paired_records(
+                [names[i] for i in sel], r1g, r2g, pairs, strand, cmap,
+                codes=codes if need_text else None, edits=args.edits, return_blocks=True,
+                quals1=None if quals1 is None else [quals1[i] for i in sel],
+                quals2=None if quals2 is None else [quals2[i] for i in sel])
+        for j, i in enumerate(sel):
+            blocks[i] = group[j]
+    out = args.output or f"{args.reads}." + ("bam" if args.bam else "sam")
+    with stages("emit"):
+        text = sam_header(cmap, extra_pg="tpufm align --paired (mixed-length)") + "\n".join(
+            line for blk in blocks for line in blk) + "\n"
+    write_sam_or_bam(out, text, args.bam, stages)
+    if overflowed:
+        print(f"warning: {overflowed} read pairs have a mate in a repeat wider than "
+              f"max-hits={args.max_hits}; their pair lists are lower bounds")
+    print(f"{B} mixed-length read pairs ({len(combos)} length combos), {paired} "
+          f"properly paired (insert [{args.insert_min}, {args.insert_max}])")
+    print(f"wrote {out}")
+    return SamRun(out, stages)
+
+
+def _align_grouped(args, ns, device) -> SamRun:
+    """Mixed-length reads within --mismatches or --edits (tpufm/cli.py:
+    1355-1424): one engine for the run, one pass a read length, the record
+    blocks back in input order."""
+    stages = Stages()
+    with stages("tables"):
+        index, loc, codes = locate_tables(ns)
+    with stages("reference"):
+        if codes is None:
+            codes = read_reference(args.reference, ns.refsize or None)
+        cmap = read_contigs(args.reference, ns.refsize or None)
+    with stages("reads"):
+        batch = load_queries_varlen(args.reads, ns.numqueries)
+        names = load_query_names(args.reads, ns.numqueries)
+        quals = load_query_quals(args.reads, ns.numqueries)
+    lengths = (batch != VARLEN_PAD).sum(axis=1)
+    with stages("setup"):
+        engine = position_engine(ns, index, loc, codes, device)
+    B = ns.numqueries
+    blocks = [None] * B
+    overflowed = 0
+    for L in sorted({int(x) for x in lengths}):
+        sel = np.flatnonzero(lengths == L)
+        qL = np.ascontiguousarray(batch[sel, batch.shape[1] - L:])
+        nL = sel.size
+        with stages("engine"):
+            pos, ovf = single_end_positions(ns, engine, qL)
+        if ovf is not None:
+            overflowed += int(ovf.sum())
+        gnames = [names[i] for i in sel]
+        gquals = None if quals is None else [quals[i] for i in sel]
+        with stages("emit"):
+            if args.edits:
+                group = sam_edit_records(gnames, qL, pos[:nL], pos[nL:], cmap, codes, args.edits,
+                                         return_blocks=True, quals=gquals)
+            else:
+                group = sam_single_records(gnames, qL, pos[:nL], pos[nL:], cmap, codes=codes,
+                                           return_blocks=True, quals=gquals)
+        for j, i in enumerate(sel):
+            blocks[i] = group[j]
+    out = args.output or f"{args.reads}." + ("bam" if args.bam else "sam")
+    with stages("emit"):
+        text = sam_header(cmap, extra_pg="tpufm align (mixed-length)") + "\n".join(
+            line for blk in blocks for line in blk) + "\n"
+    write_sam_or_bam(out, text, args.bam, stages)
+    if overflowed:
+        print(f"warning: {overflowed} read strands hit the seed-hits={args.seed_hits} cap; "
+              "their SAM records are lower bounds")
+    print(f"{B} mixed-length reads ({len(set(lengths.tolist()))} lengths), both strands")
+    print(f"wrote {out}")
+    return SamRun(out, stages)
+
+
+def _align_varlen(args, ns, device) -> SamRun:
+    """Mixed-length exact alignment (tpufm/cli.py:1425-1477): both strands
+    of the right-aligned batch through one ``search_varlen`` (the locate
+    tables' k=1 index as its tail), the walk, and SAM records at each
+    read's own length."""
+    stages = Stages()
+    with stages("tables"):
+        index, loc, _ = locate_tables(ns)
+    with stages("reads"):
+        batch = load_queries_varlen(args.reads, ns.numqueries)
+    lengths = (batch != VARLEN_PAD).sum(axis=1)
+    q2 = np.concatenate([batch, reverse_complement_varlen(batch)])
+    with stages("setup"):
+        search = SearchEngine(index, device, lut_m=ns.lut, tail_index=loc.lf1 if index.config.k > 1 else None)
+        walker = LocateEngine(loc, device)
+    with stages("engine"):
+        pos = walker.locate_hits(search.search_varlen(q2), max_hits=args.max_hits)
+    B = ns.numqueries
+    with stages("reference"):
+        cmap = read_contigs(args.reference, ns.refsize or None)
+    with stages("reads"):
+        names = load_query_names_packed(args.reads, B)
+        quals = load_query_quals_packed(args.reads, B)
+    out = args.output or f"{args.reads}." + ("bam" if args.bam else "sam")
+    with stages("emit"):
+        text = sam_header(cmap, extra_pg="tpufm align (mixed-length)") + sam_single_records(
+            names, batch, pos[:B], pos[B:], cmap, lengths=lengths, quals=quals)
+    write_sam_or_bam(out, text, args.bam, stages)
+    print(f"{B} mixed-length reads, both strands")
+    print(f"wrote {out}")
+    return SamRun(out, stages, positions=pos)
 
 
 def cmd_build(args) -> BuildRun:
@@ -675,9 +1087,16 @@ def main(argv=None):
                     help="--paired: largest proper fragment length")
     lc.add_argument("--max-pairs", type=int, default=4,
                     help="--paired: proper pairs reported per read pair")
-    lc.add_argument("--sam", action="store_true", help="not ported (ROADMAP Queue 1 item 3)")
-    lc.add_argument("--bam", action="store_true", help="not ported (ROADMAP Queue 1 item 3)")
-    lc.add_argument("--contigs", action="store_true", help="not ported (ROADMAP Queue 1 item 3)")
+    lc.add_argument("--sam", action="store_true",
+                    help="write SAM v1.6 instead of position lines: both strands of single reads, "
+                         "or the proper pairs with --paired; needs the reference FASTA for the "
+                         "record map, also with --from-store")
+    lc.add_argument("--bam", action="store_true",
+                    help="write the same records as bgzf-compressed BAM (implies --sam)")
+    lc.add_argument("--contigs", action="store_true",
+                    help="write record:offset instead of absolute positions (the reference "
+                         "FASTA's record map; a match crossing a record's end is labelled "
+                         "':spans')")
     lc.add_argument("--store", default=None, metavar="PREFIX",
                     help="persist PREFIX.search.tpufm + PREFIX.locate.tpufm")
     lc.add_argument("--from-store", default=None, metavar="PREFIX",
@@ -686,6 +1105,34 @@ def main(argv=None):
     lc.add_argument("--output", default=None)
     _add_device(lc)
     lc.set_defaults(fn=cmd_locate)
+
+    al = sub.add_parser("align", help="reference + FASTA/FASTQ reads -> SAM v1.6 (auto-sized locate --sam)")
+    al.add_argument("reference", help="reference FASTA(.gz); needed also with --from-store (the record map)")
+    al.add_argument("reads", help="FASTA/FASTQ(.gz) reads; their lengths and count are read from the file")
+    al.add_argument("-2", "--paired", default=None, metavar="R2", help="mate-2 reads: paired-end FR placement")
+    al.add_argument("-o", "--output", default=None, help="SAM path (default <reads>.sam, <reads>.bam with --bam)")
+    al.add_argument("--bam", action="store_true", help="write bgzf-compressed BAM v1 instead of SAM text")
+    al.add_argument("--mismatches", type=int, default=0,
+                    help="substitutions allowed a read (1: variants; >= 2: seed-and-extend)")
+    al.add_argument("--edits", type=int, default=0, metavar="E",
+                    help="edit distance allowed a read (seeds and the Myers verify)")
+    al.add_argument("--mesh", type=int, default=None, metavar="N", help="not ported (multi-GPU)")
+    al.add_argument("--insert-min", type=int, default=0)
+    al.add_argument("--insert-max", type=int, default=1000)
+    al.add_argument("--max-pairs", type=int, default=4)
+    al.add_argument("--max-hits", type=int, default=16)
+    al.add_argument("--seed-hits", type=int, default=32)
+    al.add_argument("--sample-rate", type=int, default=32)
+    al.add_argument("--lut", type=int, default=None,
+                    help="prefix-LUT m (default: the largest m <= 12 that k divides, 4^m no larger "
+                         "than the reference, m no longer than the shortest read)")
+    al.add_argument("--on-device", action="store_true", help="not ported (the device build)")
+    al.add_argument("--store", default=None, metavar="PREFIX",
+                    help="keep the tables as PREFIX.search.tpufm + PREFIX.locate.tpufm")
+    al.add_argument("--from-store", default=None, metavar="PREFIX",
+                    help="load the tables of an earlier --store run (no suffix sort)")
+    _add_device(al)
+    al.set_defaults(fn=cmd_align)
 
     be = sub.add_parser("bench", help="synthetic benchmark, one JSON line")
     be.add_argument("--refsize", type=int, default=None,

@@ -2,7 +2,9 @@
 
 Counterparts of tpufm/utils/encoding.py (2-bit codes A=0 C=1 G=2 T=3),
 tpufm/io/fasta.py (``read_reference`` :37, ``write_reference`` :65,
-``load_queries`` :125, ``load_queries_varlen`` :154), tpufm/io/genreads.py
+``load_queries`` :125, ``load_queries_varlen`` :154, ``sniff_reads`` :191,
+``PackedStrs`` :203, ``load_query_names[_packed]`` :298 / :243,
+``load_query_quals[_packed]`` :262 / :251), tpufm/io/genreads.py
 (``generate_reads`` :13, ``generate_read_pairs`` :30, ``write_reads_fasta`` :92) and tpufm/io/results.py
 (``write_results`` :10).
 """
@@ -44,6 +46,19 @@ def reverse_complement(codes: np.ndarray) -> np.ndarray:
     """Reverse complement along the last axis: rc(q) = 3 - q[..., ::-1]."""
     codes = np.asarray(codes, dtype=np.uint8)
     return (np.uint8(3) - codes[..., ::-1]).astype(np.uint8)
+
+
+def reverse_complement_varlen(batch: np.ndarray) -> np.ndarray:
+    """Reverse complement of each read of a right-aligned ``VARLEN_PAD``-padded
+    batch [B, Lmax], kept right-aligned: the pad stays on the left
+    (tpufm/utils/encoding.py:64)."""
+    batch = np.asarray(batch, dtype=np.uint8)
+    B, L = batch.shape
+    rev = batch[:, ::-1]  # the real characters now on the left
+    comp = np.where(rev != VARLEN_PAD, np.uint8(3) - rev, VARLEN_PAD).astype(np.uint8)
+    src = np.arange(L)[None, :] - (L - (batch != VARLEN_PAD).sum(axis=1))[:, None]
+    return np.where(src >= 0, comp[np.arange(B)[:, None], np.clip(src, 0, L - 1)],
+                    VARLEN_PAD).astype(np.uint8)
 
 
 def _open(path):
@@ -140,6 +155,150 @@ def load_queries_varlen(path, num_queries: int | None = None) -> np.ndarray:
     # the mask enumerates cells row-major, in the joined reads' order
     out[np.arange(max_len)[None, :] >= max_len - lens[:, None]] = encode_bases(b"".join(reads))
     return out
+
+
+def fasta_num_bases(path) -> int:
+    """Sequence bases of a (multi-)FASTA file, optionally gzipped: what
+    ``read_reference`` gives with no refsize (tpufm/cli.py:1157)."""
+    with _open(path) as fp:
+        return sum(len(line.strip()) for line in fp if not line.startswith(b">"))
+
+
+def _seq_extents(data: bytes):
+    """(start, end) int64 byte offsets of every read's sequence in a
+    .qry/FASTA or FASTQ file's bytes, in file order, by one numpy pass
+    (tpufm/io/fasta.py:76): FASTQ takes line 4i+1 of each record and skips
+    empty sequences, FASTA every non-empty non-header line; \\r\\n endings
+    and a missing last newline are allowed."""
+    arr = np.frombuffer(data, dtype=np.uint8)
+    nl = np.flatnonzero(arr == 10)
+    if len(arr) and (len(nl) == 0 or nl[-1] != len(arr) - 1):
+        nl = np.append(nl, len(arr))  # a newline after the last line
+    if len(nl) == 0:
+        z = np.zeros(0, np.int64)
+        return z, z
+    starts = np.empty(len(nl), np.int64)
+    starts[0] = 0
+    starts[1:] = nl[:-1] + 1
+    ends = nl.astype(np.int64)
+    ends = ends - ((ends > starts) & (arr[np.maximum(ends - 1, 0)] == 13))
+    if data[:1] == b"@":
+        s, e = starts[1::4], ends[1::4]
+        keep = e > s
+        return s[keep], e[keep]
+    first = arr[np.minimum(starts, len(arr) - 1)]
+    is_seq = (ends > starts) & (first != ord(">"))
+    return starts[is_seq], ends[is_seq]
+
+
+def sniff_reads(path):
+    """(shortest length, longest length, read count) of a .qry/FASTA or
+    FASTQ file, optionally gzipped, under the loaders' record rules;
+    (None, 0, 0) when it holds no read."""
+    with _open(path) as fp:
+        s, e = _seq_extents(fp.read())
+    if not len(s):
+        return None, 0, 0
+    lens = e - s
+    return int(lens.min()), int(lens.max()), len(s)
+
+
+class PackedStrs:
+    """Strings joined into one utf-8 buffer with int64 offsets [n + 1], the
+    shape the native SAM emitter reads without a copy (tpufm/io/fasta.py:203).
+    Indexes and iterates as str; an empty entry is '' (no quality)."""
+
+    __slots__ = ("buf", "off")
+
+    def __init__(self, buf: bytes, off):
+        self.buf = buf
+        self.off = np.ascontiguousarray(off, dtype=np.int64)
+
+    @classmethod
+    def join(cls, strs) -> "PackedStrs":
+        bufs = [s.encode() for s in strs]
+        off = np.zeros(len(bufs) + 1, np.int64)
+        np.cumsum([len(b) for b in bufs], out=off[1:])
+        return cls(b"".join(bufs), off)
+
+    def __len__(self):
+        return len(self.off) - 1
+
+    def __getitem__(self, i):
+        return self.buf[self.off[i]:self.off[i + 1]].decode()
+
+    def __iter__(self):
+        o = self.off.tolist()
+        for a, b in zip(o, o[1:]):
+            yield self.buf[a:b].decode()
+
+
+def load_query_names(path, num_queries: int | None = None) -> list[str]:
+    """One QNAME per read of a .qry/FASTA or FASTQ file, optionally gzipped,
+    under the loaders' record rules (tpufm/io/fasta.py:298): the first
+    token of the read's header (every line of a multi-line FASTA record
+    takes its record's), ``r<i>`` where the header has none or the read
+    has no header, and ``r<i>`` for the reads missing up to
+    ``num_queries``."""
+    def token(header: bytes | None, i: int) -> str:
+        t = header[1:].split() if header is not None else []
+        return t[0].decode("ascii", "replace") if t else f"r{i}"
+
+    names = []
+    with _open(path) as fp:
+        fastq = fp.read(1) == b"@"
+        fp.seek(0)
+        header = None
+        while num_queries is None or len(names) < num_queries:
+            line = fp.readline()
+            if not line:
+                break
+            if fastq:
+                header, line = line, fp.readline()
+                fp.readline()
+                fp.readline()
+            elif line.startswith(b">"):
+                header = line
+                continue
+            if line.strip():
+                names.append(token(header, len(names)))
+    if num_queries is not None:
+        names += [f"r{i}" for i in range(len(names), num_queries)]
+    return names
+
+
+def load_query_quals(path, num_queries: int | None = None):
+    """Per-read Phred+33 quality strings of a FASTQ file, optionally
+    gzipped, for SAM's QUAL (tpufm/io/fasta.py:262), or None for a
+    .qry/FASTA file. A read whose quality line is not as long as its
+    sequence gets None (the writers emit '*'), as do the reads missing up
+    to ``num_queries``. Decoded as latin-1, so every byte survives."""
+    quals = []
+    with _open(path) as fp:
+        if fp.read(1) != b"@":
+            return None
+        fp.seek(0)
+        while (num_queries is None or len(quals) < num_queries) and fp.readline():
+            seq = fp.readline().strip()
+            fp.readline()
+            qual = fp.readline().strip()
+            if seq:
+                quals.append(qual.decode("latin-1") if len(qual) == len(seq) else None)
+    if num_queries is not None:
+        quals += [None] * (num_queries - len(quals))
+    return quals
+
+
+def load_query_names_packed(path, num_queries: int | None = None) -> PackedStrs:
+    """``load_query_names`` as one ``PackedStrs`` (tpufm/io/fasta.py:243)."""
+    return PackedStrs.join(load_query_names(path, num_queries))
+
+
+def load_query_quals_packed(path, num_queries: int | None = None) -> PackedStrs | None:
+    """``load_query_quals`` as one ``PackedStrs``, '' for a read without
+    qualities, or None for a .qry/FASTA file (tpufm/io/fasta.py:251)."""
+    quals = load_query_quals(path, num_queries)
+    return None if quals is None else PackedStrs.join(q or "" for q in quals)
 
 
 def generate_reads(codes: np.ndarray, length: int, num: int, seed: int = 0,

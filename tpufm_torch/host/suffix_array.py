@@ -16,15 +16,10 @@ result[0] == n (the sentinel '$' is the smallest symbol).
 from __future__ import annotations
 
 import ctypes
-import os
-from pathlib import Path
 
 import numpy as np
 
-from tpufm_torch.kernels import compile_libraries
-
-CSRC = Path(__file__).resolve().parent.parent / "csrc" / "sais.cpp"
-CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-shared"]
+from tpufm_torch.kernels import host_library
 
 _sais = None
 
@@ -34,8 +29,7 @@ def _library() -> ctypes.CDLL:
     current source and flags exists."""
     global _sais
     if _sais is None:
-        lib, = compile_libraries(os.environ.get("CXX", "g++"), CXX_FLAGS, [([CSRC], "libsais")])
-        _sais = ctypes.CDLL(str(lib))
+        _sais = host_library("sais.cpp", "libsais")
         _sais.tpufm_sais_u8.restype = ctypes.c_int
         _sais.tpufm_sais_u8.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
     return _sais

@@ -4,8 +4,9 @@ Each .cu source in tpufm_torch/csrc/ compiles at first use with nvcc for
 Hopper (sm_90a) into its own shared library with a plain C interface, all
 sources at once (one nvcc process each), placed in tpufm_torch/_build/ under
 a name that hashes the source and flags, and bound with ctypes.
-``compile_libraries`` also builds the host side's C++ (csrc/sais.cpp).
-Nothing compiles when this module is imported.
+``compile_libraries`` also builds the host side's C++ (csrc/sais.cpp,
+csrc/samemit.cpp) through ``host_library``. Nothing compiles when this
+module is imported.
 """
 
 from __future__ import annotations
@@ -120,6 +121,17 @@ def compile_libraries(compiler: str, flags: list[str], jobs: list[tuple[list[Pat
     if failed:
         raise RuntimeError("\n".join(failed))
     return libs
+
+
+#: flags of the host side's C++ libraries (``host_library``)
+CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-shared"]
+
+
+def host_library(source: str, stem: str) -> ctypes.CDLL:
+    """csrc/<source> compiled with the host C++ compiler (``$CXX``, else
+    ``g++``) into ``_build/<stem>_<hash>.so`` unless built, and loaded."""
+    lib, = compile_libraries(os.environ.get("CXX", "g++"), CXX_FLAGS, [([CSRC_DIR / source], stem)])
+    return ctypes.CDLL(str(lib))
 
 
 def build() -> dict[str, Path]:

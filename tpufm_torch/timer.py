@@ -10,6 +10,7 @@ the CPU, or in host memory, is complete when it is returned and needs none.
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import torch
@@ -55,3 +56,16 @@ def timed_device_passes(fn, iterations: int = 5, warmup: int = 1):
         device_sync(fn())
         times.append(time.perf_counter() - t0)
     return sum(times) / len(times), min(times), times
+
+
+class Stages(dict):
+    """Host-clock seconds of the named stages of one run: ``with
+    stages("emit"): ...`` adds the block's time to its stage."""
+
+    @contextlib.contextmanager
+    def __call__(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self[name] = self.get(name, 0.0) + time.perf_counter() - t0
