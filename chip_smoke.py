@@ -116,6 +116,23 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      stages (tables, reads, reference, setup, engine, emit, encode, bgzf,
      write), and the native SAM emitter against its Python loop on 65,536
      reads
+ 16. the index built on the card (tpufm_torch.index): (a) phase 4's text,
+     its k=3 d=192 index, k=1 tail and s=32 locate tables from one device
+     suffix sort, equal to phases 4 and 9 (the suffix array to phase 9's
+     SA-IS), the sort's rounds (CUDA events), the whole build and the host
+     build of the same tables timed; ``build --on-device --tail`` through the
+     CLI (the .fmi byte-identical to phase 4's) and ``locate --on-device
+     --fused --store`` on 65,536 reads (both stores byte-identical to phase
+     10's); (b) K7 (``build_tables``, csrc/build_tables.cu) bit-identical to
+     its plain version at k=3 and k=1, timed (median of 7) beside its bound
+     and the 32-byte sectors its random text reads touch; (c) ``bench
+     --genome`` (250 Mbase) on a fresh cache, its index built on the card,
+     every bit_exact field true, then that text sorted again on the card and
+     its suffix array held to a full check (a permutation, strictly
+     increasing 32-base prefixes on neighbouring rows, ties compared to the
+     end on the host); (d) the peak device memory of that build per base and
+     the MAX_DEVICE_BASES it allows at 90% of the card (the set limit must be
+     within it)
 Every path is driven with all launch counts set to 0 just before it and
 read just after; a kernel of the path launched too few times fails the run.
 Then one JSON line of kernel figures (each kernel's time beside its bound:
@@ -137,6 +154,7 @@ import io
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -186,6 +204,16 @@ from tpufm_torch.host.locate import build_locate, locate_hits
 from tpufm_torch.host.oracle import search_oracle
 from tpufm_torch.host.sam import sam_edit_records, sam_paired_records, sam_single_records
 from tpufm_torch.host.suffix_array import suffix_array
+from tpufm_torch.config import recommend_config
+from tpufm_torch.index import builder_device as bd_mod
+from tpufm_torch.index import sa_device as sa_mod
+from tpufm_torch.index.builder_device import (
+    build_index_device,
+    build_locate_device,
+    build_tables,
+    build_tables_reference,
+)
+from tpufm_torch.index.sa_device import suffix_array_device_arr, upload_text
 from tpufm_torch.host.seqio import (
     decode_bases,
     generate_read_pairs,
@@ -250,6 +278,11 @@ EDGE_READS, EDGE_LANES = 64, 96
 ALIGN_RECORDS, ALIGN_LEN = 24, 150
 ALIGN_READS, ALIGN_PAIRS, ALIGN_EDIT_READS, ALIGN_VARLEN_READS = 1 << 18, 1 << 17, 1 << 14, 1 << 16
 ALIGN_PLAIN, EMIT_READS = 4096, 1 << 16
+#: phase 16: the genome record's reference (bench --genome's default), the
+#: reads of the ``locate --on-device`` run, and the share of the card's
+#: memory that the derived MAX_DEVICE_BASES lets the device build fill
+GENOME_BASES, DEVICE_LOCATE_READS = 250_000_000, 1 << 16
+DEVICE_BUILD_SHARE = 0.9
 #: one H100 SXM's INT32 issue rate: 64 INT32 lanes an SM (a quarter of its
 #: 128 FP32 lanes doing 2 flops an FMA: 67 TFLOP/s, NVIDIA's data sheet, so
 #: the clock is 1.98 GHz) x 132 SMs x 1.98e9
@@ -273,6 +306,7 @@ COUNTS = {
     "locate_walk": (loc_mod, "LAUNCHES"),
     "hamming_verify": (seed_mod, "LAUNCHES"),
     "myers_verify": (edit_mod, "LAUNCHES"),
+    "build_tables": (bd_mod, "LAUNCHES"),
 }
 
 
@@ -380,6 +414,87 @@ def graph_ms(fn, reps: int = 7, run: int = 20) -> float:
         stop.synchronize()
         times.append(start.elapsed_time(stop) / run)
     return statistics.median(times)
+
+
+def prefix_halves(codes: torch.Tensor):
+    """The 32-symbol prefix of every suffix of ``codes`` (uint8 [n], on any
+    device) and of the sentinel, packed 2 bits a symbol MSB-first into two
+    int64 halves of 16 symbols, past the end read as 0: int64 [n+1] each."""
+    n = codes.shape[0]
+    t = torch.zeros(n + 33, dtype=torch.int64, device=codes.device)
+    t[:n] = codes
+    halves = []
+    for first in (0, 16):
+        h = torch.zeros(n + 1, dtype=torch.int64, device=codes.device)
+        for j in range(first, first + 16):
+            h <<= 2
+            h |= t[j:j + n + 1]
+        halves.append(h)
+    return halves
+
+
+def check_suffix_array(codes: torch.Tensor, sa: torch.Tensor) -> int:
+    """Fail unless ``sa`` (int32 [n+1]) is the suffix array of ``codes`` +
+    '$': a permutation of 0..n whose neighbouring rows have strictly
+    increasing 32-symbol prefixes, compared further on the host only where
+    those tie (a prefix read past the end as 'A' that is strictly smaller
+    belongs to the smaller suffix). Returns the rows compared on the host."""
+    n = codes.shape[0]
+    s = sa.to(torch.int64)
+    if s.shape[0] != n + 1 or int(s.min()) < 0 or int(s.max()) > n:
+        raise AssertionError(f"suffix array of {s.shape[0]} rows, values outside [0, {n}]")
+    seen = torch.zeros(n + 1, dtype=torch.bool, device=s.device)
+    seen[s] = True
+    if not bool(seen.all()):
+        raise AssertionError(f"suffix array: {int((~seen).sum())} positions missing (not a permutation)")
+    del seen
+    hi, lo = prefix_halves(codes)
+    a, b = s[:-1], s[1:]
+    ha, hb, la, lb = hi[a], hi[b], lo[a], lo[b]
+    del hi, lo
+    less = (ha < hb) | ((ha == hb) & (la < lb))
+    tie = (ha == hb) & (la == lb)
+    if not bool((less | tie).all()):
+        bad = int(torch.nonzero(~(less | tie))[0])
+        raise AssertionError(f"suffix array: rows {bad} and {bad + 1} out of order")
+    (rows,) = torch.nonzero(tie, as_tuple=True)
+    if rows.numel():
+        text = codes.cpu().numpy()
+        for r in rows.tolist():
+            x, y = int(s[r]), int(s[r + 1])
+            i = 32
+            while True:  # '$' (the end) is the smallest symbol
+                cx, cy = text[x + i:x + i + 4096], text[y + i:y + i + 4096]
+                m = min(len(cx), len(cy))
+                diff = np.flatnonzero(cx[:m] != cy[:m])
+                if diff.size:
+                    ok = cx[diff[0]] < cy[diff[0]]
+                    break
+                if m < 4096:  # one suffix ended: the shorter is the smaller
+                    ok = n - x < n - y
+                    break
+                i += 4096
+            if not ok:
+                raise AssertionError(f"suffix array: rows {r} and {r + 1} out of order past 32 symbols")
+    return int(rows.numel())
+
+
+def k7_text_sectors(sa: torch.Tensor, n: int, k: int) -> int:
+    """The 32-byte sectors of the text that K7 reads: at each position p the
+    distinct sectors of T[(SA[p] - 1 - i) mod (n + 1)], i < k, the '$' at n
+    read as no byte."""
+    s = sa.to(torch.int64)
+    secs = []
+    total = 0
+    for i in range(k):
+        q = (s - 1 - i) % (n + 1)
+        sec = torch.where(q < n, q // 32, -1)
+        new = sec >= 0
+        for prev in secs:
+            new &= sec != prev
+        total += int(new.sum())
+        secs.append(sec)
+    return total
 
 
 def k1_inputs(rng, k: int, d: int, bwtsize: int, n: int, dev):
@@ -1289,6 +1404,220 @@ def aligner(tmp: str, codes: np.ndarray, dev, by_path: dict) -> dict:
     return found
 
 
+def tree_bytes(path: str) -> dict:
+    """{relative name: bytes} of every file under a .tpufm store."""
+    root = Path(path)
+    return {str(p.relative_to(root)): p.read_bytes() for p in sorted(root.rglob("*")) if p.is_file()}
+
+
+def same_tables(what: str, got, want, fields) -> None:
+    """Fail unless each field of ``got`` equals ``want``'s, dtype included."""
+    for f in fields:
+        a, b = np.asarray(getattr(got, f)), np.asarray(getattr(want, f))
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise AssertionError(f"{what}: {f} differs from the host build ({a.dtype} {b.dtype})")
+
+
+INDEX_FIELDS = ("occ", "bitmaps", "dollar_pos", "dollar_base")
+
+
+def cuda_events_ms(fn):
+    """(fn's result, its device milliseconds between two CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    stop.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def device_build(tmp: str, ref: str, codes: np.ndarray, index, fmi: str, sa: np.ndarray, loc, store: str,
+                 reads: np.ndarray, dev, by_path: dict) -> dict:
+    """Phase 16: the index built on the card. (a) At 10 Mbase, the k=3 d=192
+    index, its k=1 tail and the s=32 locate tables from one device sort,
+    equal to phase 4's index, phase 9's locate tables and suffix array, the
+    rounds and the whole build timed beside the host build of the same
+    tables; ``build --on-device --tail`` through the CLI writing phase 4's
+    .fmi bytes; ``locate --on-device --store`` writing phase 10's stores.
+    (b) K7 against its plain version on that shape, timed beside its bound.
+    (c) ``bench --genome`` at 250 Mbase on a fresh cache (the device build,
+    every bit_exact field true), then that text sorted again on the card,
+    its suffix array held to a full check. (d) The peak device memory of
+    the 250 Mbase build per base and the MAX_DEVICE_BASES it allows."""
+    t0 = time.perf_counter()
+    n = codes.shape[0]
+    t1 = time.perf_counter()
+    hsa = suffix_array(codes)
+    host_sort_s = time.perf_counter() - t1
+    build_index(codes, IndexConfig(k=K, d=D), sa=hsa)
+    build_index(codes, IndexConfig(k=1, d=D), sa=hsa)
+    build_locate(codes, sample_rate=SAMPLE_RATE, d=D, sa=hsa)
+    host_s = time.perf_counter() - t1
+    del hsa
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t1 = time.perf_counter()
+    cd = upload_text(codes, dev)
+    order = suffix_array_device_arr(cd)
+    torch.cuda.synchronize()
+    sort_s = time.perf_counter() - t1
+    d_index = build_index_device(codes, IndexConfig(k=K, d=D), sa_dev=order, codes_dev=cd)
+    d_tail = build_index_device(codes, IndexConfig(k=1, d=D), sa_dev=order, codes_dev=cd)
+    d_loc = build_locate_device(codes, sample_rate=SAMPLE_RATE, d=D, sa_dev=order, codes_dev=cd)
+    device_s = time.perf_counter() - t1
+    by_path["device_build"] = read_counts()
+    expect_launches("device build", by_path["device_build"], {"build_tables": 3})
+    same_tables("device k=3 index", d_index, index, INDEX_FIELDS)
+    same_tables("device k=1 tail", d_tail, loc.lf1, INDEX_FIELDS)
+    same_tables("device locate tables", d_loc, loc, ("samples", "mark_words", "mark_rank"))
+    same_tables("device locate k=1 index", d_loc.lf1, loc.lf1, INDEX_FIELDS)
+    if not np.array_equal(order.cpu().numpy().astype(np.int64), sa):
+        raise AssertionError("device suffix array differs from phase 9's SA-IS suffix array")
+    del d_index, d_tail, d_loc
+
+    rounds = []  # the sort again round by round, each between CUDA events
+    (rank, again, distinct), ms = cuda_events_ms(lambda: sa_mod.initial(cd))
+    rounds.append(ms)
+    h = sa_mod.PACK
+    while not bool(distinct) and h < n + 1:
+        del again
+        (rank, again, distinct), ms = cuda_events_ms(lambda: sa_mod.step(rank, h))
+        rounds.append(ms)
+        h *= 2
+    if not torch.equal(again.to(torch.int32), order):
+        raise AssertionError("the sort's rounds one by one end elsewhere than suffix_array_device_arr")
+    del rank, again
+    torch.cuda.empty_cache()
+
+    # (b) K7 against its plain version, k=3 and k=1 at d=192
+    got, want = build_tables(cd, order, K, D), build_tables_reference(cd, order, K, D)
+    got1, want1 = build_tables(cd, order, 1, D), build_tables_reference(cd, order, 1, D)
+    torch.cuda.synchronize()
+    for g, w in zip((*got, *got1), (*want, *want1)):
+        if g.dtype != w.dtype or not torch.equal(g, w):
+            raise AssertionError("K7: kernel differs from its plain version")
+    E = -(-(n + 1) // D)
+    nbytes = n + 4 * (n + 1) + 4 * (E + 1) * 2 * K * (D // 32) + 4 * E * 4**K + 8 * K
+    sectors = k7_text_sectors(order, n, K)
+    k7 = {
+        "max_abs_err": 0,
+        "ms": cuda_ms(lambda: build_tables(cd, order, K, D)),
+        "k1_ms": cuda_ms(lambda: build_tables(cd, order, 1, D)),
+        "plain_ms": cuda_ms(lambda: build_tables_reference(cd, order, K, D)),
+        "bound_ms": bound_ms(nbytes),
+        "bytes": nbytes,
+        "sectors": sectors,
+        "sector_bound_ms": bound_ms(nbytes - n + 32 * sectors),
+    }
+    del got, want, got1, want1, cd, order
+    torch.cuda.empty_cache()
+    print(f"[16 device build] (a) {n} bases, k={K} d={D} index + k=1 tail + s={SAMPLE_RATE} locate tables "
+          f"from one device sort, each equal to phases 4 and 9 (the suffix array too): host {host_s:.2f} s "
+          f"(SA-IS {host_sort_s:.2f} s), device {device_s:.3f} s (upload and sort {sort_s:.3f} s; rounds "
+          f"{', '.join(f'{ms:.3f}' for ms in rounds)} ms; K7 launches {by_path['device_build']['build_tables']})",
+          flush=True)
+    print(f"    (b) K7 vs plain, bit-identical: k={K} {k7['ms']:.4f} ms, k=1 {k7['k1_ms']:.4f} ms, plain "
+          f"{k7['plain_ms']:.4f} ms; bound {k7['bound_ms']:.4f} ms ({k7['bytes']} B: text, SA, planes, "
+          f"counts once; {k7['bound_ms'] / k7['ms'] * 100:.1f}% of it); the text reads touch {sectors} "
+          f"32-byte sectors ({32 * sectors} B; with them {k7['sector_bound_ms']:.4f} ms)", flush=True)
+
+    t1 = time.perf_counter()
+    out = os.path.join(tmp, "ondev.fmi")
+    reset_counts()
+    run = cli.main(["build", ref, str(n), "--k", str(K), "--d", str(D), "--on-device", "--tail",
+                    "--output", out])
+    by_path["build_on_device"] = read_counts()
+    expect_launches("build --on-device --tail", by_path["build_on_device"], {"build_tables": 2})
+    if Path(out).read_bytes() != Path(fmi).read_bytes():
+        raise AssertionError("build --on-device: the .fmi differs from phase 4's")
+    same_tables("build --on-device --tail: the tail", load_npz(out + ".tail.npz"), loc.lf1, INDEX_FIELDS)
+    cli_build_s = time.perf_counter() - t1
+    del run
+    t1 = time.perf_counter()
+    qry = os.path.join(tmp, "ondev.qry")
+    write_reads_fasta(qry, reads[:DEVICE_LOCATE_READS])
+    reset_counts()
+    cli.main(["locate", ref, str(n), qry, str(READ_LEN), str(DEVICE_LOCATE_READS), "--k", str(K), "--d", str(D),
+              "--sample-rate", str(SAMPLE_RATE), "--max-hits", str(MAX_HITS), "--lut", str(LUT_M), "--fused",
+              "--on-device", "--store", os.path.join(tmp, "ondev"), "--output", os.path.join(tmp, "ondev.pos")])
+    by_path["locate_on_device"] = read_counts()
+    expect_launches("locate --on-device", by_path["locate_on_device"],
+                    {"build_tables": 2, "lf_round_pairs": (READ_LEN - LUT_M) // K, "locate_walk": 1})
+    for kind in ("search", "locate"):
+        if tree_bytes(os.path.join(tmp, f"ondev.{kind}.tpufm")) != tree_bytes(f"{store}.{kind}.tpufm"):
+            raise AssertionError(f"locate --on-device --store: {kind}.tpufm differs from phase 10's store")
+    print(f"    build --on-device --tail through the CLI: .fmi byte-identical to phase 4's, tail equal, "
+          f"{cli_build_s:.2f} s, launches {by_path['build_on_device']}; locate --on-device --fused --store on "
+          f"{DEVICE_LOCATE_READS} reads: both stores byte-identical to phase 10's, "
+          f"{time.perf_counter() - t1:.2f} s, launches {by_path['locate_on_device']}", flush=True)
+
+    # (c) the genome record on a fresh cache: its index built on the card
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    reset_counts()
+    record = bench.run_bench_genome(refsize=GENOME_BASES, device=dev, cache_dir=os.path.join(tmp, "genome"))
+    by_path["genome"] = read_counts()
+    detail = record["detail"]
+    flags = {key: v for key, v in detail.items() if key.startswith("bit_exact")}
+    if not flags or not all(v is True for v in flags.values()) or detail["index_cached"]:
+        raise AssertionError(f"bench --genome: {flags}, index_cached {detail['index_cached']}")
+    expect_launches("bench --genome", by_path["genome"], {"build_tables": 1, "lf_round_pairs": 1})
+    genome_s = time.perf_counter() - t1
+    print(f"    (c) bench --genome, {GENOME_BASES} bases, fresh cache ({genome_s:.2f} s): "
+          f"{json.dumps(record)}", flush=True)
+    shutil.rmtree(os.path.join(tmp, "genome"))
+    del record
+
+    # the genome's text sorted again on the card: the peak of the build and a full check
+    _, gcodes = bench._reference_codes(GENOME_BASES, 0)
+    rec = recommend_config(GENOME_BASES)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t1 = time.perf_counter()
+    gcd = upload_text(gcodes, dev)
+    gorder = suffix_array_device_arr(gcd)
+    torch.cuda.synchronize()
+    gsort_s = time.perf_counter() - t1
+    sort_peak = torch.cuda.max_memory_allocated(dev) - base
+    gidx = build_index_device(gcodes, IndexConfig(k=rec["k"], d=rec["d"]), return_host=False,
+                              sa_dev=gorder, codes_dev=gcd)
+    torch.cuda.synchronize()
+    gbuild_s = time.perf_counter() - t1
+    build_peak = torch.cuda.max_memory_allocated(dev) - base
+    del gidx
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    deep = check_suffix_array(gcd, gorder)
+    check_s = time.perf_counter() - t1
+    del gcd, gorder
+    torch.cuda.empty_cache()
+    per_base = build_peak / GENOME_BASES
+    total = torch.cuda.get_device_properties(dev).total_memory
+    derived = min(2**31 - 2, int(DEVICE_BUILD_SHARE * total / per_base) // 10_000_000 * 10_000_000)
+    print(f"    {GENOME_BASES} bases sorted again: {gsort_s:.3f} s (upload and sort), the k={rec['k']} "
+          f"d={rec['d']} build {gbuild_s:.3f} s; suffix array a permutation with strictly increasing 32-base "
+          f"prefixes on neighbouring rows ({deep} ties compared to the end on the host; check {check_s:.2f} s)",
+          flush=True)
+    print(f"    (d) peak device memory: the sort {sort_peak} B ({sort_peak / GENOME_BASES:.2f} B/base), the "
+          f"build {build_peak} B ({per_base:.2f} B/base); card {total} B: MAX_DEVICE_BASES up to {derived} "
+          f"at {DEVICE_BUILD_SHARE:.0%} of it (set: {sa_mod.MAX_DEVICE_BASES}); phase "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    if sa_mod.MAX_DEVICE_BASES > derived:
+        raise AssertionError(f"MAX_DEVICE_BASES {sa_mod.MAX_DEVICE_BASES} is past the {derived} this card allows")
+    return {"k7": k7, "summary": {
+        "bases": n, "host_s": host_s, "host_sort_s": host_sort_s, "device_s": device_s,
+        "device_sort_s": sort_s, "round_ms": rounds, "cli_build_s": cli_build_s,
+        "genome_build_seconds": detail["build_seconds"], "genome_record_s": genome_s,
+        "genome_sort_s": gsort_s, "genome_device_build_s": gbuild_s, "sort_peak_bytes": sort_peak,
+        "build_peak_bytes": build_peak, "peak_bytes_per_base": per_base, "card_bytes": total,
+        "max_device_bases_derived": derived, "max_device_bases": sa_mod.MAX_DEVICE_BASES,
+        "sa_ties_checked_on_host": deep}}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; it runs only on a GPU")
@@ -1503,8 +1832,7 @@ def main() -> None:
         sa = suffix_array(codes)
         loc = build_locate(codes, sample_rate=SAMPLE_RATE, d=D, sa=sa)
         loc_s = time.perf_counter() - t0
-        walk = check_walk(loc, sa, dev)
-        del sa, loc
+        walk = check_walk(loc, sa, dev)  # sa and loc stay for phase 16
         torch.cuda.empty_cache()
         print(f"[9 K4 vs plain] sample rate {SAMPLE_RATE}, d={D}: all {REF_BASES + 1} BWT rows plus "
               f"bwtsize and 3 rows past it walked, equal to the suffix array and bit-identical to the "
@@ -1757,6 +2085,9 @@ def main() -> None:
         print(f"    records {time.perf_counter() - t1:.2f} s; phase {time.perf_counter() - t0:.2f} s", flush=True)
 
         align = aligner(tmp, codes, dev, by_path)
+        del run
+        torch.cuda.empty_cache()
+        ondev = device_build(tmp, ref, codes, index, fmi, sa, loc, store, reads, dev, by_path)
 
     for pkg in ("jax", "tpufm"):
         if any(m == pkg or m.startswith(pkg + ".") for m in sys.modules):
@@ -1905,6 +2236,25 @@ def main() -> None:
                      f"L={READ_LEN} E={APPROX_E}",
             "launches_per_pass": per_pass("myers_verify"),
             "launches_by_path": {path: c["myers_verify"] for path, c in by_path.items()},
+        },
+        {
+            "name": "build_tables",
+            "route": "cuda",
+            "source": "tpufm_torch/csrc/build_tables.cu",
+            "replaces": "tpufm/index/builder_device.py:35 (jnp _build_tables, no pallas_call)",
+            "launches": by_path["build_on_device"]["build_tables"],
+            "max_abs_err": ondev["k7"]["max_abs_err"],
+            "ms": ondev["k7"]["ms"],
+            "plain_ms": ondev["k7"]["plain_ms"],
+            "bound_ms": ondev["k7"]["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+            "shape": f"k={K} d={D}, {REF_BASES} bases (phase 4's text and its device suffix array)",
+            "k1_ms": ondev["k7"]["k1_ms"],
+            "text_sectors": ondev["k7"]["sectors"],
+            "sector_bound_ms": ondev["k7"]["sector_bound_ms"],
+            "launches_by_path": {path: c["build_tables"] for path, c in by_path.items()},
+            "device_build": ondev["summary"],
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -195,7 +195,15 @@ def test_errors_as_tpufm(data, tmp_path, argv):
 
 @pytest.mark.parametrize("option,item", [(["--mesh", "4"], "item 6"), (["--mesh", "0"], "item 6"),
                                          (["--on-device"], "item 4")])
-def test_align_unported_options_exit_naming_their_item(data, option, item):
+def test_align_unported_options_exit_naming_their_item(data, tmp_path, capsys, option, item):
+    """``--mesh`` exits naming item 6. ``--on-device`` (item 4, the device
+    build) is ported: its SAM equals tpufm's ``align --on-device``, and what
+    each prints."""
+    if item == "item 4":
+        ours, theirs = str(tmp_path / "torch.sam"), str(tmp_path / "jax.sam")
+        _both(capsys, ["align", data["ref"], data["fixed"], *option, "-o", theirs],
+              ["align", data["ref"], data["fixed"], *option, "-o", ours, "--device", "cpu"], theirs, ours)
+        return
     with pytest.raises(SystemExit) as exit_info:
         torch_cli.main(["align", data["ref"], data["fixed"], *option, "--device", "cpu"])
     assert f"ROADMAP Queue 1 {item}" in str(exit_info.value.code)

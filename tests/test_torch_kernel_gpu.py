@@ -25,8 +25,10 @@ their tile compaction (2048 lanes a block) on grids with every lane valid,
 none, one at the last slot of each tile, a ragged end, fewer lanes than a
 tile, a read wider than a tile and a mask off its 16-byte boundary; the seed,
 edit and paired engines on the card must equal their plain path and their
-oracles. Intervals, positions, distances and table words are integers and
-compare exactly (tolerance 0).
+oracles. The table-building kernel (K7) must equal its plain version at k
+1-4 on edge sizes, and the whole device build the host builders.
+Intervals, positions, distances and table words are integers and compare
+exactly (tolerance 0).
 """
 
 import functools
@@ -652,3 +654,56 @@ def test_align_on_card_matches_cpu(cuda, tmp_path_factory, reads, extra):
     assert lf_mod.PAIRS_LAUNCHES > 0 and loc_mod.LAUNCHES > 0
     assert (seed_mod.LAUNCHES > 0) == ("--mismatches" in extra and extra[extra.index("--mismatches") + 1] == "2")
     assert (edit_mod.LAUNCHES > 0) == ("--edits" in extra)
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+@pytest.mark.parametrize("d,n", [(32, 0), (32, 5), (32, 31), (32, 1000), (64, 127), (192, 20000), (192, 191),
+                                 (960, 5000), (128, 65535)])
+def test_build_tables_kernel_matches_plain(cuda, k, d, n):
+    """K7 against ``build_tables_reference`` on the same CUDA tensors: the
+    counts, bit-planes (row E zero) and '$' positions, at k 1-4; n + 1 a
+    multiple of d (31, 127, 191, 65535: no padding), one block (5), the
+    empty text, blocks wider than the kernel's 256 threads' words (d=960)."""
+    from tpufm_torch.index import builder_device as bd
+
+    codes = np.random.default_rng(n + k).integers(0, 4, size=n, dtype=np.uint8)
+    cd = torch.from_numpy(codes).to(cuda)
+    sa = torch.from_numpy(suffix_array(codes).astype(np.int32)).to(cuda)
+    before = bd.LAUNCHES
+    got = bd.build_tables(cd, sa, k, d)
+    assert bd.LAUNCHES == before + 1
+    want = bd.build_tables_reference(cd, sa, k, d)
+    torch.cuda.synchronize()
+    for g, w, name in zip(got, want, ("counts", "bitmaps", "dollar_pos")):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("n,k,d", [(0, 1, 32), (1, 2, 32), (3001, 3, 192), (200_000, 3, 192), (50_000, 4, 64)])
+def test_device_build_on_card_matches_host(cuda, n, k, d):
+    """The whole device build on the card (the sort, K7, the corrections,
+    the locate tables) equal to the host builders, and the device-resident
+    index searching to the oracle's intervals. The texts have at least k - 1
+    bases, as the host builder needs (a shorter one leaves it some '$'
+    positions unset)."""
+    from tpufm_torch.index import builder_device as bd
+    from tpufm_torch.index.sa_device import suffix_array_device
+
+    codes = np.random.default_rng(n).integers(0, 4, size=n, dtype=np.uint8)
+    sa = suffix_array(codes)
+    np.testing.assert_array_equal(suffix_array_device(codes, cuda), sa)
+    host = build_index(codes, IndexConfig(k=k, d=d), sa=sa)
+    got = bd.build_index_device(codes, IndexConfig(k=k, d=d), device=cuda)
+    for f in ("occ", "bitmaps", "dollar_pos", "dollar_base"):
+        a, b = getattr(got, f), getattr(host, f)
+        assert a.dtype == b.dtype and np.array_equal(a, b), f
+    loc = bd.build_locate_device(codes, sample_rate=8, d=d, device=cuda)
+    want = build_locate(codes, sample_rate=8, d=d, sa=sa)
+    for f in ("samples", "mark_words", "mark_rank"):
+        a, b = getattr(loc, f), getattr(want, f)
+        assert a.dtype == b.dtype and np.array_equal(a, b), f
+    if n > 1000:
+        dev = bd.build_index_device(codes, IndexConfig(k=k, d=d), return_host=False, device=cuda)
+        reads = np.stack([codes[s:s + 24] for s in np.random.default_rng(1).integers(0, n - 24, 256)])
+        np.testing.assert_array_equal(SearchEngine(dev, cuda, lut_m=12 - 12 % k).search(reads),
+                                      search_oracle(host, reads))

@@ -1,7 +1,9 @@
 """The port and its smoke script stand alone: a child interpreter blocks every
 import of jax and of the JAX package tpufm, then imports tpufm_torch, its
-CLI, its kernel loader, every engine module and chip_smoke, builds an index
-and locate tables with the port's own host side, runs a small CPU search on
+CLI, its kernel loader, every engine module, the device build
+(tpufm_torch.index) and chip_smoke, builds an index and locate tables with
+the port's own host side and again with the device build on the CPU (the
+same arrays), runs a small CPU search on
 both gather paths, a variable-length one, a fused search+locate, a
 Hamming <= 1 count, a seed-and-extend locate at two substitutions, an
 edit-distance locate, a paired placement and a small ``align --bam`` on a
@@ -70,6 +72,13 @@ batch[:, :5] = 0xFF  # 19 bp reads, right-aligned
 got = SearchEngine(index, "cpu", lut_m=6, tail_index=tail).search_varlen(batch)
 assert np.array_equal(got, search_oracle(index, queries[:, 5:], tail_index=tail))
 loc = build_locate(codes, sample_rate=8, d=64, sa=suffix_array(codes, sys.argv[1]))
+import tpufm_torch.index
+from tpufm_torch.index.builder_device import build_index_device, build_locate_device
+dev_index = build_index_device(codes, IndexConfig(k=3, d=64), device="cpu")  # the device build, here on the CPU
+assert all(np.array_equal(getattr(dev_index, f), getattr(index, f))
+           for f in ("occ", "bitmaps", "dollar_pos", "dollar_base"))
+dev_loc = build_locate_device(codes, sample_rate=8, d=64, device="cpu")
+assert all(np.array_equal(getattr(dev_loc, f), getattr(loc, f)) for f in ("samples", "mark_words", "mark_rank"))
 iv, pos = SearchLocateEngine(index, loc, "cpu", max_hits=4, lut_m=6).search_locate(queries[:, 1:])
 assert np.array_equal(iv, search_oracle(index, queries[:, 1:], tail_index=loc.lf1))  # 23 % 3: tail
 assert np.array_equal(pos, locate_hits(loc, iv, 4))

@@ -35,6 +35,10 @@ Layers:
                                   gathered beforehand; the CUDA kernel on
                                   the card, its plain version on the CPU
   tpufm_torch.engine.row_gather — the row gather (K3) of gather="dma"
+  tpufm_torch.index             — the index built on the device: the suffix
+                                  array by prefix doubling (torch.sort a
+                                  round), the tables by K7, the locate
+                                  tables (tpufm/index/*_device.py)
   tpufm_torch.kernels           — nvcc build (one library per csrc/*.cu,
                                   all at once) + ctypes binding
   tpufm_torch.host              — index build (SA-IS in csrc/sais.cpp), index

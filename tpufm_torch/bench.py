@@ -29,8 +29,10 @@ names, arguments, defaults and record schema (``metric``, ``value``,
 - The port has no build of the reference's CPU binaries: every
   ``reference_cpu_*`` field is None and ``vs_baseline`` is the fraction of
   the speed of light, tpufm's own fallback when it finds none.
-- The genome record builds its index on the host (SA-IS); tpufm's device
-  build is not ported.
+- The genome record builds its index on the card (tpufm_torch.index) when
+  the device is CUDA and the reference fits ``MAX_DEVICE_BASES``, re-derived
+  for the H100 (tpufm's 400 Mbase was sized for a 16 GB chip); else on the
+  host.
 - ``run_bench_locate`` runs on one device; the naive scans of
   ``run_bench_mismatch``, ``run_bench_seed`` (``hamming_hits``) and
   ``run_bench_paired`` (``pair_oracle``'s occurrences) run on the bench's
@@ -71,6 +73,8 @@ from tpufm_torch.host.locate import build_locate, locate_hits, locate_oracle
 from tpufm_torch.host.oracle import search_oracle
 from tpufm_torch.host.seqio import generate_read_pairs, generate_reads
 from tpufm_torch.host.suffix_array import suffix_array
+from tpufm_torch.index.builder_device import build_index_device
+from tpufm_torch.index.sa_device import MAX_DEVICE_BASES
 from tpufm_torch.timer import timed_device_passes
 
 #: HBM rate of one H100 SXM (NVIDIA's data sheet): the speed of light's rate
@@ -324,8 +328,11 @@ def run_bench_genome(
     """Genome-scale record (tpufm/bench.py:347): a seeded random reference of
     ``refsize`` bases whose table does not stay in the card's L2; k, d and
     lut_m from ``recommend_config`` unless given. The index is built on the
-    host (SA-IS; the device build is not ported, ROADMAP Queue 1 item 4) and
-    cached with its prefix LUT under ``cache_dir`` (default .bench/genome) by
+    card (``build_index_device``) when ``device`` is a CUDA device and the
+    reference is at most ``MAX_DEVICE_BASES``, else on the host (SA-IS), as
+    tpufm builds on its accelerator (tpufm/bench.py:398-403);
+    ``build_seconds`` is that build's, host to host. The index is cached
+    with its prefix LUT under ``cache_dir`` (default .bench/genome) by
     tpufm's own names, ``idx_{refsize}_k{k}_d{d}_s{seed}.tpufm`` and
     ``lut_{refsize}_k{k}_d{d}_s{seed}_m{lut_m}.npz``, byte-compatible with
     tpufm's, so that either package reuses the other's cache."""
@@ -345,7 +352,10 @@ def run_bench_genome(
         index = load_store(store)
         build_s = 0.0
     else:
-        index = build_index(codes, IndexConfig(k=k, d=d))
+        if dev.type == "cuda" and refsize <= MAX_DEVICE_BASES:
+            index = build_index_device(codes, IndexConfig(k=k, d=d), device=dev)
+        else:
+            index = build_index(codes, IndexConfig(k=k, d=d))
         build_s = time.perf_counter() - t0
         save_store(store, index)
 

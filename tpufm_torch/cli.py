@@ -2,8 +2,8 @@
 locate, align and bench.
 
     python -m tpufm_torch.cli build REF REFSIZE [--k K] [--d D] [--auto]
-        [--output OUT.fmi|.npz|.tpufm] [--sa auto|native|doubling] [--tail]
-        [--save-ref]
+        [--output OUT.fmi|.npz|.tpufm] [--sa auto|native|doubling|device]
+        [--on-device] [--tail] [--save-ref] [--device cuda|cpu]
     python -m tpufm_torch.cli genreads REF REFSIZE LENGTH NUM [--seed S]
         [--output OUT] [--paired] [--insert-min A] [--insert-max B]
     python -m tpufm_torch.cli search INDEX QUERIES L N [--lut M] [--tail PATH]
@@ -17,9 +17,10 @@ locate, align and bench.
         [--mismatches M | --edits E] [--seed-hits H] [--paired R2.qry
         [--insert-min A] [--insert-max B] [--max-pairs P]]
         [--sam | --bam | --contigs] [--store PREFIX] [--from-store PREFIX]
-        [--output OUT] [--device cuda|cpu]
+        [--on-device] [--output OUT] [--device cuda|cpu]
     python -m tpufm_torch.cli align REF READS [-2 R2] [-o OUT] [--bam]
         [--mismatches M | --edits E] [--store PREFIX | --from-store PREFIX]
+        [--on-device]
         [--max-hits H] [--seed-hits H] [--sample-rate S] [--lut M]
         [--insert-min A] [--insert-max B] [--max-pairs P] [--device cuda|cpu]
     python -m tpufm_torch.cli bench [--refsize N] [--k K] [--d D]
@@ -30,9 +31,9 @@ locate, align and bench.
         [--device cuda|cpu]
 
 Counterparts of ``tpufm build`` (``cmd_build``, tpufm/cli.py:54, on the
-host: one suffix sort serves the index and its k=1 tail; files
-byte-identical), ``tpufm genreads`` (``cmd_genreads``, :174; the same reads
-and files on the same seed), ``tpufm bench`` (``cmd_bench``, :508: the same
+host or with --on-device on the card: one suffix sort serves the index and
+its k=1 tail; files byte-identical), ``tpufm genreads`` (``cmd_genreads``,
+:174; the same reads and files on the same seed), ``tpufm bench`` (``cmd_bench``, :508: the same
 dispatch and argument checks, one JSON line of tpufm_torch.bench's record;
 the modes not ported yet exit non-zero naming their ROADMAP item),
 ``tpufm search`` (``cmd_search``, tpufm/cli.py:338-387) with
@@ -48,14 +49,15 @@ writing ``<queries>.pairs``) forms, the approximate ones verified against
 the reference's text (read again from its FASTA with --from-store), with
 ``--contigs`` (``record:offset`` labels) and ``--sam`` / ``--bam``
 (tpufm_torch.host.sam and .bam); and of ``tpufm align`` (``cmd_align``,
-:1182-1478) on one device (``--mesh`` and ``--on-device`` exit naming
-their ROADMAP item). They read the same index files (.fmi, .npz, .tpufm),
-derive the k=1 tail the same way, share the ``<index>.lut<M>.npz`` LUT
-cache, print the same ``TIME:`` line (search and count: mean seconds per
-pass after one warm-up pass) and write byte-identical ``.res``, ``.cnt``,
-``.pos``, ``.pairs``, SAM and BAM files (minus-strand results of ``--rc``
-in ``<out>.rc``). ``--device`` defaults to cuda and never falls back to
-the CPU.
+:1182-1478) on one device (``--mesh`` exits naming its ROADMAP item).
+``locate`` and ``align`` with ``--on-device`` build the index and the
+locate tables on the card from one device suffix sort (tpufm_torch.index).
+They read the same index files (.fmi, .npz, .tpufm), derive the k=1 tail
+the same way, share the ``<index>.lut<M>.npz`` LUT cache, print the same
+``TIME:`` line (search and count: mean seconds per pass after one warm-up
+pass) and write byte-identical ``.res``, ``.cnt``, ``.pos``, ``.pairs``,
+SAM and BAM files (minus-strand results of ``--rc`` in ``<out>.rc``).
+``--device`` defaults to cuda and never falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -106,6 +108,8 @@ from tpufm_torch.host.seqio import (
     write_results,
 )
 from tpufm_torch.host.suffix_array import suffix_array
+from tpufm_torch.index.builder_device import build_index_device, build_locate_device
+from tpufm_torch.index.sa_device import suffix_array_device_arr, upload_text
 from tpufm_torch.timer import Stages
 
 
@@ -301,20 +305,33 @@ def cmd_count(args) -> CountRun:
     return CountRun(engine, cnt, dt)
 
 
+def device_sort(codes: np.ndarray, device):
+    """(text, suffix array) on ``device``: one upload and one suffix sort
+    for every table a command builds there."""
+    codes_dev = upload_text(codes, device)
+    return codes_dev, suffix_array_device_arr(codes_dev)
+
+
 def locate_tables(args):
     """(index, locate tables, codes): loaded from ``PREFIX.search.tpufm`` and
     ``PREFIX.locate.tpufm`` with --from-store (codes None), else built from
-    the reference with one suffix sort, and stored under --store
-    (tpufm/cli.py:744-807)."""
+    the reference with one suffix sort, on the host or with --on-device on
+    the card, and stored under --store (tpufm/cli.py:744-807)."""
     codes = None
     if args.from_store:
         index = load_store(f"{args.from_store}.search.tpufm")
         loc = load_store(f"{args.from_store}.locate.tpufm")
     else:
         codes = read_reference(args.reference, args.refsize)
-        sa = suffix_array(codes)
-        index = build_index(codes, IndexConfig(k=args.k, d=args.d), sa=sa)
-        loc = build_locate(codes, sample_rate=args.sample_rate, d=args.d, sa=sa)
+        if args.on_device:
+            cd, order = device_sort(codes, args.device)
+            index = build_index_device(codes, IndexConfig(k=args.k, d=args.d), sa_dev=order, codes_dev=cd)
+            loc = build_locate_device(codes, sample_rate=args.sample_rate, d=args.d, sa_dev=order, codes_dev=cd)
+            del cd, order
+        else:
+            sa = suffix_array(codes)
+            index = build_index(codes, IndexConfig(k=args.k, d=args.d), sa=sa)
+            loc = build_locate(codes, sample_rate=args.sample_rate, d=args.d, sa=sa)
         if args.store:
             save_store(f"{args.store}.search.tpufm", index)
             save_store(f"{args.store}.locate.tpufm", loc)
@@ -624,9 +641,6 @@ def cmd_align(args) -> SamRun:
     if args.mesh is not None:
         sys.exit("align --mesh: multi-GPU alignment is not ported yet (ROADMAP Queue 1 item 6); "
                  "drop --mesh to align on one device")
-    if args.on_device:
-        sys.exit("align --on-device: the device build is not ported yet (ROADMAP Queue 1 item 4); "
-                 "drop --on-device to build on the host")
     device = resolve_device(args.device)
     qmin, qlen, nreads = _sniff_reads(args.reads)
     mixed = qmin != qlen
@@ -667,7 +681,7 @@ def cmd_align(args) -> SamRun:
         from_store=args.from_store, rc=False, mismatches=args.mismatches, edits=args.edits,
         seed_hits=args.seed_hits, paired=args.paired, insert_min=args.insert_min, insert_max=args.insert_max,
         max_pairs=args.max_pairs, lut=lut, sam=True, bam=args.bam, contigs=False, output=args.output,
-        device=args.device,
+        device=args.device, on_device=args.on_device,
     )
     if args.paired and pair_mixed:
         return _align_paired_grouped(args, ns, device)
@@ -825,14 +839,13 @@ def _align_varlen(args, ns, device) -> SamRun:
 
 
 def cmd_build(args) -> BuildRun:
-    """The k-step FM-index of a FASTA reference, built on the host, as an
-    .fmi image (the default name ``<ref>.<refsize>.<d>fmi<k>steps.fmi``), an
-    .npz archive or a .tpufm store; with --tail also its k=1 tail index
-    (``<out>.tail.npz``) from the same suffix sort; with --save-ref the
-    reference re-emitted as ``<ref>.<refsize>.fa`` (tpufm/cli.py:54)."""
-    if args.on_device or args.sa == "device":
-        sys.exit("build --on-device / --sa device: the device build is not ported yet "
-                 "(ROADMAP Queue 1 item 4); drop them to build on the host")
+    """The k-step FM-index of a FASTA reference, built on the host (with
+    --sa device its suffix sort on the card) or with --on-device wholly on
+    the card (``--device``), as an .fmi image (the default name
+    ``<ref>.<refsize>.<d>fmi<k>steps.fmi``), an .npz archive or a .tpufm
+    store; with --tail also its k=1 tail index (``<out>.tail.npz``) from the
+    same suffix sort; with --save-ref the reference re-emitted as
+    ``<ref>.<refsize>.fa`` (tpufm/cli.py:54)."""
     if args.mesh or args.store_sharded or args.sa == "sharded":
         sys.exit("build --mesh / --store-sharded / --sa sharded: the multi-GPU build is not "
                  "ported yet (ROADMAP Queue 1 item 6); drop them to build on the host")
@@ -845,14 +858,24 @@ def cmd_build(args) -> BuildRun:
     method = "native" if args.sa == "auto" else args.sa
     # one suffix sort for the index and its tail; at k=1 the index is the tail
     want_tail = args.tail and args.k != 1
-    sa = suffix_array(codes, method) if want_tail else None
-    index = build_index(codes, IndexConfig(k=args.k, d=args.d), sa_method=method, sa=sa)
-    tail = build_index(codes, IndexConfig(k=1, d=args.d), sa=sa) if want_tail else None
+    tail = None
+    if args.on_device:
+        cd, order = device_sort(codes, args.device)
+        index = build_index_device(codes, IndexConfig(k=args.k, d=args.d), sa_dev=order, codes_dev=cd)
+        if want_tail:
+            tail = build_index_device(codes, IndexConfig(k=1, d=args.d), sa_dev=order, codes_dev=cd)
+        del cd, order
+    else:
+        sa = suffix_array(codes, method, device=args.device) if want_tail or method == "device" else None
+        index = build_index(codes, IndexConfig(k=args.k, d=args.d), sa_method=method, sa=sa)
+        if want_tail:
+            tail = build_index(codes, IndexConfig(k=1, d=args.d), sa=sa)
+        del sa
     if args.tail and args.k == 1:
         tail = index
-    del sa
     print(f"built k={args.k} d={args.d} bwtsize={index.bwtsize} "
-          f"entries={index.nentries} in {time.perf_counter() - t0:.1f}s")
+          f"entries={index.nentries} in {time.perf_counter() - t0:.1f}s"
+          f"{' (on device)' if args.on_device else ''}")
     out = args.output or f"{args.reference}.{args.refsize}.{args.d}fmi{args.k}steps.fmi"
     if out.endswith(".tpufm"):
         save_store(out, index)
@@ -1000,7 +1023,7 @@ def _add_device(p) -> None:
 def main(argv=None):
     p = argparse.ArgumentParser(prog="python -m tpufm_torch.cli")
     sub = p.add_subparsers(dest="cmd", required=True)
-    b = sub.add_parser("build", help="build a k-step FM-index from FASTA (on the host)")
+    b = sub.add_parser("build", help="build a k-step FM-index from FASTA (on the host, or on the card)")
     b.add_argument("reference")
     b.add_argument("refsize", type=int)
     b.add_argument("--k", type=int, default=2)
@@ -1010,8 +1033,10 @@ def main(argv=None):
     b.add_argument("--output", default=None,
                    help=".fmi (reference format), .npz, or .tpufm (memory-mapped store)")
     b.add_argument("--sa", default="auto", choices=["auto", "native", "doubling", "device", "sharded"],
-                   help="suffix sort: auto = native (SA-IS); device and sharded are not ported")
-    b.add_argument("--on-device", action="store_true", help="not ported (the device build)")
+                   help="suffix sort: auto = native (SA-IS); device = prefix doubling on --device; "
+                        "sharded is not ported")
+    b.add_argument("--on-device", action="store_true",
+                   help="build the whole index on --device (tpufm_torch.index.builder_device)")
     b.add_argument("--mesh", type=int, default=0, help="not ported (the multi-GPU build)")
     b.add_argument("--store-sharded", action="store_true", help="not ported (per-shard stores)")
     b.add_argument("--save-ref", action="store_true",
@@ -1019,6 +1044,7 @@ def main(argv=None):
     b.add_argument("--tail", action="store_true",
                    help="also build a k=1 tail index (<out>.tail.npz) so that "
                         "search accepts any query length")
+    _add_device(b)
     b.set_defaults(fn=cmd_build)
 
     g = sub.add_parser("genreads", help="sample a query workload")
@@ -1102,6 +1128,8 @@ def main(argv=None):
     lc.add_argument("--from-store", default=None, metavar="PREFIX",
                     help="load prebuilt stores; reference/refsize are "
                          "ignored (pass '-' 0)")
+    lc.add_argument("--on-device", action="store_true",
+                    help="build the index and the locate tables on --device (one device suffix sort)")
     lc.add_argument("--output", default=None)
     _add_device(lc)
     lc.set_defaults(fn=cmd_locate)
@@ -1126,7 +1154,8 @@ def main(argv=None):
     al.add_argument("--lut", type=int, default=None,
                     help="prefix-LUT m (default: the largest m <= 12 that k divides, 4^m no larger "
                          "than the reference, m no longer than the shortest read)")
-    al.add_argument("--on-device", action="store_true", help="not ported (the device build)")
+    al.add_argument("--on-device", action="store_true",
+                    help="build the tables on --device (one device suffix sort)")
     al.add_argument("--store", default=None, metavar="PREFIX",
                     help="keep the tables as PREFIX.search.tpufm + PREFIX.locate.tpufm")
     al.add_argument("--from-store", default=None, metavar="PREFIX",
@@ -1160,8 +1189,9 @@ def main(argv=None):
     be.add_argument("--insert-min", type=int, default=250)
     be.add_argument("--insert-max", type=int, default=450)
     be.add_argument("--genome", action="store_true",
-                    help="the genome-scale record: a 250 Mbase index built on the host and "
-                         "cached under .bench/genome; k/d/lut from recommend_config")
+                    help="the genome-scale record: a 250 Mbase index built on the card (on the "
+                         "host with --device cpu) and cached under .bench/genome; k/d/lut from "
+                         "recommend_config")
     be.add_argument("--multichip", action="store_true", help="not ported")
     be.add_argument("--sharded", action="store_true", help="not ported")
     be.add_argument("--routing", default="allgather", choices=["allgather", "ring", "a2a"],

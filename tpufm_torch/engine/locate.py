@@ -41,7 +41,7 @@ from tpufm_torch.bitops import FULL, boundary_masks, from_u32_bits, popcount32
 from tpufm_torch.device import resolve_device
 from tpufm_torch.engine.lf_round import lf_round_rows_reference
 from tpufm_torch.engine.search import _int64, _rows, _words, stream_waves
-from tpufm_torch.engine.tables import _check_d, _dollar
+from tpufm_torch.engine.tables import _check_d, _dollar, concat_words
 from tpufm_torch.host.locate import LocateIndex, locate_hits_compacted
 
 #: kernel launches made by ``locate_walk`` in this process (plain-path calls
@@ -56,6 +56,8 @@ class LocateTables:
     rows:    uint32 [E+1, 3*nb + 5] fused locate rows (module docstring).
     samples: uint32 [n_samples] SA values of the sampled rows, in row order.
     dollar:  uint32 [3, 1] pos, base and block of the k=1 '$'.
+    rows and samples are int32 tensors of the same bits on the device for
+    tables built there (``build_locate_device(return_host=False)``).
     """
 
     d: int
@@ -71,21 +73,18 @@ class LocateTables:
 
 
 def locate_tables_from_index(loc: LocateIndex) -> LocateTables:
-    """The fused locate rows of ``loc`` (build_locate_tables, xla.py:1352)."""
+    """The fused locate rows of ``loc`` (build_locate_tables, xla.py:1352),
+    concatenated where the tables lie (host or device)."""
     lf1 = loc.lf1
     if lf1.config.k != 1:
         raise ValueError(
             f"LocateIndex.lf1 must be a k=1 index (got k={lf1.config.k}); "
             "the locate walk takes single-character LF steps"
         )
-    n = lf1.occ.shape[0]
-    rows = np.concatenate(
-        [np.asarray(lf1.bitmaps).reshape(n, -1), np.asarray(lf1.occ),
-         np.asarray(loc.mark_words), np.asarray(loc.mark_rank)[:, None]],
-        axis=1,
-    ).astype(np.uint32, copy=False)
+    rows = concat_words([lf1.bitmaps, lf1.occ, loc.mark_words, loc.mark_rank[:, None]])
+    samples = loc.samples if isinstance(loc.samples, torch.Tensor) else np.asarray(loc.samples, dtype=np.uint32)
     return LocateTables(d=lf1.config.d, sample_rate=loc.sample_rate, rows=rows,
-                        samples=np.asarray(loc.samples, dtype=np.uint32), dollar=_dollar(lf1))
+                        samples=samples, dollar=_dollar(lf1))
 
 
 def locate_tables_from_jax(tables: dict, d: int, sample_rate: int) -> LocateTables:

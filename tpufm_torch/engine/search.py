@@ -49,22 +49,29 @@ from tpufm_torch.host.index import AltCountersIndex, KStepFMIndex
 from tpufm_torch.host.seqio import VARLEN_PAD
 
 
-def _words(a: np.ndarray | None, device: torch.device) -> torch.Tensor | None:
-    """uint32 numpy table -> int32 tensor with the same bits on ``device``."""
+def _words(a: np.ndarray | torch.Tensor | None, device: torch.device) -> torch.Tensor | None:
+    """uint32 numpy table -> int32 tensor with the same bits on ``device``;
+    an int32 tensor of such bits moves there as it is (not copied when it
+    lies there already)."""
     if a is None:
         return None
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=torch.int32).contiguous()
     a = np.ascontiguousarray(a, dtype=np.uint32)
     if not a.flags.writeable:  # e.g. a view of a JAX array; torch wants to own it
         a = a.copy()
     return torch.from_numpy(a.view(np.int32)).to(device)
 
 
-def _rows(a: np.ndarray | None, device: torch.device) -> torch.Tensor | None:
-    """A uint32 numpy table [E, W] -> its device copy, int32 [E, W rounded up
-    to a multiple of 4], the extra words 0: every row then starts 16-byte
-    aligned, as the kernels' vector loads want (no kernel reads a row past
-    its counters and mark columns). The host tables keep JAX's widths."""
-    if a is not None and a.shape[1] % 4:
+def _rows(a: np.ndarray | torch.Tensor | None, device: torch.device) -> torch.Tensor | None:
+    """A uint32 table [E, W] (numpy, or an int32 tensor of its bits) -> its
+    device copy, int32 [E, W rounded up to a multiple of 4], the extra words
+    0: every row then starts 16-byte aligned, as the kernels' vector loads
+    want (no kernel reads a row past its counters and mark columns). The
+    host tables keep JAX's widths."""
+    if isinstance(a, torch.Tensor):
+        a = torch.nn.functional.pad(a, (0, -a.shape[1] % 4))
+    elif a is not None and a.shape[1] % 4:
         a = np.pad(np.asarray(a, dtype=np.uint32), ((0, 0), (0, -a.shape[1] % 4)))
     return _words(a, device)
 

@@ -3,8 +3,10 @@
 Counterparts of ``build_fused_entries`` (tpufm/engine/xla.py:1405) and of the
 LUT cache (``lut_with_cache``, xla.py:1427-1472), plus the bridge from the
 JAX engine's state (``XLAEngine.tables``) to the port's, so that both engines
-can compute on identical tables. Everything here is host-side numpy; the
-engine (search.py) moves it to its device.
+can compute on identical tables. Tables are host numpy, which the engine
+(search.py) moves to its device, or, for an index built on the device
+(``build_index_device(return_host=False)``), int32 tensors holding the
+uint32 words, concatenated where they lie (xla.py:1367-1371).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import os
 import zlib
 
 import numpy as np
+import torch
 
 from tpufm_torch.host.index import AltCountersIndex, KStepFMIndex
 
@@ -27,7 +30,8 @@ class Tables:
     """Host state of one search engine.
 
     entries: uint32 [E+1, W] fused rows: 2k*nb bit-plane words (level, plane,
-        window), then the 4^k counters; row E is the end-of-text sentinel.
+        window), then the 4^k counters; row E is the end-of-text sentinel
+        (or an int32 tensor of the same bits, for a device-built index).
     dollar: uint32 [3, k]: rows dollar_pos, dollar_base, dollar_block.
     tail_*: the k=1 table (sample distance tail_d) that finishes reads whose
         length leaves L mod k characters, or None.
@@ -45,13 +49,29 @@ class Tables:
     lut: np.ndarray | None = None
 
 
-def build_fused_entries(index: KStepFMIndex) -> np.ndarray:
-    """uint32 [E+1, 2k*nb + 4^k]: bitmap words then counters per entry, the
-    layout of xla.py:1405 (without its TPU row padding)."""
-    rows = index.occ.shape[0]
+def concat_words(parts: list) -> np.ndarray | torch.Tensor:
+    """Word tables [rows, *] side by side: host numpy as uint32, or int32
+    tensors (uint32 bits) on the device where they lie, never through the
+    host."""
+    if isinstance(parts[0], torch.Tensor):
+        return torch.cat([p.reshape(p.shape[0], -1) for p in parts], dim=1)
     return np.concatenate(
-        [np.asarray(index.bitmaps).reshape(rows, -1), np.asarray(index.occ)], axis=1
+        [np.asarray(p).reshape(p.shape[0], -1) for p in parts], axis=1
     ).astype(np.uint32, copy=False)
+
+
+def host_words(a) -> np.ndarray:
+    """A word table as host numpy uint32 (an int32 tensor's bits)."""
+    if isinstance(a, torch.Tensor):
+        return a.cpu().numpy().view(np.uint32)
+    return np.asarray(a)
+
+
+def build_fused_entries(index: KStepFMIndex) -> np.ndarray | torch.Tensor:
+    """uint32 [E+1, 2k*nb + 4^k]: bitmap words then counters per entry, the
+    layout of xla.py:1405 (without its TPU row padding); an int32 tensor on
+    the device for a device-resident index."""
+    return concat_words([index.bitmaps, index.occ])
 
 
 def _dollar(index: KStepFMIndex) -> np.ndarray:
@@ -186,7 +206,8 @@ def tables_from_jax(tables: dict, d: int | None = None, tail_d: int | None = Non
 def lut_fingerprint(index: KStepFMIndex, lut_m: int) -> np.ndarray:
     """uint64 fingerprint of the index a LUT belongs to: k, d, m, bwtsize, a
     CRC of strided counter rows, the '$' positions and the sentinel row. The
-    same array as xla.py:1438-1457, so cache files serve both engines."""
+    same array as xla.py:1438-1457, so cache files serve both engines; of a
+    device-resident index only those rows come to the host."""
     cfg = index.config
     stride = max(1, index.occ.shape[0] // 4096)
     head = [
@@ -194,13 +215,13 @@ def lut_fingerprint(index: KStepFMIndex, lut_m: int) -> np.ndarray:
         cfg.d,
         lut_m,
         index.bwtsize,
-        zlib.crc32(np.ascontiguousarray(np.asarray(index.occ[::stride]))),
+        zlib.crc32(np.ascontiguousarray(host_words(index.occ[::stride]))),
     ]
     return np.concatenate(
         [
             np.asarray(head, np.uint64),
             np.asarray(index.dollar_pos).astype(np.uint64),
-            np.asarray(index.occ[-1]).astype(np.uint64),
+            host_words(index.occ[-1]).astype(np.uint64),
         ]
     )
 

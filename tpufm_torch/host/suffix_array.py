@@ -1,12 +1,15 @@
 """Suffix array of a 2-bit text plus its sentinel (host side).
 
-Counterpart of tpufm/index/suffix_array.py. Two methods:
+Counterpart of tpufm/index/suffix_array.py. Three methods:
 
 * ``native``: SA-IS in C++ (tpufm_torch/csrc/sais.cpp), compiled at first
   use with the host C++ compiler (``$CXX``, else ``g++``) into
   tpufm_torch/_build/ and bound with ctypes. O(n); for real references.
 * ``doubling``: numpy prefix doubling, O(n log^2 n); for small texts and as
   the cross-check.
+* ``device``: prefix doubling on a torch device
+  (tpufm_torch/index/sa_device.py), ``device`` cuda unless asked for the
+  CPU (tpufm's ``method="device"``, tpufm/index/suffix_array.py:152).
 
 There is no silent fallback between them: a native library that cannot be
 built raises. For codes of length n the result has n+1 entries and
@@ -71,11 +74,15 @@ def suffix_array_doubling(codes: np.ndarray) -> np.ndarray:
     return sa
 
 
-def suffix_array(codes: np.ndarray, method: str = "native") -> np.ndarray:
+def suffix_array(codes: np.ndarray, method: str = "native", device="cuda") -> np.ndarray:
     """int64 [n+1] suffix array of ``codes`` + sentinel; method is
-    ``native`` or ``doubling``."""
+    ``native``, ``doubling`` or ``device`` (sorted on ``device``)."""
     if method == "native":
         return suffix_array_native(codes)
     if method == "doubling":
         return suffix_array_doubling(codes)
-    raise ValueError(f"unknown suffix array method {method!r} (native or doubling)")
+    if method == "device":
+        from tpufm_torch.index.sa_device import suffix_array_device
+
+        return suffix_array_device(codes, device)
+    raise ValueError(f"unknown suffix array method {method!r} (native, doubling or device)")
