@@ -123,16 +123,20 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      build of the same tables timed; ``build --on-device --tail`` through the
      CLI (the .fmi byte-identical to phase 4's) and ``locate --on-device
      --fused --store`` on 65,536 reads (both stores byte-identical to phase
-     10's); (b) K7 (``build_tables``, csrc/build_tables.cu) bit-identical to
-     its plain version at k=3 and k=1, timed (median of 7) beside its bound
-     and the 32-byte sectors its random text reads touch; (c) ``bench
+     10's); (b) K7 (``build_tables``, csrc/build_tables.cu, on the text's
+     2-bit pack) bit-identical to its plain version at k 1-4, d=192, timed
+     on the device (a CUDA graph of calls, median of 7) and a wrapper call
+     back to back, beside its bound and the 32-byte sectors its random text
+     reads touch (in the byte text and in the pack), and the pack's kernel
+     bit-identical to its plain version, timed beside its bound; (c) ``bench
      --genome`` (250 Mbase) on a fresh cache, its index built on the card,
      every bit_exact field true, then that text sorted again on the card and
      its suffix array held to a full check (a permutation, strictly
      increasing 32-base prefixes on neighbouring rows, ties compared to the
-     end on the host); (d) the peak device memory of that build per base and
-     the MAX_DEVICE_BASES it allows at 90% of the card (the set limit must be
-     within it)
+     end on the host), and the pack and K7 (k=3 d=192) on that text and
+     suffix array, bit-identical to plain and timed as in (b); (d) the peak
+     device memory of that build per base and the MAX_DEVICE_BASES it allows
+     at 90% of the card (the set limit must be within it)
 Every path is driven with all launch counts set to 0 just before it and
 read just after; a kernel of the path launched too few times fails the run.
 Then one JSON line of kernel figures (each kernel's time beside its bound:
@@ -212,6 +216,8 @@ from tpufm_torch.index.builder_device import (
     build_locate_device,
     build_tables,
     build_tables_reference,
+    pack_text_2bit,
+    pack_text_2bit_reference,
 )
 from tpufm_torch.index.sa_device import suffix_array_device_arr, upload_text
 from tpufm_torch.host.seqio import (
@@ -283,6 +289,8 @@ ALIGN_PLAIN, EMIT_READS = 4096, 1 << 16
 #: memory that the derived MAX_DEVICE_BASES lets the device build fill
 GENOME_BASES, DEVICE_LOCATE_READS = 250_000_000, 1 << 16
 DEVICE_BUILD_SHARE = 0.9
+#: phase 16(b): the k at which K7 is held to its plain version and timed
+K7_KS = (1, 2, 3, 4)
 #: one H100 SXM's INT32 issue rate: 64 INT32 lanes an SM (a quarter of its
 #: 128 FP32 lanes doing 2 flops an FMA: 67 TFLOP/s, NVIDIA's data sheet, so
 #: the clock is 1.98 GHz) x 132 SMs x 1.98e9
@@ -307,6 +315,7 @@ COUNTS = {
     "hamming_verify": (seed_mod, "LAUNCHES"),
     "myers_verify": (edit_mod, "LAUNCHES"),
     "build_tables": (bd_mod, "LAUNCHES"),
+    "pack_text": (bd_mod, "PACK_LAUNCHES"),
 }
 
 
@@ -479,22 +488,78 @@ def check_suffix_array(codes: torch.Tensor, sa: torch.Tensor) -> int:
     return int(rows.numel())
 
 
-def k7_text_sectors(sa: torch.Tensor, n: int, k: int) -> int:
+def k7_text_sectors(sa: torch.Tensor, n: int, k: int, bases_per_sector: int = 32) -> int:
     """The 32-byte sectors of the text that K7 reads: at each position p the
     distinct sectors of T[(SA[p] - 1 - i) mod (n + 1)], i < k, the '$' at n
-    read as no byte."""
+    read as no byte; 32 bases a sector in the byte text, 128 in the 2-bit
+    packed text (``pack_text_2bit``)."""
     s = sa.to(torch.int64)
     secs = []
     total = 0
     for i in range(k):
         q = (s - 1 - i) % (n + 1)
-        sec = torch.where(q < n, q // 32, -1)
+        sec = torch.where(q < n, q // bases_per_sector, -1)
         new = sec >= 0
         for prev in secs:
             new &= sec != prev
         total += int(new.sum())
         secs.append(sec)
     return total
+
+
+def k7_bytes(n: int, k: int, d: int) -> int:
+    """The bytes K7's function must move on an n-base text: the text (a
+    byte a base, as the wrapper takes it) and the suffix array read once,
+    the planes (row E included), counts and '$' positions written once."""
+    E = -(-(n + 1) // d)
+    return n + 4 * (n + 1) + 4 * (E + 1) * 2 * k * (d // 32) + 4 * E * 4**k + 8 * k
+
+
+def k7_case(cd: torch.Tensor, words: torch.Tensor, order: torch.Tensor, k: int, d: int, run: int = 20) -> dict:
+    """K7 on a text on the card (its packed words and suffix array given):
+    fail unless its three outputs equal the plain version's bit for bit,
+    then its device time (``graph_ms`` of ``run`` calls), its time a wrapper
+    call back to back (``cuda_ms``), its bytes bound, and the sectors its
+    random text reads touch in the byte text and in the packed text, each
+    at HBM rate: references, not bounds, where the text stays in L2."""
+    n = cd.shape[0]
+    got, want = build_tables(cd, order, k, d, words=words), build_tables_reference(cd, order, k, d)
+    torch.cuda.synchronize()
+    for g, w, name in zip(got, want, ("counts", "bitmaps", "dollar_pos")):
+        if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w):
+            raise AssertionError(f"K7 k={k} d={d} on {n} bases: {name} differs from the plain version's")
+    del got, want
+    nbytes = k7_bytes(n, k, d)
+    sectors, packed = k7_text_sectors(order, n, k), k7_text_sectors(order, n, k, bases_per_sector=128)
+    return {
+        "k": k, "d": d, "bases": n, "max_abs_err": 0,
+        "ms": graph_ms(lambda: build_tables(cd, order, k, d, words=words), run=run),
+        "call_ms": cuda_ms(lambda: build_tables(cd, order, k, d, words=words)),
+        "bytes": nbytes, "bound_ms": bound_ms(nbytes),
+        "sectors": sectors, "sector_bound_ms": bound_ms(nbytes - n + 32 * sectors),
+        "packed_sectors": packed, "packed_sector_ms": bound_ms(nbytes - n + 32 * packed),
+    }
+
+
+def k7_line(case: dict) -> str:
+    return (f"k={case['k']} d={case['d']}: {case['ms']:.4f} ms on the device ({case['call_ms']:.4f} a wrapper "
+            f"call back to back), bound {case['bound_ms']:.4f} ms ({case['bytes']} B; "
+            f"{case['bound_ms'] / case['ms'] * 100:.1f}% of it); sector references: byte text {case['sectors']} "
+            f"sectors, {case['sector_bound_ms']:.4f} ms; packed {case['packed_sectors']}, "
+            f"{case['packed_sector_ms']:.4f} ms")
+
+
+def pack_case(cd: torch.Tensor, run: int = 20) -> dict:
+    """The text's 2-bit pack on the card: fail unless the kernel's words
+    equal the plain version's, then its device time, the plain version's
+    and its bytes bound (the text read once, the words written once)."""
+    words = pack_text_2bit(cd)
+    if not torch.equal(words, pack_text_2bit_reference(cd)):
+        raise AssertionError(f"pack_text on {cd.shape[0]} bases differs from the plain version")
+    nbytes = cd.shape[0] + 4 * words.shape[0]
+    return {"bases": cd.shape[0], "max_abs_err": 0, "ms": graph_ms(lambda: pack_text_2bit(cd), run=run),
+            "plain_ms": cuda_ms(lambda: pack_text_2bit_reference(cd), reps=3), "bytes": nbytes,
+            "bound_ms": bound_ms(nbytes)}
 
 
 def k1_inputs(rng, k: int, d: int, bwtsize: int, n: int, dev):
@@ -1440,11 +1505,12 @@ def device_build(tmp: str, ref: str, codes: np.ndarray, index, fmi: str, sa: np.
     rounds and the whole build timed beside the host build of the same
     tables; ``build --on-device --tail`` through the CLI writing phase 4's
     .fmi bytes; ``locate --on-device --store`` writing phase 10's stores.
-    (b) K7 against its plain version on that shape, timed beside its bound.
-    (c) ``bench --genome`` at 250 Mbase on a fresh cache (the device build,
-    every bit_exact field true), then that text sorted again on the card,
-    its suffix array held to a full check. (d) The peak device memory of
-    the 250 Mbase build per base and the MAX_DEVICE_BASES it allows."""
+    (b) K7 against its plain version at k 1-4 on that text, timed beside
+    its bound. (c) ``bench --genome`` at 250 Mbase on a fresh cache (the
+    device build, every bit_exact field true), then that text sorted again
+    on the card, its suffix array held to a full check, K7 held to its plain
+    version and timed there. (d) The peak device memory of the 250 Mbase
+    build per base and the MAX_DEVICE_BASES it allows."""
     t0 = time.perf_counter()
     n = codes.shape[0]
     t1 = time.perf_counter()
@@ -1463,12 +1529,14 @@ def device_build(tmp: str, ref: str, codes: np.ndarray, index, fmi: str, sa: np.
     order = suffix_array_device_arr(cd)
     torch.cuda.synchronize()
     sort_s = time.perf_counter() - t1
-    d_index = build_index_device(codes, IndexConfig(k=K, d=D), sa_dev=order, codes_dev=cd)
-    d_tail = build_index_device(codes, IndexConfig(k=1, d=D), sa_dev=order, codes_dev=cd)
-    d_loc = build_locate_device(codes, sample_rate=SAMPLE_RATE, d=D, sa_dev=order, codes_dev=cd)
+    words = pack_text_2bit(cd)
+    d_index = build_index_device(codes, IndexConfig(k=K, d=D), sa_dev=order, codes_dev=cd, words_dev=words)
+    d_tail = build_index_device(codes, IndexConfig(k=1, d=D), sa_dev=order, codes_dev=cd, words_dev=words)
+    d_loc = build_locate_device(codes, sample_rate=SAMPLE_RATE, d=D, sa_dev=order, codes_dev=cd,
+                                words_dev=words)
     device_s = time.perf_counter() - t1
     by_path["device_build"] = read_counts()
-    expect_launches("device build", by_path["device_build"], {"build_tables": 3})
+    expect_launches("device build", by_path["device_build"], {"build_tables": 3, "pack_text": 1})
     same_tables("device k=3 index", d_index, index, INDEX_FIELDS)
     same_tables("device k=1 tail", d_tail, loc.lf1, INDEX_FIELDS)
     same_tables("device locate tables", d_loc, loc, ("samples", "mark_words", "mark_rank"))
@@ -1491,37 +1559,24 @@ def device_build(tmp: str, ref: str, codes: np.ndarray, index, fmi: str, sa: np.
     del rank, again
     torch.cuda.empty_cache()
 
-    # (b) K7 against its plain version, k=3 and k=1 at d=192
-    got, want = build_tables(cd, order, K, D), build_tables_reference(cd, order, K, D)
-    got1, want1 = build_tables(cd, order, 1, D), build_tables_reference(cd, order, 1, D)
-    torch.cuda.synchronize()
-    for g, w in zip((*got, *got1), (*want, *want1)):
-        if g.dtype != w.dtype or not torch.equal(g, w):
-            raise AssertionError("K7: kernel differs from its plain version")
-    E = -(-(n + 1) // D)
-    nbytes = n + 4 * (n + 1) + 4 * (E + 1) * 2 * K * (D // 32) + 4 * E * 4**K + 8 * K
-    sectors = k7_text_sectors(order, n, K)
-    k7 = {
-        "max_abs_err": 0,
-        "ms": cuda_ms(lambda: build_tables(cd, order, K, D)),
-        "k1_ms": cuda_ms(lambda: build_tables(cd, order, 1, D)),
-        "plain_ms": cuda_ms(lambda: build_tables_reference(cd, order, K, D)),
-        "bound_ms": bound_ms(nbytes),
-        "bytes": nbytes,
-        "sectors": sectors,
-        "sector_bound_ms": bound_ms(nbytes - n + 32 * sectors),
-    }
-    del got, want, got1, want1, cd, order
+    # (b) K7 against its plain version at k 1-4, d=192, on the packed text
+    k7_cases = {k: k7_case(cd, words, order, k, D) for k in K7_KS}
+    k7 = dict(k7_cases[K], plain_ms=cuda_ms(lambda: build_tables_reference(cd, order, K, D)),
+              k_ms={k: c["ms"] for k, c in k7_cases.items()},
+              k_call_ms={k: c["call_ms"] for k, c in k7_cases.items()}, cases=list(k7_cases.values()))
+    pack = pack_case(cd)
+    del cd, words, order
     torch.cuda.empty_cache()
     print(f"[16 device build] (a) {n} bases, k={K} d={D} index + k=1 tail + s={SAMPLE_RATE} locate tables "
           f"from one device sort, each equal to phases 4 and 9 (the suffix array too): host {host_s:.2f} s "
           f"(SA-IS {host_sort_s:.2f} s), device {device_s:.3f} s (upload and sort {sort_s:.3f} s; rounds "
           f"{', '.join(f'{ms:.3f}' for ms in rounds)} ms; K7 launches {by_path['device_build']['build_tables']})",
           flush=True)
-    print(f"    (b) K7 vs plain, bit-identical: k={K} {k7['ms']:.4f} ms, k=1 {k7['k1_ms']:.4f} ms, plain "
-          f"{k7['plain_ms']:.4f} ms; bound {k7['bound_ms']:.4f} ms ({k7['bytes']} B: text, SA, planes, "
-          f"counts once; {k7['bound_ms'] / k7['ms'] * 100:.1f}% of it); the text reads touch {sectors} "
-          f"32-byte sectors ({32 * sectors} B; with them {k7['sector_bound_ms']:.4f} ms)", flush=True)
+    print(f"    (b) K7 vs plain, bit-identical at k {', '.join(map(str, K7_KS))}; plain k={K} "
+          f"{k7['plain_ms']:.4f} ms; the text's 2-bit pack (once an upload) bit-identical to plain: "
+          f"{pack['ms']:.4f} ms, plain {pack['plain_ms']:.4f} ms, bound {pack['bound_ms']:.4f} ms", flush=True)
+    for case in k7_cases.values():
+        print(f"        {k7_line(case)}", flush=True)
 
     t1 = time.perf_counter()
     out = os.path.join(tmp, "ondev.fmi")
@@ -1529,7 +1584,7 @@ def device_build(tmp: str, ref: str, codes: np.ndarray, index, fmi: str, sa: np.
     run = cli.main(["build", ref, str(n), "--k", str(K), "--d", str(D), "--on-device", "--tail",
                     "--output", out])
     by_path["build_on_device"] = read_counts()
-    expect_launches("build --on-device --tail", by_path["build_on_device"], {"build_tables": 2})
+    expect_launches("build --on-device --tail", by_path["build_on_device"], {"build_tables": 2, "pack_text": 1})
     if Path(out).read_bytes() != Path(fmi).read_bytes():
         raise AssertionError("build --on-device: the .fmi differs from phase 4's")
     same_tables("build --on-device --tail: the tail", load_npz(out + ".tail.npz"), loc.lf1, INDEX_FIELDS)
@@ -1544,7 +1599,8 @@ def device_build(tmp: str, ref: str, codes: np.ndarray, index, fmi: str, sa: np.
               "--on-device", "--store", os.path.join(tmp, "ondev"), "--output", os.path.join(tmp, "ondev.pos")])
     by_path["locate_on_device"] = read_counts()
     expect_launches("locate --on-device", by_path["locate_on_device"],
-                    {"build_tables": 2, "lf_round_pairs": (READ_LEN - LUT_M) // K, "locate_walk": 1})
+                    {"build_tables": 2, "pack_text": 1, "lf_round_pairs": (READ_LEN - LUT_M) // K,
+                     "locate_walk": 1})
     for kind in ("search", "locate"):
         if tree_bytes(os.path.join(tmp, f"ondev.{kind}.tpufm")) != tree_bytes(f"{store}.{kind}.tpufm"):
             raise AssertionError(f"locate --on-device --store: {kind}.tpufm differs from phase 10's store")
@@ -1563,7 +1619,7 @@ def device_build(tmp: str, ref: str, codes: np.ndarray, index, fmi: str, sa: np.
     flags = {key: v for key, v in detail.items() if key.startswith("bit_exact")}
     if not flags or not all(v is True for v in flags.values()) or detail["index_cached"]:
         raise AssertionError(f"bench --genome: {flags}, index_cached {detail['index_cached']}")
-    expect_launches("bench --genome", by_path["genome"], {"build_tables": 1, "lf_round_pairs": 1})
+    expect_launches("bench --genome", by_path["genome"], {"build_tables": 1, "pack_text": 1, "lf_round_pairs": 1})
     genome_s = time.perf_counter() - t1
     print(f"    (c) bench --genome, {GENOME_BASES} bases, fresh cache ({genome_s:.2f} s): "
           f"{json.dumps(record)}", flush=True)
@@ -1590,6 +1646,15 @@ def device_build(tmp: str, ref: str, codes: np.ndarray, index, fmi: str, sa: np.
     build_peak = torch.cuda.max_memory_allocated(dev) - base
     del gidx
     torch.cuda.empty_cache()
+    # K7 on the genome's text and suffix array, against its plain version
+    genome_pack = pack_case(gcd, run=5)
+    gwords = pack_text_2bit(gcd)
+    genome_k7 = k7_case(gcd, gwords, gorder, rec["k"], rec["d"], run=5)
+    del gwords
+    torch.cuda.empty_cache()
+    print(f"    K7 on the {GENOME_BASES}-base text, bit-identical to plain: {k7_line(genome_k7)}; the pack, "
+          f"bit-identical: {genome_pack['ms']:.4f} ms, plain {genome_pack['plain_ms']:.4f} ms, bound "
+          f"{genome_pack['bound_ms']:.4f} ms", flush=True)
     t1 = time.perf_counter()
     deep = check_suffix_array(gcd, gorder)
     check_s = time.perf_counter() - t1
@@ -1608,7 +1673,9 @@ def device_build(tmp: str, ref: str, codes: np.ndarray, index, fmi: str, sa: np.
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     if sa_mod.MAX_DEVICE_BASES > derived:
         raise AssertionError(f"MAX_DEVICE_BASES {sa_mod.MAX_DEVICE_BASES} is past the {derived} this card allows")
-    return {"k7": k7, "summary": {
+    k7["genome"] = genome_k7
+    pack["genome"] = genome_pack
+    return {"k7": k7, "pack": pack, "summary": {
         "bases": n, "host_s": host_s, "host_sort_s": host_sort_s, "device_s": device_s,
         "device_sort_s": sort_s, "round_ms": rounds, "cli_build_s": cli_build_s,
         "genome_build_seconds": detail["build_seconds"], "genome_record_s": genome_s,
@@ -2250,11 +2317,42 @@ def main() -> None:
             "bound_by": "bytes",
             "library_ms": None,
             "shape": f"k={K} d={D}, {REF_BASES} bases (phase 4's text and its device suffix array)",
-            "k1_ms": ondev["k7"]["k1_ms"],
+            "call_ms": ondev["k7"]["call_ms"],
+            "k_ms": ondev["k7"]["k_ms"],
+            "k_call_ms": ondev["k7"]["k_call_ms"],
             "text_sectors": ondev["k7"]["sectors"],
             "sector_bound_ms": ondev["k7"]["sector_bound_ms"],
+            "packed_sectors": ondev["k7"]["packed_sectors"],
+            "packed_sector_ms": ondev["k7"]["packed_sector_ms"],
+            "genome_ms": ondev["k7"]["genome"]["ms"],
+            "genome_call_ms": ondev["k7"]["genome"]["call_ms"],
+            "genome_bound_ms": ondev["k7"]["genome"]["bound_ms"],
+            "genome_sector_bound_ms": ondev["k7"]["genome"]["sector_bound_ms"],
+            "genome_packed_sector_ms": ondev["k7"]["genome"]["packed_sector_ms"],
+            "genome_shape": f"k={ondev['k7']['genome']['k']} d={ondev['k7']['genome']['d']}, {GENOME_BASES} "
+                            "bases (the genome record's text, sorted on the card)",
+            "cases": ondev["k7"]["cases"] + [ondev["k7"]["genome"]],
             "launches_by_path": {path: c["build_tables"] for path, c in by_path.items()},
             "device_build": ondev["summary"],
+        },
+        {
+            "name": "pack_text",
+            "route": "cuda",
+            "source": "tpufm_torch/csrc/build_tables.cu",
+            "replaces": "tpufm/index/builder_device.py:51,65 (K7's byte text, read by jnp _build_tables' gathers; "
+                        "no pallas_call)",
+            "launches": by_path["build_on_device"]["pack_text"],
+            "max_abs_err": ondev["pack"]["max_abs_err"],
+            "ms": ondev["pack"]["ms"],
+            "plain_ms": ondev["pack"]["plain_ms"],
+            "bound_ms": ondev["pack"]["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+            "shape": f"{REF_BASES} bases (phase 4's text)",
+            "genome_ms": ondev["pack"]["genome"]["ms"],
+            "genome_plain_ms": ondev["pack"]["genome"]["plain_ms"],
+            "genome_bound_ms": ondev["pack"]["genome"]["bound_ms"],
+            "launches_by_path": {path: c["pack_text"] for path, c in by_path.items()},
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

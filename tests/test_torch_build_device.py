@@ -8,6 +8,7 @@ device-resident index driving the search, and ``build/locate/align
 Every value is an integer: tolerance 0. Here the device is the CPU, where
 each wrapper takes its plain version."""
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -18,6 +19,7 @@ from tpufm.index import builder_device as jax_bd
 from tpufm.index.sa_device import suffix_array_device as jax_suffix_array_device
 from tpufm_torch import SearchEngine, cli as torch_cli
 from tpufm_torch.engine.locate import LocateEngine
+from tpufm_torch.engine.seed import pack_text_words
 from tpufm_torch.engine.tables import lut_fingerprint
 from tpufm_torch.host.index import IndexConfig, build_index, derive_tail
 from tpufm_torch.host.locate import build_locate, locate_oracle
@@ -135,20 +137,42 @@ def test_index_fuzz_matches_tpufm_and_host(case):
     _same_index(got, jax_bd.build_index_device(codes, JaxIndexConfig(k=k, d=d)))
 
 
-@pytest.mark.parametrize("k,d,n", [(1, 32, 1000), (2, 64, 127), (3, 96, 2000), (4, 32, 31), (3, 32, 5)])
+@pytest.mark.parametrize("k,d,n", [(1, 32, 1000), (2, 64, 127), (3, 96, 2000), (4, 32, 31), (3, 32, 5),
+                                   (5, 64, 300), (6, 32, 100)])
 def test_k7_plain_version_matches_tpufm_build_tables(k, d, n):
-    """``build_tables_reference`` against tpufm's jitted ``_build_tables``
+    """``build_tables_reference`` against tpufm's ``_build_tables``
     (uncorrected counts, bit-planes, '$' positions) on the same suffix array;
-    n + 1 a multiple of d where (n, d) = (127, 64) and (31, 32)."""
+    n + 1 a multiple of d where (n, d) = (127, 64) and (31, 32). Past k = 4
+    tpufm's pass runs op by op (``jax.disable_jit``): its 4^k unrolled
+    codes take minutes to compile at k = 6."""
     codes = np.random.default_rng(n).integers(0, 4, size=n, dtype=np.uint8)
     sa = suffix_array(codes, "native")
     counts, bitmaps, dollar_pos = bd.build_tables(torch.from_numpy(codes), torch.from_numpy(sa.astype(np.int32)), k, d)
-    want_counts, want_bitmaps, want_dollar = (
-        np.asarray(a) for a in jax_bd._build_tables(k, d)(codes, sa.astype(np.uint32)))
+    with jax.disable_jit(k > 4):
+        want_counts, want_bitmaps, want_dollar = (
+            np.asarray(a) for a in jax_bd._build_tables(k, d)(codes, sa.astype(np.uint32)))
     assert counts.dtype == torch.int32 and bitmaps.dtype == torch.int32 and dollar_pos.dtype == torch.int64
     np.testing.assert_array_equal(counts.numpy().view(np.uint32), want_counts)
     np.testing.assert_array_equal(bitmaps.numpy().view(np.uint32), want_bitmaps)
     np.testing.assert_array_equal(dollar_pos.numpy(), want_dollar.astype(np.int64))
+
+
+@pytest.mark.parametrize("n", [0, 1, 15, 16, 17, 33, 1000, 4099])
+@pytest.mark.parametrize("chunk", [3, 1 << 22])
+def test_k7_text_pack_matches_numpy(monkeypatch, n, chunk):
+    """``pack_text_2bit`` (K7's text; on the CPU its plain version) against a
+    numpy loop over the bases and against ``pack_text_words`` (the seed
+    engines' layout), with codes past 3 masked to their two low bits; in
+    chunks of 3 words too, so that the last chunk is partial."""
+    monkeypatch.setattr(bd, "_PACK_CHUNK", chunk)
+    codes = np.random.default_rng(n).integers(0, 7, size=n, dtype=np.uint8)
+    got = bd.pack_text_2bit(torch.from_numpy(codes))
+    assert got.dtype == torch.int32 and tuple(got.shape) == (-(-n // 16) + 1,)
+    want = np.zeros(-(-n // 16) + 1, dtype=np.uint32)
+    for j, c in enumerate(codes):
+        want[j // 16] |= np.uint32(int(c) & 3) << np.uint32(30 - 2 * (j % 16))
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+    np.testing.assert_array_equal(want, pack_text_words(codes & 3))
 
 
 def test_k7_wrapper_checks_its_inputs():
@@ -162,6 +186,10 @@ def test_k7_wrapper_checks_its_inputs():
         bd.build_tables(codes, sa, 2, 48)
     with pytest.raises(ValueError, match="k must be"):
         bd.build_tables(codes, sa, 9, 32)
+    with pytest.raises(ValueError, match="pack_text_2bit"):
+        bd.build_tables(codes, sa, 2, 32, words=torch.zeros(1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="aligned"):
+        bd.build_tables(codes, sa, 2, 32, words=torch.zeros(3, dtype=torch.int32)[1:])
 
 
 @pytest.mark.parametrize("n,s,d", [(3001, 8, 32), (2048, 16, 64), (513, 4, 32)])
@@ -354,3 +382,19 @@ def test_chip_smoke_k7_sectors_count_the_text_reads(monkeypatch, k):
         sectors = {((s - 1 - i) % (n + 1)) // 32 for i in range(k) if (s - 1 - i) % (n + 1) != n}
         want += len(sectors)
     assert chip_smoke.k7_text_sectors(torch.from_numpy(sa.astype(np.int32)), n, k) == want
+
+
+@pytest.mark.parametrize("k", [1, 3, 8])
+def test_chip_smoke_k7_packed_sectors_count_the_window_reads(monkeypatch, k):
+    """The 32-byte sectors of the 2-bit packed text (128 bases a sector)
+    that K7's windows touch, against a loop: a position's symbols
+    T[(SA[p] - 1 - i) mod (n + 1)], i < k, nothing at the '$'."""
+    chip_smoke = _chip_smoke(monkeypatch)
+    codes = np.random.default_rng(k).integers(0, 4, size=700, dtype=np.uint8)
+    sa = suffix_array(codes)
+    n = codes.shape[0]
+    want = 0
+    for s in sa:
+        sectors = {((s - 1 - i) % (n + 1)) // 128 for i in range(k) if (s - 1 - i) % (n + 1) != n}
+        want += len(sectors)
+    assert chip_smoke.k7_text_sectors(torch.from_numpy(sa.astype(np.int32)), n, k, bases_per_sector=128) == want

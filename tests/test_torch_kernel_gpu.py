@@ -26,7 +26,8 @@ none, one at the last slot of each tile, a ragged end, fewer lanes than a
 tile, a read wider than a tile and a mask off its 16-byte boundary; the seed,
 edit and paired engines on the card must equal their plain path and their
 oracles. The table-building kernel (K7) must equal its plain version at k
-1-4 on edge sizes, and the whole device build the host builders.
+1-8 on edge sizes and texts, as must the pack of its text, and the whole
+device build the host builders.
 Intervals, positions, distances and table words are integers and compare
 exactly (tolerance 0).
 """
@@ -656,27 +657,75 @@ def test_align_on_card_matches_cpu(cuda, tmp_path_factory, reads, extra):
     assert (edit_mod.LAUNCHES > 0) == ("--edits" in extra)
 
 
-@pytest.mark.parametrize("k", [1, 2, 3, 4])
-@pytest.mark.parametrize("d,n", [(32, 0), (32, 5), (32, 31), (32, 1000), (64, 127), (192, 20000), (192, 191),
-                                 (960, 5000), (128, 65535)])
-def test_build_tables_kernel_matches_plain(cuda, k, d, n):
-    """K7 against ``build_tables_reference`` on the same CUDA tensors: the
-    counts, bit-planes (row E zero) and '$' positions, at k 1-4; n + 1 a
+#: K7's cases as (d, n, k, text): k 1-4 on edge sizes, then k 5-8 (small
+#: texts: the plain version loops over the 4^k codes), texts shorter than k
+#: (the '$' rows wrap several times), lengths off the 16-base pack, n + 1 a
+#: multiple of 32 but not of d, one-base and two-base texts (every lane of a
+#: word holds one code) and FM blocks of more words than a warp loads at once
+K7_CASES = [
+    *(pytest.param(d, n, k, "random", id=f"{d}-{n}-{k}") for k in (1, 2, 3, 4)
+      for d, n in ((32, 0), (32, 5), (32, 31), (32, 1000), (64, 127), (192, 20000), (192, 191), (960, 5000),
+                   (128, 65535))),
+    *(pytest.param(d, n, k, "random", id=f"{d}-{n}-{k}") for d, n, k in (
+        (32, 100, 5), (64, 300, 5), (1024, 3000, 5), (4096, 9000, 5), (32, 40, 6), (96, 500, 6), (32, 50, 7),
+        (960, 2000, 8),
+        (32, 1, 2), (32, 1, 4), (32, 2, 3), (32, 2, 4), (32, 3, 4), (32, 0, 6), (32, 3, 7), (32, 5, 8),
+        (32, 17, 3), (32, 47, 4), (64, 1009, 2), (192, 4097, 1),
+        (96, 319, 3), (192, 223, 4), (960, 4095, 2),
+        (4096, 20000, 3), (1024, 70000, 4))),
+    *(pytest.param(d, n, k, text, id=f"{d}-{n}-{k}-{text}") for d, n, k, text in (
+        (192, 5000, 3, "A"), (32, 1000, 1, "A"), (64, 200, 8, "A"), (192, 5001, 4, "AC"), (32, 300, 6, "AC"),
+        (4096, 10000, 2, "AC"))),
+]
+
+
+@pytest.mark.parametrize("d,n,k,text", K7_CASES)
+def test_build_tables_kernel_matches_plain(cuda, d, n, k, text):
+    """K7 against ``build_tables_reference`` on the same values: the
+    counts, bit-planes (row E zero) and '$' positions, at k 1-8; n + 1 a
     multiple of d (31, 127, 191, 65535: no padding), one block (5), the
-    empty text, blocks wider than the kernel's 256 threads' words (d=960)."""
+    empty text and texts shorter than k, lengths off the 16-base pack, FM
+    blocks of more words than a warp loads at once (d 960-4096), and texts
+    of one base ("A") or a two-base period ("AC"), where every lane of a
+    word holds the same code. The plain version runs on the CUDA tensors at
+    k <= 4 and on their CPU copies past that (4^k codes of small launches
+    each)."""
     from tpufm_torch.index import builder_device as bd
 
-    codes = np.random.default_rng(n + k).integers(0, 4, size=n, dtype=np.uint8)
+    rng = np.random.default_rng(n + k)
+    if text == "random":
+        codes = rng.integers(0, 4, size=n, dtype=np.uint8)
+    else:
+        codes = np.resize(np.array(["ACGT".index(b) for b in text], dtype=np.uint8), n)
     cd = torch.from_numpy(codes).to(cuda)
     sa = torch.from_numpy(suffix_array(codes).astype(np.int32)).to(cuda)
     before = bd.LAUNCHES
     got = bd.build_tables(cd, sa, k, d)
     assert bd.LAUNCHES == before + 1
-    want = bd.build_tables_reference(cd, sa, k, d)
+    plain_on = cuda if k <= 4 else torch.device("cpu")
+    want = bd.build_tables_reference(cd.to(plain_on), sa.to(plain_on), k, d)
     torch.cuda.synchronize()
     for g, w, name in zip(got, want, ("counts", "bitmaps", "dollar_pos")):
         assert g.dtype == w.dtype and g.shape == w.shape, name
-        assert torch.equal(g, w), name
+        assert torch.equal(g.to(plain_on), w), name
+
+
+@pytest.mark.parametrize("n", [0, 1, 15, 16, 17, 33, 4099, 1 << 20])
+@pytest.mark.parametrize("offset", [0, 3])
+def test_pack_text_kernel_matches_plain(cuda, n, offset):
+    """K7's text pack on the card against ``pack_text_2bit_reference`` on the
+    same CUDA text (codes 0-6: bits past the two low ones dropped), on a
+    text at a 16-byte boundary (16-byte loads) and one 3 bytes off it (byte
+    loads), with lengths off the 16-base word."""
+    from tpufm_torch.index import builder_device as bd
+
+    codes = np.random.default_rng(n).integers(0, 7, size=n + offset, dtype=np.uint8)
+    cd = torch.from_numpy(codes).to(cuda)[offset:]
+    before = bd.PACK_LAUNCHES
+    got = bd.pack_text_2bit(cd)
+    assert bd.PACK_LAUNCHES == before + 1
+    want = bd.pack_text_2bit_reference(cd)
+    assert got.dtype == want.dtype and got.shape == want.shape and torch.equal(got, want)
 
 
 @pytest.mark.parametrize("n,k,d", [(0, 1, 32), (1, 2, 32), (3001, 3, 192), (200_000, 3, 192), (50_000, 4, 64)])

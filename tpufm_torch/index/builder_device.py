@@ -5,10 +5,13 @@ Counterpart of tpufm/index/builder_device.py (``_build_tables`` :35,
 ``build_locate_device`` :257). The pipeline:
 
   suffix array  prefix doubling on the device (index.sa_device)
+  text pack     the text 2 bits a base (csrc/build_tables.cu, wrapper
+                ``pack_text_2bit``), once an upload; plain version
+                ``pack_text_2bit_reference``
   tables        K7 (csrc/build_tables.cu, wrapper ``build_tables``): the k
-                BWT levels straight from the suffix array, packed into the
-                bit-planes, the per-block k-mer counts by popcount-match of
-                the packed words, and the '$' positions; plain version
+                BWT levels straight from the suffix array and the packed
+                text, packed into the bit-planes, the per-block k-mer
+                counts, and the '$' positions; plain version
                 ``build_tables_reference``, tpufm's jnp pass in torch
   corrections   the k + 1 point corrections ('$' counted as its 'A' k-mer,
                 the tail padding as k-mer 0), the exclusive cumulative sum
@@ -38,9 +41,10 @@ from tpufm_torch.host.index import IndexConfig, KStepFMIndex, c_array, normalize
 from tpufm_torch.host.locate import LocateIndex
 from tpufm_torch.index.sa_device import check_size, suffix_array_device_arr, upload_text
 
-#: kernel launches made by ``build_tables`` in this process (plain-path calls
-#: on CPU tensors do not count)
+#: kernel launches made by ``build_tables`` and by ``pack_text_2bit`` in this
+#: process (plain-path calls on CPU tensors do not count)
 LAUNCHES = 0
+PACK_LAUNCHES = 0
 
 #: a word's 32 bit positions, MSB-first (position j at bit 31 - j)
 _SHIFTS = 31 - np.arange(32)
@@ -83,13 +87,65 @@ def build_tables_reference(codes: torch.Tensor, sa: torch.Tensor, k: int, d: int
     return counts, to_u32_bits(bitmaps), dollar_pos
 
 
-def _check_tables(codes: torch.Tensor, sa: torch.Tensor, k: int, d: int) -> None:
+#: words of 16 bases that ``pack_text_2bit_reference`` packs at a time (its
+#: int64 temporaries stay under 1.5 GB whatever the text)
+_PACK_CHUNK = 1 << 22
+
+
+def pack_text_2bit_reference(codes: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch pack of a uint8 text [n] (2-bit codes; higher bits
+    ignored, as the planes ignore them) on any device -> int32 [ceil(n / 16)
+    + 1] holding uint32 words of 16 bases, base j at bits 31 - 2*(j%16) ..
+    30 - 2*(j%16) (MSB-first, ``engine.seed.pack_text_words``' layout), zero
+    past n and one zero guard word."""
+    n = codes.shape[0]
+    nw = -(-n // 16) + 1
+    shifts = 2 * (15 - torch.arange(16, dtype=torch.int64, device=codes.device))
+    words = torch.empty(nw, dtype=torch.int32, device=codes.device)
+    for w0 in range(0, nw, _PACK_CHUNK):
+        w1 = min(nw, w0 + _PACK_CHUNK)
+        seg = codes[16 * w0:min(n, 16 * w1)]
+        block = torch.zeros(16 * (w1 - w0), dtype=torch.int64, device=codes.device)
+        block[:seg.shape[0]] = seg & 3
+        words[w0:w1] = to_u32_bits((block.view(-1, 16) << shifts).sum(dim=1))
+    return words
+
+
+def pack_text_2bit(codes: torch.Tensor) -> torch.Tensor:
+    """K7's text: ``pack_text_2bit_reference``'s words, packed once an
+    upload. CPU tensors take the plain version; CUDA tensors launch the
+    pack kernel (csrc/build_tables.cu), which raises if it cannot."""
+    if codes.dtype != torch.uint8 or codes.dim() != 1 or not codes.is_contiguous():
+        raise ValueError(f"codes must be contiguous uint8 [n], got {codes.dtype} {tuple(codes.shape)}")
+    if codes.device.type == "cpu":
+        return pack_text_2bit_reference(codes)
+    if codes.device.type != "cuda":
+        raise ValueError(f"the pack runs on cpu or cuda tensors, got {codes.device}")
+    n = codes.shape[0]
+    words = torch.empty(-(-n // 16) + 1, dtype=torch.int32, device=codes.device)
+    global PACK_LAUNCHES
+    from tpufm_torch import kernels
+
+    lib = kernels.library("build_tables")
+    with torch.cuda.device(codes.device):
+        err = lib.tpufm_pack_text(codes.data_ptr(), n, words.data_ptr(),
+                                  torch.cuda.current_stream(codes.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"pack_text kernel launch failed: {kernels.error_string('build_tables', err)}")
+    PACK_LAUNCHES += 1
+    return words
+
+
+def _check_tables(codes: torch.Tensor, sa: torch.Tensor, k: int, d: int, words: torch.Tensor | None) -> None:
     if not 1 <= k <= 8:
         raise ValueError(f"k must be in [1, 8], got {k}")
     if d <= 0 or d % 32:
         raise ValueError(f"d must be a positive multiple of 32, got {d}")
-    if 2 * k * (d // 32) * 4 > 48 * 1024 and d // 32 >= 256:
-        raise ValueError(f"k={k} d={d}: a block's planes exceed the 48 KB K7 stages in shared memory")
+    if words is not None and (words.dtype != torch.int32 or tuple(words.shape) != (-(-codes.shape[0] // 16) + 1,)
+                              or words.device != codes.device or not words.is_contiguous()
+                              or words.data_ptr() % 8):
+        raise ValueError(f"words must be pack_text_2bit(codes) (int32 [ceil(n / 16) + 1], contiguous, 8-byte "
+                         f"aligned, on the text's device), got {words.dtype} {tuple(words.shape)} on {words.device}")
     if codes.dtype != torch.uint8 or codes.dim() != 1:
         raise ValueError(f"codes must be uint8 [n], got {codes.dtype} {tuple(codes.shape)}")
     if sa.dtype != torch.int32 or tuple(sa.shape) != (codes.shape[0] + 1,):
@@ -102,14 +158,17 @@ def _check_tables(codes: torch.Tensor, sa: torch.Tensor, k: int, d: int) -> None
         raise ValueError(f"the table build runs on cpu or cuda tensors, got {codes.device}")
 
 
-def build_tables(codes: torch.Tensor, sa: torch.Tensor, k: int, d: int):
+def build_tables(codes: torch.Tensor, sa: torch.Tensor, k: int, d: int, words: torch.Tensor | None = None):
     """The tables of ``build_tables_reference`` (its contract and dtypes).
 
-    CPU tensors take the plain version; CUDA tensors launch K7, and a kernel
-    that cannot be built or launched raises."""
-    _check_tables(codes, sa, k, d)
+    CPU tensors take the plain version; CUDA tensors launch K7 on the
+    packed text ``words`` (``pack_text_2bit(codes)``, packed here when not
+    given), and a kernel that cannot be built or launched raises."""
+    _check_tables(codes, sa, k, d, words)
     if codes.device.type == "cpu":
         return build_tables_reference(codes, sa, k, d)
+    if words is None:
+        words = pack_text_2bit(codes)
     n, nb, dev = codes.shape[0], d // 32, codes.device
     E = -(-(n + 1) // d)
     bitmaps = torch.empty((E + 1, k, 2, nb), dtype=torch.int32, device=dev)
@@ -123,7 +182,7 @@ def build_tables(codes: torch.Tensor, sa: torch.Tensor, k: int, d: int):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.tpufm_build_tables(
-            codes.data_ptr(), n, sa.data_ptr(), k, nb, bitmaps.data_ptr(), counts.data_ptr(),
+            words.data_ptr(), n, sa.data_ptr(), k, nb, bitmaps.data_ptr(), counts.data_ptr(),
             dollar_pos.data_ptr(), stream,
         )
     if err:
@@ -139,13 +198,15 @@ def build_index_device(
     device: str | torch.device = "cuda",
     sa_dev: torch.Tensor | None = None,
     codes_dev: torch.Tensor | None = None,
+    words_dev: torch.Tensor | None = None,
 ) -> KStepFMIndex:
     """The k-step FM-index of ``reference`` (see ``normalize_reference``)
     built on ``device``, bit-identical to ``host.index.build_index``.
 
-    ``sa_dev`` / ``codes_dev``: the suffix array (int32 [n+1]) and the text
-    (uint8 [n]) already on the device, so that an index, its k=1 tail and
-    the locate tables share one suffix sort and one upload.
+    ``sa_dev`` / ``codes_dev`` / ``words_dev``: the suffix array (int32
+    [n+1]), the text (uint8 [n]) and its ``pack_text_2bit`` words already on
+    the device, so that an index, its k=1 tail and the locate tables share
+    one suffix sort, one upload and one pack.
     ``return_host=False`` leaves ``occ`` and ``bitmaps`` on the device
     (int32 tensors holding the uint32 words)."""
     codes = normalize_reference(reference)
@@ -160,7 +221,7 @@ def build_index_device(
     order = suffix_array_device_arr(codes_dev) if sa_dev is None else sa_dev
     if order.shape[0] != big:
         raise ValueError(f"sa_dev has {order.shape[0]} entries, expected {big}")
-    counts, bitmaps, dollar_pos_d = build_tables(codes_dev, order, k, d)
+    counts, bitmaps, dollar_pos_d = build_tables(codes_dev, order, k, d, words=words_dev)
 
     dollar_pos = dollar_pos_d.cpu().numpy().astype(np.uint32)
     # dollar_base[m]: the k-mer at dollar_pos[m] ('$' read as 'A'), read out
@@ -233,11 +294,13 @@ def build_locate_device(
     device: str | torch.device = "cuda",
     sa_dev: torch.Tensor | None = None,
     codes_dev: torch.Tensor | None = None,
+    words_dev: torch.Tensor | None = None,
 ) -> LocateIndex:
     """The locate tables of ``reference`` (the k=1 LF index, mark words,
     mark rank and samples) built on ``device``, bit-identical to
     ``host.locate.build_locate``; one suffix sort (``sa_dev``, else sorted
-    here) and one upload (``codes_dev``) shared with the k=1 index build.
+    here), one upload (``codes_dev``) and one pack (``words_dev``) shared
+    with the k=1 index build.
     ``return_host=False`` leaves the tables on the device (int32 tensors
     holding the uint32 values)."""
     codes = normalize_reference(reference)
@@ -245,7 +308,7 @@ def build_locate_device(
         codes_dev = upload_text(codes, device)
     order = suffix_array_device_arr(codes_dev) if sa_dev is None else sa_dev
     lf1 = build_index_device(codes, IndexConfig(k=1, d=d), return_host=return_host,
-                             sa_dev=order, codes_dev=codes_dev)
+                             sa_dev=order, codes_dev=codes_dev, words_dev=words_dev)
     samples, mark_words, mark_rank = _locate_tables(order, d, sample_rate)
     if return_host:
         samples, mark_words, mark_rank = host_words(samples), host_words(mark_words), host_words(mark_rank)

@@ -58,8 +58,10 @@ SIGNATURES = {
         "tpufm_myers_verify_slots": [_LL],
     },
     "build_tables": {
-        # text, n, sa, k, nb, bitmaps, counts, dollar_pos, stream
+        # packed text words, n, sa, k, nb, bitmaps, counts, dollar_pos, stream
         "tpufm_build_tables": [_P, _LL, _P, _I, _I, _P, _P, _P, _P],
+        # codes, n, words, stream
+        "tpufm_pack_text": [_P, _LL, _P, _P],
     },
 }
 #: launchers that return something other than a cudaError_t (c_int)
