@@ -508,22 +508,25 @@ def k7_text_sectors(sa: torch.Tensor, n: int, k: int, bases_per_sector: int = 32
 
 
 def k7_bytes(n: int, k: int, d: int) -> int:
-    """The bytes K7's function must move on an n-base text: the text (a
-    byte a base, as the wrapper takes it) and the suffix array read once,
-    the planes (row E included), counts and '$' positions written once."""
+    """The bytes ``build_tables`` must move on an n-base text: the text (a
+    byte a base, as the wrapper takes it and its pack launch reads it) and
+    the suffix array read once, the planes (row E included), counts and '$'
+    positions written once."""
     E = -(-(n + 1) // d)
     return n + 4 * (n + 1) + 4 * (E + 1) * 2 * k * (d // 32) + 4 * E * 4**k + 8 * k
 
 
-def k7_case(cd: torch.Tensor, words: torch.Tensor, order: torch.Tensor, k: int, d: int, run: int = 20) -> dict:
-    """K7 on a text on the card (its packed words and suffix array given):
-    fail unless its three outputs equal the plain version's bit for bit,
-    then its device time (``graph_ms`` of ``run`` calls), its time a wrapper
-    call back to back (``cuda_ms``), its bytes bound, and the sectors its
-    random text reads touch in the byte text and in the packed text, each
-    at HBM rate: references, not bounds, where the text stays in L2."""
+def k7_case(cd: torch.Tensor, order: torch.Tensor, k: int, d: int, run: int = 20) -> dict:
+    """K7 on a text and its suffix array on the card: fail unless the
+    wrapper's three outputs equal the plain version's bit for bit, then its
+    device time (``graph_ms`` of ``run`` calls, the text's pack and K7 in
+    each), its time a call back to back (``cuda_ms``), its bytes bound, and
+    two references at HBM rate, not bounds where the text stays in L2: the
+    bound's bytes with the text read as the sectors a position's k symbols
+    touch in the byte text, and with the pack written and its sectors read
+    in place of those."""
     n = cd.shape[0]
-    got, want = build_tables(cd, order, k, d, words=words), build_tables_reference(cd, order, k, d)
+    got, want = build_tables(cd, order, k, d), build_tables_reference(cd, order, k, d)
     torch.cuda.synchronize()
     for g, w, name in zip(got, want, ("counts", "bitmaps", "dollar_pos")):
         if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w):
@@ -533,11 +536,11 @@ def k7_case(cd: torch.Tensor, words: torch.Tensor, order: torch.Tensor, k: int, 
     sectors, packed = k7_text_sectors(order, n, k), k7_text_sectors(order, n, k, bases_per_sector=128)
     return {
         "k": k, "d": d, "bases": n, "max_abs_err": 0,
-        "ms": graph_ms(lambda: build_tables(cd, order, k, d, words=words), run=run),
-        "call_ms": cuda_ms(lambda: build_tables(cd, order, k, d, words=words)),
+        "ms": graph_ms(lambda: build_tables(cd, order, k, d), run=run),
+        "call_ms": cuda_ms(lambda: build_tables(cd, order, k, d)),
         "bytes": nbytes, "bound_ms": bound_ms(nbytes),
         "sectors": sectors, "sector_bound_ms": bound_ms(nbytes - n + 32 * sectors),
-        "packed_sectors": packed, "packed_sector_ms": bound_ms(nbytes - n + 32 * packed),
+        "packed_sectors": packed, "packed_sector_ms": bound_ms(nbytes + 4 * (-(-n // 16) + 1) + 32 * packed),
     }
 
 
@@ -1529,14 +1532,12 @@ def device_build(tmp: str, ref: str, codes: np.ndarray, index, fmi: str, sa: np.
     order = suffix_array_device_arr(cd)
     torch.cuda.synchronize()
     sort_s = time.perf_counter() - t1
-    words = pack_text_2bit(cd)
-    d_index = build_index_device(codes, IndexConfig(k=K, d=D), sa_dev=order, codes_dev=cd, words_dev=words)
-    d_tail = build_index_device(codes, IndexConfig(k=1, d=D), sa_dev=order, codes_dev=cd, words_dev=words)
-    d_loc = build_locate_device(codes, sample_rate=SAMPLE_RATE, d=D, sa_dev=order, codes_dev=cd,
-                                words_dev=words)
+    d_index = build_index_device(codes, IndexConfig(k=K, d=D), sa_dev=order, codes_dev=cd)
+    d_tail = build_index_device(codes, IndexConfig(k=1, d=D), sa_dev=order, codes_dev=cd)
+    d_loc = build_locate_device(codes, sample_rate=SAMPLE_RATE, d=D, sa_dev=order, codes_dev=cd)
     device_s = time.perf_counter() - t1
     by_path["device_build"] = read_counts()
-    expect_launches("device build", by_path["device_build"], {"build_tables": 3, "pack_text": 1})
+    expect_launches("device build", by_path["device_build"], {"build_tables": 3, "pack_text": 3})
     same_tables("device k=3 index", d_index, index, INDEX_FIELDS)
     same_tables("device k=1 tail", d_tail, loc.lf1, INDEX_FIELDS)
     same_tables("device locate tables", d_loc, loc, ("samples", "mark_words", "mark_rank"))
@@ -1559,13 +1560,13 @@ def device_build(tmp: str, ref: str, codes: np.ndarray, index, fmi: str, sa: np.
     del rank, again
     torch.cuda.empty_cache()
 
-    # (b) K7 against its plain version at k 1-4, d=192, on the packed text
-    k7_cases = {k: k7_case(cd, words, order, k, D) for k in K7_KS}
+    # (b) K7 against its plain version at k 1-4, d=192
+    k7_cases = {k: k7_case(cd, order, k, D) for k in K7_KS}
     k7 = dict(k7_cases[K], plain_ms=cuda_ms(lambda: build_tables_reference(cd, order, K, D)),
               k_ms={k: c["ms"] for k, c in k7_cases.items()},
               k_call_ms={k: c["call_ms"] for k, c in k7_cases.items()}, cases=list(k7_cases.values()))
     pack = pack_case(cd)
-    del cd, words, order
+    del cd, order
     torch.cuda.empty_cache()
     print(f"[16 device build] (a) {n} bases, k={K} d={D} index + k=1 tail + s={SAMPLE_RATE} locate tables "
           f"from one device sort, each equal to phases 4 and 9 (the suffix array too): host {host_s:.2f} s "
@@ -1573,7 +1574,7 @@ def device_build(tmp: str, ref: str, codes: np.ndarray, index, fmi: str, sa: np.
           f"{', '.join(f'{ms:.3f}' for ms in rounds)} ms; K7 launches {by_path['device_build']['build_tables']})",
           flush=True)
     print(f"    (b) K7 vs plain, bit-identical at k {', '.join(map(str, K7_KS))}; plain k={K} "
-          f"{k7['plain_ms']:.4f} ms; the text's 2-bit pack (once an upload) bit-identical to plain: "
+          f"{k7['plain_ms']:.4f} ms; the text's 2-bit pack (inside each K7 call) bit-identical to plain: "
           f"{pack['ms']:.4f} ms, plain {pack['plain_ms']:.4f} ms, bound {pack['bound_ms']:.4f} ms", flush=True)
     for case in k7_cases.values():
         print(f"        {k7_line(case)}", flush=True)
@@ -1584,7 +1585,7 @@ def device_build(tmp: str, ref: str, codes: np.ndarray, index, fmi: str, sa: np.
     run = cli.main(["build", ref, str(n), "--k", str(K), "--d", str(D), "--on-device", "--tail",
                     "--output", out])
     by_path["build_on_device"] = read_counts()
-    expect_launches("build --on-device --tail", by_path["build_on_device"], {"build_tables": 2, "pack_text": 1})
+    expect_launches("build --on-device --tail", by_path["build_on_device"], {"build_tables": 2, "pack_text": 2})
     if Path(out).read_bytes() != Path(fmi).read_bytes():
         raise AssertionError("build --on-device: the .fmi differs from phase 4's")
     same_tables("build --on-device --tail: the tail", load_npz(out + ".tail.npz"), loc.lf1, INDEX_FIELDS)
@@ -1599,7 +1600,7 @@ def device_build(tmp: str, ref: str, codes: np.ndarray, index, fmi: str, sa: np.
               "--on-device", "--store", os.path.join(tmp, "ondev"), "--output", os.path.join(tmp, "ondev.pos")])
     by_path["locate_on_device"] = read_counts()
     expect_launches("locate --on-device", by_path["locate_on_device"],
-                    {"build_tables": 2, "pack_text": 1, "lf_round_pairs": (READ_LEN - LUT_M) // K,
+                    {"build_tables": 2, "pack_text": 2, "lf_round_pairs": (READ_LEN - LUT_M) // K,
                      "locate_walk": 1})
     for kind in ("search", "locate"):
         if tree_bytes(os.path.join(tmp, f"ondev.{kind}.tpufm")) != tree_bytes(f"{store}.{kind}.tpufm"):
@@ -1648,9 +1649,7 @@ def device_build(tmp: str, ref: str, codes: np.ndarray, index, fmi: str, sa: np.
     torch.cuda.empty_cache()
     # K7 on the genome's text and suffix array, against its plain version
     genome_pack = pack_case(gcd, run=5)
-    gwords = pack_text_2bit(gcd)
-    genome_k7 = k7_case(gcd, gwords, gorder, rec["k"], rec["d"], run=5)
-    del gwords
+    genome_k7 = k7_case(gcd, gorder, rec["k"], rec["d"], run=5)
     torch.cuda.empty_cache()
     print(f"    K7 on the {GENOME_BASES}-base text, bit-identical to plain: {k7_line(genome_k7)}; the pack, "
           f"bit-identical: {genome_pack['ms']:.4f} ms, plain {genome_pack['plain_ms']:.4f} ms, bound "
@@ -2316,7 +2315,8 @@ def main() -> None:
             "bound_ms": ondev["k7"]["bound_ms"],
             "bound_by": "bytes",
             "library_ms": None,
-            "shape": f"k={K} d={D}, {REF_BASES} bases (phase 4's text and its device suffix array)",
+            "shape": f"k={K} d={D}, {REF_BASES} bases (phase 4's text and its device suffix array); ms is the "
+                     "wrapper's, the text's pack and K7",
             "call_ms": ondev["k7"]["call_ms"],
             "k_ms": ondev["k7"]["k_ms"],
             "k_call_ms": ondev["k7"]["k_call_ms"],

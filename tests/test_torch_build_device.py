@@ -158,13 +158,10 @@ def test_k7_plain_version_matches_tpufm_build_tables(k, d, n):
 
 
 @pytest.mark.parametrize("n", [0, 1, 15, 16, 17, 33, 1000, 4099])
-@pytest.mark.parametrize("chunk", [3, 1 << 22])
-def test_k7_text_pack_matches_numpy(monkeypatch, n, chunk):
+def test_k7_text_pack_matches_numpy(n):
     """``pack_text_2bit`` (K7's text; on the CPU its plain version) against a
     numpy loop over the bases and against ``pack_text_words`` (the seed
-    engines' layout), with codes past 3 masked to their two low bits; in
-    chunks of 3 words too, so that the last chunk is partial."""
-    monkeypatch.setattr(bd, "_PACK_CHUNK", chunk)
+    engines' layout), with codes past 3 masked to their two low bits."""
     codes = np.random.default_rng(n).integers(0, 7, size=n, dtype=np.uint8)
     got = bd.pack_text_2bit(torch.from_numpy(codes))
     assert got.dtype == torch.int32 and tuple(got.shape) == (-(-n // 16) + 1,)
@@ -173,6 +170,20 @@ def test_k7_text_pack_matches_numpy(monkeypatch, n, chunk):
         want[j // 16] |= np.uint32(int(c) & 3) << np.uint32(30 - 2 * (j % 16))
     np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
     np.testing.assert_array_equal(want, pack_text_words(codes & 3))
+
+
+@pytest.mark.parametrize("bad", ["int64", "2-D", "strided", "meta"])
+def test_k7_text_pack_checks_its_inputs(bad):
+    """``pack_text_2bit`` takes a contiguous uint8 [n] on the CPU or a card
+    and raises ValueError on anything else."""
+    codes = {
+        "int64": torch.zeros(32, dtype=torch.int64),
+        "2-D": torch.zeros((2, 16), dtype=torch.uint8),
+        "strided": torch.zeros(64, dtype=torch.uint8)[::2],
+        "meta": torch.zeros(32, dtype=torch.uint8, device="meta"),
+    }[bad]
+    with pytest.raises(ValueError):
+        bd.pack_text_2bit(codes)
 
 
 def test_k7_wrapper_checks_its_inputs():
@@ -186,10 +197,6 @@ def test_k7_wrapper_checks_its_inputs():
         bd.build_tables(codes, sa, 2, 48)
     with pytest.raises(ValueError, match="k must be"):
         bd.build_tables(codes, sa, 9, 32)
-    with pytest.raises(ValueError, match="pack_text_2bit"):
-        bd.build_tables(codes, sa, 2, 32, words=torch.zeros(1, dtype=torch.int32))
-    with pytest.raises(ValueError, match="aligned"):
-        bd.build_tables(codes, sa, 2, 32, words=torch.zeros(3, dtype=torch.int32)[1:])
 
 
 @pytest.mark.parametrize("n,s,d", [(3001, 8, 32), (2048, 16, 64), (513, 4, 32)])
@@ -382,6 +389,18 @@ def test_chip_smoke_k7_sectors_count_the_text_reads(monkeypatch, k):
         sectors = {((s - 1 - i) % (n + 1)) // 32 for i in range(k) if (s - 1 - i) % (n + 1) != n}
         want += len(sectors)
     assert chip_smoke.k7_text_sectors(torch.from_numpy(sa.astype(np.int32)), n, k) == want
+
+
+@pytest.mark.parametrize("k,d,n", [(1, 32, 0), (3, 192, 1000), (4, 64, 127), (6, 960, 2000)])
+def test_chip_smoke_k7_bytes_are_the_wrappers_io(monkeypatch, k, d, n):
+    """chip_smoke's bytes bound of K7 is what ``build_tables`` takes and
+    gives: the byte text and the suffix array in, the counts, planes (row
+    E included) and '$' positions out."""
+    chip_smoke = _chip_smoke(monkeypatch)
+    codes = torch.from_numpy(np.random.default_rng(n).integers(0, 4, size=n, dtype=np.uint8))
+    sa = torch.from_numpy(suffix_array(codes.numpy()).astype(np.int32))
+    io = codes.nbytes + sa.nbytes + sum(t.nbytes for t in bd.build_tables(codes, sa, k, d))
+    assert chip_smoke.k7_bytes(n, k, d) == io
 
 
 @pytest.mark.parametrize("k", [1, 3, 8])

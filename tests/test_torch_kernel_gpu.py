@@ -699,9 +699,9 @@ def test_build_tables_kernel_matches_plain(cuda, d, n, k, text):
         codes = np.resize(np.array(["ACGT".index(b) for b in text], dtype=np.uint8), n)
     cd = torch.from_numpy(codes).to(cuda)
     sa = torch.from_numpy(suffix_array(codes).astype(np.int32)).to(cuda)
-    before = bd.LAUNCHES
+    before, packs = bd.LAUNCHES, bd.PACK_LAUNCHES
     got = bd.build_tables(cd, sa, k, d)
-    assert bd.LAUNCHES == before + 1
+    assert bd.LAUNCHES == before + 1 and bd.PACK_LAUNCHES == packs + 1
     plain_on = cuda if k <= 4 else torch.device("cpu")
     want = bd.build_tables_reference(cd.to(plain_on), sa.to(plain_on), k, d)
     torch.cuda.synchronize()

@@ -108,7 +108,7 @@ from tpufm_torch.host.seqio import (
     write_results,
 )
 from tpufm_torch.host.suffix_array import suffix_array
-from tpufm_torch.index.builder_device import build_index_device, build_locate_device, pack_text_2bit
+from tpufm_torch.index.builder_device import build_index_device, build_locate_device
 from tpufm_torch.index.sa_device import suffix_array_device_arr, upload_text
 from tpufm_torch.timer import Stages
 
@@ -306,10 +306,10 @@ def cmd_count(args) -> CountRun:
 
 
 def device_sort(codes: np.ndarray, device):
-    """(text, its packed words, suffix array) on ``device``: one upload, one
-    pack and one suffix sort for every table a command builds there."""
+    """(text, suffix array) on ``device``: one upload and one suffix sort
+    for every table a command builds there."""
     codes_dev = upload_text(codes, device)
-    return codes_dev, pack_text_2bit(codes_dev), suffix_array_device_arr(codes_dev)
+    return codes_dev, suffix_array_device_arr(codes_dev)
 
 
 def locate_tables(args):
@@ -324,12 +324,10 @@ def locate_tables(args):
     else:
         codes = read_reference(args.reference, args.refsize)
         if args.on_device:
-            cd, words, order = device_sort(codes, args.device)
-            index = build_index_device(codes, IndexConfig(k=args.k, d=args.d), sa_dev=order, codes_dev=cd,
-                                       words_dev=words)
-            loc = build_locate_device(codes, sample_rate=args.sample_rate, d=args.d, sa_dev=order, codes_dev=cd,
-                                      words_dev=words)
-            del cd, words, order
+            cd, order = device_sort(codes, args.device)
+            index = build_index_device(codes, IndexConfig(k=args.k, d=args.d), sa_dev=order, codes_dev=cd)
+            loc = build_locate_device(codes, sample_rate=args.sample_rate, d=args.d, sa_dev=order, codes_dev=cd)
+            del cd, order
         else:
             sa = suffix_array(codes)
             index = build_index(codes, IndexConfig(k=args.k, d=args.d), sa=sa)
@@ -862,13 +860,11 @@ def cmd_build(args) -> BuildRun:
     want_tail = args.tail and args.k != 1
     tail = None
     if args.on_device:
-        cd, words, order = device_sort(codes, args.device)
-        index = build_index_device(codes, IndexConfig(k=args.k, d=args.d), sa_dev=order, codes_dev=cd,
-                                   words_dev=words)
+        cd, order = device_sort(codes, args.device)
+        index = build_index_device(codes, IndexConfig(k=args.k, d=args.d), sa_dev=order, codes_dev=cd)
         if want_tail:
-            tail = build_index_device(codes, IndexConfig(k=1, d=args.d), sa_dev=order, codes_dev=cd,
-                                      words_dev=words)
-        del cd, words, order
+            tail = build_index_device(codes, IndexConfig(k=1, d=args.d), sa_dev=order, codes_dev=cd)
+        del cd, order
     else:
         sa = suffix_array(codes, method, device=args.device) if want_tail or method == "device" else None
         index = build_index(codes, IndexConfig(k=args.k, d=args.d), sa_method=method, sa=sa)

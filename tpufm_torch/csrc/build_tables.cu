@@ -19,24 +19,25 @@
 //              is counted as its 'A'-read k-mer and the padding as k-mer 0
 //   dollar_pos[SA[p]] = p where SA[p] < k
 //
-// The text arrives 2-bit packed (pack_text_2bit, a launch of
-// pack_text_kernel below once an upload: 16 bases a uint32 word, base j at
-// bits 31 - 2 * (j % 16) .. 30 - 2 * (j % 16), zero past n, one guard word;
-// the layout of engine/seed.py's pack_text_words), the suffix array as
-// int32 (values 0..n); the planes leave as uint32 words and the counts as
-// int32 (at most d).
+// The wrapper (build_tables) packs the text 2 bits a base first, a launch
+// of pack_text_kernel below on each call: 16 bases a uint32 word, base j at
+// bits 31 - 2 * (j % 16) .. 30 - 2 * (j % 16), zero past n, one guard word
+// (the layout of engine/seed.py's pack_text_words). K7 reads that pack and
+// the suffix array as int32 (values 0..n); the planes leave as uint32 words
+// and the counts as int32 (at most d).
 //
-// Bound. Bytes: the text (1 B a base, as the wrapper takes it; the kernel
-// reads its 2-bit pack, a quarter of that) and the suffix array (4 B a
-// position) read once, the planes (k / 4 B a position) and counts (4^k * 4
-// B a block) written once: at 10 Mbase, k=3 d=192, 70.8 MB, 21.1 us at
-// 3.35 TB/s. The text is read at random: a position's k symbols, T[SA[p] -
-// k .. SA[p] - 1], lie in one 32-byte sector or straddle two, so the memory
-// system carries about 32 B a position where the bound counts one byte or
-// less (chip_smoke.py prints the sector counts, 10,625,000 of the byte text
-// and 10,156,250 of the pack at 10 Mbase: references at HBM rate, not
-// bounds, since a 10 Mbase text stays in the 50 MB L2; a 250 Mbase text
-// does not, neither its 250 MB of bytes nor its 62.5 MB pack).
+// Bound, of the wrapper's two launches together. Bytes: the text (1 B a
+// base, read by the pack) and the suffix array (4 B a position) read once,
+// the planes (k / 4 B a position) and counts (4^k * 4 B a block) written
+// once: at 10 Mbase, k=3 d=192, 70.8 MB, 21.1 us at 3.35 TB/s. The pack
+// itself is not in the bound: it is the design's, not the function's. K7
+// reads it at random: a position's k symbols, T[SA[p] - k .. SA[p] - 1],
+// lie in one 32-byte sector or straddle two, so the memory system carries
+// about 32 B a position where the bound counts one byte or less
+// (chip_smoke.py prints the sector counts, 10,625,000 of the byte text and
+// 10,156,250 of the pack at 10 Mbase: references at HBM rate, not bounds,
+// since a 10 Mbase text stays in the 50 MB L2; a 250 Mbase text does not,
+// neither its 250 MB of bytes nor its 62.5 MB pack).
 //
 // What the first version lost: a thread walked its word's 32 positions in
 // series, one SA value and k one-byte text loads at a time, so it waited
@@ -74,11 +75,13 @@
 //   No block-wide staging: nothing limits k or d beyond k <= 8.
 //
 // Measured (NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py phase 16, k=3
-// d=192, device time): 0.095 ms at 10 Mbase (22% of the bound), 5.24 ms at
-// 250 Mbase (10%), 2.2x the time a base, as most window loads there miss
-// L2: one random sector request a position sets the time. In design runs
-// on the card, two 4-byte window loads in place of the one were slightly
-// slower, and an L2 evict_last hint on the window load gained nothing.
+// d=192, device time of the wrapper's pack and K7): 0.098 ms at 10 Mbase
+// (21.5% of the bound; the pack 0.004 ms of it), 5.32 ms at 250 Mbase
+// (9.9%; the pack 0.12 ms), 2.2x the time a base, as most window loads
+// there miss L2: one random sector request a position sets the time. In
+// design runs on the card, two 4-byte window loads in place of the one
+// were slightly slower, and an L2 evict_last hint on the window load
+// gained nothing.
 
 #include <cstdint>
 #include <cuda_runtime.h>

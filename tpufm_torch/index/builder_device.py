@@ -6,8 +6,8 @@ Counterpart of tpufm/index/builder_device.py (``_build_tables`` :35,
 
   suffix array  prefix doubling on the device (index.sa_device)
   text pack     the text 2 bits a base (csrc/build_tables.cu, wrapper
-                ``pack_text_2bit``), once an upload; plain version
-                ``pack_text_2bit_reference``
+                ``pack_text_2bit``), by each ``build_tables`` call; plain
+                version ``pack_text_2bit_reference``
   tables        K7 (csrc/build_tables.cu, wrapper ``build_tables``): the k
                 BWT levels straight from the suffix array and the packed
                 text, packed into the bit-planes, the per-block k-mer
@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from tpufm_torch.bitops import FULL, popcount32, to_u32_bits
+from tpufm_torch.engine.seed import pack_query_words
 from tpufm_torch.engine.tables import host_words
 from tpufm_torch.host.index import IndexConfig, KStepFMIndex, c_array, normalize_reference
 from tpufm_torch.host.locate import LocateIndex
@@ -87,34 +88,21 @@ def build_tables_reference(codes: torch.Tensor, sa: torch.Tensor, k: int, d: int
     return counts, to_u32_bits(bitmaps), dollar_pos
 
 
-#: words of 16 bases that ``pack_text_2bit_reference`` packs at a time (its
-#: int64 temporaries stay under 1.5 GB whatever the text)
-_PACK_CHUNK = 1 << 22
-
-
 def pack_text_2bit_reference(codes: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch pack of a uint8 text [n] (2-bit codes; higher bits
     ignored, as the planes ignore them) on any device -> int32 [ceil(n / 16)
-    + 1] holding uint32 words of 16 bases, base j at bits 31 - 2*(j%16) ..
-    30 - 2*(j%16) (MSB-first, ``engine.seed.pack_text_words``' layout), zero
-    past n and one zero guard word."""
-    n = codes.shape[0]
-    nw = -(-n // 16) + 1
-    shifts = 2 * (15 - torch.arange(16, dtype=torch.int64, device=codes.device))
-    words = torch.empty(nw, dtype=torch.int32, device=codes.device)
-    for w0 in range(0, nw, _PACK_CHUNK):
-        w1 = min(nw, w0 + _PACK_CHUNK)
-        seg = codes[16 * w0:min(n, 16 * w1)]
-        block = torch.zeros(16 * (w1 - w0), dtype=torch.int64, device=codes.device)
-        block[:seg.shape[0]] = seg & 3
-        words[w0:w1] = to_u32_bits((block.view(-1, 16) << shifts).sum(dim=1))
-    return words
+    + 1] holding ``engine.seed.pack_text_words``' uint32 words: 16 bases a
+    word, MSB-first, zero past n, and one zero guard word."""
+    words = torch.zeros(-(-codes.shape[0] // 16) + 1, dtype=torch.int64, device=codes.device)
+    words[:-1] = pack_query_words(codes & 3)
+    return to_u32_bits(words)
 
 
 def pack_text_2bit(codes: torch.Tensor) -> torch.Tensor:
-    """K7's text: ``pack_text_2bit_reference``'s words, packed once an
-    upload. CPU tensors take the plain version; CUDA tensors launch the
-    pack kernel (csrc/build_tables.cu), which raises if it cannot."""
+    """K7's text: ``pack_text_2bit_reference``'s words, packed by
+    ``build_tables`` on each call. CPU tensors take the plain version; CUDA
+    tensors launch the pack kernel (csrc/build_tables.cu), which raises if
+    it cannot."""
     if codes.dtype != torch.uint8 or codes.dim() != 1 or not codes.is_contiguous():
         raise ValueError(f"codes must be contiguous uint8 [n], got {codes.dtype} {tuple(codes.shape)}")
     if codes.device.type == "cpu":
@@ -136,16 +124,11 @@ def pack_text_2bit(codes: torch.Tensor) -> torch.Tensor:
     return words
 
 
-def _check_tables(codes: torch.Tensor, sa: torch.Tensor, k: int, d: int, words: torch.Tensor | None) -> None:
+def _check_tables(codes: torch.Tensor, sa: torch.Tensor, k: int, d: int) -> None:
     if not 1 <= k <= 8:
         raise ValueError(f"k must be in [1, 8], got {k}")
     if d <= 0 or d % 32:
         raise ValueError(f"d must be a positive multiple of 32, got {d}")
-    if words is not None and (words.dtype != torch.int32 or tuple(words.shape) != (-(-codes.shape[0] // 16) + 1,)
-                              or words.device != codes.device or not words.is_contiguous()
-                              or words.data_ptr() % 8):
-        raise ValueError(f"words must be pack_text_2bit(codes) (int32 [ceil(n / 16) + 1], contiguous, 8-byte "
-                         f"aligned, on the text's device), got {words.dtype} {tuple(words.shape)} on {words.device}")
     if codes.dtype != torch.uint8 or codes.dim() != 1:
         raise ValueError(f"codes must be uint8 [n], got {codes.dtype} {tuple(codes.shape)}")
     if sa.dtype != torch.int32 or tuple(sa.shape) != (codes.shape[0] + 1,):
@@ -158,17 +141,16 @@ def _check_tables(codes: torch.Tensor, sa: torch.Tensor, k: int, d: int, words: 
         raise ValueError(f"the table build runs on cpu or cuda tensors, got {codes.device}")
 
 
-def build_tables(codes: torch.Tensor, sa: torch.Tensor, k: int, d: int, words: torch.Tensor | None = None):
+def build_tables(codes: torch.Tensor, sa: torch.Tensor, k: int, d: int):
     """The tables of ``build_tables_reference`` (its contract and dtypes).
 
-    CPU tensors take the plain version; CUDA tensors launch K7 on the
-    packed text ``words`` (``pack_text_2bit(codes)``, packed here when not
-    given), and a kernel that cannot be built or launched raises."""
-    _check_tables(codes, sa, k, d, words)
+    CPU tensors take the plain version; CUDA tensors launch the pack
+    (``pack_text_2bit``) and K7 on its words, and a kernel that cannot be
+    built or launched raises."""
+    _check_tables(codes, sa, k, d)
     if codes.device.type == "cpu":
         return build_tables_reference(codes, sa, k, d)
-    if words is None:
-        words = pack_text_2bit(codes)
+    words = pack_text_2bit(codes)
     n, nb, dev = codes.shape[0], d // 32, codes.device
     E = -(-(n + 1) // d)
     bitmaps = torch.empty((E + 1, k, 2, nb), dtype=torch.int32, device=dev)
@@ -198,15 +180,13 @@ def build_index_device(
     device: str | torch.device = "cuda",
     sa_dev: torch.Tensor | None = None,
     codes_dev: torch.Tensor | None = None,
-    words_dev: torch.Tensor | None = None,
 ) -> KStepFMIndex:
     """The k-step FM-index of ``reference`` (see ``normalize_reference``)
     built on ``device``, bit-identical to ``host.index.build_index``.
 
-    ``sa_dev`` / ``codes_dev`` / ``words_dev``: the suffix array (int32
-    [n+1]), the text (uint8 [n]) and its ``pack_text_2bit`` words already on
-    the device, so that an index, its k=1 tail and the locate tables share
-    one suffix sort, one upload and one pack.
+    ``sa_dev`` / ``codes_dev``: the suffix array (int32 [n+1]) and the text
+    (uint8 [n]) already on the device, so that an index, its k=1 tail and
+    the locate tables share one suffix sort and one upload.
     ``return_host=False`` leaves ``occ`` and ``bitmaps`` on the device
     (int32 tensors holding the uint32 words)."""
     codes = normalize_reference(reference)
@@ -221,7 +201,7 @@ def build_index_device(
     order = suffix_array_device_arr(codes_dev) if sa_dev is None else sa_dev
     if order.shape[0] != big:
         raise ValueError(f"sa_dev has {order.shape[0]} entries, expected {big}")
-    counts, bitmaps, dollar_pos_d = build_tables(codes_dev, order, k, d, words=words_dev)
+    counts, bitmaps, dollar_pos_d = build_tables(codes_dev, order, k, d)
 
     dollar_pos = dollar_pos_d.cpu().numpy().astype(np.uint32)
     # dollar_base[m]: the k-mer at dollar_pos[m] ('$' read as 'A'), read out
@@ -294,13 +274,11 @@ def build_locate_device(
     device: str | torch.device = "cuda",
     sa_dev: torch.Tensor | None = None,
     codes_dev: torch.Tensor | None = None,
-    words_dev: torch.Tensor | None = None,
 ) -> LocateIndex:
     """The locate tables of ``reference`` (the k=1 LF index, mark words,
     mark rank and samples) built on ``device``, bit-identical to
     ``host.locate.build_locate``; one suffix sort (``sa_dev``, else sorted
-    here), one upload (``codes_dev``) and one pack (``words_dev``) shared
-    with the k=1 index build.
+    here) and one upload (``codes_dev``) shared with the k=1 index build.
     ``return_host=False`` leaves the tables on the device (int32 tensors
     holding the uint32 values)."""
     codes = normalize_reference(reference)
@@ -308,7 +286,7 @@ def build_locate_device(
         codes_dev = upload_text(codes, device)
     order = suffix_array_device_arr(codes_dev) if sa_dev is None else sa_dev
     lf1 = build_index_device(codes, IndexConfig(k=1, d=d), return_host=return_host,
-                             sa_dev=order, codes_dev=codes_dev, words_dev=words_dev)
+                             sa_dev=order, codes_dev=codes_dev)
     samples, mark_words, mark_rank = _locate_tables(order, d, sample_rate)
     if return_host:
         samples, mark_words, mark_rank = host_words(samples), host_words(mark_words), host_words(mark_rank)
