@@ -137,6 +137,26 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      suffix array, bit-identical to plain and timed as in (b); (d) the peak
      device memory of that build per base and the MAX_DEVICE_BASES it allows
      at 90% of the card (the set limit must be within it)
+ 17. the rest of the CLI, on earlier phases' files (host seconds of each
+     command printed): (a) ``search --rc --resume`` on phase 4's reads (two
+     waves of 2^20): a run killed in process after the first wave (an
+     engine wrapper raising), the CLI resuming the second with K1 launched
+     one wave's rounds; .res and .res.rc byte-identical to a plain ``search
+     --rc``, the checkpoint removed; (b) ``locate --resume --fused
+     --max-hits 16`` from phase 10's stores, four waves of 2^18 killed after
+     two and resumed, the .pos byte-identical to phase 10's fused .pos, K1
+     and K4 counted; (c) the SAM/BAM tools on phase 15(c)'s BAM: ``sort``
+     (the records as a multiset, in coordinate order), ``view REGION`` on
+     a 16 KiB window edge, a whole contig and 50 kb (each a linear filter's
+     records), ``idxstats`` (its mapped counts sum to the mapped records),
+     ``flagstat`` (every mapped record in a proper pair), ``depth`` and
+     ``bedcov`` (a numpy coverage of the records' CIGARs), ``markdup``,
+     ``stats``, ``merge`` of two halves (the sorted records) and ``fastq -1
+     -2`` (every read of both FASTQ files back); (d) ``faidx`` of phase 15's
+     FASTA and 10 random regions, each the text's slice; (e) ``transform``
+     of phase 4's .fmi, each image read back equal to the index, the reads
+     searched through the .ac image on the card to phase 4's intervals
+     (``diff`` prints IDENTICAL), ``dumpentry`` of entry 0
 Every path is driven with all launch counts set to 0 just before it and
 read just after; a kernel of the path launched too few times fails the run.
 Then one JSON line of kernel figures (each kernel's time beside its bound:
@@ -202,11 +222,13 @@ from tpufm_torch.engine.lf_round import (
 )
 from tpufm_torch.engine.row_gather import row_gather, row_gather_reference
 from tpufm_torch.host.contigs import read_contigs
-from tpufm_torch.host.formats import load_npz, load_store, write_fmi
+from tpufm_torch.host.bam import read_bam
+from tpufm_torch.host.formats import load_npz, load_store, read_fmi, write_fmi
 from tpufm_torch.host.index import IndexConfig, build_index, derive_tail
 from tpufm_torch.host.locate import build_locate, locate_hits
 from tpufm_torch.host.oracle import search_oracle
 from tpufm_torch.host.sam import sam_edit_records, sam_paired_records, sam_single_records
+from tpufm_torch.host.stream import locate_resumable, search_resumable
 from tpufm_torch.host.suffix_array import suffix_array
 from tpufm_torch.config import recommend_config
 from tpufm_torch.index import builder_device as bd_mod
@@ -1364,7 +1386,9 @@ def aligner(tmp: str, codes: np.ndarray, dev, by_path: dict) -> dict:
     lrec, lpos1, _ = origin(bounds, ls, L)
     rrec, rpos1, _ = origin(bounds, rs, L)
     frag = rs + L - ls
-    for i in np.flatnonzero((lrec == rrec) & (rs + L <= bounds[rrec + 1])):
+    inside_pairs = np.flatnonzero((lrec == rrec) & (rs + L <= bounds[rrec + 1]))
+    found["fasta"] = {"path": ref, "bounds": bounds}
+    for i in inside_pairs:
         a, b = blocks[i][0], blocks[i][1]
         chrom = f"chr{lrec[i] + 1}"
         want = ([str(0x53), chrom, str(rpos1[i]), str(-frag[i])], [str(0xA3), chrom, str(lpos1[i]), str(frag[i])]) \
@@ -1385,6 +1409,7 @@ def aligner(tmp: str, codes: np.ndarray, dev, by_path: dict) -> dict:
           f"one record proper at its origin (FLAG 99/147 or 83/163, |TLEN| the fragment); first {P_} equal to "
           f"the plain path; launches {by_path['align_paired']}; checks {time.perf_counter() - t1:.2f} s",
           flush=True)
+    found["align_paired"]["inside_pairs"] = int(inside_pairs.size)
 
     t1 = time.perf_counter()
     NE, E = ALIGN_EDIT_READS, 2
@@ -1682,6 +1707,283 @@ def device_build(tmp: str, ref: str, codes: np.ndarray, index, fmi: str, sa: np.
         "build_peak_bytes": build_peak, "peak_bytes_per_base": per_base, "card_bytes": total,
         "max_device_bases_derived": derived, "max_device_bases": sa_mod.MAX_DEVICE_BASES,
         "sa_ties_checked_on_host": deep}}
+
+
+class Crashing:
+    """An engine whose ``method`` raises after ``left`` calls, as a run
+    killed mid-stream; every other attribute is the engine's."""
+
+    def __init__(self, engine, left: int, method: str):
+        self._engine, self._left, self._method = engine, left, method
+
+    def __getattr__(self, name):
+        attr = getattr(self._engine, name)
+        if name != self._method:
+            return attr
+
+        def call(*args, **kwargs):
+            if self._left == 0:
+                raise RuntimeError("simulated crash")
+            self._left -= 1
+            return attr(*args, **kwargs)
+        return call
+
+
+def crash_after(run, what: str, out: str, waves: int) -> None:
+    """``run()`` must die of the simulated crash and leave a checkpoint of
+    ``waves`` completed waves beside ``out``."""
+    try:
+        run()
+    except RuntimeError as e:
+        if "simulated crash" not in str(e):
+            raise
+    else:
+        raise AssertionError(f"{what}: the first run did not crash")
+    done = json.loads(Path(out + ".progress").read_text())["done_waves"]
+    if done != waves:
+        raise AssertionError(f"{what}: the crashed run left {done} waves, expected {waves}")
+
+
+def ref_span(f: list) -> int:
+    """Reference bases a SAM record's CIGAR spans (M, D, N, =, X)."""
+    return sum(int(n) for n, op in re.findall(r"(\d+)([MIDNSHP=X])", f[5]) if op in "MDN=X")
+
+
+def overlapping(records: list, contig: str, beg0: int, end0: int) -> list:
+    """The records overlapping [beg0, end0) of ``contig``, in their order:
+    the linear filter an indexed region query must equal."""
+    return [f for f in records if f[2] == contig
+            and int(f[3]) - 1 < end0 and int(f[3]) - 1 + max(ref_span(f), 1) > beg0]
+
+
+def coverage(records: list, contig: str, beg0: int, end0: int) -> np.ndarray:
+    """int64 [end0 - beg0]: the depth over [beg0, end0) of the records' M, =
+    and X bases, unmapped, secondary, QC-failed and duplicate records left
+    out (samtools depth's rule)."""
+    diff = np.zeros(end0 - beg0 + 1, np.int64)
+    for f in records:
+        if f[2] != contig or int(f[1]) & 0x704 or f[5] == "*":
+            continue
+        p = int(f[3]) - 1
+        for n, op in re.findall(r"(\d+)([MIDNSHP=X])", f[5]):
+            n = int(n)
+            if op in "M=X":
+                lo, hi = min(max(p - beg0, 0), end0 - beg0), min(max(p + n - beg0, 0), end0 - beg0)
+                diff[lo] += 1
+                diff[hi] -= 1
+            if op in "MDN=X":
+                p += n
+    return np.cumsum(diff[:-1])
+
+
+def fastq_set(path: str) -> set:
+    """{(name, bases, qualities)} of a FASTQ file's records."""
+    lines = Path(path).read_text().splitlines()
+    return {(lines[i][1:], lines[i + 1], lines[i + 3]) for i in range(0, len(lines), 4)}
+
+
+def resume_and_tools(tmp: str, codes: np.ndarray, index, fmi: str, qry: str, store: str, pos_fused: str,
+                     align: dict, dev, by_path: dict, lut_launches: int) -> dict:
+    """Phase 17 (see the module docstring): ``search --resume`` and ``locate
+    --resume`` continuing runs killed in process, the SAM/BAM tools on phase
+    15(c)'s BAM, ``faidx`` of phase 15's FASTA, ``transform`` of phase 4's
+    .fmi and a search of its alternate-counters image on the card. Returns
+    each command's host seconds."""
+    t0 = time.perf_counter()
+    seconds = {}
+
+    def command(label: str, argv: list):
+        """``argv`` through the CLI, its standard output and error captured;
+        (its result, what it printed)."""
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as said, contextlib.redirect_stderr(io.StringIO()):
+            run = cli.main(argv)
+        seconds[label] = time.perf_counter() - t1
+        return run, said.getvalue()
+
+    def same_bytes(what: str, a: str, b: str) -> None:
+        if Path(a).read_bytes() != Path(b).read_bytes():
+            raise AssertionError(f"{what}: {a} and {b} differ")
+
+    rounds = (READ_LEN - LUT_M) // K
+    reads_res = os.path.join(tmp, "reads.res")  # phase 4's intervals
+    # (a) search --resume --rc: 2M reads, two waves of 2^20; the first run
+    # dies after one, the CLI finishes the other
+    out, plain = os.path.join(tmp, "resume.res"), os.path.join(tmp, "rc.res")
+    argv = ["search", fmi, qry, str(READ_LEN), str(READS), "--lut", str(LUT_M), "--rc", "--device", "cuda"]
+    engine = SearchEngine(cli.load_index(fmi), dev, lut_m=LUT_M, lut_cache=f"{fmi}.lut{LUT_M}.npz")
+    both = cli.rc_expand(load_queries(qry, READ_LEN, READS))
+    crash_after(lambda: search_resumable(Crashing(engine, 1, "search"), both, out), "search --resume", out, 1)
+    del engine, both
+    reset_counts()
+    resumed, said = command("search --resume (second wave)", [*argv, "--resume", "--output", out])
+    by_path["resume_search"] = read_counts()
+    if by_path["resume_search"]["lf_round_pairs"] != rounds:
+        raise AssertionError(f"search --resume: K1 launched {by_path['resume_search']['lf_round_pairs']} "
+                             f"times, one wave's {rounds} expected")
+    reset_counts()
+    command("search --rc", [*argv, "--iterations", "1", "--output", plain])
+    by_path["search_rc"] = read_counts()
+    expect_launches("search --rc", by_path["search_rc"], {"lf_round_pairs": 2 * 2 * rounds})
+    same_bytes("search --resume", out, plain)
+    same_bytes("search --resume (minus strand)", out + ".rc", plain + ".rc")
+    same_bytes("search --resume against phase 4", out, reads_res)
+    if any(os.path.exists(out + x) for x in (".partial", ".progress")):
+        raise AssertionError("search --resume: the checkpoint files are left")
+    print(f"[17 --resume, SAM/BAM tools, faidx, transform] (a) search --resume --rc, {2 * READS} reads in two "
+          f"waves: a run killed after the first wave, the CLI resumed the second (TIME: "
+          f"{resumed.seconds_per_pass:.6f} s, K1 launches {by_path['resume_search']['lf_round_pairs']} = one "
+          f"wave's); .res and .res.rc byte-identical to a plain search --rc (launches "
+          f"{by_path['search_rc']['lf_round_pairs']}) and .res to phase 4's; checkpoint removed", flush=True)
+
+    # (b) locate --resume --fused: four waves of 2^18, killed after two
+    out = os.path.join(tmp, "resume.pos")
+    index_s, loc_s = load_store(f"{store}.search.tpufm"), load_store(f"{store}.locate.tpufm")
+    sle = SearchLocateEngine(index_s, loc_s, dev, max_hits=MAX_HITS, lut_m=LUT_M)
+    reads = load_queries(qry, READ_LEN, READS)
+    crash_after(lambda: locate_resumable(Crashing(sle, 2, "search_locate"), reads, out), "locate --resume", out, 2)
+    del sle, reads, index_s, loc_s
+    reset_counts()
+    command("locate --resume (waves 3-4)", [
+        "locate", "-", "0", qry, str(READ_LEN), str(READS), "--k", str(K), "--d", str(D), "--sample-rate",
+        str(SAMPLE_RATE), "--max-hits", str(MAX_HITS), "--lut", str(LUT_M), "--device", "cuda",
+        "--from-store", store, "--fused", "--resume", "--output", out])
+    by_path["resume_locate"] = read_counts()
+    want = {"lf_round_pairs": 2 * rounds + lut_launches, "locate_walk": 2}
+    if {n: by_path["resume_locate"][n] for n in want} != want:
+        raise AssertionError(f"locate --resume: launches {by_path['resume_locate']}, expected {want}")
+    same_bytes("locate --resume", out, pos_fused)
+    print(f"    (b) locate --resume --fused --max-hits {MAX_HITS}, {READS} reads in four waves of "
+          f"{SearchLocateEngine.WAVE}: killed after two, resumed; .pos byte-identical to phase 10's fused .pos; "
+          f"launches K1 {by_path['resume_locate']['lf_round_pairs']} (two waves' {2 * rounds} + the LUT's "
+          f"{lut_launches}), K4 {by_path['resume_locate']['locate_walk']}", flush=True)
+
+    # (c) the SAM/BAM tools on phase 15(c)'s BAM
+    bam, srt = os.path.join(tmp, "pe.bam"), os.path.join(tmp, "sorted.bam")
+    header, recs = read_bam(bam)
+    command("sort", ["sort", bam, "--output", srt])
+    sheader, srecs = read_bam(srt)
+    if sorted(map(tuple, srecs)) != sorted(map(tuple, recs)):
+        raise AssertionError("sort: the sorted records are not the input's")
+    rank = {line.split("\t")[1][3:]: i for i, line in enumerate(x for x in sheader.splitlines()
+                                                                if x.startswith("@SQ"))}
+    keys = [(1, 0, 0) if f[2] == "*" else (0, rank[f[2]], int(f[3])) for f in srecs]
+    if any(a > b for a, b in zip(keys, keys[1:])):
+        raise AssertionError("sort: the records are not in coordinate order")
+    bounds = align["fasta"]["bounds"]
+    length = {f"chr{i + 1}": int(bounds[i + 1] - bounds[i]) for i in range(ALIGN_RECORDS)}
+    rng = np.random.default_rng(SEED + 17)
+    b12 = int(rng.integers(1, length["chr12"] - 50_000))
+    regions = {"a 16 KiB window edge": ("chr3", (1 << 14) - 200, (1 << 14) + 200),
+               "a whole contig": ("chr7", 0, length["chr7"]), "50 kb of chr12": ("chr12", b12 - 1, b12 + 49_999)}
+    viewed = {}
+    for what, (contig, beg0, end0) in regions.items():
+        text = f"{contig}:{beg0 + 1}-{end0}" if what != "a whole contig" else contig
+        got = [x.split("\t") for x in command(f"view {text}", ["view", srt, text, "--no-header"])[1].splitlines()]
+        if got != overlapping(srecs, contig, beg0, end0) or not got:
+            raise AssertionError(f"view {text}: not the records a linear filter finds")
+        viewed[text] = len(got)
+    rows = [x.split("\t") for x in command("idxstats", ["idxstats", srt])[1].splitlines()]
+    mapped = sum(1 for f in srecs if f[2] != "*" and not int(f[1]) & 4)
+    if sum(int(r[2]) for r in rows) != mapped:
+        raise AssertionError("idxstats: the mapped counts do not sum to the mapped records")
+    fs = {line.split(" ", 1)[1]: int(line.split(" ", 1)[0])
+          for line in command("flagstat", ["flagstat", srt])[1].splitlines()}
+    inside = align["align_paired"]["inside_pairs"]
+    if not (fs["properly paired"] == fs["primary mapped"] >= 2 * inside
+            and fs["paired in sequencing"] == 2 * ALIGN_PAIRS):
+        raise AssertionError(f"flagstat: a mapped record not in a proper pair, or fewer than phase 15's: {fs}")
+    contig, beg0, end0 = "chr5", 100_000, 101_000
+    cov = coverage(overlapping(srecs, contig, beg0, end0), contig, beg0, end0)
+    depth_rows = [x.split("\t") for x in command("depth", ["depth", srt, f"{contig}:{beg0 + 1}-{end0}"])[1]
+                  .splitlines()]
+    nz = np.flatnonzero(cov)
+    if [(int(r[1]) - 1, int(r[2])) for r in depth_rows] != list(zip((nz + beg0).tolist(), cov[nz].tolist())):
+        raise AssertionError("depth: not the coverage of the records' CIGARs")
+    bed = os.path.join(tmp, "r.bed")
+    Path(bed).write_text(f"{contig}\t{beg0}\t{end0}\n{regions['a 16 KiB window edge'][0]}\t16000\t17000\n")
+    bc = [x.split("\t") for x in command("bedcov", ["bedcov", srt, bed])[1].splitlines()]
+    edge = coverage(overlapping(srecs, "chr3", 16000, 17000), "chr3", 16000, 17000)
+    if [int(r[3]) for r in bc] != [int(cov.sum()), int(edge.sum())]:
+        raise AssertionError("bedcov: not the sums of the records' coverage")
+    md = os.path.join(tmp, "md.bam")
+    said = command("markdup", ["markdup", srt, "--output", md])[1]
+    _, mrecs = read_bam(md)
+    marked = sum(1 for f in mrecs if int(f[1]) & 0x400)
+    if ([[f[0], str(int(f[1]) & ~0x400), *f[2:]] for f in mrecs] != srecs
+            or f"({marked} duplicates marked)" not in said):
+        raise AssertionError("markdup: records other than their 0x400 flags changed, or the count differs")
+    sn = {line.split("\t")[1][:-1]: line.split("\t")[2]
+          for line in command("stats", ["stats", srt])[1].splitlines() if line.startswith("SN\t")}
+    if int(sn["raw total sequences"]) != fs["primary"] or int(sn["reads properly paired"]) != fs["properly paired"]:
+        raise AssertionError(f"stats: SN disagrees with flagstat: {sn}")
+    half = len(recs) // 2
+    h1, h2, mg = (os.path.join(tmp, x) for x in ("h1.sam", "h2.sam", "mg.bam"))
+    Path(h1).write_text(header + "".join("\t".join(f) + "\n" for f in recs[:half]))
+    Path(h2).write_text(header + "".join("\t".join(f) + "\n" for f in recs[half:]))
+    command("merge", ["merge", mg, h1, h2])
+    if read_bam(mg)[1] != srecs:
+        raise AssertionError("merge: the merged halves are not the sorted records")
+    f1, f2 = os.path.join(tmp, "x_1.fq"), os.path.join(tmp, "x_2.fq")
+    command("fastq", ["fastq", srt, "-1", f1, "-2", f2])
+    for got, want in ((f1, "pe_1.fq"), (f2, "pe_2.fq")):
+        if fastq_set(got) != fastq_set(os.path.join(tmp, want)):
+            raise AssertionError(f"fastq: {got} does not hold the reads of {want}")
+    print(f"    (c) the SAM/BAM tools on phase 15(c)'s BAM, {len(recs)} records of {ALIGN_PAIRS} FR pairs: sort "
+          f"(the input's records, in coordinate order), view of {viewed} (each a linear filter's records), "
+          f"idxstats ({mapped} mapped), flagstat ({fs['properly paired']} properly paired = primary mapped, "
+          f">= {2 * inside}), depth and bedcov on {contig}:{beg0 + 1}-{end0} (the CIGARs' coverage, sum "
+          f"{int(cov.sum())}), markdup ({marked} marked), stats, merge of two halves (the sorted records), "
+          f"fastq -1 -2 (every read of both FASTQ files back): all held", flush=True)
+
+    # (d) faidx of phase 15's 24-record FASTA
+    fa = align["fasta"]["path"]
+    command("faidx", ["faidx", fa])
+    picks = []
+    for _ in range(10):
+        i = int(rng.integers(ALIGN_RECORDS))
+        b = int(rng.integers(1, length[f"chr{i + 1}"]))
+        picks.append((i, b, min(length[f"chr{i + 1}"], b + int(rng.integers(0, 5000)))))
+    said = command("faidx (10 regions)", ["faidx", fa, *[f"chr{i + 1}:{b}-{e}" for i, b, e in picks]])[1]
+    blocks = said.split(">")[1:]
+    for (i, b, e), block in zip(picks, blocks):
+        head, *lines = block.splitlines()
+        if head != f"chr{i + 1}:{b}-{e}" or "".join(lines).encode() != decode_bases(
+                codes[bounds[i] + b - 1:bounds[i] + e]):
+            raise AssertionError(f"faidx chr{i + 1}:{b}-{e}: not the text's slice")
+    if len(blocks) != len(picks):
+        raise AssertionError("faidx: a region is missing")
+    print(f"    (d) faidx of the {ALIGN_RECORDS}-record FASTA, then 10 random regions: each the text's slice",
+          flush=True)
+
+    # (e) transform of phase 4's .fmi; its alternate-counters image searched on the card
+    command("transform", ["transform", fmi])
+    for suffix in (".interleaving", ".ac", ".interleaving.ac"):
+        t1 = time.perf_counter()
+        back, layout = read_fmi(fmi + suffix)
+        seconds[f"read back {suffix}"] = time.perf_counter() - t1
+        same_tables(f"transform {suffix}", getattr(back, "base", back), index, INDEX_FIELDS)
+        del back
+    ac_res = os.path.join(tmp, "ac.res")
+    reset_counts()
+    ac, _ = command("search (.ac image)", ["search", fmi + ".ac", qry, str(READ_LEN), str(READS), "--lut",
+                                           str(LUT_M), "--device", "cuda", "--iterations", "1", "--output", ac_res])
+    by_path["ac_search"] = read_counts()
+    expect_launches("search of the .ac image", by_path["ac_search"],
+                    {"lf_round_pairs": 2 * rounds + lut_launches})
+    diff = command("diff", ["diff", reads_res, ac_res])[1]
+    if diff != f"IDENTICAL: {READS} intervals\n":
+        raise AssertionError(f"diff: {diff!r}")
+    said = command("dumpentry", ["dumpentry", fmi + ".ac", "0"])[1].splitlines()
+    if said[0] != "entry 0:" or not said[1].startswith("  counters (slim half): [") or len(said) != 2 + 2 * K:
+        raise AssertionError(f"dumpentry: {said[:3]}")
+    print(f"    (e) transform of phase 4's .fmi: .interleaving, .ac and .interleaving.ac each read back equal to "
+          f"the index; search of the .ac image on the card ({ac.seconds_per_pass:.6f} s/pass, K1 launches "
+          f"{by_path['ac_search']['lf_round_pairs']}, the LUT built: {lut_launches} of them), diff against phase "
+          f"4's .res: {diff.strip()}; dumpentry printed entry 0", flush=True)
+    print("    host seconds (the card machine's host clock): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in seconds.items()) + f"; phase {time.perf_counter() - t0:.2f} s", flush=True)
+    return seconds
 
 
 def main() -> None:
@@ -2154,6 +2456,7 @@ def main() -> None:
         del run
         torch.cuda.empty_cache()
         ondev = device_build(tmp, ref, codes, index, fmi, sa, loc, store, reads, dev, by_path)
+        resume_and_tools(tmp, codes, index, fmi, qry, store, pos_fused, align, dev, by_path, lut_launches)
 
     for pkg in ("jax", "tpufm"):
         if any(m == pkg or m.startswith(pkg + ".") for m in sys.modules):

@@ -140,9 +140,14 @@ def test_read_fmi_matches_tpufm(rng, tmp_path, layout, k, d, n):
 
 
 def test_write_fmi_refuses_alt_counters(rng, tmp_path):
-    _, ours, _ = _pair(rng, 2, 64, 300)
-    with pytest.raises(ValueError, match="tags 100 and 101"):
-        formats.write_fmi(tmp_path / "x.fmi", ours, host.Layout.ALT_COUNTERS)
+    """write_fmi refused tags 200/201 until the port had its own
+    alternate-counters writer; it now writes both, byte-identical to
+    tpufm's (tests/test_torch_transform.py covers k 1-4 and every parity)."""
+    _, ours, theirs = _pair(rng, 2, 64, 300)
+    for layout in ("alt_counters", "interleaved_alt_counters"):
+        formats.write_fmi(tmp_path / "x.fmi", ours, host.Layout(layout))
+        jf.write_fmi(tmp_path / "y.fmi", theirs, JaxLayout(layout))
+        assert (tmp_path / "x.fmi").read_bytes() == (tmp_path / "y.fmi").read_bytes()
 
 
 def test_load_npz_matches_tpufm(rng, tmp_path):

@@ -7,8 +7,11 @@ same arrays), runs a small CPU search on
 both gather paths, a variable-length one, a fused search+locate, a
 Hamming <= 1 count, a seed-and-extend locate at two substitutions, an
 edit-distance locate, a paired placement and a small ``align --bam`` on a
-two-record reference (its SAM, BAM and contig-map modules imported), and
-checks them against the port's numpy oracles, naive scans of the text and
+two-record reference (its SAM, BAM and contig-map modules imported), then
+``sort`` and ``view REGION`` on that BAM, ``faidx`` of the reference,
+``transform`` and a search of its alternate-counters image, and a
+``search --resume`` crashed after one wave and resumed (the SAM/BAM tools,
+faidx, layout and stream modules imported), and checks them against the port's numpy oracles, naive scans of the text and
 each read's origin; the parent holds the result against tpufm's builder
 and oracle.
 chip_smoke itself refuses to run without a GPU, or without the repo around
@@ -122,6 +125,51 @@ with tempfile.TemporaryDirectory() as d:  # align, two records, 24 bp FASTQ read
         if s + 24 <= 600 or s >= 600:  # inside one record: placed at its origin
             assert primary[f"a{i}"][1:4] == ["0", "c1" if s < 600 else "c2", str(s + 1 - 600 * (s >= 600))]
     assert header.count("@SQ") == 2
+    import contextlib, io
+    import tpufm_torch.tools, tpufm_torch.host.bam_index, tpufm_torch.host.faidx
+    import tpufm_torch.host.layouts, tpufm_torch.host.stream
+    from tpufm_torch.host.formats import read_fmi, write_fmi
+    from tpufm_torch.host.seqio import write_reads_fasta
+
+    def cli_out(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            run = tpufm_torch.cli.main(argv)
+        return run, buf.getvalue()
+
+    srt = os.path.join(d, "s.bam")  # sort, then a region through the .bai
+    cli_out(["sort", out, "--output", srt])
+    assert os.path.exists(srt + ".bai")
+    region = [x.split("\t") for x in cli_out(["view", srt, "c1:100-300", "--no-header"])[1].splitlines()]
+    want = [r for r in records if r[2] == "c1" and int(r[3]) <= 300 and int(r[3]) + 23 >= 100]
+    assert sorted(region) == sorted(want) and region
+    _, fa_out = cli_out(["faidx", fa, "c2:5-30"])  # faidx
+    assert fa_out == ">c2:5-30\n" + decode_bases(codes[604:630]).decode() + "\n"
+    fmi = os.path.join(d, "i.fmi")  # transform, then a search of its alternate-counters image
+    write_fmi(fmi, index)
+    cli_out(["transform", fmi])
+    assert np.array_equal(SearchEngine(read_fmi(fmi + ".ac")[0], "cpu", lut_m=6).search(queries), res)
+    qry, rres = os.path.join(d, "q.qry"), os.path.join(d, "q.res")  # search --resume, crashed, then resumed
+    write_reads_fasta(qry, queries)
+    SearchEngine.WAVE = 8
+    real, left = SearchEngine.search, [1]
+
+    def crashing(self, *a, **kw):
+        if not left[0]:
+            raise RuntimeError("simulated crash")
+        left[0] -= 1
+        return real(self, *a, **kw)
+
+    SearchEngine.search = crashing
+    try:
+        cli_out(["search", fmi, qry, "24", "20", "--resume", "--device", "cpu", "--output", rres])
+        raise AssertionError("no crash")
+    except RuntimeError:
+        pass
+    SearchEngine.search = real
+    assert os.path.exists(rres + ".progress")
+    run, _ = cli_out(["search", fmi, qry, "24", "20", "--resume", "--device", "cpu", "--output", rres])
+    assert np.array_equal(run.results, search_oracle(index, queries)) and not os.path.exists(rres + ".partial")
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpufm")]
 print(json.dumps(res.tolist()))
 """

@@ -1,14 +1,16 @@
-"""Command line of the port on one device: build, genreads, search, count,
-locate, align and bench.
+"""Command line of the port on one device: build, genreads, transform,
+search, count, locate, align, bench, the host-only SAM/BAM tools and faidx
+(tpufm_torch.tools) and the debug commands dumpentry, diff and dumpbwt.
 
     python -m tpufm_torch.cli build REF REFSIZE [--k K] [--d D] [--auto]
         [--output OUT.fmi|.npz|.tpufm] [--sa auto|native|doubling|device]
         [--on-device] [--tail] [--save-ref] [--device cuda|cpu]
     python -m tpufm_torch.cli genreads REF REFSIZE LENGTH NUM [--seed S]
         [--output OUT] [--paired] [--insert-min A] [--insert-max B]
+    python -m tpufm_torch.cli transform INDEX.fmi [--layouts L ...]
     python -m tpufm_torch.cli search INDEX QUERIES L N [--lut M] [--tail PATH]
         [--rc] [--iterations I] [--output OUT] [--device cuda|cpu]
-        [--engine xla|pallas]
+        [--engine xla|pallas] [--resume]
     python -m tpufm_torch.cli count INDEX QUERIES L N [--mismatches 0|1]
         [--lut M] [--tail PATH] [--rc] [--iterations I] [--output OUT]
         [--device cuda|cpu]
@@ -17,7 +19,7 @@ locate, align and bench.
         [--mismatches M | --edits E] [--seed-hits H] [--paired R2.qry
         [--insert-min A] [--insert-max B] [--max-pairs P]]
         [--sam | --bam | --contigs] [--store PREFIX] [--from-store PREFIX]
-        [--on-device] [--output OUT] [--device cuda|cpu]
+        [--on-device] [--resume] [--output OUT] [--device cuda|cpu]
     python -m tpufm_torch.cli align REF READS [-2 R2] [-o OUT] [--bam]
         [--mismatches M | --edits E] [--store PREFIX | --from-store PREFIX]
         [--on-device]
@@ -29,6 +31,9 @@ locate, align and bench.
         [--seed-hits H] [--paired [--insert-min A] [--insert-max B]]
         [--genome] [--locate [--fused]] [--max-hits H] [--sample-rate S]
         [--device cuda|cpu]
+    python -m tpufm_torch.cli dumpentry INDEX ENTRY [--num N]
+    python -m tpufm_torch.cli diff A.res B.res
+    python -m tpufm_torch.cli dumpbwt REF REFSIZE [--k K]
 
 Counterparts of ``tpufm build`` (``cmd_build``, tpufm/cli.py:54, on the
 host or with --on-device on the card: one suffix sort serves the index and
@@ -57,7 +62,13 @@ the same way, share the ``<index>.lut<M>.npz`` LUT cache, print the same
 ``TIME:`` line (search and count: mean seconds per pass after one warm-up
 pass) and write byte-identical ``.res``, ``.cnt``, ``.pos``, ``.pairs``,
 SAM and BAM files (minus-strand results of ``--rc`` in ``<out>.rc``).
-``--device`` defaults to cuda and never falls back to the CPU.
+``search --resume`` and ``locate --resume`` (exact positions only) stream
+the reads in waves checkpointed beside the output (tpufm_torch.host.stream,
+tpufm/cli.py:365-376, :1071-1093), and continue a killed run, also one of
+tpufm's. ``transform`` (:158) writes the interleaved and alternate-counters
+images of a baseline .fmi; ``dumpentry`` (:707), ``diff`` (:1871) and
+``dumpbwt`` (:1888) print as tpufm's do. ``--device`` defaults to cuda and
+never falls back to the CPU; the host-only commands take no --device.
 """
 
 from __future__ import annotations
@@ -71,7 +82,7 @@ import time
 
 import numpy as np
 
-from tpufm_torch import bench
+from tpufm_torch import bench, tools
 from tpufm_torch.config import recommend_config
 from tpufm_torch.device import resolve_device
 from tpufm_torch.engine.edit import EditExtendEngine
@@ -81,10 +92,18 @@ from tpufm_torch.engine.paired import PairedEndEngine
 from tpufm_torch.engine.search import SearchEngine
 from tpufm_torch.engine.search_locate import SearchLocateEngine
 from tpufm_torch.engine.seed import SeedExtendEngine
-from tpufm_torch.host.bam import bgzf_compress, read_bam, sam_to_bam
+from tpufm_torch.host.bam import bgzf_compress, read_sam_or_bam, sam_to_bam
 from tpufm_torch.host.contigs import ContigMap, read_contigs
 from tpufm_torch.host.formats import load_npz, load_store, read_fmi, save_npz, save_store, write_fmi
-from tpufm_torch.host.index import AltCountersIndex, IndexConfig, KStepFMIndex, build_index, derive_tail
+from tpufm_torch.host.index import (
+    AltCountersIndex,
+    IndexConfig,
+    KStepFMIndex,
+    Layout,
+    build_index,
+    derive_bwts,
+    derive_tail,
+)
 from tpufm_torch.host.locate import build_locate
 from tpufm_torch.host.sam import sam_edit_records, sam_header, sam_paired_records, sam_single_records
 from tpufm_torch.host.seqio import (
@@ -95,6 +114,7 @@ from tpufm_torch.host.seqio import (
     generate_reads,
     load_queries,
     load_queries_varlen,
+    load_results,
     load_query_names,
     load_query_names_packed,
     load_query_quals,
@@ -107,6 +127,7 @@ from tpufm_torch.host.seqio import (
     write_reference,
     write_results,
 )
+from tpufm_torch.host.stream import locate_resumable, search_resumable
 from tpufm_torch.host.suffix_array import suffix_array
 from tpufm_torch.index.builder_device import build_index_device, build_locate_device
 from tpufm_torch.index.sa_device import suffix_array_device_arr, upload_text
@@ -263,7 +284,16 @@ def cmd_search(args) -> SearchRun:
     B = queries.shape[0]
     if args.rc:
         queries = rc_expand(queries)
-    res, dt = _timed(lambda: engine.search(queries, step=step), args.iterations)
+    if args.resume:
+        # checkpointed stream: a killed run re-invoked with the same
+        # arguments continues after its last completed wave; TIME: is the
+        # waves' search seconds, the checkpoint writes left out
+        stats: dict = {}
+        res = search_resumable(engine, queries, out, stats=stats, step=step)
+        dt = stats["search_s"]
+        print(f"TIME: \t {dt}")
+    else:
+        res, dt = _timed(lambda: engine.search(queries, step=step), args.iterations)
     emit_strands(out, res, B, write_results)
     return SearchRun(engine, res, dt)
 
@@ -386,6 +416,9 @@ def cmd_locate(args) -> LocateRun | PairRun | SamRun:
                  "only) are different distance models; pass one")
     if args.sam and args.rc:
         sys.exit("--sam reports both strands by definition; drop --rc")
+    if args.resume and (args.sam or args.paired or args.mismatches or args.edits):
+        sys.exit("locate --resume covers exact position output; drop "
+                 "--sam/--paired/--mismatches/--edits")
     device = resolve_device(args.device)
     stages = Stages()
     with stages("tables"):
@@ -420,11 +453,14 @@ def cmd_locate(args) -> LocateRun | PairRun | SamRun:
             kind = "site" if args.edits else "hit"
             print(f"warning: {int(overflow.sum())} reads hit the seed-hits={args.seed_hits} cap; "
                   f"their {kind} lists are lower bounds")
-    elif args.mismatches or args.fused:
+    elif args.mismatches or args.fused or args.resume:
         engine = SearchLocateEngine(index, loc, device, max_hits=args.max_hits, lut_m=args.lut)
         t0 = time.perf_counter()
         if args.mismatches:
             pos = engine.locate_mismatch(queries)
+        elif args.resume:
+            # wave-checkpointed exact locate on the fused engine
+            pos = locate_resumable(engine, queries, args.output or f"{args.queries}.pos")
         else:
             intervals, pos = engine.search_locate(queries)
         seconds = time.perf_counter() - t0
@@ -502,18 +538,6 @@ def write_sam_or_bam(path: str, sam_text: str, as_bam: bool, stages: Stages) -> 
     else:
         with stages("write"), open(path, "w") as fp:
             fp.write(sam_text)
-
-
-def read_sam_or_bam(path: str) -> str:
-    """SAM text from a SAM or a BAM file, told apart by the bgzf magic
-    (tpufm/cli.py:1494)."""
-    with open(path, "rb") as fp:
-        magic = fp.read(4)
-    if magic == b"\x1f\x8b\x08\x04":
-        header, records = read_bam(path)
-        return header + "".join("\t".join(r) + "\n" for r in records)
-    with open(path) as fp:
-        return fp.read()
 
 
 def locate_sam(args, index, loc, codes, queries: np.ndarray, device, stages: Stages) -> SamRun:
@@ -681,7 +705,7 @@ def cmd_align(args) -> SamRun:
         from_store=args.from_store, rc=False, mismatches=args.mismatches, edits=args.edits,
         seed_hits=args.seed_hits, paired=args.paired, insert_min=args.insert_min, insert_max=args.insert_max,
         max_pairs=args.max_pairs, lut=lut, sam=True, bam=args.bam, contigs=False, output=args.output,
-        device=args.device, on_device=args.on_device,
+        device=args.device, on_device=args.on_device, resume=False,
     )
     if args.paired and pair_mixed:
         return _align_paired_grouped(args, ns, device)
@@ -917,6 +941,69 @@ def cmd_genreads(args) -> None:
     print(f"wrote {out} ({args.num} reads x {args.length} bp)")
 
 
+def cmd_transform(args) -> None:
+    """Write the alternate layouts of a baseline .fmi (tpufm/cli.py:158):
+    ``<index>.interleaving`` (tag 101), ``.ac`` (200) and
+    ``.interleaving.ac`` (201), the reference's tfmiBMP and tfmiAC steps."""
+    index, layout = read_fmi(args.index)
+    if layout != Layout.BASELINE:
+        sys.exit("transform expects a tag-100 baseline .fmi")
+    for name in args.layouts:
+        target = Layout(name)
+        suffix = {
+            Layout.INTERLEAVED: ".interleaving",
+            Layout.ALT_COUNTERS: ".ac",
+            Layout.INTERLEAVED_ALT_COUNTERS: ".interleaving.ac",
+        }[target]
+        out = args.index + suffix
+        write_fmi(out, index, target)
+        print(f"wrote {out}")
+
+
+def cmd_dumpentry(args) -> None:
+    """Print entries' counters and bitmap words, the transforms' debug mode
+    (tpufm/cli.py:707): the stored half rows ``occ_slim`` of an
+    alternate-counters image, else the full counter rows."""
+    index = load_index(args.index)
+    if isinstance(index, AltCountersIndex):
+        occ, base = index.occ_slim, index.base
+        label = "counters (slim half)"
+    else:
+        occ, base = index.occ, index
+        label = "counters"
+    for e in range(args.entry, min(args.entry + args.num, base.nentries + 1)):
+        print(f"entry {e}:")
+        print(f"  {label}:", occ[e].tolist())
+        for lvl in range(base.config.k):
+            for plane in range(2):
+                words = [f"{w:08x}" for w in base.bitmaps[e, lvl, plane]]
+                print(f"  bwt{lvl} plane{plane}: {' '.join(words)}")
+
+
+def cmd_diff(args) -> None:
+    """Compare two .res files (tpufm/cli.py:1871): ``IDENTICAL: n
+    intervals``, else the first differing queries and a non-zero exit."""
+    a = load_results(args.a)
+    b = load_results(args.b)
+    if a.shape != b.shape:
+        sys.exit(f"DIFFER: {a.shape[0]} vs {b.shape[0]} results")
+    bad = np.flatnonzero((a != b).any(axis=1))
+    if bad.size:
+        for i in bad[:10]:
+            print(f"  query {i}: {a[i].tolist()} vs {b[i].tolist()}")
+        sys.exit(f"DIFFER: {bad.size}/{a.shape[0]} intervals mismatch")
+    print(f"IDENTICAL: {a.shape[0]} intervals")
+
+
+def cmd_dumpbwt(args) -> None:
+    """Print the k BWT strings of a reference (tpufm/cli.py:1888)."""
+    codes = read_reference(args.reference, args.refsize)
+    bwts, dollar_pos = derive_bwts(codes, args.k)
+    for i, (s, dp) in enumerate(zip(bwts, dollar_pos)):
+        print(f"BWT{i} dollarPosition={dp}")
+        print(s.decode())
+
+
 def cmd_bench(args) -> dict:
     """One bench record (tpufm_torch.bench), printed as one JSON line, by
     tpufm's dispatch (tpufm/cli.py:508): --genome, --mismatches 1,
@@ -1060,11 +1147,20 @@ def main(argv=None):
     g.add_argument("--insert-max", type=int, default=600, help="--paired: largest fragment length")
     g.set_defaults(fn=cmd_genreads)
 
+    t = sub.add_parser("transform", help="emit alternate index layouts")
+    t.add_argument("index")
+    t.add_argument("--layouts", nargs="+",
+                   default=["interleaved", "alt_counters", "interleaved_alt_counters"])
+    t.set_defaults(fn=cmd_transform)
+
     s = sub.add_parser("search", help="batch exact backward search")
     _add_io(s, iterations=5)
     s.add_argument("--engine", default="xla", choices=["xla", "pallas"],
                    help="xla: K1 loads its own rows; pallas: rows gathered "
                         "by torch indexing, then K1 on the gathered rows")
+    s.add_argument("--resume", action="store_true",
+                   help="checkpoint each wave; a re-run with the same "
+                        "arguments continues after a crash")
     s.set_defaults(fn=cmd_search)
 
     c = sub.add_parser("count", help="occurrence counts per read (exact or <=1 mismatch)")
@@ -1130,6 +1226,9 @@ def main(argv=None):
                          "ignored (pass '-' 0)")
     lc.add_argument("--on-device", action="store_true",
                     help="build the index and the locate tables on --device (one device suffix sort)")
+    lc.add_argument("--resume", action="store_true",
+                    help="checkpoint each completed wave next to the output; a killed run "
+                         "re-invoked with the same arguments continues (exact positions only)")
     lc.add_argument("--output", default=None)
     _add_device(lc)
     lc.set_defaults(fn=cmd_locate)
@@ -1209,6 +1308,24 @@ def main(argv=None):
                     help="device count for --locate: 1 (more is not ported)")
     _add_device(be)
     be.set_defaults(fn=cmd_bench)
+
+    tools.add_parsers(sub)
+    de = sub.add_parser("dumpentry", help="print entry counters/bitmaps (debug)")
+    de.add_argument("index")
+    de.add_argument("entry", type=int)
+    de.add_argument("--num", type=int, default=1)
+    de.set_defaults(fn=cmd_dumpentry)
+
+    df = sub.add_parser("diff", help="compare two .res interval files")
+    df.add_argument("a")
+    df.add_argument("b")
+    df.set_defaults(fn=cmd_diff)
+
+    db = sub.add_parser("dumpbwt", help="print the k BWT strings (debug)")
+    db.add_argument("reference")
+    db.add_argument("refsize", type=int)
+    db.add_argument("--k", type=int, default=2)
+    db.set_defaults(fn=cmd_dumpbwt)
     args = p.parse_args(argv)
     return args.fn(args)
 

@@ -2,7 +2,8 @@
 
 Counterpart of tpufm/io/bam.py (``reg2bin`` :52, ``bgzf_compress`` :74,
 ``bgzf_member_at``, ``bgzf_decompress``, the tag and CIGAR codecs,
-``sam_to_bam`` :312, ``write_bam`` :353, ``read_bam`` :358), byte for byte:
+``sam_to_bam`` :312, ``write_bam`` :353, ``read_bam`` :358) and of
+``_read_sam_or_bam`` (tpufm/cli.py:1494), byte for byte:
 the same SAM text and the same deflate level (``TPUFM_BGZF_LEVEL``, read as
 tpufm reads it) give the same BAM bytes. BAM is made by encoding the SAM
 text that ``host/sam.py`` writes, so one implementation decides the
@@ -62,8 +63,8 @@ def reg2bin(beg: int, end: int) -> int:
 
 
 #: fixed uncompressed bytes per bgzf member: the virtual offsets of a BAI
-#: index (tpufm/io/bam_index.py, whose port is queued) depend on every member
-#: but the last holding exactly this many
+#: index (host/bam_index.py) depend on every member but the last holding
+#: exactly this many
 BGZF_STEP = 0xE000
 
 
@@ -248,7 +249,7 @@ def _parse_cigar(cigar: str) -> list[tuple[int, int]]:
 
 def _encode_record(fields: list[str], ref_ids: dict[str, int]):
     """-> (record bytes, (ref_id, pos0, ref_end)) — the placement triple
-    feeds a BAI builder (tpufm/io/bam_index.py); ref_end is reg2bin's
+    feeds the BAI builder (host/bam_index.py); ref_end is reg2bin's
     half-open end (pos0 + max(reference span, 1))."""
     (qname, flag, rname, pos, mapq, cigar, rnext, pnext, tlen, seq,
      qual) = fields[:11]
@@ -312,7 +313,7 @@ def sam_to_bam(sam_text: str, record_meta: list | None = None) -> bytes:
 
     When `record_meta` is given it is filled with one
     (ustart, uend, ref_id, pos0, ref_end) tuple per record — uncompressed
-    byte extent plus placement — for a BAI builder (tpufm/io/bam_index.py)."""
+    byte extent plus placement — for the BAI builder (host/bam_index.py)."""
     header_lines = []
     refs: list[tuple[str, int]] = []
     records = []
@@ -407,3 +408,15 @@ def read_bam(path: str):
         ] + _decode_tags(rec[p:])
         records.append(fields)
     return text, records
+
+
+def read_sam_or_bam(path: str) -> str:
+    """SAM text from a SAM or a BAM file, told apart by the bgzf magic
+    (tpufm/cli.py:1494)."""
+    with open(path, "rb") as fp:
+        magic = fp.read(4)
+    if magic == b"\x1f\x8b\x08\x04":
+        header, records = read_bam(path)
+        return header + "".join("\t".join(r) + "\n" for r in records)
+    with open(path) as fp:
+        return fp.read()

@@ -18,8 +18,8 @@ image as an ``AltCountersIndex`` around it). For an alternate-counters image
 with an even number of entries and a partial last block, tpufm's reader
 carries the last block's padding into the logical counters of the last
 entry and the sentinel (k-mer 0); this reader does not, so the logical index
-equals the one the image was written from. ``write_fmi`` writes tags 100
-and 101; alternate-counters images are written by tpufm.
+equals the one the image was written from. ``write_fmi`` writes all four
+tags.
 """
 
 from __future__ import annotations
@@ -37,24 +37,38 @@ from tpufm_torch.host.index import (
     Layout,
     c_array,
 )
+from tpufm_torch.host.layouts import deinterleave_bitmap_words, interleave_bitmap_words, make_alt_counters
 from tpufm_torch.host.locate import LocateIndex
 
 _U32 = np.dtype("<u4")
 
 
 def write_fmi(path, index: KStepFMIndex, layout: Layout = Layout.BASELINE) -> None:
-    """An .fmi image of ``index`` with tag 100 (baseline) or 101 (interleaved)."""
-    if layout.has_slim_counters:
-        raise ValueError(f"write_fmi writes tags 100 and 101, not {layout.fmi_tag}")
+    """An .fmi image of ``index`` in any of the four layouts: tag 100
+    (baseline), 101 (interleaved), 200 (alternate counters) or 201
+    (interleaved alternate counters), byte-identical to tpufm's
+    (tpufm/index/formats.py:56-84). Tags 200/201 take the reference's
+    appended-entry arithmetic (``make_alt_counters(reference_semantics=True)``)
+    and one all-zero appended bitmap row."""
     cfg, E = index.config, index.nentries
     bm = index.bitmaps[:E]
     if layout.interleaved:
-        bm = np.moveaxis(bm, -1, -3)  # [E, nb, k, 2]
-    head = [layout.fmi_tag, cfg.k, index.bwtsize, cfg.num_counters, E, cfg.d]
-    head += [int(x) for x in index.dollar_pos] + [int(x) for x in index.dollar_base]
+        bm = interleave_bitmap_words(bm)
+    bm = bm.reshape(E, -1)
+    head = [layout.fmi_tag, cfg.k, index.bwtsize]
+    if layout.has_slim_counters:
+        S = cfg.num_slim_counters
+        entries = np.zeros((E + 1, S + cfg.bitmap_words), dtype=_U32)
+        entries[:, :S] = make_alt_counters(index, reference_semantics=True).occ_slim[:E + 1]
+        entries[:E, S:] = bm
+        head += [S, E + 1]
+    else:
+        entries = np.concatenate([bm, index.occ[:E]], axis=1).astype(_U32)
+        head += [cfg.num_counters, E]
+    head += [cfg.d] + [int(x) for x in index.dollar_pos] + [int(x) for x in index.dollar_base]
     with open(path, "wb") as fp:
         np.asarray(head, dtype=_U32).tofile(fp)
-        np.concatenate([bm.reshape(E, -1), index.occ[:E]], axis=1).astype(_U32).tofile(fp)
+        entries.tofile(fp)
 
 
 def read_fmi(path) -> tuple[KStepFMIndex | AltCountersIndex, Layout]:
@@ -76,7 +90,7 @@ def read_fmi(path) -> tuple[KStepFMIndex | AltCountersIndex, Layout]:
     nb = cfg.words_per_plane
     bitmaps = np.zeros((E + 1, k, 2, nb), dtype=np.uint32)
     if layout.interleaved:
-        bitmaps[:E] = np.moveaxis(bm.reshape(E, nb, k, 2), -3, -1)
+        bitmaps[:E] = deinterleave_bitmap_words(bm.reshape(E, nb, k, 2))
     else:
         bitmaps[:E] = bm.reshape(E, k, 2, nb)
     index = KStepFMIndex(

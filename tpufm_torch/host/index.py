@@ -2,7 +2,7 @@
 
 Counterparts of tpufm/config.py (``Layout`` :15, ``IndexConfig`` :59),
 tpufm/index/builder.py (``KStepFMIndex`` :50, ``normalize_reference``
-:95, ``build_index`` :106, ``derive_tail`` :225) and the ``AltCountersIndex`` record of
+:95, ``build_index`` :106, ``derive_tail`` :225, ``derive_bwts`` :290) and the ``AltCountersIndex`` record of
 tpufm/index/layouts.py:30. The arrays are bit-identical to tpufm's:
 
   occ      uint32 [E+1, 4^k]: per block, C[c] plus the '$'-exclusive count
@@ -24,7 +24,7 @@ import enum
 import numpy as np
 
 from tpufm_torch.host.bitplanes import block_kmer_counts
-from tpufm_torch.host.seqio import encode_bases
+from tpufm_torch.host.seqio import decode_bases, encode_bases
 from tpufm_torch.host.suffix_array import suffix_array
 
 
@@ -256,3 +256,25 @@ def derive_tail(index: KStepFMIndex) -> KStepFMIndex:
         dollar_base=np.asarray([0], dtype=np.uint32),
     )
 
+
+
+def derive_bwts(codes: np.ndarray, k: int, sa: np.ndarray | None = None):
+    """The k BWT level strings (bytes, '$' at each level's '$' position) and
+    the '$' positions: the debugging view ``dumpbwt`` prints (the
+    reference's INDEX_DGB=1 dump). Not used by the search path."""
+    codes = np.asarray(codes, dtype=np.uint8)
+    bwtsize = codes.shape[0] + 1
+    if sa is None:
+        sa = suffix_array(codes)
+    dollar_pos = np.empty(k, dtype=np.int64)
+    small = np.flatnonzero(sa < k)
+    dollar_pos[sa[small]] = small
+    t_codes = np.concatenate([codes, np.zeros(1, np.uint8)])
+    bwts = []
+    for i in range(k):
+        prev = sa - (1 + i)
+        prev[prev < 0] += bwtsize
+        s = bytearray(decode_bases(t_codes[prev]))
+        s[dollar_pos[i]] = ord("$")
+        bwts.append(bytes(s))
+    return bwts, dollar_pos

@@ -6,7 +6,7 @@ tpufm/io/fasta.py (``read_reference`` :37, ``write_reference`` :65,
 ``PackedStrs`` :203, ``load_query_names[_packed]`` :298 / :243,
 ``load_query_quals[_packed]`` :262 / :251), tpufm/io/genreads.py
 (``generate_reads`` :13, ``generate_read_pairs`` :30, ``write_reads_fasta`` :92) and tpufm/io/results.py
-(``write_results`` :10).
+(``write_results`` :10, ``load_results`` :18).
 """
 
 from __future__ import annotations
@@ -364,3 +364,10 @@ def write_results(path, intervals: np.ndarray) -> None:
     with open(path, "wb") as fp:
         fp.write(f"{intervals.shape[0]}\n".encode())
         np.savetxt(fp, intervals, fmt="%u %u")
+
+
+def load_results(path) -> np.ndarray:
+    """uint32 [n, 2] intervals of a .res file (``write_results``' format)."""
+    with open(path) as fp:
+        n = int(fp.readline())
+        return np.loadtxt(fp, dtype=np.uint32, max_rows=n).reshape(n, 2)
