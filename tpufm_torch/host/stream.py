@@ -13,8 +13,10 @@ continues the other's.
 
 The sidecar carries a fingerprint: the CRC32 of the query bytes and of the
 index's ``(bwtsize, k, d)``, then of the row width. A re-invocation against
-other reads, or another index of the same size, restarts from zero instead
-of splicing stale waves into the result. tpufm's engines hold k and d in
+other reads, or an index of another size, k or d, restarts from zero
+instead of splicing stale waves into the result (as in tpufm, the text
+itself is not hashed, so another text of the same size, k and d is not
+told apart). tpufm's engines hold k and d in
 ``.config``; the port's ``SearchEngine`` holds them as attributes, and
 ``SearchLocateEngine`` in its ``search_engine``, from which the same triple
 is read.
@@ -58,15 +60,14 @@ def search_resumable(engine, queries: np.ndarray, out_path, wave: int | None = N
     """Stream ``queries`` through ``engine.search`` wave by wave,
     checkpointing to ``<out_path>.partial`` / ``.progress``. Returns the
     full uint32 [B, 2] result (waves completed by an earlier run read back
-    from the checkpoint). ``step`` goes on to ``engine.search`` when given.
+    from the checkpoint). ``step`` goes on to ``engine.search``.
 
     If ``stats`` is given, ``stats['search_s']`` gets the search seconds of
     this invocation, checkpoint writes excluded: the number ``TIME:``
     reports. Each wave's result is on the host when its clock stops.
     """
-    kw = {} if step is None else {"step": step}
     return _stream_resumable(
-        lambda chunk: np.asarray(engine.search(chunk, **kw), dtype=np.uint32),
+        lambda chunk: np.asarray(engine.search(chunk, step=step), dtype=np.uint32),
         engine, queries, out_path, 2, wave, stats,
     )
 
