@@ -249,7 +249,7 @@ def _parse_cigar(cigar: str) -> list[tuple[int, int]]:
 
 def _encode_record(fields: list[str], ref_ids: dict[str, int]):
     """-> (record bytes, (ref_id, pos0, ref_end)) — the placement triple
-    feeds the BAI builder (host/bam_index.py); ref_end is reg2bin's
+    feeds ``build_bai`` (host/bam_index.py); ref_end is reg2bin's
     half-open end (pos0 + max(reference span, 1))."""
     (qname, flag, rname, pos, mapq, cigar, rnext, pnext, tlen, seq,
      qual) = fields[:11]
@@ -313,7 +313,7 @@ def sam_to_bam(sam_text: str, record_meta: list | None = None) -> bytes:
 
     When `record_meta` is given it is filled with one
     (ustart, uend, ref_id, pos0, ref_end) tuple per record — uncompressed
-    byte extent plus placement — for the BAI builder (host/bam_index.py)."""
+    byte extent plus placement — for ``build_bai`` (host/bam_index.py)."""
     header_lines = []
     refs: list[tuple[str, int]] = []
     records = []

@@ -85,7 +85,7 @@ def locate_resumable(engine, queries: np.ndarray, out_path, wave: int | None = N
 
 
 def _stream_resumable(run, engine, queries, out_path, row_words, wave, stats):
-    """The wave-checkpointed driver: run(chunk) -> uint32 [len(chunk),
+    """The wave-checkpointed loop: run(chunk) -> uint32 [len(chunk),
     row_words]; rows append to .partial, with an atomically replaced
     .progress sidecar (fingerprinted, safe against a torn write)."""
     wave = wave or _default_wave(engine)
