@@ -148,9 +148,13 @@ with tempfile.TemporaryDirectory() as d:  # align, two records, 24 bp FASTQ read
     fmi = os.path.join(d, "i.fmi")  # transform, then a search of its alternate-counters image
     write_fmi(fmi, index)
     cli_out(["transform", fmi])
-    assert np.array_equal(SearchEngine(read_fmi(fmi + ".ac")[0], "cpu", lut_m=6).search(queries), res)
-    qry, rres = os.path.join(d, "q.qry"), os.path.join(d, "q.res")  # search --resume, crashed, then resumed
+    qry, rres = os.path.join(d, "q.qry"), os.path.join(d, "q.res")
     write_reads_fasta(qry, queries)
+    # the .ac image on its slim counters (no LUT: tpufm refuses one there)
+    run, _ = cli_out(["search", fmi + ".ac", qry, "24", "20", "--engine", "xla-ac", "--iterations", "1",
+                      "--device", "cpu", "--output", os.path.join(d, "ac.res")])
+    assert run.engine.alt_counters and np.array_equal(run.results, res)
+    # search --resume, crashed, then resumed
     SearchEngine.WAVE = 8
     real, left = SearchEngine.search, [1]
 

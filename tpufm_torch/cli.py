@@ -104,6 +104,7 @@ from tpufm_torch.host.index import (
     derive_bwts,
     derive_tail,
 )
+from tpufm_torch.host.layouts import make_alt_counters
 from tpufm_torch.host.locate import build_locate
 from tpufm_torch.host.sam import sam_edit_records, sam_header, sam_paired_records, sam_single_records
 from tpufm_torch.host.seqio import (
@@ -257,6 +258,37 @@ def load_tail(index, index_path: str, qrysize: int, tail_path: str | None):
     return derive_tail(index)
 
 
+def search_engine(index, args, device, tail):
+    """(engine, step) of ``search --engine`` on one device, as tpufm's
+    ``_make_engine`` (tpufm/cli.py:390-470) builds it: xla (the fused layout,
+    ``--pad-words``; an alternate-counters image searched on its slim
+    counters), xla-ac (a baseline index made alternate-counters), xla-paired
+    (needs ``--lut``), pallas (the fused layout of the index's base, rows
+    gathered by torch indexing: ``step`` ``lf_round_indexed``)."""
+    if tail is not None and args.engine in ("pallas", "xla-ac"):
+        sys.exit(
+            "any-length queries (tail index) are supported by --engine "
+            "xla/xla-paired (single-chip, --mesh N, or --sharded); pad "
+            "reads to a multiple of k for pallas/xla-ac"
+        )
+    if args.mesh is not None or args.sharded:
+        sys.exit("search --mesh / --sharded: multi-GPU search is not ported yet (ROADMAP Queue 1 "
+                 "item 6); drop them to search on one device")
+    lut_cache = f"{args.index}.lut{args.lut}.npz" if args.lut else None
+    if args.engine == "pallas":
+        base = getattr(index, "base", index)
+        return SearchEngine(base, device, lut_m=args.lut, lut_cache=lut_cache), lf_round_indexed
+    if args.engine == "xla-ac" and isinstance(index, KStepFMIndex):
+        index = make_alt_counters(index)
+    if args.engine == "xla-paired":
+        if not args.lut:
+            sys.exit("--engine xla-paired requires --lut M (e.g. --lut 12)")
+        return SearchEngine(index, device, layout="paired", lut_m=args.lut, lut_cache=lut_cache,
+                            tail_index=tail), None
+    return SearchEngine(index, device, lut_m=args.lut, lut_cache=lut_cache, pad_words=args.pad_words,
+                        tail_index=tail), None
+
+
 def cmd_search(args) -> SearchRun:
     device = resolve_device(args.device)
     index = load_index(args.index)
@@ -265,20 +297,7 @@ def cmd_search(args) -> SearchRun:
         load_queries(args.queries, args.qrysize, args.numqueries), np.uint8, ["C", "W"]
     )
     tail = load_tail(index, args.index, args.qrysize, args.tail)
-    if tail is not None and args.engine == "pallas":
-        sys.exit(
-            "any-length queries (tail index) are supported by --engine "
-            "xla/xla-paired (single-chip, --mesh N, or --sharded); pad "
-            "reads to a multiple of k for pallas/xla-ac"
-        )
-    step = lf_round_indexed if args.engine == "pallas" else None
-    engine = SearchEngine(
-        index,
-        device,
-        lut_m=args.lut,
-        lut_cache=f"{args.index}.lut{args.lut}.npz" if args.lut else None,
-        tail_index=tail,
-    )
+    engine, step = search_engine(index, args, device, tail)
     out = args.output or f"{args.index}.res.{'gpu' if device.type == 'cuda' else 'cpu'}"
 
     B = queries.shape[0]
@@ -1155,9 +1174,15 @@ def main(argv=None):
 
     s = sub.add_parser("search", help="batch exact backward search")
     _add_io(s, iterations=5)
-    s.add_argument("--engine", default="xla", choices=["xla", "pallas"],
-                   help="xla: K1 loads its own rows; pallas: rows gathered "
-                        "by torch indexing, then K1 on the gathered rows")
+    s.add_argument("--engine", default="xla", choices=["xla", "xla-ac", "xla-paired", "pallas"],
+                   help="xla: K1 loads its own rows (K8 on an alternate-counters image); "
+                        "xla-ac: K8 on the alternate counters; xla-paired: K1's paired "
+                        "entry (needs --lut); pallas: rows gathered by torch indexing, then "
+                        "K1 on the gathered rows")
+    s.add_argument("--pad-words", type=int, default=None,
+                   help="pad every fused row to this many words")
+    s.add_argument("--mesh", type=int, default=None, metavar="N", help="not ported (multi-GPU)")
+    s.add_argument("--sharded", action="store_true", help="not ported (multi-GPU)")
     s.add_argument("--resume", action="store_true",
                    help="checkpoint each wave; a re-run with the same "
                         "arguments continues after a crash")

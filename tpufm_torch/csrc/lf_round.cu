@@ -12,7 +12,7 @@
 //            and iv > dollar_pos[i]
 //   out    = row[2k*nb + (code mod 4^k)] + count          (mod 2^32)
 //
-// Three entries share one round body (lf_round.cuh, which K4's LF(1) hop in
+// Four entries share one round body (lf_round.cuh, which K4's LF(1) hop in
 // locate_walk.cu shares too):
 //   tpufm_lf_round_pairs  the engine's: one thread per read, iv [n, 2] and
 //                         one code per read. Both ends of a read take the
@@ -28,6 +28,15 @@
 //                         beforehand (by K3, row_gather.cu, or by torch
 //                         indexing) and may carry padding past the
 //                         counters, as XLAEngine(gather="dma") rows do.
+//   tpufm_lf_round_paired the paired layout's round (lf_step_paired,
+//                         tpufm/engine/xla.py:128-176): one thread per read,
+//                         the row pair at lo's block of the paired table
+//                         (row i = fused rows i and i+1, each W words);
+//                         hi's row is the second half where hi's block is
+//                         lo's + 1, else the first (wrong for a wider
+//                         interval, as in tpufm), and ok = hi's block -
+//                         lo's block <= 1 (mod 2^32) flags the reads the
+//                         engine searches again on the fused table.
 // The ragged edge is masked here, so any n works (the TPU version padded to
 // a 2048-end tile).
 //
@@ -55,7 +64,6 @@
 // Table words arrive as int32 tensors holding the uint32 bits.
 
 #include <cstdint>
-#include <type_traits>
 #include <cuda_runtime.h>
 
 #include "lf_round.cuh"
@@ -65,14 +73,7 @@ namespace {
 using tpufm::LoadCached;
 using tpufm::LoadStreaming;
 using tpufm::lf_rounds;
-using tpufm::stage_stride;
-
-// The warp's slot of the block's shared memory for its staged rows.
-template <int K>
-__device__ __forceinline__ uint32_t* warp_stage(int nb) {
-  extern __shared__ uint4 staged[];
-  return reinterpret_cast<uint32_t*>(staged) + (threadIdx.x & ~31) * stage_stride(2 * K * nb);
-}
+using tpufm::warp_stage;
 
 template <int K, int V>
 __global__ void lf_round_kernel(const uint32_t* __restrict__ entries,
@@ -135,42 +136,32 @@ __global__ void lf_round_pairs_kernel(const uint32_t* __restrict__ entries,
   }
 }
 
-// f(K, V) as integral constants, for k in [1, 8] and v in {1, 4}.
-template <int K, class F>
-int with_v(int v, F& f) {
-  if (v == 4) return f(std::integral_constant<int, K>{}, std::integral_constant<int, 4>{});
-  return f(std::integral_constant<int, K>{}, std::integral_constant<int, 1>{});
-}
-
-template <class F>
-int with_kv(int k, int v, F f) {
-  switch (k) {
-    case 1: return with_v<1>(v, f);
-    case 2: return with_v<2>(v, f);
-    case 3: return with_v<3>(v, f);
-    case 4: return with_v<4>(v, f);
-    case 5: return with_v<5>(v, f);
-    case 6: return with_v<6>(v, f);
-    case 7: return with_v<7>(v, f);
-    default: return with_v<8>(v, f);
+template <int K, int V>
+__global__ void lf_round_paired_kernel(const uint32_t* __restrict__ paired,
+                                       long long nrows, int half_words, int nb,
+                                       const long long* __restrict__ iv,
+                                       const long long* __restrict__ code,
+                                       const long long* __restrict__ dollar,
+                                       long long* __restrict__ out, bool* __restrict__ ok,
+                                       long long n) {
+  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool active = j < n;
+  const uint32_t lo = active ? (uint32_t)__ldcs(iv + 2 * j) : 0u;
+  const uint32_t hi = active ? (uint32_t)__ldcs(iv + 2 * j + 1) : 0u;
+  const uint32_t c = active ? (uint32_t)__ldcs(code + j) : 0u;
+  const uint32_t d = 32u * (uint32_t)nb, b_lo = lo / d;
+  // the pair at lo's block: its first half for lo's block, the second for
+  // the next block, the first again for any other
+  const uint32_t* pair = paired + min((unsigned long long)b_lo, (unsigned long long)(nrows - 1)) * 2ull *
+                                      (unsigned long long)half_words;
+  const auto row_of = [&](uint32_t block) { return pair + (block - b_lo == 1u ? half_words : 0); };
+  uint32_t o_lo, o_hi;
+  lf_rounds<K, V, LoadCached>(warp_stage<K>(nb), row_of, nb, lo, hi, c, active, dollar, o_lo, o_hi);
+  if (active) {
+    __stcs(out + 2 * j, (long long)o_lo);
+    __stcs(out + 2 * j + 1, (long long)o_hi);
+    ok[j] = hi / d - b_lo <= 1u;
   }
-}
-
-// Launches `kernel` over n items (ends or reads) with the block size and
-// shared memory its staged rows need: 2k*nb words a lane.
-template <class Kernel, class... Args>
-int launch(Kernel kernel, int k, int nb, long long n, cudaStream_t stream, Args... args) {
-  size_t smem = 0;
-  const int threads = tpufm::stage_block(stage_stride(2 * k * nb), &smem);
-  const long long blocks = (n + threads - 1) / threads;
-  if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
-  if (smem > 48u * 1024u) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  kernel<<<(unsigned)blocks, threads, smem, stream>>>(args...);
-  return (int)cudaGetLastError();
 }
 
 bool bad_shape(int row_words, int k, int nb) {
@@ -188,8 +179,8 @@ extern "C" int tpufm_lf_round(const void* entries, long long nrows,
                               long long n, void* stream) {
   if (n <= 0) return 0;
   if (nrows <= 0 || bad_shape(row_words, k, nb)) return (int)cudaErrorInvalidValue;
-  return with_kv(k, tpufm::unit_words(entries, row_words), [&](auto K, auto V) {
-    return launch(lf_round_kernel<decltype(K)::value, decltype(V)::value>, k, nb, n,
+  return tpufm::dispatch_kv(k, tpufm::unit_words(entries, row_words), [&](auto K, auto V) {
+    return tpufm::launch_staged(lf_round_kernel<decltype(K)::value, decltype(V)::value>, k, nb, n,
                   static_cast<cudaStream_t>(stream), static_cast<const uint32_t*>(entries), nrows,
                   row_words, nb, static_cast<const long long*>(iv), static_cast<const long long*>(code),
                   static_cast<const long long*>(dollar), static_cast<long long*>(out), n);
@@ -205,8 +196,8 @@ extern "C" int tpufm_lf_round_rows(const void* rows, int row_words, int k,
                                    void* stream) {
   if (n <= 0) return 0;
   if (bad_shape(row_words, k, nb)) return (int)cudaErrorInvalidValue;
-  return with_kv(k, tpufm::unit_words(rows, row_words), [&](auto K, auto V) {
-    return launch(lf_round_rows_kernel<decltype(K)::value, decltype(V)::value>, k, nb, n,
+  return tpufm::dispatch_kv(k, tpufm::unit_words(rows, row_words), [&](auto K, auto V) {
+    return tpufm::launch_staged(lf_round_rows_kernel<decltype(K)::value, decltype(V)::value>, k, nb, n,
                   static_cast<cudaStream_t>(stream), static_cast<const uint32_t*>(rows), row_words, nb,
                   static_cast<const long long*>(iv), static_cast<const long long*>(code),
                   static_cast<const long long*>(dollar), static_cast<long long*>(out), n);
@@ -222,11 +213,30 @@ extern "C" int tpufm_lf_round_pairs(const void* entries, long long nrows,
                                     long long n, void* stream) {
   if (n <= 0) return 0;
   if (nrows <= 0 || bad_shape(row_words, k, nb)) return (int)cudaErrorInvalidValue;
-  return with_kv(k, tpufm::unit_words(entries, row_words), [&](auto K, auto V) {
-    return launch(lf_round_pairs_kernel<decltype(K)::value, decltype(V)::value>, k, nb, n,
+  return tpufm::dispatch_kv(k, tpufm::unit_words(entries, row_words), [&](auto K, auto V) {
+    return tpufm::launch_staged(lf_round_pairs_kernel<decltype(K)::value, decltype(V)::value>, k, nb, n,
                   static_cast<cudaStream_t>(stream), static_cast<const uint32_t*>(entries), nrows,
                   row_words, nb, static_cast<const long long*>(iv), static_cast<const long long*>(code),
                   static_cast<const long long*>(dollar), static_cast<long long*>(out), n);
+  });
+}
+
+// Launches the paired round with one thread per read: paired: uint32 [nrows,
+// row_words], row_words = 2W (two fused rows of W words); iv, out: int64
+// [n, 2]; code: int64 [n]; ok: bool [n]; otherwise as tpufm_lf_round.
+extern "C" int tpufm_lf_round_paired(const void* paired, long long nrows,
+                                     int row_words, int k, int nb, const void* iv,
+                                     const void* code, const void* dollar, void* out,
+                                     void* ok, long long n, void* stream) {
+  if (n <= 0) return 0;
+  const int half = row_words / 2;
+  if (nrows <= 0 || row_words % 2 || bad_shape(half, k, nb)) return (int)cudaErrorInvalidValue;
+  return tpufm::dispatch_kv(k, tpufm::unit_words(paired, half), [&](auto K, auto V) {
+    return tpufm::launch_staged(lf_round_paired_kernel<decltype(K)::value, decltype(V)::value>, k, nb, n,
+                                static_cast<cudaStream_t>(stream), static_cast<const uint32_t*>(paired),
+                                nrows, half, nb, static_cast<const long long*>(iv),
+                                static_cast<const long long*>(code), static_cast<const long long*>(dollar),
+                                static_cast<long long*>(out), static_cast<bool*>(ok), n);
   });
 }
 

@@ -42,6 +42,8 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
+#include <cuda_runtime.h>
 
 namespace tpufm {
 
@@ -188,6 +190,53 @@ inline int stage_block(int stride, size_t* smem) {
   warps = warps < 1 ? 1 : (warps > 8 ? 8 : warps);
   *smem = warps * per_warp;
   return 32 * (int)warps;
+}
+
+// The warp's slot of the block's dynamic shared memory for its staged rows
+// of 2K*nb words each (K1's and K8's kernels).
+template <int K>
+__device__ __forceinline__ uint32_t* warp_stage(int nb) {
+  extern __shared__ uint4 staged[];
+  return reinterpret_cast<uint32_t*>(staged) + (threadIdx.x & ~31) * stage_stride(2 * K * nb);
+}
+
+// f(K, V) as integral constants, for k in [1, 8] and v in {1, 4}.
+template <int K, class F>
+int dispatch_v(int v, F& f) {
+  if (v == 4) return f(std::integral_constant<int, K>{}, std::integral_constant<int, 4>{});
+  return f(std::integral_constant<int, K>{}, std::integral_constant<int, 1>{});
+}
+
+template <class F>
+int dispatch_kv(int k, int v, F f) {
+  switch (k) {
+    case 1: return dispatch_v<1>(v, f);
+    case 2: return dispatch_v<2>(v, f);
+    case 3: return dispatch_v<3>(v, f);
+    case 4: return dispatch_v<4>(v, f);
+    case 5: return dispatch_v<5>(v, f);
+    case 6: return dispatch_v<6>(v, f);
+    case 7: return dispatch_v<7>(v, f);
+    default: return dispatch_v<8>(v, f);
+  }
+}
+
+// Launches `kernel` over n items (ends or reads) with the block size and
+// shared memory its staged rows need (2k*nb words a lane); returns
+// cudaGetLastError() as an int.
+template <class Kernel, class... Args>
+int launch_staged(Kernel kernel, int k, int nb, long long n, cudaStream_t stream, Args... args) {
+  size_t smem = 0;
+  const int threads = stage_block(stage_stride(2 * k * nb), &smem);
+  const long long blocks = (n + threads - 1) / threads;
+  if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  if (smem > 48u * 1024u) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<(unsigned)blocks, threads, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace tpufm

@@ -36,7 +36,7 @@ from tpufm_torch.device import resolve_device
 from tpufm_torch.engine.locate import LocateTables
 from tpufm_torch.engine.seed import SENTINEL, SeedEngine, compact_hits, sorted_unique
 from tpufm_torch.engine.tables import Tables
-from tpufm_torch.host.index import AltCountersIndex, KStepFMIndex
+from tpufm_torch.host.index import KStepFMIndex
 from tpufm_torch.host.locate import LocateIndex
 
 #: kernel launches made by ``myers_verify`` in this process (plain-path
@@ -230,7 +230,7 @@ class EditExtendEngine(SeedEngine):
 
     def __init__(
         self,
-        index: KStepFMIndex | AltCountersIndex | Tables,
+        index: KStepFMIndex | Tables,
         loc: LocateIndex | LocateTables,
         text,
         edits: int,

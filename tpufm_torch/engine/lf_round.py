@@ -36,6 +36,30 @@ raises, for a CUDA tensor:
   counters. Plain version ``lf_round_rows_reference``. ``lf_round_indexed``
   is the round as ``PallasEngine`` splits it: torch's own indexing gathers,
   then ``lf_round_rows`` computes.
+
+The other layouts' rounds, one read per thread, both ends under one code,
+``iv`` int64 [B, 2] -> int64 [B, 2]:
+
+* ``lf_round_paired`` (K1's fourth entry, lf_round.cu; ``lf_step_paired``,
+  xla.py:128-176): one row-pair load at lo's block from the paired table
+  ``entries_paired`` (row i = fused rows i and i+1, each ``W`` words, the
+  row stride 2W); hi takes the second half where its block is lo's + 1,
+  else the first. Returns the intervals and ``ok`` = (hi's block - lo's
+  block, mod 2^32) <= 1; where it is False, hi is computed on the wrong row
+  (as in tpufm) and the engine searches the read again on the fused path.
+  Plain version ``lf_round_paired_reference``.
+* ``lf_round_split`` (K8, lf_round_split.cu; ``lf_step_split``,
+  xla.py:179-212): the plane words from ``bitmaps[block]`` [E+1, 2k*nb],
+  the counter from ``occ[block, code]`` [E+1, 4^k], both clamped; the '$'
+  correction as K1's. Plain version ``lf_round_split_reference``.
+* ``lf_round_ac`` (K8; ``lf_step_ac``, xla.py:215-244, the numpy oracle
+  tpufm/engine/oracle.py:63-105): the alternate counters ``occ_slim``
+  [E+2, S], S = 4^k / 2. Per end, ``back = (block odd) XOR (code >= S)``;
+  the counter is ``occ_slim[block + back, code & (S-1)]``; where ``back``,
+  the popcount runs over the block past the end (the complemented prefix
+  masks), the '$' correction counts levels with ``iv <= dollar_pos``, and
+  the result is counter MINUS count, else counter plus count (mod 2^32).
+  Plain version ``lf_round_ac_reference``.
 """
 
 from __future__ import annotations
@@ -51,6 +75,12 @@ LAUNCHES = 0
 ROWS_LAUNCHES = 0
 #: kernel launches made by ``lf_round_pairs`` in this process
 PAIRS_LAUNCHES = 0
+#: kernel launches made by ``lf_round_paired`` in this process
+PAIRED_LAUNCHES = 0
+#: kernel launches made by ``lf_round_split`` in this process
+SPLIT_LAUNCHES = 0
+#: kernel launches made by ``lf_round_ac`` in this process
+AC_LAUNCHES = 0
 
 
 def lf_round_rows_reference(rows, iv, code, dollar, k: int, d: int) -> torch.Tensor:
@@ -85,18 +115,73 @@ def lf_round_pairs_reference(entries, iv, code, dollar, k: int, d: int) -> torch
     return lf_round_reference(entries, iv.reshape(-1), code.repeat_interleave(2), dollar, k, d).view(-1, 2)
 
 
-def _check(entries, iv, code, dollar, k: int, d: int, name: str = "entries", pairs: bool = False) -> None:
+def lf_round_paired_reference(entries_paired, iv, code, dollar, k: int, d: int):
+    """Plain PyTorch paired round on any device: (int64 [B, 2] new
+    intervals, bool [B] ok) of ``iv`` [B, 2] under one code per read, on the
+    paired table int32 [E+1, 2W] (see the module docstring)."""
+    W = entries_paired.shape[1] // 2
+    block = iv // d
+    prow = entries_paired[block[:, 0].clamp(max=entries_paired.shape[0] - 1)]
+    delta = (block[:, 1] - block[:, 0]) & FULL
+    hi_row = torch.where((delta == 1)[:, None], prow[:, W:], prow[:, :W])
+    rows = torch.stack([prow[:, :W], hi_row], dim=1).reshape(-1, W)
+    out = lf_round_rows_reference(rows, iv.reshape(-1), code.repeat_interleave(2), dollar, k, d)
+    return out.view(-1, 2), delta <= 1
+
+
+def _split_terms(bitmaps, iv, code, k: int, d: int):
+    """Per end of ``iv`` [B, 2] under one code per read: (block, the end's
+    in-block offset, its code, the matching plane words [2B, nb]) on the
+    bit-plane table int32 [E+1, >= 2k*nb] (rows clamped)."""
+    nb = d // 32
+    ends, codes = iv.reshape(-1), code.repeat_interleave(2)
+    block = ends // d
+    planes = from_u32_bits(bitmaps[block.clamp(max=bitmaps.shape[0] - 1), : 2 * k * nb])
+    return block, ends, codes, match_words(planes.reshape(-1, k, 2, nb), codes, k)
+
+
+def lf_round_split_reference(bitmaps, occ, iv, code, dollar, k: int, d: int) -> torch.Tensor:
+    """Plain PyTorch split-table round on any device: int64 [B, 2] new
+    intervals of ``iv`` [B, 2] under one code per read."""
+    block, ends, codes, matched = _split_terms(bitmaps, iv, code, k, d)
+    cnt = from_u32_bits(occ[block.clamp(max=occ.shape[0] - 1), codes.clamp(max=occ.shape[1] - 1)])
+    count = popcount32(matched & boundary_masks(ends % d, d // 32)).sum(dim=-1)
+    hit = (block[:, None] == dollar[2]) & (codes[:, None] == dollar[1]) & (ends[:, None] > dollar[0])
+    return ((cnt + count - hit.sum(dim=-1)) & FULL).view(-1, 2)
+
+
+def lf_round_ac_reference(bitmaps, occ_slim, iv, code, dollar, k: int, d: int) -> torch.Tensor:
+    """Plain PyTorch alternate-counters round on any device: int64 [B, 2]
+    new intervals of ``iv`` [B, 2] under one code per read."""
+    S = 4**k // 2
+    block, ends, codes, matched = _split_terms(bitmaps, iv, code, k, d)
+    back = ((block & 1) != 0) ^ (codes >= S)
+    cnt = from_u32_bits(occ_slim[(block + back).clamp(max=occ_slim.shape[0] - 1), codes & (S - 1)])
+    masks = boundary_masks(ends % d, d // 32)
+    masks = torch.where(back[:, None], masks ^ FULL, masks)
+    count = popcount32(matched & masks).sum(dim=-1)
+    at = (block[:, None] == dollar[2]) & (codes[:, None] == dollar[1])
+    past = ends[:, None] > dollar[0]
+    count = count - (at & torch.where(back[:, None], ~past, past)).sum(dim=-1)
+    return (torch.where(back, cnt - count, cnt + count) & FULL).view(-1, 2)
+
+
+def _check_words(table, name: str, width: int, what: str) -> None:
+    if table.dtype != torch.int32 or table.dim() != 2:
+        raise ValueError(f"{name} must be int32 [rows, words], got {table.dtype} {tuple(table.shape)}")
+    if table.shape[1] < width:
+        raise ValueError(f"rows of {table.shape[1]} words cannot hold {what} ({width} words)")
+
+
+def _check(entries, iv, code, dollar, k: int, d: int, name: str = "entries", pairs: bool = False,
+           width: int | None = None) -> None:
+    """The checks every wrapper makes; ``entries`` must hold ``width`` words
+    a row (default a fused row, 2k*nb + 4^k)."""
     if not 1 <= k <= 8:
         raise ValueError(f"k must be in [1, 8], got {k}")
     if d <= 0 or d % 32:
         raise ValueError(f"d must be a positive multiple of 32, got {d}")
-    if entries.dtype != torch.int32 or entries.dim() != 2:
-        raise ValueError(f"{name} must be int32 [rows, words], got {entries.dtype} {tuple(entries.shape)}")
-    if entries.shape[1] < 2 * k * (d // 32) + 4**k:
-        raise ValueError(
-            f"rows of {entries.shape[1]} words cannot hold k={k} d={d} "
-            f"({2 * k * (d // 32) + 4**k} words)"
-        )
+    _check_words(entries, name, 2 * k * (d // 32) + 4**k if width is None else width, f"k={k} d={d}")
     if iv.dtype != torch.int64 or code.dtype != torch.int64 or dollar.dtype != torch.int64:
         raise ValueError("iv, code and dollar must be int64")
     want = "[N, 2] (both ends of a read)" if pairs else "[N] (one end per code)"
@@ -113,22 +198,27 @@ def _check(entries, iv, code, dollar, k: int, d: int, name: str = "entries", pai
         raise ValueError(f"the LF round runs on cpu or cuda tensors, got {iv.device}")
 
 
-def _launch(fn: str, table, iv, code, dollar, k: int, d: int, *shape) -> torch.Tensor:
-    """Launch ``fn`` of the lf_round library on CUDA tensors; raises if the
-    kernel cannot be built or launched."""
+def _launch(fn: str, table, iv, code, dollar, k: int, d: int, *shape, library: str = "lf_round",
+            tables: tuple = (), extra: tuple = ()) -> torch.Tensor:
+    """Launch ``fn`` of ``library`` on CUDA tensors: its arguments are
+    ``table``, ``shape``, the table's row words, then ``tables`` (pointer,
+    rows, row words each), k, nb, iv, code, dollar, out, ``extra``
+    pointers, n and the stream. Raises if the kernel cannot be built or
+    launched."""
     from tpufm_torch import kernels
 
-    lib = kernels.library("lf_round")
+    lib = kernels.library(library)
     out = torch.empty_like(iv)
+    more = [x for t in tables for x in (t.data_ptr(), t.shape[0], t.shape[1])]
     with torch.cuda.device(iv.device):
         stream = torch.cuda.current_stream(iv.device).cuda_stream
         err = getattr(lib, fn)(
-            table.data_ptr(), *shape, table.shape[1], k, d // 32,
+            table.data_ptr(), *shape, table.shape[1], *more, k, d // 32,
             iv.data_ptr(), code.data_ptr(), dollar.data_ptr(), out.data_ptr(),
-            code.shape[0], stream,
+            *(t.data_ptr() for t in extra), code.shape[0], stream,
         )
     if err:
-        raise RuntimeError(f"{fn} kernel launch failed: {kernels.error_string('lf_round', err)}")
+        raise RuntimeError(f"{fn} kernel launch failed: {kernels.error_string(library, err)}")
     return out
 
 
@@ -179,6 +269,71 @@ def lf_round_pairs(entries, iv, code, dollar, k: int, d: int) -> torch.Tensor:
     global PAIRS_LAUNCHES
     out = _launch("tpufm_lf_round_pairs", entries, iv, code, dollar, k, d, entries.shape[0])
     PAIRS_LAUNCHES += 1
+    return out
+
+
+def lf_round_paired(entries_paired, iv, code, dollar, k: int, d: int):
+    """Paired round of both ends of every read (see the module docstring):
+    ``entries_paired`` int32 [E+1, 2W], W >= 2k*nb + 4^k; ``iv`` int64 [B,
+    2], ``code`` int64 [B]; (int64 [B, 2], bool [B] ok). CPU tensors take
+    the plain version; CUDA tensors launch the kernel, one thread per read,
+    and a kernel that cannot be built or launched raises."""
+    _check(entries_paired, iv, code, dollar, k, d, name="entries_paired", pairs=True,
+           width=2 * (2 * k * (d // 32) + 4**k))
+    if entries_paired.shape[1] % 2:
+        raise ValueError(f"paired rows of {entries_paired.shape[1]} words are not two rows")
+    if iv.device.type == "cpu":
+        return lf_round_paired_reference(entries_paired, iv, code, dollar, k, d)
+    ok = torch.empty(iv.shape[0], dtype=torch.bool, device=iv.device)
+    if iv.numel() == 0:
+        return torch.empty_like(iv), ok
+    global PAIRED_LAUNCHES
+    out = _launch("tpufm_lf_round_paired", entries_paired, iv, code, dollar, k, d,
+                  entries_paired.shape[0], extra=(ok,))
+    PAIRED_LAUNCHES += 1
+    return out, ok
+
+
+def _check_split(bitmaps, counters, name: str, rows: int, iv, code, dollar, k: int, d: int) -> None:
+    _check(bitmaps, iv, code, dollar, k, d, name="bitmaps", pairs=True, width=2 * k * (d // 32))
+    _check_words(counters, name, rows, f"k={k}")
+    if counters.device != bitmaps.device or not counters.is_contiguous():
+        raise ValueError(f"{name} must be contiguous and on the bitmaps' device")
+
+
+def lf_round_split(bitmaps, occ, iv, code, dollar, k: int, d: int) -> torch.Tensor:
+    """Split-table round of both ends of every read (see the module
+    docstring): ``bitmaps`` int32 [E+1, >= 2k*nb], ``occ`` int32 [E+1, 4^k],
+    ``iv`` int64 [B, 2], ``code`` int64 [B]; int64 [B, 2]. CPU tensors take
+    the plain version; CUDA tensors launch K8, one thread per read, and a
+    kernel that cannot be built or launched raises."""
+    _check_split(bitmaps, occ, "occ", 4**k, iv, code, dollar, k, d)
+    if iv.device.type == "cpu":
+        return lf_round_split_reference(bitmaps, occ, iv, code, dollar, k, d)
+    if iv.numel() == 0:
+        return torch.empty_like(iv)
+    global SPLIT_LAUNCHES
+    out = _launch("tpufm_lf_round_split", bitmaps, iv, code, dollar, k, d, bitmaps.shape[0],
+                  library="lf_round_split", tables=(occ,))
+    SPLIT_LAUNCHES += 1
+    return out
+
+
+def lf_round_ac(bitmaps, occ_slim, iv, code, dollar, k: int, d: int) -> torch.Tensor:
+    """Alternate-counters round of both ends of every read (see the module
+    docstring): ``bitmaps`` int32 [E+1, >= 2k*nb], ``occ_slim`` int32 [E+2,
+    4^k / 2], ``iv`` int64 [B, 2], ``code`` int64 [B]; int64 [B, 2]. CPU
+    tensors take the plain version; CUDA tensors launch K8, one thread per
+    read, and a kernel that cannot be built or launched raises."""
+    _check_split(bitmaps, occ_slim, "occ_slim", 4**k // 2, iv, code, dollar, k, d)
+    if iv.device.type == "cpu":
+        return lf_round_ac_reference(bitmaps, occ_slim, iv, code, dollar, k, d)
+    if iv.numel() == 0:
+        return torch.empty_like(iv)
+    global AC_LAUNCHES
+    out = _launch("tpufm_lf_round_ac", bitmaps, iv, code, dollar, k, d, bitmaps.shape[0],
+                  library="lf_round_split", tables=(occ_slim,))
+    AC_LAUNCHES += 1
     return out
 
 

@@ -20,15 +20,15 @@ from tpufm_torch.engine.locate import LocateEngine, LocateTables, locate_compact
 from tpufm_torch.engine.mismatch import variants1
 from tpufm_torch.engine.search import SearchEngine, stream_waves
 from tpufm_torch.engine.tables import Tables
-from tpufm_torch.host.index import AltCountersIndex, KStepFMIndex
+from tpufm_torch.host.index import KStepFMIndex
 from tpufm_torch.host.locate import LocateIndex
 
 
 class SearchLocateEngine(torch.nn.Module):
     """Search + locate on one device.
 
-    index: a KStepFMIndex, an AltCountersIndex (searched through its base)
-    or ready ``Tables``; loc: a LocateIndex or ``LocateTables`` over the
+    index: a KStepFMIndex or ready ``Tables`` (an AltCountersIndex raises
+    tpufm's ValueError: the search is the fused layout's); loc: a LocateIndex or ``LocateTables`` over the
     same text. lut_m > 0 starts every read from the m-mer prefix LUT, built
     on the device unless ``index`` brings one. ``step`` and ``walk`` of the
     methods: None runs this engine's kernels (K1, K4); the plain
@@ -41,7 +41,7 @@ class SearchLocateEngine(torch.nn.Module):
 
     def __init__(
         self,
-        index: KStepFMIndex | AltCountersIndex | Tables,
+        index: KStepFMIndex | Tables,
         loc: LocateIndex | LocateTables,
         device: str | torch.device,
         max_hits: int = 4,
@@ -51,7 +51,7 @@ class SearchLocateEngine(torch.nn.Module):
         if max_hits < 1:
             raise ValueError(f"max_hits must be >= 1, got {max_hits}")
         self.max_hits = max_hits
-        self.search_engine = SearchEngine(index, device, lut_m=lut_m)
+        self.search_engine = SearchEngine(index, device, lut_m=lut_m, layout="fused")
         self.locate_engine = LocateEngine(loc, self.search_engine.device)
         if self.locate_engine.bwtsize != self.search_engine.bwtsize:
             raise ValueError(

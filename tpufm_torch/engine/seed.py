@@ -45,7 +45,7 @@ from tpufm_torch.device import resolve_device
 from tpufm_torch.engine.locate import LocateEngine, LocateTables, locate_compacted
 from tpufm_torch.engine.search import SearchEngine, _words, stream_waves
 from tpufm_torch.engine.tables import Tables
-from tpufm_torch.host.index import AltCountersIndex, KStepFMIndex
+from tpufm_torch.host.index import KStepFMIndex
 from tpufm_torch.host.locate import LocateIndex
 
 #: padding of position rows and of candidates that are not kept
@@ -206,7 +206,7 @@ class SeedEngine(torch.nn.Module):
         super().__init__()
         if seed_hits < 1 or max_hits < 1:
             raise ValueError(f"seed_hits and max_hits must be >= 1, got {seed_hits}, {max_hits}")
-        self.search_engine = SearchEngine(index, device, lut_m=lut_m)
+        self.search_engine = SearchEngine(index, device, lut_m=lut_m, layout="fused")
         self.locate_engine = LocateEngine(loc, self.search_engine.device)
         text = np.asarray(text)  # 2-bit codes, or words already packed
         if text.dtype != np.uint32:
@@ -268,8 +268,8 @@ class SeedEngine(torch.nn.Module):
 class SeedExtendEngine(SeedEngine):
     """Approximate matching at Hamming distance m >= 1 on one device.
 
-    index: a KStepFMIndex, an AltCountersIndex (searched through its base)
-    or ready ``Tables``; loc: a LocateIndex or ``LocateTables`` over the
+    index: a KStepFMIndex or ready ``Tables`` (an AltCountersIndex raises
+    tpufm's ValueError: the search is the fused layout's); loc: a LocateIndex or ``LocateTables`` over the
     same text; text: its 2-bit codes, or ``pack_text_words`` of them. The
     methods' ``step``, ``walk`` and ``verify``: None runs this engine's
     kernels (K1, K4, K5); the plain ``lf_round_reference``,
@@ -283,7 +283,7 @@ class SeedExtendEngine(SeedEngine):
 
     def __init__(
         self,
-        index: KStepFMIndex | AltCountersIndex | Tables,
+        index: KStepFMIndex | Tables,
         loc: LocateIndex | LocateTables,
         text,
         mismatches: int,

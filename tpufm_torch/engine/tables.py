@@ -1,8 +1,14 @@
-"""The engine's state: fused entry tables, '$' metadata and the prefix LUT.
+"""The engine's state: the tables of each layout, '$' metadata and the
+prefix LUT.
 
-Counterparts of ``build_fused_entries`` (tpufm/engine/xla.py:1405) and of the
-LUT cache (``lut_with_cache``, xla.py:1427-1472), plus the bridge from the
-JAX engine's state (``XLAEngine.tables``) to the port's, so that both engines
+Counterparts of the table branches of ``XLAEngine.__init__``
+(tpufm/engine/xla.py:597-640): the fused entries (``build_fused_entries``,
+xla.py:1405, with ``pad_words``), the split layout's bit-planes and counters,
+the alternate-counters layout's bit-planes and slim counters (``occ_slim``,
+tpufm/index/layouts.py:97-136) and the paired table
+(``build_paired_entries``, xla.py:1391); of the LUT cache (``lut_with_cache``,
+xla.py:1427-1472); and the bridge from the JAX engine's state
+(``XLAEngine.tables`` of every layout) to the port's, so that both engines
 can compute on identical tables. Tables are host numpy, which the engine
 (search.py) moves to its device, or, for an index built on the device
 (``build_index_device(return_host=False)``), int32 tensors holding the
@@ -27,11 +33,21 @@ LUT_CACHE_MAX_BYTES = 512 * 1024 * 1024
 
 @dataclasses.dataclass
 class Tables:
-    """Host state of one search engine.
+    """Host state of one search engine, in one of four layouts (``layout``):
 
     entries: uint32 [E+1, W] fused rows: 2k*nb bit-plane words (level, plane,
-        window), then the 4^k counters; row E is the end-of-text sentinel
-        (or an int32 tensor of the same bits, for a device-built index).
+        window), then the 4^k counters, then zeros up to ``pad_words``; row
+        E is the end-of-text sentinel (or an int32 tensor of the same bits,
+        for a device-built index). The fused and paired layouts; None in
+        the split and alternate-counters layouts.
+    entries_paired: uint32 [E+1, 2W]: row i is fused rows i and i+1 side by
+        side, the last row's second half zeros (paired layout), else None.
+    bitmaps: uint32 [E+1, 2k*nb] the bit-plane words of every entry (split
+        and alternate-counters layouts), else None.
+    occ: uint32 [E+1, 4^k] the counters (split layout), else None.
+    occ_slim: uint32 [E+2, 4^k / 2] the alternate counters: each entry's
+        stored half, the appended end-of-text row and the safety row
+        (alternate-counters layout), else None.
     dollar: uint32 [3, k]: rows dollar_pos, dollar_base, dollar_block.
     tail_*: the k=1 table (sample distance tail_d) that finishes reads whose
         length leaves L mod k characters, or None.
@@ -41,12 +57,26 @@ class Tables:
     k: int
     d: int
     bwtsize: int
-    entries: np.ndarray
+    entries: np.ndarray | None
     dollar: np.ndarray
     tail_d: int | None = None
     tail_entries: np.ndarray | None = None
     tail_dollar: np.ndarray | None = None
     lut: np.ndarray | None = None
+    entries_paired: np.ndarray | None = None
+    bitmaps: np.ndarray | None = None
+    occ: np.ndarray | None = None
+    occ_slim: np.ndarray | None = None
+
+    @property
+    def layout(self) -> str:
+        """"fused", "split", "paired" or "alt_counters" (the split walk on
+        the slim counters), by the tables present."""
+        if self.occ_slim is not None:
+            return "alt_counters"
+        if self.entries_paired is not None:
+            return "paired"
+        return "fused" if self.entries is not None else "split"
 
 
 def concat_words(parts: list) -> np.ndarray | torch.Tensor:
@@ -67,11 +97,28 @@ def host_words(a) -> np.ndarray:
     return np.asarray(a)
 
 
-def build_fused_entries(index: KStepFMIndex) -> np.ndarray | torch.Tensor:
-    """uint32 [E+1, 2k*nb + 4^k]: bitmap words then counters per entry, the
-    layout of xla.py:1405 (without its TPU row padding); an int32 tensor on
-    the device for a device-resident index."""
-    return concat_words([index.bitmaps, index.occ])
+def build_fused_entries(index: KStepFMIndex, pad_words: int | None = None) -> np.ndarray | torch.Tensor:
+    """uint32 [E+1, max(2k*nb + 4^k, pad_words)]: bitmap words then counters
+    per entry, then zeros up to ``pad_words`` (xla.py:1405-1419); an int32
+    tensor on the device for a device-resident index."""
+    entries = concat_words([index.bitmaps, index.occ])
+    if pad_words and pad_words > entries.shape[1]:
+        pad = (0, pad_words - entries.shape[1])
+        if isinstance(entries, torch.Tensor):
+            return torch.nn.functional.pad(entries, pad)
+        return np.pad(entries, ((0, 0), pad))
+    return entries
+
+
+def build_paired_entries(entries: np.ndarray | torch.Tensor) -> np.ndarray | torch.Tensor:
+    """[E+1, W] fused table -> [E+1, 2W] paired table: row i carries fused
+    rows i and i+1 side by side, the last row's second half zeros
+    (xla.py:1391-1402); numpy, or int32 tensors where they lie."""
+    if isinstance(entries, torch.Tensor):
+        last = torch.nn.functional.pad(entries[-1:], (0, entries.shape[1]))
+        return torch.cat([torch.cat([entries[:-1], entries[1:]], dim=1), last])
+    last = np.pad(entries[-1:], ((0, 0), (0, entries.shape[1])))
+    return np.concatenate([np.concatenate([entries[:-1], entries[1:]], axis=1), last])
 
 
 def _dollar(index: KStepFMIndex) -> np.ndarray:
@@ -80,20 +127,45 @@ def _dollar(index: KStepFMIndex) -> np.ndarray:
     ).astype(np.uint32)
 
 
+def is_alt_counters(index) -> bool:
+    """Whether ``index`` is an alternate-counters index (the port's, or any
+    object with ``base`` and ``occ_slim``, such as tpufm's)."""
+    return getattr(index, "occ_slim", None) is not None
+
+
 def tables_from_index(
-    index: KStepFMIndex | AltCountersIndex, tail_index: KStepFMIndex | None = None
+    index: KStepFMIndex | AltCountersIndex,
+    tail_index: KStepFMIndex | None = None,
+    layout: str = "fused",
+    pad_words: int | None = None,
 ) -> Tables:
-    """The engine's tables for ``index`` (an alternate-counters index is
-    searched through its base: the intervals are identical) and, for reads of
-    any length, the k=1 ``tail_index`` over the same text."""
+    """The engine's tables for ``index`` in ``layout`` (xla.py:597-640):
+    "fused" (rows padded to ``pad_words``), "paired" (the fused rows and the
+    paired table), or any other name the split tables, whose counters are
+    ``occ_slim`` for an alternate-counters index and ``occ`` otherwise (the
+    fused and paired layouts of an alternate-counters index are its base's);
+    and, for reads of any length, the k=1 ``tail_index`` over the same
+    text."""
     base = getattr(index, "base", index)
     tables = Tables(
         k=base.config.k,
         d=base.config.d,
         bwtsize=int(base.bwtsize),
-        entries=build_fused_entries(base),
+        entries=None,
         dollar=_dollar(base),
     )
+    if layout == "fused":
+        tables.entries = build_fused_entries(base, pad_words)
+    elif layout == "paired":
+        tables.entries = build_fused_entries(base)
+        tables.entries_paired = build_paired_entries(tables.entries)
+    else:
+        rows = base.occ.shape[0]
+        tables.bitmaps = base.bitmaps.reshape(rows, -1)
+        if is_alt_counters(index):
+            tables.occ_slim = index.occ_slim
+        else:
+            tables.occ = base.occ
     if tail_index is not None:
         if tail_index.config.k != 1:
             raise ValueError(
@@ -127,18 +199,24 @@ def _check_d(d: int, name: str = "d") -> None:
 
 
 def tables_from_jax(tables: dict, d: int | None = None, tail_d: int | None = None) -> Tables:
-    """Port the JAX engine's state (``XLAEngine(...).tables``, fused layout)
-    to the port's tables, including an already-built ``lut`` and tail table,
-    so that both engines compute on identical state.
+    """Port the JAX engine's state (``XLAEngine(...).tables`` of any layout:
+    fused, split, alternate-counters or paired, xla.py:597-640) to the
+    port's tables, including an already-built ``lut`` and tail table, so
+    that both engines compute on identical state.
 
-    k is the number of '$' levels. Without ``d``, d follows from the row
-    width, which must then be unpadded. With the sample distance ``d``, rows
-    padded past 2k*nb + 4^k words (``pad_words``, or ``gather="dma"``'s
-    128-word rows, xla.py:612-618) are accepted: the padding must be zeros,
-    as ``build_fused_entries`` writes it (xla.py:1413-1417), and is dropped.
-    bwtsize is the sentinel row's last counter: that counter is C[4^k - 1]
-    plus the whole text's count of the last k-mer, i.e. every position
-    except the k '$' positions, plus one '$' increment per level.
+    k is the number of '$' levels. The split and alternate-counters tables
+    give d by their bit-plane words ([E+1, k, 2, nb]). Of fused rows, without
+    ``d``, d follows from the row width, which must then be unpadded. With
+    the sample distance ``d``, rows padded past 2k*nb + 4^k words
+    (``pad_words``, or ``gather="dma"``'s 128-word rows, xla.py:612-618) are
+    accepted: the padding must be zeros, as ``build_fused_entries`` writes it
+    (xla.py:1413-1417), and is dropped. A paired table must be the pairs of
+    the fused rows it comes with.
+    bwtsize is the sentinel's last counter: that counter is C[4^k - 1] plus
+    the whole text's count of the last k-mer, i.e. every position except the
+    k '$' positions, plus one '$' increment per level. Of the alternate
+    counters it is the last slim counter of whichever of the appended and
+    the safety row holds the upper half (the odd one of rows E, E+1).
 
     The k=1 tail table likewise: without ``tail_d`` its rows must be exactly
     2*nb + 4 words; with it, wider rows are kept whole, such as the fused
@@ -149,26 +227,40 @@ def tables_from_jax(tables: dict, d: int | None = None, tail_d: int | None = Non
     """
     arr = {name: np.asarray(v) for name, v in tables.items()}
     k = int(arr["dollar_pos"].shape[0])
-    entries = arr["entries"].astype(np.uint32, copy=False)
-    if d is None:
-        d = _shape_of(entries, k)
+    dollar = np.stack([arr["dollar_pos"], arr["dollar_base"], arr["dollar_block"]]).astype(np.uint32)
+    if "bitmaps" in arr:  # split or alternate counters
+        bitmaps = arr["bitmaps"].astype(np.uint32, copy=False)
+        if bitmaps.ndim != 4 or bitmaps.shape[1:3] != (k, 2):
+            raise ValueError(f"bitmaps of shape {bitmaps.shape} do not hold k={k} levels [E+1, k, 2, nb]")
+        d = 32 * bitmaps.shape[3]
+        out = Tables(k=k, d=d, bwtsize=0, entries=None, dollar=dollar,
+                     bitmaps=bitmaps.reshape(bitmaps.shape[0], -1))
+        if "occ_slim" in arr:
+            out.occ_slim = arr["occ_slim"].astype(np.uint32, copy=False)
+            E = out.occ_slim.shape[0] - 2
+            out.bwtsize = int(out.occ_slim[E | 1, -1])
+        else:
+            out.occ = arr["occ"].astype(np.uint32, copy=False)
+            out.bwtsize = int(out.occ[-1, -1])
+        entries = out.bitmaps
     else:
-        _check_d(d)
-        width = 2 * k * (d // 32) + 4**k
-        if entries.shape[1] < width:
-            raise ValueError(f"fused rows of {entries.shape[1]} words cannot hold k={k} d={d} ({width} words)")
-        if entries[:, width:].any():
-            raise ValueError(f"fused rows carry non-zero words past the {width} of k={k} d={d}")
-        entries = entries[:, :width]
-    out = Tables(
-        k=k,
-        d=d,
-        bwtsize=int(entries[-1, -1]),
-        entries=entries,
-        dollar=np.stack(
-            [arr["dollar_pos"], arr["dollar_base"], arr["dollar_block"]]
-        ).astype(np.uint32),
-    )
+        entries = arr["entries"].astype(np.uint32, copy=False)
+        if d is None:
+            d = _shape_of(entries, k)
+        else:
+            _check_d(d)
+            width = 2 * k * (d // 32) + 4**k
+            if entries.shape[1] < width:
+                raise ValueError(f"fused rows of {entries.shape[1]} words cannot hold k={k} d={d} ({width} words)")
+            if entries[:, width:].any():
+                raise ValueError(f"fused rows carry non-zero words past the {width} of k={k} d={d}")
+            entries = entries[:, :width]
+        out = Tables(k=k, d=d, bwtsize=int(entries[-1, -1]), entries=entries, dollar=dollar)
+        if "entries_paired" in arr:
+            paired = arr["entries_paired"].astype(np.uint32, copy=False)
+            if not np.array_equal(paired, build_paired_entries(entries)):
+                raise ValueError("entries_paired are not the pairs of the fused rows")
+            out.entries_paired = paired
     if entries.shape[0] != -(-out.bwtsize // d) + 1 or not np.array_equal(
         out.dollar[2], out.dollar[0] // np.uint32(d)
     ):

@@ -36,6 +36,14 @@ SIGNATURES = {
         "tpufm_lf_round_rows": [_P, _I, _I, _I, _P, _P, _P, _P, _LL, _P],
         # entries, nrows, row_words, k, nb, iv, code, dollar, out, n reads, stream
         "tpufm_lf_round_pairs": [_P, _LL, _I, _I, _I, _P, _P, _P, _P, _LL, _P],
+        # entries_paired, nrows, row_words, k, nb, iv, code, dollar, out, ok, n reads, stream
+        "tpufm_lf_round_paired": [_P, _LL, _I, _I, _I, _P, _P, _P, _P, _P, _LL, _P],
+    },
+    "lf_round_split": {
+        # bitmaps, rows, words, occ (or occ_slim), rows, words, k, nb, iv,
+        # code, dollar, out, n reads, stream
+        "tpufm_lf_round_split": [_P, _LL, _I, _P, _LL, _I, _I, _I, _P, _P, _P, _P, _LL, _P],
+        "tpufm_lf_round_ac": [_P, _LL, _I, _P, _LL, _I, _I, _I, _P, _P, _P, _P, _LL, _P],
     },
     "row_gather": {
         # table, nrows, row_words, idx, out, n, path, tile_rows, blocks, stream
