@@ -159,6 +159,19 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      it on the card through K8's alternate-counters entry (40 rounds from
      the full interval, K1 not launched) to phase 4's intervals (``diff``
      prints IDENTICAL), ``dumpentry`` of entry 0
+ 18. the other layouts on phase 4's index and reads, every interval equal
+     to phase 4's: (a) ``search --engine xla-ac`` of the .ac image (K8's
+     alternate-counters entry, 40 rounds a pass from the full interval, K1
+     not launched); (b) ``SearchEngine(layout="split", lut_m=12)`` (K8's
+     split entry, its LUT built by its own rounds equal to phase 4's); (c)
+     ``search --engine xla-paired --lut 12`` (K1's paired entry, the repair
+     waves on K1's pair entry, the repair fraction printed); (d) ``search
+     --pad-words 128``; each kernel entry at rounds 1 and 18 of phase 4's
+     first wave (the alternate counters' from the full interval) against its
+     plain version, timed beside its bound; (e) the ``bench --engine xla-ac
+     | xla-split | xla-paired`` records at the flagship's shape; (f) a
+     ``sweep`` of 1 Mbase, k 1-3, d 64/128, all five engines, LUT 0 and 6,
+     65,536 reads, every row bit-exact
 Every path is driven with all launch counts set to 0 just before it and
 read just after; a kernel of the path launched too few times fails the run.
 Then one JSON line of kernel figures (each kernel's time beside its bound:
@@ -192,6 +205,7 @@ import numpy as np
 import torch
 
 from tpufm_torch import SearchEngine, bench, cli, kernels
+from tpufm_torch import sweep as sweep_mod
 from tpufm_torch.engine import edit as edit_mod
 from tpufm_torch.engine import lf_round as lf_mod
 from tpufm_torch.engine import locate as loc_mod
@@ -315,6 +329,8 @@ GENOME_BASES, DEVICE_LOCATE_READS = 250_000_000, 1 << 16
 DEVICE_BUILD_SHARE = 0.9
 #: phase 16(b): the k at which K7 is held to its plain version and timed
 K7_KS = (1, 2, 3, 4)
+#: phase 18(f): the sweep's reference and reads
+SWEEP_BASES, SWEEP_READS = 1_000_000, 1 << 16
 #: one H100 SXM's INT32 issue rate: 64 INT32 lanes an SM (a quarter of its
 #: 128 FP32 lanes doing 2 flops an FMA: 67 TFLOP/s, NVIDIA's data sheet, so
 #: the clock is 1.98 GHz) x 132 SMs x 1.98e9
@@ -2002,6 +2018,234 @@ def resume_and_tools(tmp: str, codes: np.ndarray, index, fmi: str, qry: str, sto
     return seconds
 
 
+def ac_table_bytes(iv: torch.Tensor, code: torch.Tensor, k: int, d: int, nrows: int, slim_rows: int) -> int:
+    """Bytes of the alternate-counters tables that the ends ``iv`` (int64
+    [N, 2], one code a read) need, each word once: of every distinct
+    bit-plane row, the plane words of the windows its forward ends' prefixes
+    cover and of those its backward ends' suffixes cover (from the end's
+    window to the block's last), and each distinct slim counter."""
+    ends = iv.reshape(-1)
+    codes = code.repeat_interleave(2)
+    S, nb = 4**k // 2, d // 32
+    block = ends // d
+    rows = block.clamp(max=nrows - 1)
+    off = ends % d
+    back = ((block & 1) != 0) ^ (codes >= S)
+    zeros = torch.zeros(nrows, dtype=torch.int64, device=iv.device)
+    pre = zeros.scatter_reduce(0, rows[~back], ((off + 31) // 32)[~back], "amax")
+    start = torch.full_like(zeros, nb).scatter_reduce(0, rows[back], (off // 32)[back], "amin")
+    windows = pre + (nb - start) - (pre - start).clamp(min=0)
+    counters = torch.unique((block + back).clamp(max=slim_rows - 1) * S + (codes & (S - 1))).numel()
+    return 4 * (2 * k * int(windows.sum()) + counters)
+
+
+def layout_rounds(label: str, fn, plain_fn, tables: tuple, dollar, iv, codes, want, bound) -> list:
+    """A layout's round kernel at the main path's shape: the rounds of phase
+    4's first wave replayed from ``iv`` through ``fn``, the (iv, code)
+    entering CAPTURED_ROUNDS kept; the replay must end on ``want`` (the
+    paired layout's on its ok reads). Each captured round: the kernel against
+    its plain version ``plain_fn`` (every output bit-identical), both timed,
+    beside ``bound(iv, code)`` (bytes)."""
+    captured, ok = {}, None
+    for j, code in enumerate(codes, start=1):
+        if j in CAPTURED_ROUNDS:
+            captured[j] = (iv, code)
+        out = fn(*tables, iv, code, dollar, K, D)
+        if isinstance(out, tuple):
+            out, ok_j = out
+            ok = ok_j if ok is None else ok & ok_j
+        iv = out
+    keep = torch.ones(iv.shape[0], dtype=torch.bool, device=iv.device) if ok is None else ok
+    want = torch.from_numpy(want.astype(np.int64)).to(iv.device)
+    if not torch.equal(iv[keep], want[keep]):
+        raise AssertionError(f"phase 18 {label}: the replayed rounds do not end on phase 4's intervals")
+    rows = []
+    for j, (iv, code) in captured.items():
+        args = (*tables, iv, code, dollar, K, D)
+        got, ref = fn(*args), plain_fn(*args)
+        torch.cuda.synchronize()
+        got, ref = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
+        err = max(int((g.to(torch.int64) - r.to(torch.int64)).abs().max()) for g, r in zip(got, ref))
+        if err != 0 or not all(torch.equal(g, r) for g, r in zip(got, ref)):
+            raise AssertionError(f"{label}, round {j}: kernel differs from plain (max abs err {err})")
+        blocks = iv // D
+        rows.append({
+            "round": j, "reads": int(iv.shape[0]), "max_abs_err": err,
+            "same_block_share": float((blocks[:, 0] == blocks[:, 1]).double().mean()),
+            "ms": cuda_ms(lambda: fn(*args)),
+            "plain_ms": cuda_ms(lambda: plain_fn(*args)),
+            "bound_ms": bound_ms(bound(iv, code)),
+        })
+    return rows
+
+
+def layouts(tmp: str, index, fmi: str, qry: str, reads: np.ndarray, main_res: np.ndarray, dev,
+            by_path: dict) -> dict:
+    """Phase 18 (see the module docstring): the other layouts on phase 4's
+    index and reads, each path driven with the launch counts zeroed before
+    and read after, each kernel entry held against its plain version at the
+    path's shape and timed beside its bound."""
+    t0 = time.perf_counter()
+    rounds = (READ_LEN - LUT_M) // K
+    wave = SearchEngine.WAVE
+    q = torch.from_numpy(reads[:wave]).to(dev)
+    found = {}
+
+    def cli_run(label: str, argv: list):
+        reset_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            run = cli.main(["search", *argv, qry, str(READ_LEN), str(READS), "--device", "cuda",
+                            "--iterations", "1", "--output", os.path.join(tmp, f"{label}.res")])
+        by_path[label] = read_counts()
+        if not np.array_equal(run.results, main_res):
+            raise AssertionError(f"phase 18 {label}: {(run.results != main_res).any(1).sum()} reads differ "
+                                 "from phase 4")
+        return run
+
+    # (a) search --engine xla-ac on the .ac image: every round from the full
+    # interval through K8's alternate-counters entry, a warm-up and one pass
+    t1 = time.perf_counter()
+    ac = cli_run("search_ac", [fmi + ".ac", "--engine", "xla-ac"])
+    if (by_path["search_ac"]["lf_round_ac"] != 2 * (READ_LEN // K) * -(-READS // wave)
+            or by_path["search_ac"]["lf_round_pairs"]):
+        raise AssertionError(f"search --engine xla-ac: launches {by_path['search_ac']}")
+    eng = ac.engine
+    found["ac"] = layout_rounds(
+        "K8 alternate counters", lf_mod.lf_round_ac, lf_mod.lf_round_ac_reference, (eng.bitmaps, eng.occ_slim),
+        eng.dollar, eng._full_interval(wave), fuse_round_codes(q, K), main_res[:wave],
+        lambda iv, code: 5 * 8 * iv.shape[0] + ac_table_bytes(iv, code, K, D, eng.bitmaps.shape[0],
+                                                               eng.occ_slim.shape[0]))
+    ac_s, ac_cli = ac.seconds_per_pass, time.perf_counter() - t1
+    del ac, eng
+
+    # (b) the split layout with the 12-mer LUT, built by its own rounds
+    t1 = time.perf_counter()
+    reset_counts()
+    split = SearchEngine(index, dev, layout="split", lut_m=LUT_M)
+    res, split_s = timed_passes(lambda: split.search(reads), iterations=1)
+    by_path["split"] = read_counts()
+    lut_split = (4**LUT_M // min(4**LUT_M, 1 << 20)) * (LUT_M // K)
+    expect_launches("split layout", by_path["split"], {"lf_round_split": 2 * rounds * -(-READS // wave) + lut_split})
+    if not np.array_equal(res, main_res):
+        raise AssertionError(f"split layout: {(res != main_res).any(1).sum()} reads differ from phase 4")
+    with np.load(f"{fmi}.lut{LUT_M}.npz") as z:  # phase 4's LUT, built by K1
+        if not np.array_equal(split.lut.cpu().numpy().view(np.uint32), z["lut"]):
+            raise AssertionError("split layout: its LUT differs from phase 4's")
+    body = q[:, : READ_LEN - LUT_M]
+    start = from_u32_bits(split.lut[fuse_prefix_codes(q, LUT_M)])
+    found["split"] = layout_rounds(
+        "K8 split", lf_mod.lf_round_split, lf_mod.lf_round_split_reference, (split.bitmaps, split.occ),
+        split.dollar, start, fuse_round_codes(body, K), main_res[:wave],
+        lambda iv, code: 5 * 8 * iv.shape[0] + k1_table_bytes(iv, code, K, D, split.bitmaps.shape[0]))
+    split_cli = time.perf_counter() - t1
+    del split
+
+    # (c) search --engine xla-paired --lut 12: K1's paired entry, the reads
+    # whose interval spans more than two blocks searched again by K1's pairs
+    t1 = time.perf_counter()
+    paired = cli_run("search_paired", [fmi, "--engine", "xla-paired", "--lut", str(LUT_M)])
+    repaired = paired.engine.last_repair_fraction
+    expect_launches("search --engine xla-paired", by_path["search_paired"],
+                    {"lf_round_paired": 2 * rounds * -(-READS // wave)})
+    if repaired and not by_path["search_paired"]["lf_round_pairs"]:
+        raise AssertionError("search --engine xla-paired: reads to repair, K1's pair entry not launched")
+    eng = paired.engine
+    found["paired"] = layout_rounds(
+        "K1 paired", lf_mod.lf_round_paired, lf_mod.lf_round_paired_reference, (eng.entries_paired,), eng.dollar,
+        start, fuse_round_codes(body, K), main_res[:wave],
+        lambda iv, code: 5 * 8 * iv.shape[0] + iv.shape[0] + k1_table_bytes(iv, code, K, D, eng.entries.shape[0]))
+    paired_s, paired_cli = paired.seconds_per_pass, time.perf_counter() - t1
+    del paired, eng
+
+    # (d) --pad-words 128: the fused rows of K1's pair entry, 512 B each
+    t1 = time.perf_counter()
+    padded = cli_run("search_pad", [fmi, "--pad-words", "128", "--lut", str(LUT_M)])
+    if tuple(padded.engine.entries.shape) != (index.occ.shape[0], 128):
+        raise AssertionError(f"--pad-words 128: device rows {tuple(padded.engine.entries.shape)}")
+    expect_launches("--pad-words 128", by_path["search_pad"], {"lf_round_pairs": 2 * rounds * -(-READS // wave)})
+    pad_s, pad_cli = padded.seconds_per_pass, time.perf_counter() - t1
+    del padded
+    torch.cuda.empty_cache()
+    print(f"[18 layouts] phase 4's index and {READS} x {READ_LEN} bp reads, all intervals equal to phase 4's:",
+          flush=True)
+    print(f"    (a) search --engine xla-ac of the .ac image: {ac_s:.6f} s/pass, K8 alternate-counters launches "
+          f"{by_path['search_ac']['lf_round_ac']} ({READ_LEN // K} a pass), K1 0; CLI {ac_cli:.2f} s", flush=True)
+    print(f"    (b) SearchEngine(layout=\"split\", lut_m={LUT_M}): {split_s:.6f} s/pass, K8 split launches "
+          f"{by_path['split']['lf_round_split']} ({lut_split} the LUT's, equal to phase 4's LUT); {split_cli:.2f} s",
+          flush=True)
+    print(f"    (c) search --engine xla-paired --lut {LUT_M}: {paired_s:.6f} s/pass, K1 paired launches "
+          f"{by_path['search_paired']['lf_round_paired']}, repair fraction {repaired}, K1 pair launches (the "
+          f"repairs) {by_path['search_paired']['lf_round_pairs']}; CLI {paired_cli:.2f} s", flush=True)
+    print(f"    (d) search --pad-words 128 --lut {LUT_M}: {pad_s:.6f} s/pass, K1 pair launches "
+          f"{by_path['search_pad']['lf_round_pairs']} on 128-word rows; CLI {pad_cli:.2f} s", flush=True)
+    for name, rows in found.items():
+        for c in rows:
+            print(f"    {name} round {c['round']}: {c['reads']} reads, {c['same_block_share'] * 100:.2f}% with both "
+                  f"ends in one block: kernel {c['ms']:.4f} ms (bound {c['bound_ms']:.4f} ms, "
+                  f"{c['bound_ms'] / c['ms'] * 100:.1f}% of it), plain {c['plain_ms']:.4f} ms", flush=True)
+
+    # (e) the bench records of the three engines at the flagship's shape
+    t1 = time.perf_counter()
+    flagship = ["--refsize", str(REF_BASES), "--k", str(K), "--d", str(D), "--numqueries", str(READS),
+                "--length", str(READ_LEN), "--iterations", str(BENCH_PASSES)]
+    passes = BENCH_PASSES + 1
+    records = {
+        "xla-ac": bench_record("bench_ac", [*flagship, "--engine", "xla-ac"],
+                               {"lf_round_ac": passes * (READ_LEN // K)}, by_path),
+        "xla-split": bench_record("bench_split", [*flagship, "--engine", "xla-split", "--lut", str(LUT_M)],
+                                  {"lf_round_split": passes * rounds + lut_split}, by_path),
+        "xla-paired": bench_record("bench_paired_layout", [*flagship, "--engine", "xla-paired", "--lut", str(LUT_M)],
+                                   {"lf_round_paired": passes * rounds}, by_path),
+    }
+    print(f"    (e) bench records {time.perf_counter() - t1:.2f} s", flush=True)
+
+    # (f) a small sweep: 1 Mbase, k 1-3, d 64 and 128, all five engines, LUT 0 and 6
+    t1 = time.perf_counter()
+    out = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(out):
+        rows = cli.main(["sweep", "--refsizes", str(SWEEP_BASES), "--ks", "1", "2", "3", "--ds", "64", "128",
+                         "--engines", *sweep_mod.SWEEP_ENGINES, "--luts", "0", "6", "--numqueries", str(SWEEP_READS),
+                         "--length", str(READ_LEN), "--device", "cuda"])
+    by_path["sweep"] = read_counts()
+    if len(rows) != 48 or not all(r["bit_exact"] is True for r in rows):
+        raise AssertionError(f"sweep: {len(rows)} rows, {sum(r['bit_exact'] is not True for r in rows)} not bit-exact")
+    expect_launches("sweep", by_path["sweep"], {name: 1 for name in (
+        "lf_round_pairs", "lf_round_rows", "lf_round_split", "lf_round_ac", "lf_round_paired")})
+    print(f"    (f) sweep, {SWEEP_BASES} bases, k 1-3, d 64/128, engines {' '.join(sweep_mod.SWEEP_ENGINES)}, "
+          f"LUT 0/6, {SWEEP_READS} x {READ_LEN} bp: {len(rows)} rows, every one bit-exact, in "
+          f"{time.perf_counter() - t1:.2f} s:", flush=True)
+    for r in rows:
+        print(f"      k={r['k']} d={r['d']} {r['engine']:10s} lut {r['lut_m']}: {r['seconds_per_pass']:.6f} s/pass, "
+              f"{r['reads_per_s']} reads/s", flush=True)
+    print(f"    phase {time.perf_counter() - t0:.2f} s", flush=True)
+    return {"rounds": found, "records": records, "sweep": rows}
+
+
+def layout_kernel(name: str, rows: list, by_path: dict, path: str, counter: str, replaces: str) -> dict:
+    """The kernels-line entry of a layout's round (phase 18): its launches on
+    its path, its figures at the last of CAPTURED_ROUNDS of phase 4's first
+    wave (every captured round under ``rounds``), and its launches on every
+    path."""
+    last = rows[-1]
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "tpufm_torch/csrc/lf_round.cu" if name == "lf_round_paired" else "tpufm_torch/csrc/lf_round_split.cu",
+        "replaces": replaces,
+        "launches": by_path[path][counter],
+        "max_abs_err": max(c["max_abs_err"] for c in rows),
+        "ms": last["ms"],
+        "plain_ms": last["plain_ms"],
+        "bound_ms": last["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "shape": f"round {last['round']} of phase 4's first wave, {last['reads']} reads",
+        "rounds": rows,
+        "launches_by_path": {p: c[counter] for p, c in by_path.items()},
+    }
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; it runs only on a GPU")
@@ -2469,10 +2713,13 @@ def main() -> None:
         print(f"    records {time.perf_counter() - t1:.2f} s; phase {time.perf_counter() - t0:.2f} s", flush=True)
 
         align = aligner(tmp, codes, dev, by_path)
+        main_res = run.results
         del run
         torch.cuda.empty_cache()
         ondev = device_build(tmp, ref, codes, index, fmi, sa, loc, store, reads, dev, by_path)
         resume_and_tools(tmp, codes, index, fmi, qry, store, pos_fused, align, dev, by_path, lut_launches)
+        torch.cuda.empty_cache()
+        lay = layouts(tmp, index, fmi, qry, reads, main_res, dev, by_path)
 
     for pkg in ("jax", "tpufm"):
         if any(m == pkg or m.startswith(pkg + ".") for m in sys.modules):
@@ -2673,6 +2920,13 @@ def main() -> None:
             "genome_bound_ms": ondev["pack"]["genome"]["bound_ms"],
             "launches_by_path": {path: c["pack_text"] for path, c in by_path.items()},
         },
+        *[layout_kernel(name, lay["rounds"][key], by_path, path, counter, replaces) for name, key, path, counter, replaces in (
+            ("lf_round_split", "split", "split", "lf_round_split",
+             "tpufm/engine/xla.py:179 (jnp lf_step_split, no pallas_call)"),
+            ("lf_round_ac", "ac", "search_ac", "lf_round_ac",
+             "tpufm/engine/xla.py:215 (jnp lf_step_ac, no pallas_call)"),
+            ("lf_round_paired", "paired", "search_paired", "lf_round_paired",
+             "tpufm/engine/xla.py:128 (jnp lf_step_paired, no pallas_call)"))],
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

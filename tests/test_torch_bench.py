@@ -113,7 +113,7 @@ def _check_record(got: dict, want: dict, added: set, fields: tuple) -> None:
     json.dumps(got)
 
 
-@pytest.mark.parametrize("engine", ["xla", "pallas"])
+@pytest.mark.parametrize("engine", ["xla", "pallas", "xla-ac", "xla-split", "xla-paired"])
 def test_run_bench_record_equals_tpufm(engine):
     kw = dict(refsize=REFSIZE, k=2, d=64, num_queries=2048, query_len=24, iterations=2,
               engine=engine, lut_m=4, compare_reference=False, full_verify=True)
@@ -215,13 +215,27 @@ def test_run_bench_genome_cache_shared_with_tpufm(tmp_path):
 
 @pytest.mark.parametrize("engine", ["xla-ac", "xla-paired", "xla-split"])
 def test_unported_engines_raise(engine):
-    with pytest.raises(ValueError, match="Queue 1 item 5"):
-        bench.run_bench(refsize=1000, engine=engine, device="cpu")
+    """The engines of ROADMAP Queue 1 item 5 raised until they were ported;
+    each now gives its record, verified in full, and a name outside
+    tpufm's engines still raises tpufm's text."""
+    record = bench.run_bench(refsize=5000, num_queries=64, query_len=24, iterations=1, engine=engine,
+                             lut_m=4, device="cpu")
+    assert record["metric"].endswith(f"engine={engine})")
+    assert record["detail"]["bit_exact_vs_oracle"] and record["detail"]["bit_exact_vs_plain_full"]
+    assert (record["detail"]["repair_fraction"] is not None) == (engine == "xla-paired")
+    with pytest.raises(ValueError, match=f"^unknown engine '{engine}-x'$"):
+        bench.run_bench(refsize=1000, engine=f"{engine}-x", device="cpu")
 
 
 def test_unported_options_raise():
-    with pytest.raises(ValueError, match="Queue 1 item 5"):
-        bench.run_bench(refsize=1000, pad_words=32, device="cpu")
+    """pad_words (Queue 1 item 5) is ported: the record's gathered bytes are
+    tpufm's 512 B rows; the multi-device locate (item 6) still raises."""
+    kw = dict(refsize=20_000, k=2, d=64, num_queries=256, query_len=24, iterations=1, pad_words=128,
+              compare_reference=False)
+    want = jax_bench.run_bench(**kw)
+    got = bench.run_bench(**kw, device="cpu")
+    assert got["detail"]["gathered_bytes_per_pass"] == want["detail"]["gathered_bytes_per_pass"] == 256 * 12 * 2 * 512
+    assert got["detail"]["bit_exact_vs_oracle"]
     with pytest.raises(ValueError, match="unknown engine"):
         bench.run_bench(refsize=1000, engine="tpu", device="cpu")
     with pytest.raises(ValueError, match="Queue 1 item 6"):

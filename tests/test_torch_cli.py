@@ -4,6 +4,8 @@ the .res, .cnt and .pos files (and their .rc siblings) must be
 byte-identical (intervals, counts and positions are integers; tolerance 0),
 and the .tpufm stores each package writes must load in the other."""
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -480,9 +482,16 @@ def test_unported_flags_exit_naming_their_item(tmp_path, argv, item):
     assert f"ROADMAP Queue 1 {item}" in str(exit_info.value.code)
 
 
-def test_bench_engine_not_ported_raises():
-    with pytest.raises(ValueError, match="Queue 1 item 5"):
-        torch_cli.main(["bench", "--engine", "xla-ac", "--device", "cpu"])
+def test_bench_engine_not_ported_raises(capsys):
+    """``bench --engine xla-ac`` raised naming Queue 1 item 5 until the
+    engine variants were ported; it now prints its record, and an engine
+    tpufm does not know still raises."""
+    record = torch_cli.main(["bench", "--engine", "xla-ac", "--refsize", "5000", "--numqueries", "64",
+                             "--length", "24", "--iterations", "1", "--device", "cpu"])
+    assert json.loads(capsys.readouterr().out.splitlines()[-1]) == record
+    assert record["metric"].endswith("engine=xla-ac)") and record["detail"]["bit_exact_vs_oracle"]
+    with pytest.raises(ValueError, match="unknown engine 'tpu'"):
+        torch_cli.main(["bench", "--engine", "tpu", "--refsize", "5000", "--device", "cpu"])
 
 
 @pytest.mark.parametrize(

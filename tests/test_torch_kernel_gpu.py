@@ -47,7 +47,8 @@ from tpufm_torch.engine import seed as seed_mod
 from tpufm_torch.engine.paired import PairedEndEngine, pair_oracle
 from tpufm_torch.engine.search import _rows
 from tpufm_torch.engine.search_locate import SearchLocateEngine
-from tpufm_torch.engine.tables import tables_from_index
+from tpufm_torch.engine.tables import build_paired_entries, tables_from_index
+from tpufm_torch.host.layouts import make_alt_counters
 from tpufm_torch.host.index import IndexConfig, build_index, derive_tail
 from tpufm_torch.host.locate import build_locate, locate_hits
 from tpufm_torch.host.oracle import search_oracle
@@ -192,6 +193,127 @@ def test_lf_round_rows_kernel_matches_plain(cuda, k, d, W, n):
     assert lf_mod.ROWS_LAUNCHES == before + 1
     assert torch.equal(got, lf_mod.lf_round_rows_reference(rows, iv, code, dollar, k, d))
     assert torch.equal(got, lf_mod.lf_round_reference(entries, iv, code, dollar, k, d))
+
+
+def edge_pairs(rng, bwtsize: int, d: int, dollar_pos, n: int) -> np.ndarray:
+    """int64 [*, 2] reads (lo <= hi) over [0, bwtsize]: every edge end (0,
+    bwtsize, each multiple of d and its neighbours, each '$' position and its
+    neighbours) with itself, the next end, the end a block on and a random
+    end past it; then ``n`` random reads, half inside one block."""
+    ends = [0, bwtsize] + [m + o for m in range(0, bwtsize + 1, d) for o in (-1, 0, 1)]
+    ends = np.unique(np.clip(ends + [int(p) + o for p in dollar_pos for o in (-1, 0, 1)], 0, bwtsize))
+    far = rng.integers(ends, bwtsize + 1)
+    his = [ends, np.minimum(ends + 1, bwtsize), np.minimum(ends + d, bwtsize), far]
+    edges = np.concatenate([np.stack([ends, hi], axis=1) for hi in his])
+    return np.concatenate([edges, _ends(rng, bwtsize, d, n)[1]])
+
+
+#: (k, d) of the layouts' kernels: k 1-4 at three widths, then k 5-8
+LAYOUT_KD = [(k, d) for k in (1, 2, 3, 4) for d in (32, 64, 192)] + [(5, 64), (6, 128), (7, 256), (8, 960)]
+
+
+def _layout_case(cuda, k, d, n, width):
+    """(index, tables, reads [*, 2], codes, dollar) on the card for a text
+    of 7d - 1 bases (bwtsize % d == 0: bwtsize reads the sentinel row, and
+    the alternate counters their safety row), on host-width tables or on
+    rows padded as the engine pads them."""
+    _, index = _index(k, d, 7 * d - 1)
+    rng = np.random.default_rng(n + 31 * k + d)
+    iv = edge_pairs(rng, index.bwtsize, d, index.dollar_pos, n)
+    code = rng.integers(0, 4**k, size=iv.shape[0])
+    pad = (lambda a: a) if width == "host" else (lambda a: _rows(a, torch.device("cpu")).numpy().view(np.uint32))
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa: E731
+    return index, pad, put(iv), put(code), put(index_dollar(index)), put
+
+
+def index_dollar(index) -> np.ndarray:
+    return np.stack([index.dollar_pos, index.dollar_base, index.dollar_block]).astype(np.int64)
+
+
+@pytest.mark.parametrize("n", [31, 4099])
+@pytest.mark.parametrize("width", ["host", "device"])
+@pytest.mark.parametrize("k,d", LAYOUT_KD)
+def test_lf_round_split_kernel_matches_plain(cuda, k, d, width, n):
+    index, pad, iv, code, dollar, put = _layout_case(cuda, k, d, n, width)
+    t = tables_from_index(index, layout="split")
+    bitmaps, occ = put(pad(t.bitmaps).view(np.int32)), put(t.occ.view(np.int32))
+    before = lf_mod.SPLIT_LAUNCHES
+    got = lf_mod.lf_round_split(bitmaps, occ, iv, code, dollar, k, d)
+    torch.cuda.synchronize()
+    assert lf_mod.SPLIT_LAUNCHES == before + 1
+    assert torch.equal(got, lf_mod.lf_round_split_reference(bitmaps, occ, iv, code, dollar, k, d))
+    # the same function as the fused round on the same text
+    fused = put(tables_from_index(index).entries.view(np.int32))
+    assert torch.equal(got, lf_mod.lf_round_pairs_reference(fused, iv, code, dollar, k, d))
+
+
+@pytest.mark.parametrize("n", [31, 4099])
+@pytest.mark.parametrize("width", ["host", "device"])
+@pytest.mark.parametrize("k,d", LAYOUT_KD)
+def test_lf_round_ac_kernel_matches_plain(cuda, k, d, width, n):
+    index, pad, iv, code, dollar, put = _layout_case(cuda, k, d, n, width)
+    t = tables_from_index(make_alt_counters(index), layout="split")
+    bitmaps, occ_slim = put(pad(t.bitmaps).view(np.int32)), put(t.occ_slim.view(np.int32))
+    before = lf_mod.AC_LAUNCHES
+    got = lf_mod.lf_round_ac(bitmaps, occ_slim, iv, code, dollar, k, d)
+    torch.cuda.synchronize()
+    assert lf_mod.AC_LAUNCHES == before + 1
+    assert torch.equal(got, lf_mod.lf_round_ac_reference(bitmaps, occ_slim, iv, code, dollar, k, d))
+    fused = put(tables_from_index(index).entries.view(np.int32))
+    assert torch.equal(got, lf_mod.lf_round_pairs_reference(fused, iv, code, dollar, k, d))
+
+
+@pytest.mark.parametrize("n", [31, 4099])
+@pytest.mark.parametrize("width", ["host", "device"])
+@pytest.mark.parametrize("k,d", LAYOUT_KD)
+def test_lf_round_paired_kernel_matches_plain(cuda, k, d, width, n):
+    """Every read, ok or not, against the plain version (the same formula:
+    a read whose ends lie more than a block apart takes its hi on the first
+    half); the ok reads against the fused round."""
+    index, pad, iv, code, dollar, put = _layout_case(cuda, k, d, n, width)
+    paired = put(build_paired_entries(pad(tables_from_index(index).entries)).view(np.int32))
+    before = lf_mod.PAIRED_LAUNCHES
+    got, ok = lf_mod.lf_round_paired(paired, iv, code, dollar, k, d)
+    torch.cuda.synchronize()
+    assert lf_mod.PAIRED_LAUNCHES == before + 1
+    want, want_ok = lf_mod.lf_round_paired_reference(paired, iv, code, dollar, k, d)
+    assert torch.equal(got, want) and torch.equal(ok, want_ok)
+    assert bool(ok.any()) and not bool(ok.all())
+    fused = put(tables_from_index(index).entries.view(np.int32))
+    assert torch.equal(got[ok], lf_mod.lf_round_pairs_reference(fused, iv, code, dollar, k, d)[ok])
+
+
+@pytest.mark.parametrize("layout", ["split", "alt_counters", "paired", "pad_words"])
+@pytest.mark.parametrize("L,lut_m", [(24, 0), (24, 6), (31, 6)])
+def test_layout_search_on_card_matches_plain_and_oracle(cuda, layout, L, lut_m):
+    """The engine's layouts on the card: the intervals of the plain rounds
+    and of the oracle, each layout's kernel launched every round (the
+    paired layout also its repairs, on a text with long repeats)."""
+    codes = _index(3, 192, 3000)[0].copy()
+    codes[1000:2500] = np.tile(np.arange(4, dtype=np.uint8), 375)  # a repeat: intervals of 375+ rows
+    index = build_index(codes, IndexConfig(k=3, d=192), sa_method="doubling")
+    if layout == "alt_counters" and (lut_m or L % 3):
+        pytest.skip("the alternate-counters search takes no LUT and no tail (XLAEngine refuses them)")
+    if layout == "paired" and not lut_m:
+        pytest.skip("the paired layout needs a LUT (XLAEngine refuses it without)")
+    tail = derive_tail(index) if L % 3 else None
+    rng = np.random.default_rng(L + lut_m)
+    starts = rng.integers(0, len(codes) - L, size=100)
+    starts[:30] = rng.integers(1000, 1500, size=30)
+    queries = np.stack([codes[s : s + L] for s in starts])
+    kw = {"split": {"layout": "split"}, "paired": {"layout": "paired"}, "pad_words": {"pad_words": 128},
+          "alt_counters": {}}[layout]
+    engine = SearchEngine(make_alt_counters(index) if layout == "alt_counters" else index, cuda,
+                          lut_m=lut_m, tail_index=tail, **kw)
+    name = {"split": "SPLIT_LAUNCHES", "alt_counters": "AC_LAUNCHES", "paired": "PAIRED_LAUNCHES",
+            "pad_words": "PAIRS_LAUNCHES"}[layout]
+    before = getattr(lf_mod, name)
+    got = engine.search(queries, wave=32)
+    assert getattr(lf_mod, name) - before >= 4 * ((L - lut_m) // 3)  # four waves
+    np.testing.assert_array_equal(got, engine.search(queries, step=lf_mod.lf_round_reference))
+    np.testing.assert_array_equal(got, search_oracle(index, queries, tail_index=tail))
+    if layout == "paired":
+        assert 0 < engine.last_repair_fraction < 1
 
 
 @pytest.mark.parametrize("gather", ["fused", "dma"])

@@ -154,6 +154,11 @@ with tempfile.TemporaryDirectory() as d:  # align, two records, 24 bp FASTQ read
     run, _ = cli_out(["search", fmi + ".ac", qry, "24", "20", "--engine", "xla-ac", "--iterations", "1",
                       "--device", "cpu", "--output", os.path.join(d, "ac.res")])
     assert run.engine.alt_counters and np.array_equal(run.results, res)
+    import tpufm_torch.sweep  # a tiny sweep: every engine, with and without a LUT
+    rows, _ = cli_out(["sweep", "--refsizes", "3000", "--ks", "3", "--ds", "64", "--engines",
+                       *tpufm_torch.sweep.SWEEP_ENGINES, "--luts", "0", "6", "--numqueries", "32",
+                       "--length", "24", "--iterations", "1", "--device", "cpu"])
+    assert len(rows) == 8 and all(r["bit_exact"] for r in rows)
     # search --resume, crashed, then resumed
     SearchEngine.WAVE = 8
     real, left = SearchEngine.search, [1]

@@ -81,9 +81,14 @@ def test_any_length_matches_xla_and_oracle(rng, k, d, L, lut_m, tail_d):
 
 
 def test_alt_counters_index_searches_its_base(rng):
+    """An alternate-counters index gives its base's intervals; the engine
+    searches it on its slim counters, as XLAEngine does (it searched the
+    base's fused rows until the alternate-counters rounds were ported)."""
     codes, index = _mk(rng, 2, 64)
     queries = _queries(rng, codes, 24)
-    got = SearchEngine(make_alt_counters(index), "cpu").search(queries)
+    engine = SearchEngine(make_alt_counters(index), "cpu")
+    assert engine.alt_counters and engine.entries is None
+    got = engine.search(queries)
     np.testing.assert_array_equal(got, search_oracle(make_alt_counters(index), queries))
 
 

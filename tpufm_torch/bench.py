@@ -41,10 +41,14 @@ names, arguments, defaults and record schema (``metric``, ``value``,
   window codes[s : s + L + E] (``windowed_edit_dist``), where tpufm runs
   its oracle over the whole text: the same <= E verdicts, as an alignment
   ending past the window costs more than E edits.
+- ``run_bench``'s engines are tpufm's (:259-283): xla (with
+  ``pad_words``), xla-split, xla-ac (the index made alternate-counters),
+  xla-paired (``lut_m or 12``; ``repair_fraction`` from its
+  ``last_repair_fraction``) and pallas, each a ``SearchEngine`` of that
+  layout on the bench's device.
 
-Not ported yet (ROADMAP, Queue 1): the engines xla-ac, xla-paired and
-xla-split and ``pad_words`` (item 5); the sharded and multi-device records
-(item 6).
+Not ported yet (ROADMAP, Queue 1 item 6): the sharded and multi-device
+records.
 """
 
 from __future__ import annotations
@@ -69,6 +73,7 @@ from tpufm_torch.engine.search_locate import SearchLocateEngine
 from tpufm_torch.engine.seed import SeedExtendEngine
 from tpufm_torch.host.formats import load_store, save_store
 from tpufm_torch.host.index import IndexConfig, build_index
+from tpufm_torch.host.layouts import make_alt_counters
 from tpufm_torch.host.locate import build_locate, locate_hits, locate_oracle
 from tpufm_torch.host.oracle import search_oracle
 from tpufm_torch.host.seqio import generate_read_pairs, generate_reads
@@ -138,12 +143,12 @@ def _host(t: torch.Tensor) -> np.ndarray:
 
 
 def gather_traffic_bytes(eng, num_queries: int, query_len: int) -> int | None:
-    """Payload bytes an engine's k-step rounds read per pass: per round each
-    interval end fetches one table row, as wide as the engine holds it on the
-    device (``entries.shape[1]`` words, a multiple of 4), plus one 8 B LUT
-    interval per read. None for an engine without a k-step table, or with a
-    k=1 tail (tpufm/bench.py:108)."""
-    if getattr(eng, "entries", None) is None or getattr(eng, "tail_d", None):
+    """Payload bytes a fused-layout engine's k-step rounds read per pass: per
+    round each interval end fetches one table row, as wide as the engine
+    holds it on the device (``entries.shape[1]`` words, a multiple of 4,
+    ``pad_words`` included), plus one 8 B LUT interval per read. None for
+    another layout, or with a k=1 tail (tpufm/bench.py:108)."""
+    if getattr(eng, "layout", None) != "fused" or getattr(eng, "tail_d", None):
         return None
     rounds = (query_len - eng.lut_m) // eng.k
     row_bytes = 4 * eng.entries.shape[1]
@@ -152,20 +157,21 @@ def gather_traffic_bytes(eng, num_queries: int, query_len: int) -> int | None:
 
 def _time_search(eng: SearchEngine, queries: np.ndarray, engine: str, iterations: int):
     """(per-pass seconds, uint32 [B, 2] host intervals) of ``iterations``
-    passes after one warm-up pass (tpufm/bench.py:123). On ``xla``: up to
-    one wave, ``search_device`` on reads already on the device; past it,
+    passes after one warm-up pass (tpufm/bench.py:123). Up to one wave,
+    ``search_device`` on reads already on the device (the paired layout's
+    intervals before its repair, as tpufm's); past it, on ``xla``,
     ``search_device_waved`` on the reads zero-padded to whole waves, while
     they fit ``WAVED_MAX_BYTES``. Otherwise, and always for ``pallas``
     (rounds by ``lf_round_indexed``, as the CLI's ``--engine pallas``),
     ``engine.search`` from host reads to host intervals."""
     num_queries, query_len = queries.shape
     queries = np.require(queries, np.uint8, ["C", "W"])
+    wave = eng.WAVE
+    if engine != "pallas" and num_queries <= wave:
+        qd = torch.from_numpy(queries).to(eng.device)
+        times, out = _passes(lambda: eng.search_device(qd), iterations)
+        return times, _host(out[0] if isinstance(out, tuple) else out)
     if engine == "xla":
-        wave = eng.WAVE
-        if num_queries <= wave:
-            qd = torch.from_numpy(queries).to(eng.device)
-            times, out = _passes(lambda: eng.search_device(qd), iterations)
-            return times, _host(out)
         pad = -num_queries % wave
         if (num_queries + pad) * query_len <= WAVED_MAX_BYTES:
             qpad = np.concatenate([queries, np.zeros((pad, query_len), np.uint8)]) if pad else queries
@@ -249,21 +255,16 @@ def run_bench(
     """k-step backward-search steps/s on one device (tpufm/bench.py:225):
     a seeded random reference of ``refsize`` bases, its (k, d) index built on
     the host, ``num_queries`` reads of ``query_len`` sampled with seed + 1,
-    ``iterations`` timed passes. ``engine``: "xla" (K1 loads its own rows)
-    or "pallas" (rows gathered by torch indexing, then K1's rows entry).
-    ``compare_reference`` is tpufm's switch for its reference CPU run; the
-    port has no build of the reference, so the reference fields are None
-    either way."""
-    if engine in ("xla-ac", "xla-paired", "xla-split"):
-        raise ValueError(
-            f"engine {engine!r} is not ported yet (ROADMAP Queue 1 item 5: the "
-            "remaining engine variants); use 'xla' or 'pallas'"
-        )
-    if engine not in ("xla", "pallas"):
+    ``iterations`` timed passes. ``engine``: "xla" (K1 loads its own rows;
+    rows padded to ``pad_words``), "xla-split" (K8 on the split tables),
+    "xla-ac" (K8 on the alternate counters, no LUT), "xla-paired" (K1's
+    paired entry, ``lut_m or 12``; the record's ``repair_fraction`` is the
+    share of reads its ``search`` searched again) or "pallas" (rows gathered
+    by torch indexing, then K1's rows entry). ``compare_reference`` is
+    tpufm's switch for its reference CPU run; the port has no build of the
+    reference, so the reference fields are None either way."""
+    if engine not in ("xla", "xla-ac", "xla-paired", "xla-split", "pallas"):
         raise ValueError(f"unknown engine {engine!r}")
-    if pad_words is not None:
-        raise ValueError("pad_words is not ported yet (ROADMAP Queue 1 item 5); the "
-                         "engine pads its rows to a multiple of 4 words")
     dev = resolve_device(device)
     _, codes = _reference_codes(refsize, seed)
     t0 = time.perf_counter()
@@ -271,9 +272,21 @@ def run_bench(
     build_s = time.perf_counter() - t0
     queries = generate_reads(codes, query_len, num_queries, seed=seed + 1)
 
-    eng = SearchEngine(index, dev, lut_m=lut_m)
+    if engine == "xla-ac":
+        eng = SearchEngine(make_alt_counters(index), dev)
+    elif engine == "xla-paired":
+        eng = SearchEngine(index, dev, layout="paired", lut_m=lut_m or 12)
+    elif engine == "xla-split":
+        eng = SearchEngine(index, dev, layout="split", lut_m=lut_m)
+    else:
+        eng = SearchEngine(index, dev, lut_m=lut_m, pad_words=pad_words if engine == "xla" else None)
     times, host_out = _time_search(eng, queries, engine, iterations)
     search_s = sum(times) / len(times)
+    repair_fraction = None
+    if engine == "xla-paired":
+        # the timed value is the paired rounds; the repaired intervals are verified
+        host_out = eng.search(queries)
+        repair_fraction = eng.last_repair_fraction
     vm = _verify_and_measure(index, eng, queries, host_out, search_s, seed,
                              full_verify, k, query_len)
     steps_s, sol_steps_s = vm["steps_per_s"], vm["sol_steps_per_s"]
@@ -292,7 +305,7 @@ def run_bench(
             "light of one GPU"
         ),
         "build_seconds": round(build_s, 1),
-        "repair_fraction": None,
+        "repair_fraction": repair_fraction,
         "iterations": iterations,
     }
     if engine == "xla":

@@ -1,6 +1,6 @@
 """Command line of the port on one device: build, genreads, transform,
-search, count, locate, align, bench, the host-only SAM/BAM tools and faidx
-(tpufm_torch.tools) and the debug commands dumpentry, diff and dumpbwt.
+search, count, locate, align, bench, sweep, the host-only SAM/BAM tools and
+faidx (tpufm_torch.tools) and the debug commands dumpentry, diff and dumpbwt.
 
     python -m tpufm_torch.cli build REF REFSIZE [--k K] [--d D] [--auto]
         [--output OUT.fmi|.npz|.tpufm] [--sa auto|native|doubling|device]
@@ -10,7 +10,7 @@ search, count, locate, align, bench, the host-only SAM/BAM tools and faidx
     python -m tpufm_torch.cli transform INDEX.fmi [--layouts L ...]
     python -m tpufm_torch.cli search INDEX QUERIES L N [--lut M] [--tail PATH]
         [--rc] [--iterations I] [--output OUT] [--device cuda|cpu]
-        [--engine xla|pallas] [--resume]
+        [--engine xla|xla-ac|xla-paired|pallas] [--pad-words W] [--resume]
     python -m tpufm_torch.cli count INDEX QUERIES L N [--mismatches 0|1]
         [--lut M] [--tail PATH] [--rc] [--iterations I] [--output OUT]
         [--device cuda|cpu]
@@ -27,10 +27,14 @@ search, count, locate, align, bench, the host-only SAM/BAM tools and faidx
         [--insert-min A] [--insert-max B] [--max-pairs P] [--device cuda|cpu]
     python -m tpufm_torch.cli bench [--refsize N] [--k K] [--d D]
         [--numqueries N] [--length L] [--iterations I] [--seed S]
-        [--engine xla|pallas] [--lut M] [--mismatches M | --edits E]
+        [--engine xla|xla-split|xla-ac|xla-paired|pallas] [--lut M]
+        [--mismatches M | --edits E]
         [--seed-hits H] [--paired [--insert-min A] [--insert-max B]]
         [--genome] [--locate [--fused]] [--max-hits H] [--sample-rate S]
         [--device cuda|cpu]
+    python -m tpufm_torch.cli sweep [--refsizes N ...] [--ks K ...] [--ds D ...]
+        [--engines E ...] [--luts M ...] [--numqueries N] [--length L]
+        [--iterations I] [--output OUT] [--device cuda|cpu]
     python -m tpufm_torch.cli dumpentry INDEX ENTRY [--num N]
     python -m tpufm_torch.cli diff A.res B.res
     python -m tpufm_torch.cli dumpbwt REF REFSIZE [--k K]
@@ -42,10 +46,17 @@ its k=1 tail; files byte-identical), ``tpufm genreads`` (``cmd_genreads``,
 dispatch and argument checks, one JSON line of tpufm_torch.bench's record;
 the modes not ported yet exit non-zero naming their ROADMAP item),
 ``tpufm search`` (``cmd_search``, tpufm/cli.py:338-387) with
-its single-chip engines: ``--engine xla`` (the default; K1 loads its own
-rows) and ``--engine pallas`` (``PallasEngine``, cli.py:444-447: torch
-indexing gathers every end's row, then K1 computes on the gathered rows;
-fixed lengths that k divides after the LUT only); of ``tpufm count``
+its single-chip engines (``_make_engine``, :390-470): ``--engine xla`` (the
+default; K1 loads its own rows, padded to ``--pad-words``; an
+alternate-counters image is searched on its slim counters by K8, without
+LUT or tail, as ``XLAEngine`` does), ``xla-ac`` (a baseline index made
+alternate-counters), ``xla-paired`` (K1's paired entry after a LUT, the
+wide reads searched again on the fused rows) and ``--engine pallas``
+(``PallasEngine``, cli.py:444-447: torch indexing gathers every end's row
+of the index's base, then K1 computes on the gathered rows; fixed lengths
+that k divides after the LUT only); of ``tpufm sweep`` (``cmd_sweep``,
+:683-705: tpufm_torch.sweep's matrix, ``SWEEP FAILED`` on a row that is
+not bit-exact); of ``tpufm count``
 (``cmd_count``, :469-505); of ``tpufm locate`` (``cmd_locate``,
 ``_locate_tables``, ``_locate_body``, :729-1154) in its exact two-pass,
 ``--fused``, ``--rc``, Hamming (``--mismatches 1``, and ``>= 2`` by seed-
@@ -82,7 +93,7 @@ import time
 
 import numpy as np
 
-from tpufm_torch import bench, tools
+from tpufm_torch import bench, sweep, tools
 from tpufm_torch.config import recommend_config
 from tpufm_torch.device import resolve_device
 from tpufm_torch.engine.edit import EditExtendEngine
@@ -1093,6 +1104,31 @@ def cmd_bench(args) -> dict:
     return record
 
 
+def cmd_sweep(args) -> list:
+    """The (refsize x k x d x engine x lut) matrix (tpufm_torch.sweep), one
+    JSON line a row; exits non-zero if a row is not bit-exact
+    (tpufm/cli.py:683-705)."""
+    records = sweep.run_sweep(
+        refsizes=tuple(args.refsizes),
+        ks=tuple(args.ks),
+        ds=tuple(args.ds),
+        engines=tuple(args.engines),
+        lut_ms=tuple(args.luts),
+        num_queries=args.numqueries,
+        query_len=args.length,
+        iterations=args.iterations,
+        out_path=args.output,
+        device=args.device,
+    )
+    bad = [r for r in records if r.get("bit_exact") is False]
+    if bad:
+        sys.exit(
+            f"SWEEP FAILED: {len(bad)}/{len(records)} rows not bit-exact "
+            f"vs oracle (first: {bad[0]})"
+        )
+    return records
+
+
 def _positive(text: str) -> int:
     value = int(text)
     if value < 1:
@@ -1297,8 +1333,9 @@ def main(argv=None):
     be.add_argument("--iterations", type=_positive, default=5)
     be.add_argument("--seed", type=int, default=0)
     be.add_argument("--engine", default="xla",
-                    help="xla (K1 loads its own rows) or pallas (rows gathered by torch "
-                         "indexing, then K1's rows entry)")
+                    help="xla (K1 loads its own rows), xla-split or xla-ac (K8), xla-paired "
+                         "(K1's paired entry; --lut defaults to 12) or pallas (rows gathered "
+                         "by torch indexing, then K1's rows entry)")
     be.add_argument("--lut", type=int, default=None,
                     help="prefix-LUT m (default: none; with --genome, recommend_config's "
                          "pick — pass 0 for LUT-free)")
@@ -1333,6 +1370,21 @@ def main(argv=None):
                     help="device count for --locate: 1 (more is not ported)")
     _add_device(be)
     be.set_defaults(fn=cmd_bench)
+
+    sw = sub.add_parser("sweep", help="run the (refsize x k x d x engine) matrix")
+    sw.add_argument("--refsizes", type=int, nargs="+", default=[1_000_000])
+    sw.add_argument("--ks", type=int, nargs="+", default=[1, 2, 3])
+    sw.add_argument("--ds", type=int, nargs="+", default=[64, 128])
+    sw.add_argument("--engines", nargs="+", default=["xla"],
+                    help="any of: " + " ".join(sweep.SWEEP_ENGINES))
+    sw.add_argument("--luts", nargs="+", type=int, default=[0],
+                    help="prefix-LUT m values to sweep (0 = no LUT)")
+    sw.add_argument("--numqueries", type=int, default=65536)
+    sw.add_argument("--length", type=int, default=120)
+    sw.add_argument("--iterations", type=int, default=3)
+    sw.add_argument("--output", default=None)
+    _add_device(sw)
+    sw.set_defaults(fn=cmd_sweep)
 
     tools.add_parsers(sub)
     de = sub.add_parser("dumpentry", help="print entry counters/bitmaps (debug)")
