@@ -24,7 +24,7 @@ from tpufm.index.layouts import make_alt_counters as jax_make_alt_counters
 from tpufm_torch import SearchEngine, tables_from_jax
 from tpufm_torch.engine import lf_round as lf_mod
 from tpufm_torch.engine.tables import build_paired_entries, tables_from_index
-from tpufm_torch.host.index import IndexConfig, build_index
+from tpufm_torch.host.index import IndexConfig, KStepFMIndex, build_index
 
 
 def _text(k, d, n, seed=5, repeat=False):
@@ -116,8 +116,6 @@ def test_paired_round_equals_lf_step_paired(k, d, n):
 
 def index_port(index):
     """The port's index of the same arrays."""
-    from tpufm_torch.host.index import KStepFMIndex
-
     cfg = IndexConfig(k=index.config.k, d=index.config.d)
     return KStepFMIndex(cfg, index.bwtsize, index.occ, index.bitmaps, index.dollar_pos, index.dollar_base)
 

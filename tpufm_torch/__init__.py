@@ -7,7 +7,9 @@ own host side (index construction, file formats, read I/O, numpy oracle).
 
 Layers:
   tpufm_torch.cli               — ``python -m tpufm_torch.cli build|genreads|
-                                  search|count|locate|align|bench ...``
+                                  search|count|locate|align|bench|sweep ...``
+  tpufm_torch.sweep             — tpufm's (refsize x k x d x engine x LUT)
+                                  experiment matrix, one record a row
   tpufm_torch.bench             — tpufm's single-device bench records (search,
                                   genome, locate, fused locate, Hamming <= 1,
                                   seed-and-extend, edit distance, paired),
@@ -26,14 +28,18 @@ Layers:
   tpufm_torch.engine.search     — SearchEngine: tables on the device, waves,
                                   prefix LUT, k-step and k=1 tail rounds,
                                   fixed and variable length, gather "fused"
-                                  or "dma"; counts, exact or Hamming <= 1
-                                  (engine.mismatch: the 3L+1 variants)
+                                  or "dma"; the split, alternate-counters
+                                  and paired layouts and pad_words; counts,
+                                  exact or Hamming <= 1 (engine.mismatch:
+                                  the 3L+1 variants)
   tpufm_torch.engine.locate     — LocateEngine: the sampled-SA walk (K4)
                                   from BWT rows to text positions
   tpufm_torch.engine.lf_round   — one LF round (K1): per read (both ends,
-                                  the engine's), per end, or on rows
-                                  gathered beforehand; the CUDA kernel on
-                                  the card, its plain version on the CPU
+                                  the engine's), per end, on rows gathered
+                                  beforehand, or on the paired table; of
+                                  the split and alternate-counters tables
+                                  (K8); the CUDA kernels on the card, their
+                                  plain versions on the CPU
   tpufm_torch.engine.row_gather — the row gather (K3) of gather="dma"
   tpufm_torch.index             — the index built on the device: the suffix
                                   array by prefix doubling (torch.sort a
