@@ -172,6 +172,27 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      | xla-split | xla-paired`` records at the flagship's shape; (f) a
      ``sweep`` of 1 Mbase, k 1-3, d 64/128, all five engines, LUT 0 and 6,
      65,536 reads, every row bit-exact
+ 19. the mesh engines (tpufm_torch.parallel), every interval equal to phase
+     4's and every launch count exact: (a) ``search --mesh 1``, ``search
+     --sharded --routing a2a --mesh 1`` (its LUT built by its own rounds)
+     and ``count --mesh 1`` through the CLI; ``search --mesh 2`` on a
+     one-card machine exits with make_mesh's text; the ``bench --multichip``
+     and ``bench --sharded --routing a2a`` records (lut12, flagship,
+     ``--mesh 1``); DataParallelEngine on one device timed beside
+     SearchEngine on the same reads; (b) DataParallelEngine over
+     ``Mesh([cuda:0] * 4)``, fused lut12 (K1 pairs 36 a shard) and
+     alternate counters (K8-AC 40 a shard); (c) ShardedIndexEngine over the
+     same 4 shards, allgather, ring and a2a with lut12 (each LUT equal to
+     phase 4's) and a2a without a LUT, the overflow rounds printed,
+     ``assert_collective_model`` on a wave of each; (d) the 250 Mbase text
+     built on the card (``return_host=False``), split 4 ways there,
+     allgather and a2a lut12 equal to the one-device SearchEngine on
+     1,048,576 reads, the first 65,536 to the oracle, device seconds a pass
+     of each; (e) K9 (``lf_answer_owned``) against its plain version at
+     rounds 1 and 18 of (c)'s allgather wave on every shard (shard 0 timed
+     beside its bound) and on edge cases (zero rows, '$' blocks, shard
+     edges, rows past the table, owners past the mesh). Four shards on one
+     card copy within its memory: no transport time is measured.
 Every path is driven with all launch counts set to 0 just before it and
 read just after; a kernel of the path launched too few times fails the run.
 Then one JSON line of kernel figures (each kernel's time beside its bound:
@@ -258,6 +279,17 @@ from tpufm_torch.index.builder_device import (
     pack_text_2bit_reference,
 )
 from tpufm_torch.index.sa_device import suffix_array_device_arr, upload_text
+from tpufm_torch.engine.tables import host_words
+from tpufm_torch.host.index import KStepFMIndex
+from tpufm_torch.host.layouts import make_alt_counters
+from tpufm_torch.parallel import (
+    DataParallelEngine,
+    Mesh,
+    ShardedIndexEngine,
+    assert_collective_model,
+    make_mesh,
+)
+from tpufm_torch.timer import timed_device_passes
 from tpufm_torch.host.seqio import (
     decode_bases,
     generate_read_pairs,
@@ -331,6 +363,8 @@ DEVICE_BUILD_SHARE = 0.9
 K7_KS = (1, 2, 3, 4)
 #: phase 18(f): the sweep's reference and reads
 SWEEP_BASES, SWEEP_READS = 1_000_000, 1 << 16
+#: phase 19: the shards of the meshes built on this one card
+MESH_SHARDS = 4
 #: one H100 SXM's INT32 issue rate: 64 INT32 lanes an SM (a quarter of its
 #: 128 FP32 lanes doing 2 flops an FMA: 67 TFLOP/s, NVIDIA's data sheet, so
 #: the clock is 1.98 GHz) x 132 SMs x 1.98e9
@@ -353,6 +387,7 @@ COUNTS = {
     "lf_round_paired": (lf_mod, "PAIRED_LAUNCHES"),
     "lf_round_split": (lf_mod, "SPLIT_LAUNCHES"),
     "lf_round_ac": (lf_mod, "AC_LAUNCHES"),
+    "lf_answer_owned": (lf_mod, "OWNED_LAUNCHES"),
     "row_gather": (rg_mod, "LAUNCHES"),
     "locate_walk": (loc_mod, "LAUNCHES"),
     "hamming_verify": (seed_mod, "LAUNCHES"),
@@ -2246,6 +2281,328 @@ def layout_kernel(name: str, rows: list, by_path: dict, path: str, counter: str,
     }
 
 
+def expect_exact(path: str, counts: dict, need: dict) -> None:
+    """Fail unless each kernel in ``need`` launched exactly that often."""
+    for name, n in need.items():
+        if counts[name] != n:
+            raise AssertionError(f"{path}: {name} launched {counts[name]} times, expected {n}")
+
+
+def same_results(what: str, got: np.ndarray, want: np.ndarray) -> None:
+    if got.shape != want.shape or not np.array_equal(got, want):
+        bad = (got != want).any(1).sum() if got.shape == want.shape else got.shape
+        raise AssertionError(f"{what}: {bad} reads differ")
+
+
+def k9_edge_requests(rng, bwtsize: int, k: int, d: int, dollar: np.ndarray, n_shards: int, e_local: int,
+                     n: int) -> np.ndarray:
+    """int32 [N, 3] requests (block, code, interval; uint32 bits) of K9's edge
+    cases on a table of ``n_shards`` shards of ``e_local`` rows: ``n`` random
+    ends over [0, bwtsize] under random codes; zero rows (the ring's and the
+    a2a buckets' padding); ends around every '$' position and at its block's
+    first and last offset, under its k-mer (the '$' hits, global blocks); the
+    last and first block of every shard, under the first and last code (the
+    shard edges; the last shard's last rows are the zero rows padded past the
+    table when e_local does not divide it); blocks owned by no shard."""
+    iv = rng.integers(0, bwtsize + 1, size=n, dtype=np.int64)
+    rows = [np.stack([iv // d, rng.integers(0, 4**k, size=n, dtype=np.int64), iv], axis=1),
+            np.zeros((5, 3), np.int64)]
+    for pos, base in zip(dollar[0].tolist(), dollar[1].tolist()):  # rows pos, base
+        start = pos - pos % d
+        for v in (pos - 1, pos, pos + 1, start, start + d - 1):
+            v = min(max(v, 0), bwtsize)
+            rows.append(np.array([[v // d, base, v]]))
+    for s in range(1, n_shards + 1):
+        for b in (s * e_local - 1, s * e_local):
+            for c in (0, 4**k - 1):
+                rows.append(np.array([[b, c, b * d + int(rng.integers(0, d))]]))
+    for b in (n_shards * e_local + 7, (1 << 32) // d - 1):  # owners past the mesh
+        rows.append(np.array([[b, 1, b * d + 5]]))
+    return np.concatenate(rows).astype(np.uint32).view(np.int32)
+
+
+def k9_bytes(req: torch.Tensor, shard: int, e_local: int, k: int, d: int) -> int:
+    """Bytes K9 must move for ``req`` on shard ``shard``: 12 B in and 4 B out
+    a request, and the table words its owned requests need, each once (of
+    every distinct local row the plane words of the windows its ends cover
+    and each distinct (row, code) counter, as ``k1_table_bytes``)."""
+    block, code, iv = from_u32_bits(req).unbind(1)
+    owned = block // e_local == shard
+    local = iv[owned] - shard * e_local * d
+    return 16 * req.shape[0] + k1_table_bytes(local, code[owned], k, d, e_local)
+
+
+def check_k9(eng, s: int, req: torch.Tensor, timed: bool) -> dict:
+    """K9 on shard ``s`` of the sharded engine ``eng`` against its plain
+    version on ``req``: every answer bit-identical; timed (CUDA events,
+    median of 7) beside its bound where ``timed``."""
+    args = (eng.bitmaps[s], eng.occ[s], req, s, eng.e_local, eng.dollar[s], eng.k, eng.d)
+    got = lf_mod.lf_answer_owned(*args)
+    ref = lf_mod.lf_answer_owned_reference(*args)
+    torch.cuda.synchronize()
+    err = int((from_u32_bits(got) - from_u32_bits(ref)).abs().max()) if req.shape[0] else 0
+    if err or not torch.equal(got, ref):
+        raise AssertionError(f"K9 shard {s}: kernel differs from plain (max abs err {err})")
+    block = from_u32_bits(req[:, 0])
+    row = {"shard": s, "requests": int(req.shape[0]), "max_abs_err": err,
+           "owned": int((block // eng.e_local == s).sum())}
+    if timed:
+        row.update(ms=cuda_ms(lambda: lf_mod.lf_answer_owned(*args)),
+                   plain_ms=cuda_ms(lambda: lf_mod.lf_answer_owned_reference(*args)),
+                   bound_ms=bound_ms(k9_bytes(req, s, eng.e_local, eng.k, eng.d)))
+    return row
+
+
+def capture_requests(eng, queries: list, rounds: tuple) -> tuple:
+    """One ``search_device`` of ``eng`` on the placed ``queries``, keeping
+    the request stream each shard's owner answer gets at ``rounds`` (the
+    allgather routing answers once a shard a round): ((intervals, overflow),
+    {(round, shard): requests})."""
+    kept, calls = {}, [0] * eng.mesh.size
+    real = eng._answers
+
+    def capturing(plain):
+        answer = real(plain)
+
+        def call(s, req):
+            calls[s] += 1
+            if calls[s] in rounds:
+                kept[calls[s], s] = req.clone()
+            return answer(s, req)
+        return call
+
+    eng._answers = capturing
+    try:
+        out = eng.search_device(queries)
+    finally:
+        del eng._answers
+    return out, kept
+
+
+def mesh_phase(tmp: str, index, fmi: str, qry: str, reads: np.ndarray, main_res: np.ndarray, dev,
+               by_path: dict) -> dict:
+    """Phase 19 (see the module docstring): the mesh engines, every interval
+    held against phase 4's (or the one-device engine's at 250 Mbase), every
+    launch count exact, K9 against its plain version."""
+    t0 = time.perf_counter()
+    rounds = (READ_LEN - LUT_M) // K
+    SH = MESH_SHARDS
+    wave = ShardedIndexEngine.WAVE_PER_CHIP * SH
+    waves = -(-READS // wave)
+    lut_waves = 4**LUT_M // min(4**LUT_M, wave)  # a sharded LUT build's waves on SH shards
+    lut_cache = f"{fmi}.lut{LUT_M}.npz"
+    with np.load(lut_cache) as z:  # phase 4's LUT, built by K1
+        main_lut = torch.from_numpy(z["lut"].view(np.int32)).to(dev)
+    seconds = {}
+
+    # (a) the CLI at mesh 1, the bench records, mesh=1 beside one device
+    def cli_run(label: str, cmd: str, argv: list):
+        t1 = time.perf_counter()
+        reset_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            run = cli.main([cmd, fmi, qry, str(READ_LEN), str(READS), *argv, "--device", "cuda",
+                            "--iterations", "1", "--output", os.path.join(tmp, f"{label}.out")])
+        by_path[label] = read_counts()
+        seconds[label] = time.perf_counter() - t1
+        return run
+
+    run = cli_run("mesh1_search", "search", ["--lut", str(LUT_M), "--mesh", "1"])
+    same_results("search --mesh 1", run.results, main_res)
+    expect_exact("search --mesh 1", by_path["mesh1_search"], {"lf_round_pairs": 2 * rounds, "lf_answer_owned": 0})
+    run = cli_run("mesh1_sharded_a2a", "search", ["--lut", str(LUT_M), "--mesh", "1", "--sharded", "--routing", "a2a"])
+    same_results("search --sharded --routing a2a --mesh 1", run.results, main_res)
+    one_wave = ShardedIndexEngine.WAVE_PER_CHIP
+    expect_exact("search --sharded --mesh 1", by_path["mesh1_sharded_a2a"], {
+        "lf_answer_owned": (4**LUT_M // one_wave) * (LUT_M // K) + 2 * rounds * -(-READS // one_wave),
+        "lf_round_pairs": 0})
+    run = cli_run("mesh1_count", "count", ["--lut", str(LUT_M), "--mesh", "1"])
+    same_results("count --mesh 1", run.counts[:, None], (main_res[:, 1] - main_res[:, 0])[:, None])
+    expect_exact("count --mesh 1", by_path["mesh1_count"], {"lf_round_pairs": 2 * rounds})
+    del run
+    have = torch.cuda.device_count()
+    if have < 2:
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                cli.main(["search", fmi, qry, str(READ_LEN), "1024", "--mesh", "2", "--device", "cuda"])
+            raise AssertionError("search --mesh 2 ran on one card")
+        except ValueError as e:
+            if str(e) != f"need 2 devices, have {have}":
+                raise
+    flagship = ["--refsize", str(REF_BASES), "--k", str(K), "--d", str(D), "--lut", str(LUT_M),
+                "--length", str(READ_LEN), "--iterations", str(BENCH_PASSES), "--numqueries", str(READS),
+                "--mesh", "1"]
+    passes = 2 * (BENCH_PASSES + 1)  # the one-device run and the mesh run, each a warm-up and the passes
+    lut_k1 = (4**LUT_M // min(4**LUT_M, 1 << 20)) * (LUT_M // K)
+    lut_k9 = (4**LUT_M // one_wave) * (LUT_M // K)
+    need = {"bench_multichip": {"lf_round_pairs": passes * rounds + 2 * lut_k1},
+            "bench_sharded_a2a": {"lf_answer_owned": passes * rounds + 2 * lut_k9}}
+    records = {
+        "multichip": bench_record("bench_multichip", [*flagship, "--multichip"], need["bench_multichip"], by_path),
+        "sharded_a2a": bench_record("bench_sharded_a2a", [*flagship, "--sharded", "--routing", "a2a"],
+                                    need["bench_sharded_a2a"], by_path),
+    }
+    for label, n in need.items():
+        expect_exact(label, by_path[label], n)
+    dp1 = DataParallelEngine(index, make_mesh(1, device=dev), lut_m=LUT_M, lut_cache=lut_cache)
+    placed1 = dp1.shard_queries(reads)
+    one = dp1.engines[0]
+    turns = {"search_engine": [], "mesh1": []}
+    for name in ("search_engine", "mesh1", "mesh1", "search_engine"):
+        fn = (lambda: one.search_device(placed1[0])) if name == "search_engine" else (
+            lambda: dp1.search_device(placed1))
+        turns[name].extend(timed_device_passes(fn, iterations=3)[2])
+    overhead = {name: statistics.mean(t) for name, t in turns.items()}
+    del dp1, placed1, one
+    print(f"[19 mesh] (a) phase 4's index and {READS} x {READ_LEN} bp reads: search --mesh 1 "
+          f"({by_path['mesh1_search']['lf_round_pairs']} K1 launches), search --sharded --routing a2a --mesh 1 "
+          f"({by_path['mesh1_sharded_a2a']['lf_answer_owned']} K9 launches, its LUT built by its own rounds) and "
+          f"count --mesh 1 all equal to phase 4; search --mesh 2 on {have} card(s): "
+          + (f"'need 2 devices, have {have}'" if have < 2 else "not tried") + f"; CLI seconds {json.dumps({k: round(v, 2) for k, v in seconds.items()})}; device seconds a "
+          f"pass (the same {READS} reads on the card, in turns): SearchEngine {overhead['search_engine']:.6f}, "
+          f"DataParallelEngine on one device {overhead['mesh1']:.6f} "
+          f"({(overhead['mesh1'] / overhead['search_engine'] - 1) * 100:+.2f}%)", flush=True)
+
+    # (b) DataParallelEngine over four shards on this card
+    t1 = time.perf_counter()
+    mesh4 = Mesh([dev] * SH)
+    dp4 = DataParallelEngine(index, mesh4, lut_m=LUT_M, lut_cache=lut_cache)
+    reset_counts()
+    same_results("DataParallelEngine, 4 shards", dp4.search(reads), main_res)
+    by_path["mesh4_dp"] = read_counts()
+    expect_exact("DataParallelEngine, 4 shards", by_path["mesh4_dp"], {"lf_round_pairs": SH * rounds})
+    placed4 = dp4.shard_queries(reads)
+    dp4_s = timed_device_passes(lambda: dp4.search_device(placed4), iterations=3)[0]
+    del dp4
+    ac4 = DataParallelEngine(make_alt_counters(index), mesh4)
+    reset_counts()
+    same_results("DataParallelEngine alternate counters, 4 shards", ac4.search(reads), main_res)
+    by_path["mesh4_dp_ac"] = read_counts()
+    expect_exact("DataParallelEngine alternate counters", by_path["mesh4_dp_ac"],
+                 {"lf_round_ac": SH * (READ_LEN // K), "lf_round_pairs": 0})
+    ac4_s = timed_device_passes(lambda: ac4.search_device(placed4), iterations=3)[0]
+    del ac4
+    print(f"    (b) DataParallelEngine over {SH} shards of this card, all equal to phase 4: fused lut{LUT_M} "
+          f"{by_path['mesh4_dp']['lf_round_pairs']} K1 pair launches ({rounds} a shard), {dp4_s:.6f} s a device "
+          f"pass; alternate counters {by_path['mesh4_dp_ac']['lf_round_ac']} K8-AC launches ({READ_LEN // K} a "
+          f"shard), {ac4_s:.6f} s a device pass; {time.perf_counter() - t1:.2f} s", flush=True)
+
+    # (c) ShardedIndexEngine over four shards on this card, each routing
+    routings, k9 = {}, {"rounds": [], "edges": []}
+    place = placed4  # the device passes: all reads at once, as the bench records time them
+    for routing, lut in (("allgather", LUT_M), ("ring", LUT_M), ("a2a", LUT_M), ("a2a", 0)):
+        t1 = time.perf_counter()
+        label = f"mesh4_{routing}" + ("" if lut else "_nolut")
+        reset_counts()
+        eng = ShardedIndexEngine(index, mesh4, routing=routing, lut_m=lut)
+        by_path[label + "_lut"] = read_counts()
+        if lut and not torch.equal(eng.lut[0], main_lut):
+            raise AssertionError(f"{label}: its LUT differs from phase 4's")
+        reset_counts()
+        same_results(f"ShardedIndexEngine {routing}" + ("" if lut else " without LUT"), eng.search(reads), main_res)
+        by_path[label] = read_counts()
+        n_rounds = rounds if lut else READ_LEN // K
+        overflowed = int(sum(ov.sum() for ov in eng.last_overflow_waves))
+        per_round = {"allgather": SH, "ring": 2 * SH * SH, "a2a": SH}[routing]
+        expect_exact(label, by_path[label], {"lf_answer_owned": per_round * n_rounds * waves + SH * overflowed,
+                                             "lf_round_pairs": 0})
+        if lut:
+            lut_rounds = lut_waves * (LUT_M // K)
+            lut_launches = by_path[label + "_lut"]["lf_answer_owned"]
+            if routing != "a2a" and lut_launches != per_round * lut_rounds:
+                raise AssertionError(f"{label}: LUT build launched K9 {lut_launches} times")
+        model = assert_collective_model(eng, reads[:wave])
+        if routing == "allgather" and lut:
+            (_, _), kept = capture_requests(eng, eng.place_queries(reads[:wave]), CAPTURED_ROUNDS)
+            for (j, s), req in sorted(kept.items()):
+                row = check_k9(eng, s, req, timed=s == 0)
+                k9["rounds"].append({"round": j, **row})
+            rng = np.random.default_rng(SEED + 19)
+            dollar = np.stack([index.dollar_pos, index.dollar_base]).astype(np.int64)
+            edges = torch.from_numpy(k9_edge_requests(rng, eng.bwtsize, K, D, dollar, SH, eng.e_local,
+                                                      1 << 16)).to(dev)
+            k9["edges"] = [check_k9(eng, s, edges, timed=False) for s in range(SH)]
+        dev_s = timed_device_passes(lambda: eng.search_device(place), iterations=3)[0]
+        flags = np.concatenate(eng.last_overflow_waves) if eng.last_overflow_waves else np.zeros(0, bool)
+        routings[label] = {
+            "routing": routing, "lut_m": lut, "device_seconds_per_pass": dev_s,
+            "lut_build_seconds": eng.lut_build_seconds, "k9_launches": by_path[label]["lf_answer_owned"],
+            "overflow_round_fraction": float(flags.mean()) if flags.size else 0.0,
+            "overflow_rounds": overflowed, "collective_bytes_a_wave": model["bytes"],
+            "model_sent_a_round": model["model"]["sent"], "seconds": time.perf_counter() - t1,
+        }
+        del eng
+        torch.cuda.empty_cache()
+    print(f"    (c) ShardedIndexEngine over {SH} shards of this card (e_local {-(-index.occ.shape[0] // SH)} of "
+          f"{index.occ.shape[0]} rows), {waves} waves of {wave}, all equal to phase 4, each LUT equal to phase "
+          f"4's, every K9 count exact, assert_collective_model passed:", flush=True)
+    for label, r in routings.items():
+        print(f"      {label}: {r['device_seconds_per_pass']:.6f} s a device pass, K9 launches {r['k9_launches']}, "
+              f"overflow rounds {r['overflow_rounds']} (fraction {r['overflow_round_fraction']:.4f}), LUT build "
+              f"{r['lut_build_seconds']} s, {r['collective_bytes_a_wave']} B between shards a wave (model "
+              f"{r['model_sent_a_round']} B a shard a round); {r['seconds']:.2f} s", flush=True)
+
+    # (d) the 250 Mbase text, built on the card, split four ways there
+    t1 = time.perf_counter()
+    _, gcodes = bench._reference_codes(GENOME_BASES, 0)
+    rec = recommend_config(GENOME_BASES)
+    gcd = upload_text(gcodes, dev)
+    gorder = suffix_array_device_arr(gcd)
+    gidx = build_index_device(gcodes, IndexConfig(k=rec["k"], d=rec["d"]), return_host=False,
+                              sa_dev=gorder, codes_dev=gcd)
+    del gcd, gorder
+    torch.cuda.empty_cache()
+    build_s = time.perf_counter() - t1
+    greads = generate_reads(gcodes, READ_LEN, READS, seed=SEED + 19)
+    single = SearchEngine(gidx, dev, lut_m=LUT_M)
+    want = single.search(greads)
+    gq = torch.from_numpy(greads).to(dev)
+    genome = {"single_device_seconds_per_pass": timed_device_passes(lambda: single.search_device(gq), 3)[0]}
+    glut = single.lut
+    del single, gq
+    torch.cuda.empty_cache()
+    gwaves = -(-READS // wave)
+    grounds = (READ_LEN - LUT_M) // rec["k"]
+    for routing in ("allgather", "a2a"):
+        eng = ShardedIndexEngine(gidx, mesh4, routing=routing, lut_m=LUT_M)
+        if not torch.equal(eng.lut[0], glut):
+            raise AssertionError(f"250 Mbase {routing}: its LUT differs from the one-device engine's")
+        label = f"genome_{routing}"
+        reset_counts()
+        same_results(f"250 Mbase {routing}", eng.search(greads), want)
+        by_path[label] = read_counts()
+        overflowed = int(sum(ov.sum() for ov in eng.last_overflow_waves))
+        expect_exact(label, by_path[label], {"lf_answer_owned": SH * (grounds * gwaves + overflowed)})
+        gplaced = eng.place_queries(greads)
+        genome[routing] = {"device_seconds_per_pass": timed_device_passes(lambda: eng.search_device(gplaced), 3)[0],
+                           "overflow_rounds": overflowed, "e_local": eng.e_local}
+        del eng, gplaced
+        torch.cuda.empty_cache()
+    host = KStepFMIndex(config=gidx.config, bwtsize=gidx.bwtsize, occ=host_words(gidx.occ),
+                        bitmaps=host_words(gidx.bitmaps), dollar_pos=gidx.dollar_pos, dollar_base=gidx.dollar_base)
+    same_results("250 Mbase, the oracle", want[:ORACLE_READS], search_oracle(host, greads[:ORACLE_READS]))
+    del host, gidx, glut, greads, gcodes
+    torch.cuda.empty_cache()
+    print(f"    (d) {GENOME_BASES} bases, k={rec['k']} d={rec['d']} built on the card ({build_s:.2f} s, no host "
+          f"copy of the tables), split {SH} ways there ({genome['a2a']['e_local']} rows a shard), lut{LUT_M}, {READS} x "
+          f"{READ_LEN} bp: one device {genome['single_device_seconds_per_pass']:.6f} s a device pass; allgather "
+          f"{genome['allgather']['device_seconds_per_pass']:.6f} s; a2a {genome['a2a']['device_seconds_per_pass']:.6f} "
+          f"s ({genome['a2a']['overflow_rounds']} overflow rounds); all equal to the one-device engine, first "
+          f"{ORACLE_READS} to the oracle; {time.perf_counter() - t1:.2f} s", flush=True)
+
+    # (e) K9 against its plain version
+    for c in k9["rounds"]:
+        line = f"round {c['round']} shard {c['shard']}: {c['requests']} requests, {c['owned']} owned"
+        if "ms" in c:
+            line += (f": kernel {c['ms']:.4f} ms (bound {c['bound_ms']:.4f} ms, {c['bound_ms'] / c['ms'] * 100:.1f}% "
+                     f"of it), plain {c['plain_ms']:.4f} ms")
+        print(f"    (e) K9 {line}, bit-identical", flush=True)
+    print(f"    (e) K9 edge cases on every shard ({k9['edges'][0]['requests']} requests: zero rows, '$' blocks, "
+          f"shard edges, rows past the table, owners past the mesh): bit-identical; phase "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return {"k9": k9, "routings": routings, "genome": genome, "records": records, "overhead": overhead,
+            "dp4_s": dp4_s, "ac4_s": ac4_s}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; it runs only on a GPU")
@@ -2720,6 +3077,8 @@ def main() -> None:
         resume_and_tools(tmp, codes, index, fmi, qry, store, pos_fused, align, dev, by_path, lut_launches)
         torch.cuda.empty_cache()
         lay = layouts(tmp, index, fmi, qry, reads, main_res, dev, by_path)
+        torch.cuda.empty_cache()
+        mesh = mesh_phase(tmp, index, fmi, qry, reads, main_res, dev, by_path)
 
     for pkg in ("jax", "tpufm"):
         if any(m == pkg or m.startswith(pkg + ".") for m in sys.modules):
@@ -2753,6 +3112,7 @@ def main() -> None:
                 for label, (path, n, lut) in passes.items()}
 
     r18 = k1_main[-1]
+    k9_last = [c for c in mesh["k9"]["rounds"] if "ms" in c][-1]
     print(json.dumps({"kernels": [
         {
             # K1 on the fused table: the pair entry, which every path runs,
@@ -2927,6 +3287,27 @@ def main() -> None:
              "tpufm/engine/xla.py:215 (jnp lf_step_ac, no pallas_call)"),
             ("lf_round_paired", "paired", "search_paired", "lf_round_paired",
              "tpufm/engine/xla.py:128 (jnp lf_step_paired, no pallas_call)"))],
+        {
+            "name": "lf_answer_owned",
+            "route": "cuda",
+            "source": "tpufm_torch/csrc/lf_round_split.cu",
+            "replaces": "tpufm/parallel/search.py:267 (jnp _answer_owned, no pallas_call)",
+            "launches": by_path["mesh4_allgather"]["lf_answer_owned"],
+            "max_abs_err": max(c["max_abs_err"] for c in mesh["k9"]["rounds"] + mesh["k9"]["edges"]),
+            "ms": k9_last["ms"],
+            "plain_ms": k9_last["plain_ms"],
+            "bound_ms": k9_last["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+            "shape": f"round {k9_last['round']} of phase 19(c)'s allgather wave ({MESH_SHARDS} shards of this "
+                     f"card), shard 0: {k9_last['requests']} requests, {k9_last['owned']} owned",
+            "rounds": mesh["k9"]["rounds"],
+            "edges": mesh["k9"]["edges"],
+            "routings": mesh["routings"],
+            "genome": mesh["genome"],
+            "mesh1_seconds_per_pass": mesh["overhead"],
+            "launches_by_path": {path: c["lf_answer_owned"] for path, c in by_path.items()},
+        },
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -878,3 +878,45 @@ def test_device_build_on_card_matches_host(cuda, n, k, d):
         reads = np.stack([codes[s:s + 24] for s in np.random.default_rng(1).integers(0, n - 24, 256)])
         np.testing.assert_array_equal(SearchEngine(dev, cuda, lut_m=12 - 12 % k).search(reads),
                                       search_oracle(host, reads))
+
+
+@pytest.mark.parametrize("width", ["host", "device"])
+@pytest.mark.parametrize("D", [1, 3, 4])
+@pytest.mark.parametrize("k,d", [(1, 32), (2, 64), (3, 192), (4, 96)])
+def test_lf_answer_owned_kernel_matches_plain(cuda, k, d, D, width):
+    """K9 on every shard of a table cut D ways (e_local not dividing it for
+    D = 3, 4) against its plain version, on the edge-case requests of
+    chip_smoke phase 19(e): random ends, zero rows, the '$' blocks, shard
+    edges, the padded rows past the table, owners past the mesh; host-width
+    plane rows (the word path) and the engines' rows padded to 4 words. The
+    owners' answers summed over the shards are the split round's."""
+    import chip_smoke
+    from tpufm_torch.bitops import from_u32_bits
+    from tpufm_torch.engine.tables import shard_tables
+
+    _, index = _index(k, d, 20_000)
+    t = shard_tables(index, D)
+    dollar = index_dollar(index)
+    n = 4099
+    req_h = chip_smoke.k9_edge_requests(np.random.default_rng(10 * k + D), index.bwtsize, k, d, dollar, D,
+                                        t.e_local, n)
+    req = torch.from_numpy(req_h).to(cuda)
+    dol = torch.from_numpy(dollar).to(cuda)
+    total = torch.zeros(req.shape[0], dtype=torch.int64, device=cuda)
+    for s in range(D):
+        if width == "device":
+            bitmaps = _rows(t.bitmaps[s], cuda)
+        else:
+            bitmaps = torch.from_numpy(np.ascontiguousarray(t.bitmaps[s]).view(np.int32)).to(cuda)
+        occ = torch.from_numpy(np.ascontiguousarray(t.occ[s]).view(np.int32)).to(cuda)
+        before = lf_mod.OWNED_LAUNCHES
+        got = lf_mod.lf_answer_owned(bitmaps, occ, req, s, t.e_local, dol, k, d)
+        torch.cuda.synchronize()
+        assert lf_mod.OWNED_LAUNCHES == before + 1
+        assert torch.equal(got, lf_mod.lf_answer_owned_reference(bitmaps, occ, req, s, t.e_local, dol, k, d))
+        total += from_u32_bits(got)
+    ends, code = from_u32_bits(req[:n, 2]), from_u32_bits(req[:n, 1])
+    fused = torch.from_numpy(tables_from_index(index).entries.view(np.int32)).to(cuda)
+    assert torch.equal(total[:n] & 0xFFFFFFFF, lf_mod.lf_round_reference(fused, ends, code, dol, k, d))
+    empty = req[:0]
+    assert lf_mod.lf_answer_owned(bitmaps, occ, empty, 0, t.e_local, dol, k, d).shape == (0,)

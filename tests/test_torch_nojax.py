@@ -11,7 +11,9 @@ two-record reference (its SAM, BAM and contig-map modules imported), then
 ``sort`` and ``view REGION`` on that BAM, ``faidx`` of the reference,
 ``transform`` and a search of its alternate-counters image, and a
 ``search --resume`` crashed after one wave and resumed (the SAM/BAM tools,
-faidx, layout and stream modules imported), and checks them against the port's numpy oracles, naive scans of the text and
+faidx, layout and stream modules imported), and a search over 4 CPU shards
+through the mesh engines (tpufm_torch.parallel: data-parallel, and the
+sharded index with the allgather and a2a routings), and checks them against the port's numpy oracles, naive scans of the text and
 each read's origin; the parent holds the result against tpufm's builder
 and oracle.
 chip_smoke itself refuses to run without a GPU, or without the repo around
@@ -179,6 +181,13 @@ with tempfile.TemporaryDirectory() as d:  # align, two records, 24 bp FASTQ read
     assert os.path.exists(rres + ".progress")
     run, _ = cli_out(["search", fmi, qry, "24", "20", "--resume", "--device", "cpu", "--output", rres])
     assert np.array_equal(run.results, search_oracle(index, queries)) and not os.path.exists(rres + ".partial")
+import tpufm_torch.parallel  # the mesh engines: 4 CPU shards, the index replicated and split
+from tpufm_torch.parallel import DataParallelEngine, ShardedIndexEngine, make_mesh
+mesh4 = make_mesh(4, device="cpu")
+want = search_oracle(index, queries)
+assert np.array_equal(DataParallelEngine(index, mesh4, lut_m=6).search(queries), want)
+for routing in ("allgather", "a2a"):
+    assert np.array_equal(ShardedIndexEngine(index, mesh4, routing=routing, lut_m=6).search(queries), want)
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpufm")]
 print(json.dumps(res.tolist()))
 """

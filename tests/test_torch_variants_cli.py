@@ -101,11 +101,22 @@ def test_search_engine_refusals_byte_identical(files, tmp_path, monkeypatch, cap
 
 
 def test_search_mesh_exits_naming_item_6(files, monkeypatch):
+    """``search --mesh`` and ``--sharded`` are ported (item 6a; their bytes
+    against tpufm's: tests/test_torch_parallel_cli.py); a per-shard .tpufm
+    store (item 6c, the sharded build) still exits naming its item."""
+    import json
+
     monkeypatch.chdir(files)
+    store = files / "s.tpufm"
+    store.mkdir()
+    (store / "meta.json").write_text(json.dumps({"kind": "kstep_sharded"}))
     for flag in (["--mesh", "2"], ["--sharded"]):
-        with pytest.raises(SystemExit) as exit_info:
-            torch_cli.main(["search", "g.fmi", "q.qry", str(L), str(B), *flag, "--device", "cpu"])
-        assert "ROADMAP Queue 1 item 6" in str(exit_info.value.code)
+        run = torch_cli.main(["search", "g.fmi", "q.qry", str(L), str(B), *flag, "--iterations", "1",
+                              "--device", "cpu", "--output", "m.res"])
+        assert (run.results[:, 1] > run.results[:, 0]).all()
+    with pytest.raises(SystemExit) as exit_info:
+        torch_cli.main(["search", "s.tpufm", "q.qry", str(L), str(B), "--sharded", "--device", "cpu"])
+    assert "ROADMAP Queue 1 item 6c" in str(exit_info.value.code)
 
 
 @pytest.mark.parametrize("engine", ["xla-ac", "xla-paired"])

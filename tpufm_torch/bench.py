@@ -8,7 +8,8 @@ names, arguments, defaults and record schema (``metric``, ``value``,
 ``run_bench_genome`` (:347), ``run_bench_locate`` (:539),
 ``run_bench_search_locate`` (:610), ``run_bench_mismatch`` (:683),
 ``run_bench_seed`` (:767), ``run_bench_edit`` (:872) and
-``run_bench_paired`` (:981), over the pieces they share,
+``run_bench_paired`` (:981), and of its mesh records ``run_bench_sharded``
+(:458) and ``run_bench_multichip`` (:1086), over the pieces they share,
 ``gather_traffic_bytes`` (:108), ``_time_search`` (:123) and
 ``_verify_and_measure`` (:176). Where they differ:
 
@@ -47,8 +48,14 @@ names, arguments, defaults and record schema (``metric``, ``value``,
   ``last_repair_fraction``) and pallas, each a ``SearchEngine`` of that
   layout on the bench's device.
 
-Not ported yet (ROADMAP, Queue 1 item 6): the sharded and multi-device
-records.
+- ``run_bench_multichip`` and ``run_bench_sharded`` build their mesh with
+  ``make_mesh(n_devices, device=device)``: the first n cards, or n CPU
+  shards; their one-device denominator runs on a mesh of the first.
+  Their detail adds the ``device`` fields of the mesh run and
+  ``one_device_pass_seconds``.
+
+Not ported yet (ROADMAP Queue 1 item 6c): ``run_bench_locate`` over more
+than one device.
 """
 
 from __future__ import annotations
@@ -80,6 +87,7 @@ from tpufm_torch.host.seqio import generate_read_pairs, generate_reads
 from tpufm_torch.host.suffix_array import suffix_array
 from tpufm_torch.index.builder_device import build_index_device
 from tpufm_torch.index.sa_device import MAX_DEVICE_BASES
+from tpufm_torch.parallel import DataParallelEngine, ShardedIndexEngine, make_mesh
 from tpufm_torch.timer import timed_device_passes
 
 #: HBM rate of one H100 SXM (NVIDIA's data sheet): the speed of light's rate
@@ -419,7 +427,7 @@ def run_bench_locate(
     weak-scaling efficiency is 1 by definition, and n_devices > 1 raises."""
     if n_devices is not None and n_devices > 1:
         raise ValueError(f"n_devices={n_devices}: multi-GPU locate is not ported yet "
-                         "(ROADMAP Queue 1 item 6)")
+                         "(ROADMAP Queue 1 item 6c)")
     dev = resolve_device(device)
     rng, codes = _reference_codes(refsize, seed)
     t0 = time.perf_counter()
@@ -453,6 +461,126 @@ def run_bench_locate(
             "build_seconds": round(build_s, 1),
             "bit_exact_vs_oracle": exact,
             "verified_rows": n_verify,
+        },
+    }
+
+
+def _mesh_run(engine_of, place, refsize, k, d, num_queries, query_len, iterations, seed, n_devices,
+              device) -> dict:
+    """The weak-scaling protocol of tpufm's mesh records (tpufm/bench.py:458,
+    :1086): the per-device part of the batch timed on a one-device mesh
+    (the denominator), then the whole batch on ``make_mesh(n_devices)``, each
+    pass on reads already placed and ending at a device barrier; the mesh
+    run's last result checked on a sample of the oracle."""
+    dev = resolve_device(device)
+    _, codes = _reference_codes(refsize, seed)
+    index = build_index(codes, IndexConfig(k=k, d=d))
+    mesh = make_mesh(n_devices, device=dev)
+    n_dev = mesh.size
+    num_queries -= num_queries % n_dev
+    queries = generate_reads(codes, query_len, num_queries, seed=seed + 1)
+
+    def timed_run(m, q):
+        eng = engine_of(index, m)
+        placed = place(eng, q)
+        return _passes(lambda: eng.search_device(placed), iterations)
+
+    one_times, _ = timed_run(make_mesh(1, device=dev), queries[: num_queries // n_dev])
+    one_chip_reads_s = (num_queries // n_dev) / (sum(one_times) / len(one_times))
+    times, out = timed_run(mesh, queries)
+    search_s = sum(times) / len(times)
+    host_out = _host(out[0] if isinstance(out, tuple) else out)
+    n_verify = min(num_queries, ORACLE_SAMPLE)
+    vidx = np.sort(np.random.default_rng(seed + 2).choice(num_queries, n_verify, replace=False))
+    reads_s = num_queries / search_s
+    return {
+        "n_dev": n_dev, "num_queries": num_queries, "out": out, "search_s": search_s,
+        "reads_s": reads_s, "one_chip_reads_s": one_chip_reads_s,
+        "efficiency": reads_s / (n_dev * one_chip_reads_s),
+        "exact": bool((host_out[vidx] == search_oracle(index, queries[vidx])).all()),
+        "n_verify": n_verify,
+        "device_fields": {**_device_fields(mesh.devices[0], times), "one_device_pass_seconds": list(one_times)},
+    }
+
+
+def run_bench_multichip(
+    refsize: int = 10_000_000,
+    k: int = 3,
+    d: int = 128,
+    num_queries: int = 524288,
+    query_len: int = 120,
+    iterations: int = 5,
+    seed: int = 0,
+    lut_m: int = 0,
+    n_devices: int | None = None,
+    device: str | torch.device = "cuda",
+) -> dict:
+    """Data-parallel scaling record (tpufm/bench.py:1086): the index
+    replicated on every device of ``make_mesh(n_devices)``, the batch split
+    over them; ``vs_baseline`` is the scaling efficiency reads_s(N) / (N *
+    reads_s(1)), the per-device part of the batch timed on one device."""
+    r = _mesh_run(lambda index, m: DataParallelEngine(index, m, lut_m=lut_m), lambda eng, q: eng.shard_queries(q),
+                  refsize, k, d, num_queries, query_len, iterations, seed, n_devices, device)
+    n_dev = r["n_dev"]
+    return {
+        "metric": f"data-parallel scaling efficiency over {n_dev} device(s) "
+        f"(k={k}, d={d}, lut_m={lut_m}, {r['num_queries']} reads x {query_len} bp)",
+        "value": round(r["reads_s"]),
+        "unit": "reads/s",
+        "vs_baseline": round(r["efficiency"], 4),
+        "detail": {
+            **r["device_fields"],
+            "devices": n_dev,
+            "scaling_efficiency": round(r["efficiency"], 4),
+            "reads_per_s_one_chip": round(r["one_chip_reads_s"]),
+            "reads_per_s_per_chip": round(r["reads_s"] / n_dev),
+            "seconds_per_pass": r["search_s"],
+            "bit_exact_vs_oracle": r["exact"],
+            "verified_reads": r["n_verify"],
+        },
+    }
+
+
+def run_bench_sharded(
+    refsize: int = 10_000_000,
+    k: int = 3,
+    d: int = 128,
+    num_queries: int = 524288,
+    query_len: int = 120,
+    iterations: int = 5,
+    seed: int = 0,
+    lut_m: int = 0,
+    routing: str = "allgather",
+    n_devices: int | None = None,
+    device: str | torch.device = "cuda",
+) -> dict:
+    """Sharded-index scaling record (tpufm/bench.py:458): the entry table
+    split over ``make_mesh(n_devices)``, lookups routed by ``routing``; the
+    weak-scaling protocol of ``run_bench_multichip`` (on one device every
+    routing answers at home), and the share of the last mesh pass's LF rounds
+    that took the a2a fallback (``overflow_round_fraction``)."""
+    r = _mesh_run(lambda index, m: ShardedIndexEngine(index, m, routing=routing, lut_m=lut_m),
+                  lambda eng, q: eng.place_queries(q),
+                  refsize, k, d, num_queries, query_len, iterations, seed, n_devices, device)
+    n_dev = r["n_dev"]
+    return {
+        "metric": f"sharded-index ({routing}) scaling efficiency over {n_dev} "
+        f"device(s) (k={k}, d={d}, lut_m={lut_m}, {r['num_queries']} reads x "
+        f"{query_len} bp)",
+        "value": round(r["reads_s"]),
+        "unit": "reads/s",
+        "vs_baseline": round(r["efficiency"], 4),
+        "detail": {
+            **r["device_fields"],
+            "devices": n_dev,
+            "routing": routing,
+            "scaling_efficiency": round(r["efficiency"], 4),
+            "reads_per_s_one_chip": round(r["one_chip_reads_s"]),
+            "reads_per_s_per_chip": round(r["reads_s"] / n_dev),
+            "seconds_per_pass": r["search_s"],
+            "overflow_round_fraction": round(float(r["out"][1].mean()), 4),
+            "bit_exact_vs_oracle": r["exact"],
+            "verified_reads": r["n_verify"],
         },
     }
 

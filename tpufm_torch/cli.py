@@ -1,6 +1,7 @@
-"""Command line of the port on one device: build, genreads, transform,
-search, count, locate, align, bench, sweep, the host-only SAM/BAM tools and
-faidx (tpufm_torch.tools) and the debug commands dumpentry, diff and dumpbwt.
+"""Command line of the port: build, genreads, transform, search, count,
+locate, align, bench, sweep, the host-only SAM/BAM tools and faidx
+(tpufm_torch.tools) and the debug commands dumpentry, diff and dumpbwt; on
+one device, and search, count and bench also over a mesh of devices.
 
     python -m tpufm_torch.cli build REF REFSIZE [--k K] [--d D] [--auto]
         [--output OUT.fmi|.npz|.tpufm] [--sa auto|native|doubling|device]
@@ -11,9 +12,10 @@ faidx (tpufm_torch.tools) and the debug commands dumpentry, diff and dumpbwt.
     python -m tpufm_torch.cli search INDEX QUERIES L N [--lut M] [--tail PATH]
         [--rc] [--iterations I] [--output OUT] [--device cuda|cpu]
         [--engine xla|xla-ac|xla-paired|pallas] [--pad-words W] [--resume]
+        [--mesh N [--sharded [--routing allgather|ring|a2a]]]
     python -m tpufm_torch.cli count INDEX QUERIES L N [--mismatches 0|1]
         [--lut M] [--tail PATH] [--rc] [--iterations I] [--output OUT]
-        [--device cuda|cpu]
+        [--mesh N] [--device cuda|cpu]
     python -m tpufm_torch.cli locate REF REFSIZE QUERIES L N [--k K] [--d D]
         [--sample-rate S] [--max-hits H] [--fused] [--lut M] [--rc]
         [--mismatches M | --edits E] [--seed-hits H] [--paired R2.qry
@@ -31,7 +33,7 @@ faidx (tpufm_torch.tools) and the debug commands dumpentry, diff and dumpbwt.
         [--mismatches M | --edits E]
         [--seed-hits H] [--paired [--insert-min A] [--insert-max B]]
         [--genome] [--locate [--fused]] [--max-hits H] [--sample-rate S]
-        [--device cuda|cpu]
+        [--multichip | --sharded [--routing R]] [--mesh N] [--device cuda|cpu]
     python -m tpufm_torch.cli sweep [--refsizes N ...] [--ks K ...] [--ds D ...]
         [--engines E ...] [--luts M ...] [--numqueries N] [--length L]
         [--iterations I] [--output OUT] [--device cuda|cpu]
@@ -54,10 +56,12 @@ alternate-counters), ``xla-paired`` (K1's paired entry after a LUT, the
 wide reads searched again on the fused rows) and ``--engine pallas``
 (``PallasEngine``, cli.py:444-447: torch indexing gathers every end's row
 of the index's base, then K1 computes on the gathered rows; fixed lengths
-that k divides after the LUT only); of ``tpufm sweep`` (``cmd_sweep``,
+that k divides after the LUT only), and with its mesh engines (:414-442,
+tpufm_torch.parallel): ``--mesh N`` (``DataParallelEngine``; N = 0 every
+card) and ``--sharded --routing R`` (``ShardedIndexEngine``); of ``tpufm sweep`` (``cmd_sweep``,
 :683-705: tpufm_torch.sweep's matrix, ``SWEEP FAILED`` on a row that is
 not bit-exact); of ``tpufm count``
-(``cmd_count``, :469-505); of ``tpufm locate`` (``cmd_locate``,
+(``cmd_count``, :469-505, also ``--mesh N``); of ``tpufm locate`` (``cmd_locate``,
 ``_locate_tables``, ``_locate_body``, :729-1154) in its exact two-pass,
 ``--fused``, ``--rc``, Hamming (``--mismatches 1``, and ``>= 2`` by seed-
 and-extend), edit-distance (``--edits E``) and paired (``--paired R2``,
@@ -65,7 +69,8 @@ writing ``<queries>.pairs``) forms, the approximate ones verified against
 the reference's text (read again from its FASTA with --from-store), with
 ``--contigs`` (``record:offset`` labels) and ``--sam`` / ``--bam``
 (tpufm_torch.host.sam and .bam); and of ``tpufm align`` (``cmd_align``,
-:1182-1478) on one device (``--mesh`` exits naming its ROADMAP item).
+:1182-1478) on one device (``locate --mesh``, ``align --mesh``, per-shard
+stores and the mesh build exit naming their ROADMAP items).
 ``locate`` and ``align`` with ``--on-device`` build the index and the
 locate tables on the card from one device suffix sort (tpufm_torch.index).
 They read the same index files (.fmi, .npz, .tpufm), derive the k=1 tail
@@ -143,6 +148,7 @@ from tpufm_torch.host.stream import locate_resumable, search_resumable
 from tpufm_torch.host.suffix_array import suffix_array
 from tpufm_torch.index.builder_device import build_index_device, build_locate_device
 from tpufm_torch.index.sa_device import suffix_array_device_arr, upload_text
+from tpufm_torch.parallel import DataParallelEngine, ShardedIndexEngine, make_mesh
 from tpufm_torch.timer import Stages
 
 
@@ -282,10 +288,22 @@ def search_engine(index, args, device, tail):
             "xla/xla-paired (single-chip, --mesh N, or --sharded); pad "
             "reads to a multiple of k for pallas/xla-ac"
         )
-    if args.mesh is not None or args.sharded:
-        sys.exit("search --mesh / --sharded: multi-GPU search is not ported yet (ROADMAP Queue 1 "
-                 "item 6); drop them to search on one device")
     lut_cache = f"{args.index}.lut{args.lut}.npz" if args.lut else None
+    if args.mesh is not None or args.sharded:
+        # the mesh engines (tpufm/cli.py:414-442): --mesh N splits the batch
+        # over N devices, the index replicated; --sharded splits the entry
+        # table over them, --routing picking the collective plan
+        if args.engine == "pallas":
+            sys.exit("--mesh/--sharded support engines xla and xla-ac only")
+        mesh = make_mesh(args.mesh or None, device=device)  # 0 = every card
+        if args.sharded:
+            if args.engine == "xla-ac":
+                sys.exit("--sharded uses the baseline layout; drop --engine xla-ac")
+            return ShardedIndexEngine(index, mesh, routing=args.routing, lut_m=args.lut, tail_index=tail), None
+        if args.engine == "xla-ac" and isinstance(index, KStepFMIndex):
+            index = make_alt_counters(index)
+        return DataParallelEngine(index, mesh, lut_m=args.lut, lut_cache=lut_cache, pad_words=args.pad_words,
+                                  tail_index=tail), None
     if args.engine == "pallas":
         base = getattr(index, "base", index)
         return SearchEngine(base, device, lut_m=args.lut, lut_cache=lut_cache), lf_round_indexed
@@ -300,8 +318,27 @@ def search_engine(index, args, device, tail):
                         tail_index=tail), None
 
 
+def sharded_store_meta(path: str) -> dict | None:
+    """meta.json of a per-shard ``.tpufm`` store (tpufm's
+    ``save_store_sharded``), or None (tpufm/cli.py:323)."""
+    if not path.endswith(".tpufm"):
+        return None
+    try:
+        with open(os.path.join(path, "meta.json")) as fp:
+            meta = json.load(fp)
+    except (OSError, ValueError):
+        return None
+    return meta if meta.get("kind") == "kstep_sharded" else None
+
+
 def cmd_search(args) -> SearchRun:
     device = resolve_device(args.device)
+    if sharded_store_meta(args.index):
+        if not args.sharded:
+            sys.exit(f"{args.index} is a per-shard store; search it with "
+                     "--sharded [--mesh N]")
+        sys.exit(f"{args.index}: per-shard stores are not ported yet (ROADMAP Queue 1 item 6c, the "
+                 "sharded build); search the whole index with --sharded [--mesh N]")
     index = load_index(args.index)
     # writable once here, so the timed passes copy nothing (SearchEngine.search)
     queries = np.require(
@@ -354,11 +391,12 @@ def cmd_count(args) -> CountRun:
     B = queries.shape[0]
     if args.rc:
         queries = rc_expand(queries)
-    engine = SearchEngine(
-        index, device, lut_m=args.lut,
-        lut_cache=f"{args.index}.lut{args.lut}.npz" if args.lut else None,
-        tail_index=tail,
-    )
+    lut_cache = f"{args.index}.lut{args.lut}.npz" if args.lut else None
+    if args.mesh is not None:
+        engine = DataParallelEngine(index, make_mesh(args.mesh or None, device=device), lut_m=args.lut,
+                                    lut_cache=lut_cache, tail_index=tail)
+    else:
+        engine = SearchEngine(index, device, lut_m=args.lut, lut_cache=lut_cache, tail_index=tail)
     cnt, dt = _timed(lambda: engine.count(queries, mismatches=args.mismatches), args.iterations)
     out = args.output or f"{args.queries}.cnt"
     emit_strands(out, cnt, B, lambda path, a: np.savetxt(path, a, fmt="%d"))
@@ -437,6 +475,9 @@ def cmd_locate(args) -> LocateRun | PairRun | SamRun:
     labels instead of absolute positions; --sam writes SAM records of both
     strands (``locate_sam``, or with --paired the pairs' records), and
     --bam the same records as BAM."""
+    if getattr(args, "mesh", None) is not None:  # align drives locate without it
+        sys.exit("locate --mesh: the mesh locate engines are not ported yet (ROADMAP Queue 1 "
+                 "item 6b); drop --mesh to locate on one device")
     if args.bam:
         args.sam = True  # BAM is the binary form of the SAM records
     if args.mismatches < 0 or args.edits < 0:
@@ -693,8 +734,8 @@ def cmd_align(args) -> SamRun:
     with the engine built once for all groups, and the blocks written in
     input order."""
     if args.mesh is not None:
-        sys.exit("align --mesh: multi-GPU alignment is not ported yet (ROADMAP Queue 1 item 6); "
-                 "drop --mesh to align on one device")
+        sys.exit("align --mesh: multi-GPU alignment is not ported yet (ROADMAP Queue 1 item 6b, "
+                 "the mesh locate engines); drop --mesh to align on one device")
     device = resolve_device(args.device)
     qmin, qlen, nreads = _sniff_reads(args.reads)
     mixed = qmin != qlen
@@ -902,7 +943,7 @@ def cmd_build(args) -> BuildRun:
     ``<ref>.<refsize>.fa`` (tpufm/cli.py:54)."""
     if args.mesh or args.store_sharded or args.sa == "sharded":
         sys.exit("build --mesh / --store-sharded / --sa sharded: the multi-GPU build is not "
-                 "ported yet (ROADMAP Queue 1 item 6); drop them to build on the host")
+                 "ported yet (ROADMAP Queue 1 item 6c); drop them to build on the host")
     codes = read_reference(args.reference, args.refsize)
     if args.auto:
         rec = recommend_config(args.refsize)
@@ -1036,9 +1077,10 @@ def cmd_dumpbwt(args) -> None:
 
 def cmd_bench(args) -> dict:
     """One bench record (tpufm_torch.bench), printed as one JSON line, by
-    tpufm's dispatch (tpufm/cli.py:508): --genome, --mismatches 1,
-    --locate --fused, --locate, else the search record. The modes not
-    ported yet exit non-zero naming their ROADMAP item."""
+    tpufm's dispatch (tpufm/cli.py:508): --genome, --paired, --edits,
+    --mismatches, --locate --fused, --locate, --sharded, --multichip (over
+    ``--mesh N`` devices, default every card), else the search record.
+    ``--locate`` over a mesh exits naming its ROADMAP item."""
     if args.mismatches < 0 or args.edits < 0:
         sys.exit("--mismatches/--edits must be >= 0")
     resolve_device(args.device)  # no CPU fallback: fail before any build
@@ -1073,8 +1115,6 @@ def cmd_bench(args) -> dict:
     if (args.edits or args.mismatches >= 2) and (args.locate or args.sharded or args.multichip):
         sys.exit("bench --edits/--mismatches>=2 are single-chip records; "
                  "drop --locate/--sharded/--multichip")
-    multi_gpu = ("bench --sharded, --multichip and --locate over --mesh N are not ported "
-                 "yet (ROADMAP Queue 1 item 6: multi-GPU)")
     if args.edits:
         record = bench.run_bench_edit(num_queries=args.numqueries, edits=args.edits,
                                       seed_hits=args.seed_hits, **located)
@@ -1091,11 +1131,18 @@ def cmd_bench(args) -> dict:
             query_len=args.length, lut_m=args.lut, max_hits=args.max_hits, **common)
     elif args.locate:
         if args.multichip or (args.mesh or 1) > 1:
-            sys.exit(multi_gpu)
+            sys.exit("bench --locate over --mesh N (or --multichip) is not ported yet (ROADMAP "
+                     "Queue 1 item 6c); drop them for the one-device record")
         record = bench.run_bench_locate(
             d=args.d, sample_rate=args.sample_rate, num_rows=args.numqueries, n_devices=1, **common)
-    elif args.sharded or args.multichip:
-        sys.exit(multi_gpu)
+    elif args.sharded:
+        record = bench.run_bench_sharded(
+            k=args.k, d=args.d, num_queries=args.numqueries, query_len=args.length,
+            lut_m=args.lut, routing=args.routing, n_devices=args.mesh or None, **common)
+    elif args.multichip:
+        record = bench.run_bench_multichip(
+            k=args.k, d=args.d, num_queries=args.numqueries, query_len=args.length,
+            lut_m=args.lut, n_devices=args.mesh or None, **common)
     else:
         record = bench.run_bench(
             k=args.k, d=args.d, num_queries=args.numqueries, query_len=args.length,
@@ -1176,11 +1223,12 @@ def main(argv=None):
                    help=".fmi (reference format), .npz, or .tpufm (memory-mapped store)")
     b.add_argument("--sa", default="auto", choices=["auto", "native", "doubling", "device", "sharded"],
                    help="suffix sort: auto = native (SA-IS); device = prefix doubling on --device; "
-                        "sharded is not ported")
+                        "sharded is not ported (ROADMAP Queue 1 item 6c)")
     b.add_argument("--on-device", action="store_true",
                    help="build the whole index on --device (tpufm_torch.index.builder_device)")
-    b.add_argument("--mesh", type=int, default=0, help="not ported (the multi-GPU build)")
-    b.add_argument("--store-sharded", action="store_true", help="not ported (per-shard stores)")
+    b.add_argument("--mesh", type=int, default=0, help="not ported (the multi-GPU build, ROADMAP Queue 1 item 6c)")
+    b.add_argument("--store-sharded", action="store_true",
+                   help="not ported (per-shard stores, ROADMAP Queue 1 item 6c)")
     b.add_argument("--save-ref", action="store_true",
                    help="also write the reference as <ref>.<refsize>.fa")
     b.add_argument("--tail", action="store_true",
@@ -1217,8 +1265,14 @@ def main(argv=None):
                         "K1 on the gathered rows")
     s.add_argument("--pad-words", type=int, default=None,
                    help="pad every fused row to this many words")
-    s.add_argument("--mesh", type=int, default=None, metavar="N", help="not ported (multi-GPU)")
-    s.add_argument("--sharded", action="store_true", help="not ported (multi-GPU)")
+    s.add_argument("--mesh", type=int, default=None, metavar="N",
+                   help="run data-parallel over an N-device mesh (0 = every "
+                        "card); index replicated, batch split")
+    s.add_argument("--sharded", action="store_true",
+                   help="split the entry table over the mesh (indexes "
+                        "larger than one card's memory); baseline layout only")
+    s.add_argument("--routing", default="allgather", choices=["allgather", "ring", "a2a"],
+                   help="collective plan for --sharded lookups")
     s.add_argument("--resume", action="store_true",
                    help="checkpoint each wave; a re-run with the same "
                         "arguments continues after a crash")
@@ -1229,6 +1283,8 @@ def main(argv=None):
     c.add_argument("--mismatches", type=int, default=0, choices=[0, 1],
                    help="1 = count occurrences within Hamming distance 1 "
                         "(each read's 3L+1 variants searched on the device)")
+    c.add_argument("--mesh", type=int, default=None, metavar="N",
+                   help="data-parallel counting over an N-device mesh (0 = every card)")
     c.set_defaults(fn=cmd_count)
 
     lc = sub.add_parser("locate", help="search + text positions")
@@ -1290,6 +1346,8 @@ def main(argv=None):
     lc.add_argument("--resume", action="store_true",
                     help="checkpoint each completed wave next to the output; a killed run "
                          "re-invoked with the same arguments continues (exact positions only)")
+    lc.add_argument("--mesh", type=int, default=None, metavar="N",
+                    help="not ported (the mesh locate engines, ROADMAP Queue 1 item 6b)")
     lc.add_argument("--output", default=None)
     _add_device(lc)
     lc.set_defaults(fn=cmd_locate)
@@ -1304,7 +1362,8 @@ def main(argv=None):
                     help="substitutions allowed a read (1: variants; >= 2: seed-and-extend)")
     al.add_argument("--edits", type=int, default=0, metavar="E",
                     help="edit distance allowed a read (seeds and the Myers verify)")
-    al.add_argument("--mesh", type=int, default=None, metavar="N", help="not ported (multi-GPU)")
+    al.add_argument("--mesh", type=int, default=None, metavar="N",
+                    help="not ported (the mesh locate engines, ROADMAP Queue 1 item 6b)")
     al.add_argument("--insert-min", type=int, default=0)
     al.add_argument("--insert-max", type=int, default=1000)
     al.add_argument("--max-pairs", type=int, default=4)
@@ -1353,8 +1412,10 @@ def main(argv=None):
                     help="the genome-scale record: a 250 Mbase index built on the card (on the "
                          "host with --device cpu) and cached under .bench/genome; k/d/lut from "
                          "recommend_config")
-    be.add_argument("--multichip", action="store_true", help="not ported")
-    be.add_argument("--sharded", action="store_true", help="not ported")
+    be.add_argument("--multichip", action="store_true",
+                    help="the data-parallel scaling record (DataParallelEngine)")
+    be.add_argument("--sharded", action="store_true",
+                    help="the sharded-index scaling record (ShardedIndexEngine, --routing)")
     be.add_argument("--routing", default="allgather", choices=["allgather", "ring", "a2a"],
                     help="with --sharded")
     be.add_argument("--locate", action="store_true",
@@ -1367,7 +1428,8 @@ def main(argv=None):
     be.add_argument("--sample-rate", type=int, default=32,
                     help="locate SA sampling rate (with --locate)")
     be.add_argument("--mesh", type=int, default=None, metavar="N",
-                    help="device count for --locate: 1 (more is not ported)")
+                    help="device count of --multichip and --sharded (default: every card); "
+                         "for --locate 1 (more is not ported)")
     _add_device(be)
     be.set_defaults(fn=cmd_bench)
 

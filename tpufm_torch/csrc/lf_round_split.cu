@@ -1,5 +1,6 @@
 // K8: one k-step LF round per read on the split tables or on the
-// alternate-counters tables, for Hopper (sm_90a).
+// alternate-counters tables, and K9, the sharded engine's owner answer on
+// one shard of the split tables, for Hopper (sm_90a).
 //
 // The port's kernels for two jnp rounds of the JAX package (no pallas_call):
 //   tpufm_lf_round_split  lf_step_split (tpufm/engine/xla.py:179-212): the
@@ -32,6 +33,23 @@
 // and, once, the table words its ends need. A simple kernel: the
 // alternate-counters entry counts every window of the block, where K1
 // counts only the windows before the end.
+//
+// K9, tpufm_lf_answer_owned: the owner answer of the sharded-index engine
+// (_answer_owned, tpufm/parallel/search.py:267-290, which JAX runs as jnp,
+// no pallas_call): the split round's per-end math on one shard of the entry
+// table. Each request j of a stream (block, code, interval; uint32 [n, 3],
+// the rows the routings circulate) is owned by shard block / e_local; the
+// shard answers its own requests from its local rows (block - shard *
+// e_local) of occ [e_local, 4^k] and bitmaps [e_local, >= 2k*nb]:
+//     out = occ[local, code] + count - #levels(block, code, iv > pos)
+// with the '$' levels compared on the GLOBAL block (the '$' triple is
+// replicated), and writes 0 for every request it does not own. One thread
+// per request; the warp stages the rows of its owned requests (stage_rows),
+// the others take no row. Bound: per request its 12 B in and 4 B out, and,
+// once, the table words the owned requests need; the stream is read once,
+// so this kernel is bound by bytes. A simple kernel: requests owned by
+// other shards still cost their 16 B, which is the routings' design (the
+// allgather and ring routings send every request to every shard).
 //
 // Types. Intervals are uint32_t here and int64 on the torch side; table
 // words arrive as int32 tensors holding the uint32 bits.
@@ -195,7 +213,59 @@ int launch(const void* bitmaps, long long bm_rows, int bm_words, const void* occ
   });
 }
 
+// K9: the owner answer of one request a thread (see the header).
+template <int K, int V>
+__global__ void lf_answer_owned_kernel(const uint32_t* __restrict__ bitmaps, long long bm_rows,
+                                       int bm_words, const uint32_t* __restrict__ occ,
+                                       long long occ_rows, int occ_words, int nb,
+                                       const uint32_t* __restrict__ req, uint32_t shard,
+                                       uint32_t e_local, const long long* __restrict__ dollar,
+                                       uint32_t* __restrict__ out, long long n) {
+  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool in = j < n;  // every lane stays: the warp stages rows together
+  const uint32_t block = in ? __ldcs(req + 3 * j) : 0u;
+  const uint32_t c = in ? __ldcs(req + 3 * j + 1) : 0u;
+  const uint32_t v = in ? __ldcs(req + 3 * j + 2) : 0u;
+  const bool owned = in && block / e_local == shard;
+  const uint32_t local = block - shard * e_local;  // meaningful where owned
+  const uint32_t d = 32u * (uint32_t)nb;
+  const int words = 2 * K * nb, stride = stage_stride(words);
+  uint32_t* stage = warp_stage<K>(nb);
+  const uint32_t* s = stage + (threadIdx.x & 31) * stride;
+  bool back = false;
+  const uint32_t cnt = owned ? counter<K, false>(occ, occ_rows, occ_words, local, c, back) : 0u;
+  const unsigned long long row = min((unsigned long long)local, (unsigned long long)(bm_rows - 1));
+  stage_rows<V, LoadCached>(stage, stride, bitmaps + row * (unsigned long long)bm_words, owned, words);
+  uint32_t before = 0, unused = 0;
+  if (owned) lf_counts<K>(s, nb, c, (int)(v % d), 0, before, unused);
+  if (in) __stcs(out + j, owned ? cnt + before - dollar_hits<K>(block, c, v, dollar) : 0u);
+}
+
 }  // namespace
+
+// Launches K9 on `stream` and returns cudaGetLastError() (0 on success):
+// bitmaps: uint32 [bm_rows, bm_words >= 2k*nb] and occ: uint32 [occ_rows,
+// occ_words >= 4^k], shard `shard`'s rows (e_local of them, > 0); req:
+// uint32 [n, 3] rows (block, code, interval); dollar: int64 [3, k] (rows
+// pos, base, block; blocks global); out: uint32 [n]. Does not synchronise.
+extern "C" int tpufm_lf_answer_owned(const void* bitmaps, long long bm_rows, int bm_words,
+                                     const void* occ, long long occ_rows, int occ_words, int k,
+                                     int nb, const void* req, long long shard, long long e_local,
+                                     const void* dollar, void* out, long long n, void* stream) {
+  if (n <= 0) return 0;
+  if (nb <= 0 || k < 1 || k > 8 || bm_rows <= 0 || occ_rows <= 0 || bm_words < 2 * k * nb ||
+      occ_words < (1 << (2 * k)) || e_local <= 0 || e_local > 0xFFFFFFFFLL || shard < 0 ||
+      shard > 0xFFFFFFFFLL)
+    return (int)cudaErrorInvalidValue;
+  return tpufm::dispatch_kv(k, tpufm::unit_words(bitmaps, bm_words), [&](auto K, auto V) {
+    return tpufm::launch_staged(
+        lf_answer_owned_kernel<decltype(K)::value, decltype(V)::value>, k, nb, n,
+        static_cast<cudaStream_t>(stream), static_cast<const uint32_t*>(bitmaps), bm_rows, bm_words,
+        static_cast<const uint32_t*>(occ), occ_rows, occ_words, nb, static_cast<const uint32_t*>(req),
+        (uint32_t)shard, (uint32_t)e_local, static_cast<const long long*>(dollar),
+        static_cast<uint32_t*>(out), n);
+  });
+}
 
 // Launches the split round on `stream` and returns cudaGetLastError() (0 on
 // success): bitmaps: uint32 [bm_rows, bm_words >= 2k*nb]; occ: uint32

@@ -60,13 +60,22 @@ The other layouts' rounds, one read per thread, both ends under one code,
   masks), the '$' correction counts levels with ``iv <= dollar_pos``, and
   the result is counter MINUS count, else counter plus count (mod 2^32).
   Plain version ``lf_round_ac_reference``.
+
+K9, ``lf_answer_owned`` (lf_round_split.cu; ``_answer_owned``,
+tpufm/parallel/search.py:267-290): the sharded-index engine's answer on one
+shard of the split tables. A request (block, code, interval), uint32 each
+(int32 [N, 3] rows), belongs to shard block // e_local; the shard answers
+its own from its local row block - shard * e_local, as the split round's
+per end (counter + popcount - '$' hits, the '$' levels compared on the
+global block), and 0 for the rest. Plain version
+``lf_answer_owned_reference``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from tpufm_torch.bitops import FULL, boundary_masks, from_u32_bits, match_words, popcount32
+from tpufm_torch.bitops import FULL, boundary_masks, from_u32_bits, match_words, popcount32, to_u32_bits
 
 #: kernel launches made by ``lf_round`` in this process (plain-path calls on
 #: CPU tensors do not count)
@@ -81,6 +90,8 @@ PAIRED_LAUNCHES = 0
 SPLIT_LAUNCHES = 0
 #: kernel launches made by ``lf_round_ac`` in this process
 AC_LAUNCHES = 0
+#: kernel launches made by ``lf_answer_owned`` (K9) in this process
+OWNED_LAUNCHES = 0
 
 
 def lf_round_rows_reference(rows, iv, code, dollar, k: int, d: int) -> torch.Tensor:
@@ -129,15 +140,21 @@ def lf_round_paired_reference(entries_paired, iv, code, dollar, k: int, d: int):
     return out.view(-1, 2), delta <= 1
 
 
+def _plane_matches(bitmaps, rows, codes, k: int, d: int):
+    """The matching plane words [N, nb] of bit-plane table rows ``rows``
+    (int32 [E+1, >= 2k*nb], rows clamped) under ``codes`` [N]."""
+    nb = d // 32
+    planes = from_u32_bits(bitmaps[rows.clamp(0, bitmaps.shape[0] - 1), : 2 * k * nb])
+    return match_words(planes.reshape(-1, k, 2, nb), codes, k)
+
+
 def _split_terms(bitmaps, iv, code, k: int, d: int):
     """Per end of ``iv`` [B, 2] under one code per read: (block, the end's
     in-block offset, its code, the matching plane words [2B, nb]) on the
     bit-plane table int32 [E+1, >= 2k*nb] (rows clamped)."""
-    nb = d // 32
     ends, codes = iv.reshape(-1), code.repeat_interleave(2)
     block = ends // d
-    planes = from_u32_bits(bitmaps[block.clamp(max=bitmaps.shape[0] - 1), : 2 * k * nb])
-    return block, ends, codes, match_words(planes.reshape(-1, k, 2, nb), codes, k)
+    return block, ends, codes, _plane_matches(bitmaps, block, codes, k, d)
 
 
 def lf_round_split_reference(bitmaps, occ, iv, code, dollar, k: int, d: int) -> torch.Tensor:
@@ -164,6 +181,20 @@ def lf_round_ac_reference(bitmaps, occ_slim, iv, code, dollar, k: int, d: int) -
     past = ends[:, None] > dollar[0]
     count = count - (at & torch.where(back[:, None], ~past, past)).sum(dim=-1)
     return (torch.where(back, cnt - count, cnt + count) & FULL).view(-1, 2)
+
+
+def lf_answer_owned_reference(bitmaps, occ, req, shard: int, e_local: int, dollar, k: int, d: int) -> torch.Tensor:
+    """Plain PyTorch owner answer (K9, see ``lf_answer_owned``) on any
+    device: int32 [N] (uint32 bits) of the requests ``req`` int32 [N, 3]."""
+    block, codes, ends = from_u32_bits(req).unbind(1)
+    owned = block // e_local == shard
+    local = torch.where(owned, block - shard * e_local, 0)
+    matched = _plane_matches(bitmaps, local, codes, k, d)
+    cnt = from_u32_bits(occ[local.clamp(max=occ.shape[0] - 1), codes.clamp(max=occ.shape[1] - 1)])
+    count = popcount32(matched & boundary_masks(ends % d, d // 32)).sum(dim=-1)
+    hit = (block[:, None] == dollar[2]) & (codes[:, None] == dollar[1]) & (ends[:, None] > dollar[0])
+    out = torch.where(owned, (cnt + count - hit.sum(dim=-1)) & FULL, 0)
+    return to_u32_bits(out)
 
 
 def _check_words(table, name: str, width: int, what: str) -> None:
@@ -334,6 +365,57 @@ def lf_round_ac(bitmaps, occ_slim, iv, code, dollar, k: int, d: int) -> torch.Te
     out = _launch("tpufm_lf_round_ac", bitmaps, iv, code, dollar, k, d, bitmaps.shape[0],
                   library="lf_round_split", tables=(occ_slim,))
     AC_LAUNCHES += 1
+    return out
+
+
+def lf_answer_owned(bitmaps, occ, req, shard: int, e_local: int, dollar, k: int, d: int) -> torch.Tensor:
+    """K9, the sharded engine's owner answer (see the module docstring):
+    shard ``shard``'s rows of the split tables, ``bitmaps`` int32 [E_local,
+    >= 2k*nb] and ``occ`` int32 [E_local, 4^k], ``e_local`` rows a shard;
+    the requests ``req`` int32 [N, 3] (uint32 block, code, interval); the
+    replicated ``dollar`` int64 [3, k]. Returns int32 [N] (uint32 bits): each
+    owned request's new interval end, 0 for every other. CPU tensors take the
+    plain version; CUDA tensors launch K9, one thread per request, and a
+    kernel that cannot be built or launched raises."""
+    if not 1 <= k <= 8:
+        raise ValueError(f"k must be in [1, 8], got {k}")
+    if d <= 0 or d % 32:
+        raise ValueError(f"d must be a positive multiple of 32, got {d}")
+    if not 0 <= shard < 2**32 or not 0 < e_local < 2**32:
+        raise ValueError(f"shard {shard} and e_local {e_local} must be uint32, e_local > 0")
+    _check_words(bitmaps, "bitmaps", 2 * k * (d // 32), f"k={k} d={d}")
+    _check_words(occ, "occ", 4**k, f"k={k}")
+    if req.dtype != torch.int32 or req.dim() != 2 or req.shape[1] != 3:
+        raise ValueError(f"req must be int32 [N, 3] (block, code, interval), got {req.dtype} {tuple(req.shape)}")
+    if dollar.dtype != torch.int64 or tuple(dollar.shape) != (3, k):
+        raise ValueError(f"dollar must be int64 [3, {k}], got {dollar.dtype} {tuple(dollar.shape)}")
+    if not all(t.is_contiguous() for t in (bitmaps, occ, req, dollar)):
+        raise ValueError("bitmaps, occ, req and dollar must be contiguous")
+    devices = {t.device for t in (bitmaps, occ, req, dollar)}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on different devices: {sorted(map(str, devices))}")
+    if req.device.type == "cpu":
+        return lf_answer_owned_reference(bitmaps, occ, req, shard, e_local, dollar, k, d)
+    if req.device.type != "cuda":
+        raise ValueError(f"the owner answer runs on cpu or cuda tensors, got {req.device}")
+    out = torch.empty(req.shape[0], dtype=torch.int32, device=req.device)
+    if req.shape[0] == 0:
+        return out
+    from tpufm_torch import kernels
+
+    lib = kernels.library("lf_round_split")
+    with torch.cuda.device(req.device):
+        stream = torch.cuda.current_stream(req.device).cuda_stream
+        err = lib.tpufm_lf_answer_owned(
+            bitmaps.data_ptr(), bitmaps.shape[0], bitmaps.shape[1], occ.data_ptr(), occ.shape[0],
+            occ.shape[1], k, d // 32, req.data_ptr(), shard, e_local, dollar.data_ptr(), out.data_ptr(),
+            req.shape[0], stream,
+        )
+    if err:
+        raise RuntimeError(f"tpufm_lf_answer_owned kernel launch failed: "
+                           f"{kernels.error_string('lf_round_split', err)}")
+    global OWNED_LAUNCHES
+    OWNED_LAUNCHES += 1
     return out
 
 

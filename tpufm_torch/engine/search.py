@@ -550,22 +550,47 @@ class SearchEngine(torch.nn.Module):
         return self._stream(queries, wave, lambda q: self.count_mismatch_device(q, step), ())
 
 
-def stream_waves(items: np.ndarray, wave: int, fn, device: torch.device, cols: tuple = ()) -> np.ndarray:
-    """uint32 [B, *cols] host results of ``fn`` (a device tensor of up to
-    ``wave`` items -> a device tensor of their results) over the host array
-    ``items`` [B, ...], streamed through ``device`` wave by wave, the next
-    wave queued before the previous one is copied back (tpufm/utils/
-    waves.py:25 with two waves in flight; no wave is padded, since nothing
-    is compiled per shape here)."""
+def pad_cycle(arr: np.ndarray, pad: int) -> np.ndarray:
+    """``arr`` with ``pad`` rows appended by cycling its own rows, also past
+    len(arr) (a tiny batch on a large mesh), as tpufm/utils/waves.py:14."""
+    if pad <= 0:
+        return arr
+    return np.concatenate([arr, np.resize(arr, (pad,) + arr.shape[1:])])
+
+
+def mesh_wave(wave: int, n: int) -> int:
+    """``wave`` rounded down to a multiple of the mesh size ``n``: a mesh
+    engine's wave splits into equal shards (tpufm/parallel/search.py:777-778)."""
+    return wave - wave % n
+
+
+def stream_waves(items: np.ndarray, wave: int, fn, device: torch.device | None, cols: tuple = (),
+                 pad_mode: str | None = None) -> np.ndarray:
+    """uint32 [B, *cols] host results of ``fn`` (up to ``wave`` items -> a
+    device tensor of their results) over the host array ``items`` [B, ...],
+    streamed wave by wave, the next wave queued before the previous one is
+    copied back (tpufm/utils/waves.py:25 with two waves in flight).
+    ``fn`` gets each wave as a tensor on ``device``, or as host numpy where
+    ``device`` is None (a mesh engine places its shards itself).
+    ``pad_mode`` None leaves the last wave short, since nothing is compiled
+    per shape here; "cycle" pads it to a whole wave with its own items, as
+    tpufm's ``pad_mode="cycle"`` (a sharded engine's last wave keeps the
+    bucket statistics of real traffic), and drops the pad's results. A batch
+    of at most one wave goes through as it is."""
     if wave <= 0:
         raise ValueError(f"wave must be positive, got {wave}")
-    out = np.empty((items.shape[0], *cols), dtype=np.uint32)
+    B = items.shape[0]
+    out = np.empty((B, *cols), dtype=np.uint32)
     pending = None
-    for start in range(0, items.shape[0], wave):
-        res = fn(torch.from_numpy(items[start:start + wave]).to(device))
+    for start in range(0, B, wave):
+        chunk = items[start:start + wave]
+        real = chunk.shape[0]
+        if pad_mode == "cycle" and B > wave and real < wave:
+            chunk = pad_cycle(chunk, wave - real)
+        res = fn(chunk if device is None else torch.from_numpy(chunk).to(device))
         if pending is not None:
-            out[pending[0]:start] = pending[1].cpu().numpy()
+            out[pending[0]:start] = pending[1][:start - pending[0]].cpu().numpy()
         pending = (start, res)
     if pending is not None:
-        out[pending[0]:] = pending[1].cpu().numpy()
+        out[pending[0]:] = pending[1][:B - pending[0]].cpu().numpy()
     return out

@@ -12,7 +12,10 @@ xla.py:1427-1472); and the bridge from the JAX engine's state
 can compute on identical tables. Tables are host numpy, which the engine
 (search.py) moves to its device, or, for an index built on the device
 (``build_index_device(return_host=False)``), int32 tensors holding the
-uint32 words, concatenated where they lie (xla.py:1367-1371).
+uint32 words, concatenated where they lie (xla.py:1367-1371). The sharded
+engine's state is ``ShardTables``: the split tables cut along the entry axis
+(``shard_tables``, tpufm/parallel/search.py:546-569), or ported from
+tpufm's sharded engine (``shards_from_jax``).
 """
 
 from __future__ import annotations
@@ -293,6 +296,102 @@ def tables_from_jax(tables: dict, d: int | None = None, tail_d: int | None = Non
     if "lut" in arr:
         out.lut = arr["lut"].astype(np.uint32, copy=False)
     return out
+
+
+@dataclasses.dataclass
+class ShardTables:
+    """The state of the sharded-index engine (tpufm/parallel/search.py:
+    546-604): the split tables cut along the entry axis into D shards of
+    ``e_local`` rows each, zero rows padded at the end, and what every shard
+    holds whole.
+
+    occ: D tables uint32 [e_local, 4^k], shard s holding entries s*e_local ..
+        (s+1)*e_local - 1 (host numpy, or int32 tensors of the same bits where
+        the index lies on a device).
+    bitmaps: D tables uint32 [e_local, 2k*nb], likewise.
+    dollar: uint32 [3, k] rows dollar_pos, dollar_base, dollar_block (global
+        blocks), replicated.
+    tail_*: the k=1 tail table (fused rows), replicated, or None.
+    lut: uint32 [4^m, 2] prefix LUT, replicated, or None.
+    """
+
+    k: int
+    d: int
+    bwtsize: int
+    e_local: int
+    occ: list
+    bitmaps: list
+    dollar: np.ndarray
+    tail_d: int | None = None
+    tail_entries: np.ndarray | None = None
+    tail_dollar: np.ndarray | None = None
+    lut: np.ndarray | None = None
+
+    @property
+    def n_shards(self) -> int:
+        return len(self.occ)
+
+
+def _split_rows(table, n: int, e_local: int) -> list:
+    """``table`` [rows, W] padded with zero rows to n * e_local and cut into n
+    shards of e_local rows: host numpy, or int32 tensors padded and cut where
+    they lie (no copy through the host; the shards are views of one padded
+    tensor)."""
+    pad = n * e_local - table.shape[0]
+    if isinstance(table, torch.Tensor):
+        table = torch.nn.functional.pad(table, (0, 0, 0, pad))
+    else:
+        table = np.pad(np.asarray(table, dtype=np.uint32), ((0, pad), (0, 0)))
+    return [table[s * e_local:(s + 1) * e_local] for s in range(n)]
+
+
+def shard_tables(index: KStepFMIndex, n_shards: int, tail_index: KStepFMIndex | None = None) -> ShardTables:
+    """``index`` split along its entry axis into ``n_shards`` shards:
+    ``total = occ.shape[0]``, ``e_local = ceil(total / n_shards)``, zero rows
+    padded at the end (tpufm/parallel/search.py:546-569); for an index built
+    on the device (``build_index_device(return_host=False)``) padded and cut
+    on that device. The k=1 ``tail_index`` comes along whole, as fused rows
+    (its checks are the engine's)."""
+    total = index.occ.shape[0]
+    e_local = -(-total // n_shards)
+    tables = ShardTables(
+        k=index.config.k, d=index.config.d, bwtsize=int(index.bwtsize), e_local=e_local,
+        occ=_split_rows(index.occ, n_shards, e_local),
+        bitmaps=_split_rows(index.bitmaps.reshape(total, -1), n_shards, e_local),
+        dollar=_dollar(index),
+    )
+    if tail_index is not None:
+        tables.tail_d = tail_index.config.d
+        tables.tail_entries = build_fused_entries(tail_index)
+        tables.tail_dollar = _dollar(tail_index)
+    return tables
+
+
+def shards_from_jax(eng) -> ShardTables:
+    """Port a tpufm ``ShardedIndexEngine``'s state to the port's shards: its
+    entry-sharded ``occ`` [D*e_local, 4^k] and ``bitmaps`` [D*e_local, k, 2,
+    nb], its replicated '$' triple, k=1 tail and (with ``lut_m``) prefix LUT,
+    as arrays numpy can read (``np.asarray``), so that both engines compute
+    on the same split."""
+    occ = np.asarray(eng.occ).astype(np.uint32, copy=False)
+    bitmaps = np.asarray(eng.bitmaps).astype(np.uint32, copy=False)
+    e_local = int(eng.e_local)
+    n = occ.shape[0] // e_local
+    if n * e_local != occ.shape[0] or bitmaps.shape[0] != occ.shape[0]:
+        raise ValueError(f"tables of {occ.shape[0]} rows are not shards of {e_local} rows")
+    tables = ShardTables(
+        k=int(eng.config.k), d=int(eng.config.d), bwtsize=int(eng.bwtsize), e_local=e_local,
+        occ=[occ[s * e_local:(s + 1) * e_local] for s in range(n)],
+        bitmaps=[bitmaps[s * e_local:(s + 1) * e_local].reshape(e_local, -1) for s in range(n)],
+        dollar=np.stack([np.asarray(x) for x in eng.dollar]).astype(np.uint32),
+    )
+    if eng.tail_d is not None:
+        tables.tail_d = int(eng.tail_d)
+        tables.tail_entries = np.asarray(eng.tail[0]).astype(np.uint32, copy=False)
+        tables.tail_dollar = np.stack([np.asarray(x) for x in eng.tail[1:]]).astype(np.uint32)
+    if eng.lut_m:
+        tables.lut = np.asarray(eng.lut).astype(np.uint32, copy=False)
+    return tables
 
 
 def lut_fingerprint(index: KStepFMIndex, lut_m: int) -> np.ndarray:

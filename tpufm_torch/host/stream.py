@@ -19,11 +19,13 @@ itself is not hashed, so another text of the same size, k and d is not
 told apart). tpufm's engines hold k and d in
 ``.config``; the port's ``SearchEngine`` holds them as attributes, and
 ``SearchLocateEngine`` in its ``search_engine``, from which the same triple
-is read.
+is read; the mesh engines (tpufm_torch.parallel) hold them as attributes too.
 
-One device only: tpufm's mesh branch (the wave rounded to a mesh multiple,
-the last chunk padded by ``pad_cycle``) waits for multi-GPU (ROADMAP Queue 1
-item 6).
+A mesh engine (one with a ``mesh``) takes batches of a mesh multiple: as in
+tpufm (:44-48, :99-145), a sharded engine's wave is its ``WAVE_PER_CHIP``
+times the mesh size, the wave is rounded down to a mesh multiple, and the
+last chunk is padded up to one by cycling its own reads, the pad's rows
+dropped; so a ``search --mesh N --resume`` run writes tpufm's checkpoints.
 """
 
 from __future__ import annotations
@@ -35,6 +37,8 @@ import zlib
 from pathlib import Path
 
 import numpy as np
+
+from tpufm_torch.engine.search import mesh_wave, pad_cycle
 
 
 def _index_identity(engine) -> tuple:
@@ -50,8 +54,13 @@ def _fingerprint(engine, queries: np.ndarray) -> int:
 
 
 def _default_wave(engine) -> int:
-    """The engine's own wave: 2^20 reads for ``SearchEngine``, 2^18 for
-    ``SearchLocateEngine``, as tpufm's engines."""
+    """The engine's own wave: 2^20 reads for ``SearchEngine`` and
+    ``DataParallelEngine``, 2^18 for ``SearchLocateEngine``,
+    ``WAVE_PER_CHIP`` times the mesh size for ``ShardedIndexEngine``, as
+    tpufm's engines."""
+    per_chip = getattr(engine, "WAVE_PER_CHIP", None)
+    if per_chip is not None:
+        return per_chip * engine.mesh.size
     return getattr(engine, "WAVE", 1 << 20)
 
 
@@ -89,6 +98,10 @@ def _stream_resumable(run, engine, queries, out_path, row_words, wave, stats):
     row_words]; rows append to .partial, with an atomically replaced
     .progress sidecar (fingerprinted, safe against a torn write)."""
     wave = wave or _default_wave(engine)
+    mesh = getattr(engine, "mesh", None)
+    n_dev = 1 if mesh is None else mesh.size
+    if n_dev > 1:
+        wave = max(n_dev, mesh_wave(wave, n_dev))
     out_path = Path(out_path)
     part = out_path.with_suffix(out_path.suffix + ".partial")
     prog = out_path.with_suffix(out_path.suffix + ".progress")
@@ -118,8 +131,9 @@ def _stream_resumable(run, engine, queries, out_path, row_words, wave, stats):
         fp.seek(min(start_wave * wave, B) * row_bytes)
         for w in range(start_wave, n_waves):
             chunk = queries[w * wave:(w + 1) * wave]
+            real = chunk.shape[0]
             t0 = time.perf_counter()
-            res = run(chunk)
+            res = run(pad_cycle(chunk, -real % n_dev))[:real]
             search_s += time.perf_counter() - t0
             fp.write(np.ascontiguousarray(res).tobytes())
             fp.flush()

@@ -44,6 +44,9 @@ SIGNATURES = {
         # code, dollar, out, n reads, stream
         "tpufm_lf_round_split": [_P, _LL, _I, _P, _LL, _I, _I, _I, _P, _P, _P, _P, _LL, _P],
         "tpufm_lf_round_ac": [_P, _LL, _I, _P, _LL, _I, _I, _I, _P, _P, _P, _P, _LL, _P],
+        # bitmaps, rows, words, occ, rows, words, k, nb, req, shard, e_local,
+        # dollar, out, n requests, stream
+        "tpufm_lf_answer_owned": [_P, _LL, _I, _P, _LL, _I, _I, _I, _P, _LL, _LL, _P, _P, _LL, _P],
     },
     "row_gather": {
         # table, nrows, row_words, idx, out, n, path, tile_rows, blocks, stream

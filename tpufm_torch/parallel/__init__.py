@@ -1,0 +1,17 @@
+"""Multi-device search (tpufm/parallel/): a 1-D mesh of shards, the
+collectives of its programs, the data-parallel and the sharded-index
+engines, and the collective-traffic model."""
+
+from tpufm_torch.parallel.mesh import Mesh, initialize_distributed, make_mesh
+from tpufm_torch.parallel.search import DataParallelEngine, ShardedIndexEngine
+from tpufm_torch.parallel.traffic import assert_collective_model, collective_bytes_model
+
+__all__ = [
+    "Mesh",
+    "initialize_distributed",
+    "make_mesh",
+    "DataParallelEngine",
+    "ShardedIndexEngine",
+    "assert_collective_model",
+    "collective_bytes_model",
+]
