@@ -184,7 +184,9 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      alternate counters (K8-AC 40 a shard); (c) ShardedIndexEngine over the
      same 4 shards, allgather, ring and a2a with lut12 (each LUT equal to
      phase 4's) and a2a without a LUT, the overflow rounds printed,
-     ``assert_collective_model`` on a wave of each; (d) the 250 Mbase text
+     ``assert_collective_model`` on a wave of each, and 65,536 copies of
+     one read through a2a lut12, whose every round overflows to the
+     allgather step on the card; (d) the 250 Mbase text
      built on the card (``return_host=False``), split 4 ways there,
      allgather and a2a lut12 equal to the one-device SearchEngine on
      1,048,576 reads, the first 65,536 to the oracle, device seconds a pass
@@ -363,8 +365,9 @@ DEVICE_BUILD_SHARE = 0.9
 K7_KS = (1, 2, 3, 4)
 #: phase 18(f): the sweep's reference and reads
 SWEEP_BASES, SWEEP_READS = 1_000_000, 1 << 16
-#: phase 19: the shards of the meshes built on this one card
-MESH_SHARDS = 4
+#: phase 19: the shards of the meshes built on this one card; (c)'s batch of
+#: one read repeated, whose every a2a round overflows
+MESH_SHARDS, SAME_READS = 4, 1 << 16
 #: one H100 SXM's INT32 issue rate: 64 INT32 lanes an SM (a quarter of its
 #: 128 FP32 lanes doing 2 flops an FMA: 67 TFLOP/s, NVIDIA's data sheet, so
 #: the clock is 1.98 GHz) x 132 SMs x 1.98e9
@@ -2359,23 +2362,19 @@ def capture_requests(eng, queries: list, rounds: tuple) -> tuple:
     allgather routing answers once a shard a round): ((intervals, overflow),
     {(round, shard): requests})."""
     kept, calls = {}, [0] * eng.mesh.size
-    real = eng._answers
+    answer = eng._answer
 
-    def capturing(plain):
-        answer = real(plain)
+    def capturing(s, req):
+        calls[s] += 1
+        if calls[s] in rounds:
+            kept[calls[s], s] = req.clone()
+        return answer(s, req)
 
-        def call(s, req):
-            calls[s] += 1
-            if calls[s] in rounds:
-                kept[calls[s], s] = req.clone()
-            return answer(s, req)
-        return call
-
-    eng._answers = capturing
+    eng._answer = capturing
     try:
         out = eng.search_device(queries)
     finally:
-        del eng._answers
+        del eng._answer
     return out, kept
 
 
@@ -2488,6 +2487,8 @@ def mesh_phase(tmp: str, index, fmi: str, qry: str, reads: np.ndarray, main_res:
 
     # (c) ShardedIndexEngine over four shards on this card, each routing
     routings, k9 = {}, {"rounds": [], "edges": []}
+    same_reads = np.repeat(reads[:1], SAME_READS, axis=0)
+    same_want = np.repeat(main_res[:1], SAME_READS, axis=0)
     place = placed4  # the device passes: all reads at once, as the bench records time them
     for routing, lut in (("allgather", LUT_M), ("ring", LUT_M), ("a2a", LUT_M), ("a2a", 0)):
         t1 = time.perf_counter()
@@ -2502,14 +2503,13 @@ def mesh_phase(tmp: str, index, fmi: str, qry: str, reads: np.ndarray, main_res:
         by_path[label] = read_counts()
         n_rounds = rounds if lut else READ_LEN // K
         overflowed = int(sum(ov.sum() for ov in eng.last_overflow_waves))
+        flags = np.concatenate(eng.last_overflow_waves) if eng.last_overflow_waves else np.zeros(0, bool)
+        # an a2a round that overflows takes the allgather step instead: SH launches either way
         per_round = {"allgather": SH, "ring": 2 * SH * SH, "a2a": SH}[routing]
-        expect_exact(label, by_path[label], {"lf_answer_owned": per_round * n_rounds * waves + SH * overflowed,
-                                             "lf_round_pairs": 0})
+        expect_exact(label, by_path[label], {"lf_answer_owned": per_round * n_rounds * waves, "lf_round_pairs": 0})
         if lut:
-            lut_rounds = lut_waves * (LUT_M // K)
-            lut_launches = by_path[label + "_lut"]["lf_answer_owned"]
-            if routing != "a2a" and lut_launches != per_round * lut_rounds:
-                raise AssertionError(f"{label}: LUT build launched K9 {lut_launches} times")
+            expect_exact(label + "_lut", by_path[label + "_lut"],
+                         {"lf_answer_owned": per_round * lut_waves * (LUT_M // K), "lf_round_pairs": 0})
         model = assert_collective_model(eng, reads[:wave])
         if routing == "allgather" and lut:
             (_, _), kept = capture_requests(eng, eng.place_queries(reads[:wave]), CAPTURED_ROUNDS)
@@ -2522,13 +2522,26 @@ def mesh_phase(tmp: str, index, fmi: str, qry: str, reads: np.ndarray, main_res:
                                                       1 << 16)).to(dev)
             k9["edges"] = [check_k9(eng, s, edges, timed=False) for s in range(SH)]
         dev_s = timed_device_passes(lambda: eng.search_device(place), iterations=3)[0]
-        flags = np.concatenate(eng.last_overflow_waves) if eng.last_overflow_waves else np.zeros(0, bool)
+        same_overflow = None
+        if routing == "a2a" and lut:
+            # one read repeated: a round's requests all lie in one bucket, so every round overflows and
+            # takes the allgather step, on the card: SH launches a round, as a bucketed round
+            reset_counts()
+            same_results("ShardedIndexEngine a2a, one read repeated", eng.search(same_reads), same_want)
+            by_path[label + "_same"] = read_counts()
+            expect_exact(label + "_same", by_path[label + "_same"], {"lf_answer_owned": SH * rounds})
+            if not eng.last_overflow_rounds.all():
+                raise AssertionError(f"{label}: one read repeated overflowed in rounds "
+                                     f"{np.flatnonzero(eng.last_overflow_rounds).tolist()} of {rounds} only")
+            same_overflow = int(eng.last_overflow_rounds.sum())
+            assert_collective_model(eng, same_reads)
         routings[label] = {
             "routing": routing, "lut_m": lut, "device_seconds_per_pass": dev_s,
             "lut_build_seconds": eng.lut_build_seconds, "k9_launches": by_path[label]["lf_answer_owned"],
             "overflow_round_fraction": float(flags.mean()) if flags.size else 0.0,
             "overflow_rounds": overflowed, "collective_bytes_a_wave": model["bytes"],
-            "model_sent_a_round": model["model"]["sent"], "seconds": time.perf_counter() - t1,
+            "model_sent_a_round": model["model"]["sent"], "one_read_repeated_overflow_rounds": same_overflow,
+            "seconds": time.perf_counter() - t1,
         }
         del eng
         torch.cuda.empty_cache()
@@ -2539,7 +2552,12 @@ def mesh_phase(tmp: str, index, fmi: str, qry: str, reads: np.ndarray, main_res:
         print(f"      {label}: {r['device_seconds_per_pass']:.6f} s a device pass, K9 launches {r['k9_launches']}, "
               f"overflow rounds {r['overflow_rounds']} (fraction {r['overflow_round_fraction']:.4f}), LUT build "
               f"{r['lut_build_seconds']} s, {r['collective_bytes_a_wave']} B between shards a wave (model "
-              f"{r['model_sent_a_round']} B a shard a round); {r['seconds']:.2f} s", flush=True)
+              f"{r['model_sent_a_round']} B a shard a round)"
+              + ("" if r["one_read_repeated_overflow_rounds"] is None else
+                 f"; one read x {SAME_READS}: {r['one_read_repeated_overflow_rounds']} of {rounds} rounds overflowed "
+                 f"to the allgather step, {by_path[label + '_same']['lf_answer_owned']} K9 launches, equal to "
+                 f"phase 4")
+              + f"; {r['seconds']:.2f} s", flush=True)
 
     # (d) the 250 Mbase text, built on the card, split four ways there
     t1 = time.perf_counter()
@@ -2571,7 +2589,7 @@ def mesh_phase(tmp: str, index, fmi: str, qry: str, reads: np.ndarray, main_res:
         same_results(f"250 Mbase {routing}", eng.search(greads), want)
         by_path[label] = read_counts()
         overflowed = int(sum(ov.sum() for ov in eng.last_overflow_waves))
-        expect_exact(label, by_path[label], {"lf_answer_owned": SH * (grounds * gwaves + overflowed)})
+        expect_exact(label, by_path[label], {"lf_answer_owned": SH * grounds * gwaves})
         gplaced = eng.place_queries(greads)
         genome[routing] = {"device_seconds_per_pass": timed_device_passes(lambda: eng.search_device(gplaced), 3)[0],
                            "overflow_rounds": overflowed, "e_local": eng.e_local}

@@ -204,6 +204,30 @@ def test_sharded_a2a_overflow_rounds_equal_tpufm():
     assert teng.last_overflow_rounds.all()
 
 
+@pytest.mark.parametrize("routing", ROUTINGS)
+def test_sharded_owner_answers_go_through_k9(monkeypatch, routing):
+    """Every owner answer is one call of K9's wrapper: D a round for
+    allgather and a2a, an overflowing a2a round (which takes the allgather
+    step) included, 2D a shard a round for the ring; a ``step`` is refused."""
+    import tpufm_torch.parallel.search as psearch
+
+    codes, jidx, tidx = _case(2, 64, 4096)
+    calls = []
+    real = psearch.lf_answer_owned
+    monkeypatch.setattr(psearch, "lf_answer_owned", lambda *a: calls.append(a[3]) or real(*a))
+    eng = ShardedIndexEngine(tidx, _cpu(4), routing=routing)
+    per_round = {"allgather": 4, "ring": 2 * 4 * 4, "a2a": 4}[routing]
+    same = np.repeat(codes[100:124][None, :], 64, axis=0)  # a2a: every request in one bucket
+    for q in (same, _reads(codes, 24, 64, seed=3)):
+        calls.clear()
+        np.testing.assert_array_equal(eng.search(q), search_oracle(jidx, q))
+        assert len(calls) == per_round * 12 and sorted(set(calls)) == [0, 1, 2, 3]
+        if q is same:
+            assert eng.last_overflow_rounds.any() == (routing == "a2a")
+    with pytest.raises(ValueError, match="step must be None"):
+        eng.search(same, step=lf_mod.lf_round_reference)
+
+
 def test_sharded_tiny_lut_wave_too_small_and_refusals():
     codes, jidx, tidx = _case(1, 32, 2048)
     q = _reads(codes, 8, 32)
@@ -375,12 +399,14 @@ def test_mesh_pad_cycle_and_stream_waves():
     rows = np.arange(15, dtype=np.uint8).reshape(5, 3)
     for pad in (0, 2, 5, 13):
         np.testing.assert_array_equal(pad_cycle(rows, pad), jax_pad_cycle(rows, pad))
-    seen = []
-    out = stream_waves(np.arange(10, dtype=np.uint8)[:, None], 4,
-                       lambda c: seen.append(c.copy()) or torch.from_numpy(c.astype(np.int64)), None, (1,),
-                       pad_mode="cycle")
-    np.testing.assert_array_equal(out[:, 0], np.arange(10))
-    np.testing.assert_array_equal(seen[-1][:, 0], [8, 9, 8, 9])  # the last wave padded with its own rows
+    for device, last in ((None, [8, 9, 8, 9]), (torch.device("cpu"), [8, 9])):
+        seen = []
+        out = stream_waves(np.arange(10, dtype=np.uint8)[:, None], 4,
+                           lambda c: seen.append(np.asarray(c).copy()) or torch.as_tensor(c).to(torch.int64), device,
+                           (1,))
+        np.testing.assert_array_equal(out[:, 0], np.arange(10))
+        # a mesh engine's last wave (device None) is padded with its own rows; a device's stays short
+        np.testing.assert_array_equal(seen[-1][:, 0], last)
     assert make_mesh(3, device="cpu").size == 3 and make_mesh(device="cpu").size == 1
     assert Mesh([torch.device("cpu")] * 2, "x").axis_names == ("x",)
     with pytest.raises(NotImplementedError, match="item 6d"):

@@ -564,19 +564,18 @@ def mesh_wave(wave: int, n: int) -> int:
     return wave - wave % n
 
 
-def stream_waves(items: np.ndarray, wave: int, fn, device: torch.device | None, cols: tuple = (),
-                 pad_mode: str | None = None) -> np.ndarray:
+def stream_waves(items: np.ndarray, wave: int, fn, device: torch.device | None, cols: tuple = ()) -> np.ndarray:
     """uint32 [B, *cols] host results of ``fn`` (up to ``wave`` items -> a
     device tensor of their results) over the host array ``items`` [B, ...],
     streamed wave by wave, the next wave queued before the previous one is
     copied back (tpufm/utils/waves.py:25 with two waves in flight).
-    ``fn`` gets each wave as a tensor on ``device``, or as host numpy where
-    ``device`` is None (a mesh engine places its shards itself).
-    ``pad_mode`` None leaves the last wave short, since nothing is compiled
-    per shape here; "cycle" pads it to a whole wave with its own items, as
-    tpufm's ``pad_mode="cycle"`` (a sharded engine's last wave keeps the
-    bucket statistics of real traffic), and drops the pad's results. A batch
-    of at most one wave goes through as it is."""
+    ``fn`` gets each wave as a tensor on ``device``: there the last wave
+    stays short, since nothing is compiled per shape here. Where ``device``
+    is None (a mesh engine, which places its shards itself), ``fn`` gets
+    host numpy and a short last wave is padded to a whole one with its own
+    items, as tpufm's ``pad_mode="cycle"`` (a sharded engine's last wave
+    keeps the bucket statistics of real traffic); the pad's results are
+    dropped. A batch of at most one wave goes through as it is."""
     if wave <= 0:
         raise ValueError(f"wave must be positive, got {wave}")
     B = items.shape[0]
@@ -585,7 +584,7 @@ def stream_waves(items: np.ndarray, wave: int, fn, device: torch.device | None, 
     for start in range(0, B, wave):
         chunk = items[start:start + wave]
         real = chunk.shape[0]
-        if pad_mode == "cycle" and B > wave and real < wave:
+        if device is None and B > wave and real < wave:
             chunk = pad_cycle(chunk, wave - real)
         res = fn(chunk if device is None else torch.from_numpy(chunk).to(device))
         if pending is not None:

@@ -23,9 +23,10 @@ is read; the mesh engines (tpufm_torch.parallel) hold them as attributes too.
 
 A mesh engine (one with a ``mesh``) takes batches of a mesh multiple: as in
 tpufm (:44-48, :99-145), a sharded engine's wave is its ``WAVE_PER_CHIP``
-times the mesh size, the wave is rounded down to a mesh multiple, and the
-last chunk is padded up to one by cycling its own reads, the pad's rows
-dropped; so a ``search --mesh N --resume`` run writes tpufm's checkpoints.
+times the mesh size and the wave is rounded down to a mesh multiple (the
+engine pads a last chunk off the mesh multiple by cycling its own reads and
+drops the pad's rows), so a ``search --mesh N --resume`` run writes tpufm's
+checkpoints.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ from pathlib import Path
 
 import numpy as np
 
-from tpufm_torch.engine.search import mesh_wave, pad_cycle
+from tpufm_torch.engine.search import mesh_wave
 
 
 def _index_identity(engine) -> tuple:
@@ -99,9 +100,8 @@ def _stream_resumable(run, engine, queries, out_path, row_words, wave, stats):
     .progress sidecar (fingerprinted, safe against a torn write)."""
     wave = wave or _default_wave(engine)
     mesh = getattr(engine, "mesh", None)
-    n_dev = 1 if mesh is None else mesh.size
-    if n_dev > 1:
-        wave = max(n_dev, mesh_wave(wave, n_dev))
+    if mesh is not None:  # the engine pads a chunk to a mesh multiple itself
+        wave = max(mesh.size, mesh_wave(wave, mesh.size))
     out_path = Path(out_path)
     part = out_path.with_suffix(out_path.suffix + ".partial")
     prog = out_path.with_suffix(out_path.suffix + ".progress")
@@ -130,10 +130,8 @@ def _stream_resumable(run, engine, queries, out_path, row_words, wave, stats):
     with open(part, "r+b" if start_wave else "wb") as fp:
         fp.seek(min(start_wave * wave, B) * row_bytes)
         for w in range(start_wave, n_waves):
-            chunk = queries[w * wave:(w + 1) * wave]
-            real = chunk.shape[0]
             t0 = time.perf_counter()
-            res = run(pad_cycle(chunk, -real % n_dev))[:real]
+            res = run(queries[w * wave:(w + 1) * wave])
             search_s += time.perf_counter() - t0
             fp.write(np.ascontiguousarray(res).tobytes())
             fp.flush()

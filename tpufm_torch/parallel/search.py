@@ -45,7 +45,7 @@ import torch
 
 from tpufm_torch.bitops import from_u32_bits, to_u32_bits
 from tpufm_torch.engine.codes import decode_prefix_codes, fuse_prefix_codes, fuse_round_codes
-from tpufm_torch.engine.lf_round import lf_answer_owned, lf_answer_owned_reference
+from tpufm_torch.engine.lf_round import lf_answer_owned
 from tpufm_torch.engine.search import (
     SearchEngine,
     _fused_round,
@@ -192,7 +192,7 @@ class DataParallelEngine:
         def counts(q):
             return _merge([e.count_mismatch_device(p, step) for e, p in zip(self.engines, self.shard_queries(q))])
 
-        return stream_waves(queries, wave, counts, None, pad_mode="cycle")[:B]
+        return stream_waves(queries, wave, counts, None)[:B]
 
 
 class ShardedIndexEngine:
@@ -274,9 +274,9 @@ class ShardedIndexEngine:
         """(block, code, interval) of every end, int32 [B, 3] (uint32 bits)."""
         return [to_u32_bits(torch.stack([e // self.d, c, e], dim=1)) for e, c in zip(ends, codes)]
 
-    def _answers(self, plain: bool):
-        fn = lf_answer_owned_reference if plain else lf_answer_owned
-        return lambda s, req: fn(self.bitmaps[s], self.occ[s], req, s, self.e_local, self.dollar[s], self.k, self.d)
+    def _answer(self, s: int, req: torch.Tensor) -> torch.Tensor:
+        """Shard ``s``'s owner answers to the requests ``req`` (K9)."""
+        return lf_answer_owned(self.bitmaps[s], self.occ[s], req, s, self.e_local, self.dollar[s], self.k, self.d)
 
     def _step_allgather(self, ends, codes, answer):
         D = self.mesh.size
@@ -365,9 +365,9 @@ class ShardedIndexEngine:
             out.append(from_u32_bits(o))
         return out, False
 
-    def _step(self, ends, codes, plain: bool):
+    def _step(self, ends, codes):
         return {"allgather": self._step_allgather, "ring": self._step_ring, "a2a": self._step_a2a}[
-            self.routing](ends, codes, self._answers(plain))
+            self.routing](ends, codes, self._answer)
 
     def place_queries(self, queries) -> list:
         """A uint8 [B, L] host batch, B a mesh multiple, split along the mesh."""
@@ -376,13 +376,11 @@ class ShardedIndexEngine:
             raise ValueError(f"batch {queries.shape[0]} not divisible by mesh size {self.mesh.size}; pad it")
         return _split(queries, self.mesh)
 
-    def search_device(self, queries_sharded: list, step=None, use_lut: bool = True):
+    def search_device(self, queries_sharded: list, use_lut: bool = True):
         """Per-shard reads (``place_queries``) -> (int64 [B, 2] intervals on
         shard 0's device, bool [rounds] numpy: the rounds that took the a2a
-        fallback). ``step``: None runs K9 and K1; a fused round function
-        (e.g. ``lf_round_reference``) runs the tail rounds, and the owner
-        answers take their plain version. ``use_lut=False`` starts from the
-        full interval."""
+        fallback). The owner answers are K9's and the tail rounds K1's.
+        ``use_lut=False`` starts from the full interval."""
         B, L = queries_sharded[0].shape
         k, m = self.k, (self.lut_m if use_lut else 0)
         r = (L - m) % k if m else L % k
@@ -405,14 +403,14 @@ class ShardedIndexEngine:
         codes = [fuse_round_codes(b, k) for b in bodies]
         overflow = []
         for j in range(codes[0].shape[0]):
-            ends, ov = self._step(ends, [c[j].repeat(2) for c in codes], step is not None)
+            ends, ov = self._step(ends, [c[j].repeat(2) for c in codes])
             overflow.append(ov)
         ivs = [e.view(2, B).T.contiguous() for e in ends]
         if r:
             # the leftover leading characters, right to left, on each shard's
             # own reads: the replicated k=1 tail needs no collective
             ivs = [_rounds(iv, h.flip(1).to(torch.int64).T.contiguous(),
-                           _fused_round(te, td, 1, self.tail_d, step))
+                           _fused_round(te, td, 1, self.tail_d, None))
                    for iv, h, te, td in zip(ivs, heads, self.tail_entries, self.tail_dollar)]
         return _merge(ivs), np.asarray(overflow, dtype=bool)
 
@@ -441,7 +439,11 @@ class ShardedIndexEngine:
         batches beyond ``wave`` (default WAVE_PER_CHIP * mesh size, rounded
         down to a mesh multiple) stream in waves, the last padded by cycling
         its own reads. ``last_overflow_rounds`` ORs the a2a fallback flags
-        over every wave of the call."""
+        over every wave of the call. ``step`` is there for the CLI's call
+        shared with the other engines and must be None: the sharded rounds
+        have no other implementation."""
+        if step is not None:
+            raise ValueError("ShardedIndexEngine runs its own kernels; step must be None")
         n = self.mesh.size
         queries = np.asarray(queries, np.uint8)
         B = queries.shape[0]
@@ -452,11 +454,11 @@ class ShardedIndexEngine:
         overflow = []
 
         def run(chunk):
-            out, ov = self.search_device(self.place_queries(chunk), step)
+            out, ov = self.search_device(self.place_queries(chunk))
             overflow.append(ov)
             return out
 
-        out = stream_waves(queries, wave, run, None, (2,), pad_mode="cycle")
+        out = stream_waves(queries, wave, run, None, (2,))
         self.last_overflow_waves = overflow
         if overflow:
             self.last_overflow_rounds = np.logical_or.reduce(overflow)
