@@ -195,6 +195,29 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      beside its bound) and on edge cases (zero rows, '$' blocks, shard
      edges, rows past the table, owners past the mesh). Four shards on one
      card copy within its memory: no transport time is measured.
+ 20. the mesh locate (tpufm_torch.parallel.locate), every result held
+     against the one-device result of an earlier phase and every launch
+     count exact (a shard's walk only where it has rows to walk): (a)
+     ``locate --mesh 1`` from phase 10's stores, two-pass, ``--fused``,
+     ``--fused --rc`` and ``--fused --resume`` (killed after two of its 32
+     waves, resumed), each .pos byte-identical to phase 10's; ``locate --mesh
+     2`` on a one-card machine exits with make_mesh's text; the ``bench
+     --locate --mesh 1`` record; (b) four colocated shards:
+     ``DataParallelLocate.locate_hits`` on phase 4's intervals and
+     ``DataParallelSearchLocate.search_locate`` (lut12 from phase 4's cache)
+     equal to phase 10, device seconds a pass beside ``SearchLocateEngine``
+     (in turns); (c) on the same shards ``locate_mismatch`` (phase 12's
+     reads), ``locate_approx`` m=2 and ``locate_edits`` E=2 (phase 14's), and
+     ``PairedEndEngine(mesh=...)`` exact (phase 14's 131,072 pairs) and with
+     ``--mismatches 2`` and ``--edits 1`` (4,096 pairs), each equal to the
+     one-device run; (d) ``align --from-store --mesh 1`` on phase 15's
+     fixed-length reads, ``-2 --bam`` pairs and 50-151 bp reads, each file
+     byte-identical to phase 15's; (e) the 250 Mbase text sorted once on the
+     card, its k=3 d=192 index and s=32 locate tables built there,
+     ``DataParallelSearchLocate`` lut12 on four shards equal to
+     ``SearchLocateEngine`` on 262,144 reads, every origin among its
+     positions where the interval fits max-hits, device seconds a pass of
+     both.
 Every path is driven with all launch counts set to 0 just before it and
 read just after; a kernel of the path launched too few times fails the run.
 Then one JSON line of kernel figures (each kernel's time beside its bound:
@@ -286,6 +309,8 @@ from tpufm_torch.host.index import KStepFMIndex
 from tpufm_torch.host.layouts import make_alt_counters
 from tpufm_torch.parallel import (
     DataParallelEngine,
+    DataParallelLocate,
+    DataParallelSearchLocate,
     Mesh,
     ShardedIndexEngine,
     assert_collective_model,
@@ -368,6 +393,8 @@ SWEEP_BASES, SWEEP_READS = 1_000_000, 1 << 16
 #: phase 19: the shards of the meshes built on this one card; (c)'s batch of
 #: one read repeated, whose every a2a round overflows
 MESH_SHARDS, SAME_READS = 4, 1 << 16
+#: phase 20(e): the reads located on the 250 Mbase text
+GENOME_LOCATE_READS = 1 << 18
 #: one H100 SXM's INT32 issue rate: 64 INT32 lanes an SM (a quarter of its
 #: 128 FP32 lanes doing 2 flops an FMA: 67 TFLOP/s, NVIDIA's data sheet, so
 #: the clock is 1.98 GHz) x 132 SMs x 1.98e9
@@ -1100,6 +1127,7 @@ def approximate(tmp: str, ref: str, codes: np.ndarray, store: str, dev, by_path:
     rng = np.random.default_rng(SEED + 6)
     seed_rounds = ((READ_LEN // (APPROX_M + 1)) // K * K - LUT_M) // K  # the seeds' k-step rounds
     found = {}
+    runs = {}  # phase 20's inputs: the reads of each path and the one-device results
 
     t0 = time.perf_counter()
     sreads, sstarts = generate_reads(codes, READ_LEN, SEED_READS, seed=SEED + 6, return_starts=True)
@@ -1238,6 +1266,7 @@ def approximate(tmp: str, ref: str, codes: np.ndarray, store: str, dev, by_path:
         same_arrays(f"locate --paired {kind} {value}", (run.pairs, run.strand, run.counts, run.overflow),
                     eng.pair(a1, a2, verify=verify, **plain))
         found[label] = {"seconds": run.seconds}
+        runs[label] = (run.pairs, run.strand, run.counts, run.overflow)
         del eng
     print(f"    paired: locate --paired on {PAIRS} FR pairs x {READ_LEN} bp, insert [{INSERT_MIN}, {INSERT_MAX}]: "
           f"pass {prun.seconds:.6f} s ({PAIRS / prun.seconds:.0f} pairs/s), {found['paired']['properly_paired']} "
@@ -1246,7 +1275,10 @@ def approximate(tmp: str, ref: str, codes: np.ndarray, store: str, dev, by_path:
           f"with a substitution in every R1 mate: passes {found['paired_mm2']['seconds']:.6f} / "
           f"{found['paired_e1']['seconds']:.6f} s, every true pair recovered, equal to the plain path, launches "
           f"{by_path['paired_mm2']} / {by_path['paired_e1']}; {time.perf_counter() - t0:.2f} s", flush=True)
-    return {"k5": k5, "k6": k6, "edge_lanes": edge_lanes, "paths": found}
+    runs.update(seed=(sreads, (srun.positions, srun.counts, srun.overflow)),
+                edit=(ereads, (erun.positions, erun.counts, erun.overflow)),
+                pairs=(r1, r2, minus, (prun.pairs, prun.strand, prun.counts, prun.overflow)), approx_pairs=(a1, a2))
+    return {"k5": k5, "k6": k6, "edge_lanes": edge_lanes, "paths": found, "runs": runs}
 
 
 def write_records(path: str, codes: np.ndarray, bounds: np.ndarray) -> None:
@@ -1547,6 +1579,8 @@ def aligner(tmp: str, codes: np.ndarray, dev, by_path: dict) -> dict:
     if proc.returncode != 0 or Path(cold).read_bytes() != Path(va.output).read_bytes():
         raise AssertionError(f"align in a new process: exit {proc.returncode}, or its SAM differs: {proc.stderr}")
     found["align_varlen"]["new_process_seconds"] = cold_s
+    found["mesh_inputs"] = {"ref": ref, "store": store, "lut": lut, "se": (fq, se.output, se.positions),
+                            "paired": (q1, q2, pe.output, pminus), "varlen": (vq, va.output, va.positions)}
     print(f"    (e) align --from-store, {NV} reads of {VARLEN_MIN}-{VARLEN_MAX} bp: {va_s:.3f} s "
           f"({NV / va_s:.0f} reads/s), stages {stage_line('align_varlen')}; every CIGAR its read's length, "
           f"every read in one record primary at its origin; first {P_} equal to the plain path; launches "
@@ -2621,6 +2655,328 @@ def mesh_phase(tmp: str, index, fmi: str, qry: str, reads: np.ndarray, main_res:
             "dp4_s": dp4_s, "ac4_s": ac4_s}
 
 
+def mesh_walks(found: np.ndarray, n: int, wave: int) -> int:
+    """The walks (K4 launches) a mesh engine of ``n`` shards makes over a
+    batch whose read i has rows to walk where ``found[i]``: the batch padded
+    by cycling to a mesh multiple, streamed in waves of ``wave`` reads (past
+    one wave the last padded by cycling to a whole one), each wave cut into
+    n parts; a part with no row to walk launches no walk."""
+    B = found.shape[0]
+    idx = np.resize(np.arange(B), B + (-B % n))
+    walks = 0
+    for start in range(0, idx.size, wave):
+        chunk = idx[start:start + wave]
+        if idx.size > wave and chunk.size < wave:
+            chunk = np.resize(chunk, wave)
+        walks += sum(bool(found[part].any()) for part in np.split(chunk, n))
+    return walks
+
+
+def mesh_waves(B: int, n: int, wave: int) -> int:
+    """The waves of ``wave`` reads a mesh engine of ``n`` shards streams a
+    batch of B reads in (the batch padded to a mesh multiple first)."""
+    return -(-(B + (-B % n)) // wave)
+
+
+def mesh_locate(tmp: str, codes: np.ndarray, fmi: str, qry: str, reads: np.ndarray, main_res: np.ndarray,
+                store: str, pos: dict, mm: tuple, approx: dict, align: dict, dev, by_path: dict) -> dict:
+    """Phase 20 (see the module docstring): the mesh locate, every result
+    held against the one-device result of an earlier phase and every launch
+    count exact. ``pos``: phase 10's .pos files ("two", "fused", "rc") and
+    fused positions ("positions"); ``mm``: phase 12's reads and positions."""
+    t0 = time.perf_counter()
+    rounds = (READ_LEN - LUT_M) // K
+    lut_launches = (4**LUT_M // min(4**LUT_M, 1 << 20)) * (LUT_M // K)
+    SH = MESH_SHARDS
+    FULL = 0xFFFFFFFF
+    seconds = {}
+
+    def cli_run(label: str, argv: list, need):
+        """``argv`` through the CLI (stdout captured), the counts zeroed
+        just before and read just after; ``need(run)`` the exact launches."""
+        t1 = time.perf_counter()
+        reset_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            run = cli.main([*argv, "--device", "cuda"])
+        by_path[label] = read_counts()
+        seconds[label] = time.perf_counter() - t1
+        expect_exact(label, by_path[label], need(run))
+        return run
+
+    def same_bytes(what: str, a: str, b: str) -> None:
+        if Path(a).read_bytes() != Path(b).read_bytes():
+            raise AssertionError(f"{what}: {a} and {b} differ")
+
+    # (a) the CLI at --mesh 1, the bench record
+    locate = ["locate", "-", "0", qry, str(READ_LEN), str(READS), "--from-store", store, "--max-hits",
+              str(MAX_HITS), "--lut", str(LUT_M), "--mesh", "1"]
+    one_wave = DataParallelSearchLocate.WAVE_PER_CHIP
+    fwaves = mesh_waves(READS, 1, one_wave)
+    hits = int((main_res[:, 1] - main_res[:, 0]).clip(max=MAX_HITS).sum())  # the rows two-pass walks
+    out = os.path.join(tmp, "mesh1_two.pos")
+    cli_run("mesh1_locate", [*locate, "--output", out], lambda run: {
+        "lf_round_pairs": rounds + lut_launches, "locate_walk": -(-hits // DataParallelLocate.WAVE_PER_CHIP)})
+    same_bytes("locate --mesh 1", out, pos["two"])
+    out = os.path.join(tmp, "mesh1_fused.pos")
+    run = cli_run("mesh1_locate_fused", [*locate, "--fused", "--output", out], lambda run: {
+        "lf_round_pairs": rounds * fwaves + lut_launches,
+        "locate_walk": mesh_walks(run.positions[:, 0] != FULL, 1, one_wave)})
+    same_bytes("locate --fused --mesh 1", out, pos["fused"])
+    found = run.positions[:, 0] != FULL
+    out = os.path.join(tmp, "mesh1_rc.pos")
+    cli_run("mesh1_locate_fused_rc", [*locate, "--fused", "--rc", "--output", out], lambda run: {
+        "lf_round_pairs": rounds * mesh_waves(2 * READS, 1, one_wave) + lut_launches,
+        "locate_walk": mesh_walks(run.positions[:, 0] != FULL, 1, one_wave)})
+    same_bytes("locate --fused --rc --mesh 1", out, pos["rc"])
+    same_bytes("locate --fused --rc --mesh 1 (minus strand)", out + ".rc", pos["rc"] + ".rc")
+    # --resume: killed after two of its waves of 2^15, then the CLI finishes
+    out = os.path.join(tmp, "mesh1_resume.pos")
+    index_s, loc_s = load_store(f"{store}.search.tpufm"), load_store(f"{store}.locate.tpufm")
+    dp1 = DataParallelSearchLocate(index_s, loc_s, make_mesh(1, device=dev), max_hits=MAX_HITS, lut_m=LUT_M)
+    crash_after(lambda: locate_resumable(Crashing(dp1, 2, "search_locate"), reads, out), "locate --resume --mesh 1",
+                out, 2)
+    del dp1
+    cli_run("mesh1_locate_resume", [*locate, "--fused", "--resume", "--output", out], lambda run: {
+        "lf_round_pairs": rounds * (fwaves - 2) + lut_launches,
+        "locate_walk": mesh_walks(found[2 * one_wave:], 1, one_wave)})
+    same_bytes("locate --fused --resume --mesh 1", out, pos["fused"])
+    have = torch.cuda.device_count()
+    if have < 2:
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                cli.main(["locate", "-", "0", qry, str(READ_LEN), "1024", "--from-store", store, "--mesh", "2",
+                          "--device", "cuda"])
+            raise AssertionError("locate --mesh 2 ran on one card")
+        except ValueError as e:
+            if str(e) != f"need 2 devices, have {have}":
+                raise
+    record = bench_record("bench_locate_mesh1", [
+        "--refsize", str(REF_BASES), "--d", str(D), "--iterations", str(BENCH_PASSES), "--numqueries",
+        str(WALK_ROWS), "--locate", "--sample-rate", str(SAMPLE_RATE), "--mesh", "1"],
+        {"locate_walk": BENCH_PASSES + 1}, by_path)
+    expect_exact("bench --locate --mesh 1", by_path["bench_locate_mesh1"], {"locate_walk": BENCH_PASSES + 1})
+    print(f"[20 mesh locate] (a) phase 10's stores and {READS} x {READ_LEN} bp reads, max-hits {MAX_HITS}: locate "
+          f"--mesh 1 two-pass, --fused, --fused --rc and --fused --resume (killed after 2 of {fwaves} waves of "
+          f"{one_wave}, resumed) all byte-identical to phase 10's .pos, launches exact (K1 / K4: "
+          + ", ".join(f"{p[6:]} {by_path[p]['lf_round_pairs']} / {by_path[p]['locate_walk']}" for p in (
+              "mesh1_locate", "mesh1_locate_fused", "mesh1_locate_fused_rc", "mesh1_locate_resume"))
+          + "); locate --mesh 2 on "
+          f"{have} card(s): " + (f"'need 2 devices, have {have}'" if have < 2 else "not tried")
+          + f"; bench --locate --mesh 1 {record['value']} positions/s, bit-exact; CLI seconds "
+          f"{json.dumps({k: round(v, 2) for k, v in seconds.items()})}", flush=True)
+
+    # (b) four colocated shards, fused and two-pass, beside the one device
+    t1 = time.perf_counter()
+    mesh4 = Mesh([dev] * SH)
+    reset_counts()
+    dpl = DataParallelLocate(loc_s, mesh4)
+    same_results("DataParallelLocate.locate_hits, 4 shards", dpl.locate_hits(main_res, MAX_HITS), pos["positions"])
+    by_path["mesh4_locate_hits"] = read_counts()
+    expect_exact("DataParallelLocate, 4 shards", by_path["mesh4_locate_hits"], {
+        "locate_walk": SH * -(-hits // (DataParallelLocate.WAVE_PER_CHIP * SH)), "lf_round_pairs": 0})
+    lut_cache = f"{fmi}.lut{LUT_M}.npz"
+    reset_counts()
+    dp4 = DataParallelSearchLocate(index_s, loc_s, mesh4, max_hits=MAX_HITS, lut_m=LUT_M, lut_cache=lut_cache)
+    lut_loaded = dp4.engines[0].search_engine.lut_build_seconds is None
+    expect_exact("DataParallelSearchLocate's LUT", read_counts(), {"lf_round_pairs": 0 if lut_loaded else lut_launches})
+    wave4 = one_wave * SH
+    reset_counts()
+    iv, fpos = dp4.search_locate(reads)
+    by_path["mesh4_search_locate"] = read_counts()
+    same_results("DataParallelSearchLocate intervals, 4 shards", iv, main_res)
+    same_results("DataParallelSearchLocate positions, 4 shards", fpos, pos["positions"])
+    expect_exact("DataParallelSearchLocate, 4 shards", by_path["mesh4_search_locate"], {
+        "lf_round_pairs": rounds * SH * mesh_waves(READS, SH, wave4), "locate_walk": mesh_walks(found, SH, wave4)})
+    del iv, fpos
+    sle = SearchLocateEngine(index_s, loc_s, dev, max_hits=MAX_HITS, lut_m=LUT_M, lut_cache=lut_cache)
+    q_all = torch.from_numpy(reads).to(dev)
+    parts = [q_all[s * (READS // SH):(s + 1) * (READS // SH)] for s in range(SH)]
+    turns = {"one_device": [], "mesh4": []}
+    for name in ("one_device", "mesh4", "mesh4", "one_device"):
+        fn = (lambda: sle.search_locate_device(q_all)) if name == "one_device" else (
+            lambda: dp4.search_locate_device(parts))
+        turns[name].extend(timed_device_passes(fn, iterations=3)[2])
+    fused_s = {name: statistics.mean(t) for name, t in turns.items()}
+    profile_pass("SearchLocateEngine, 10 Mbase", lambda: sle.search_locate_device(q_all), fused_s["one_device"])
+    profile_pass(f"DataParallelSearchLocate, {SH} shards, 10 Mbase", lambda: dp4.search_locate_device(parts),
+                 fused_s["mesh4"])
+    del sle, q_all, parts
+    print(f"    (b) {SH} colocated shards of this card: DataParallelLocate.locate_hits on phase 4's intervals "
+          f"({hits} rows, K4 {by_path['mesh4_locate_hits']['locate_walk']}) and DataParallelSearchLocate lut{LUT_M} "
+          f"(its LUT {'loaded from phase 4' if lut_loaded else 'built'}; {mesh_waves(READS, SH, wave4)} waves of "
+          f"{wave4}; K1 {by_path['mesh4_search_locate']['lf_round_pairs']}, K4 "
+          f"{by_path['mesh4_search_locate']['locate_walk']}) equal to phase 10; device seconds a pass, all "
+          f"{READS} reads placed at once, in turns: SearchLocateEngine {fused_s['one_device']:.6f}, "
+          f"{SH} shards {fused_s['mesh4']:.6f} ({(fused_s['mesh4'] / fused_s['one_device'] - 1) * 100:+.2f}%); "
+          f"{time.perf_counter() - t1:.2f} s", flush=True)
+
+    # (c) the approximate sources on the same four shards
+    t1 = time.perf_counter()
+    runs = approx["runs"]
+    mm_reads, mm_pos = mm
+    mm_wave = max(1, SearchEngine.WAVE // (3 * READ_LEN + 1)) * SH
+    approx_s = {}  # host seconds of each pass, reads on the host to results on the host
+    reset_counts()
+    t2 = time.perf_counter()
+    got = dp4.locate_mismatch(mm_reads)
+    approx_s["mm1"] = time.perf_counter() - t2
+    by_path["mesh4_mm1"] = read_counts()
+    same_results("locate_mismatch, 4 shards", got, mm_pos)
+    expect_exact("locate_mismatch, 4 shards", by_path["mesh4_mm1"], {
+        "lf_round_pairs": rounds * SH * mesh_waves(MM_READS, SH, mm_wave),
+        "locate_walk": mesh_walks(mm_pos[:, 0] != FULL, SH, mm_wave)})
+    seed_rounds = {S: ((READ_LEN // S) // K * K - LUT_M) // K for S in (2, 3)}  # k-step rounds of S seeds a read
+    sreads, swant = runs["seed"]
+    dp4.locate_approx(sreads[:SH], codes, APPROX_M)  # builds the seed engines over the packed text
+    reset_counts()
+    t2 = time.perf_counter()
+    got = dp4.locate_approx(sreads, codes, APPROX_M)
+    approx_s["mm2"] = time.perf_counter() - t2
+    by_path["mesh4_mm2"] = read_counts()
+    same_arrays("locate_approx, 4 shards", got, swant)
+    # every read holds an exact seed (pigeonhole), so every part walks
+    n = SH * mesh_waves(SEED_READS, SH, SeedExtendEngine.WAVE * SH)
+    expect_exact("locate_approx, 4 shards", by_path["mesh4_mm2"], {
+        "lf_round_pairs": seed_rounds[APPROX_M + 1] * n, "locate_walk": n, "hamming_verify": n})
+    ereads, ewant = runs["edit"]
+    dp4.locate_edits(ereads[:SH], codes, APPROX_E)
+    reset_counts()
+    t2 = time.perf_counter()
+    got = dp4.locate_edits(ereads, codes, APPROX_E)
+    approx_s["e2"] = time.perf_counter() - t2
+    by_path["mesh4_e2"] = read_counts()
+    same_arrays("locate_edits, 4 shards", got, ewant)
+    n = SH * mesh_waves(EDIT_READS, SH, EditExtendEngine.WAVE * SH)
+    expect_exact("locate_edits, 4 shards", by_path["mesh4_e2"], {
+        "lf_round_pairs": seed_rounds[APPROX_E + 1] * n, "locate_walk": n, "myers_verify": n})
+    del dp4
+    r1, r2, minus, pwant = runs["pairs"]
+    found4 = np.concatenate([~minus, ~minus, minus, minus])  # [R1; rc(R2); rc(R1); R2] found on its strand
+    paired = {}
+    for label, extra, verify_kernel in (("mesh4_paired", {}, None),
+                                        ("mesh4_paired_mm2", {"mismatches": 2, "text": codes}, "hamming_verify"),
+                                        ("mesh4_paired_e1", {"edits": 1, "text": codes}, "myers_verify")):
+        pe = PairedEndEngine(index_s, loc_s, INSERT_MIN, INSERT_MAX, max_hits=MAX_HITS, lut_m=LUT_M, mesh=mesh4,
+                             **extra)
+        if extra:
+            a1, a2 = runs["approx_pairs"]
+            want, B = runs[label[6:]], a1.shape[0]
+            pe.pair(a1[:SH], a2[:SH])  # builds the engines over the packed text
+            S = 2 if "edits" in extra else APPROX_M + 1
+            n = SH * mesh_waves(4 * B, SH, (EditExtendEngine if "edits" in extra else SeedExtendEngine).WAVE * SH)
+            need = {"lf_round_pairs": seed_rounds[S] * n, "locate_walk": n, verify_kernel: n}
+        else:
+            a1, a2, want, B = r1, r2, pwant, r1.shape[0]
+            need = {"lf_round_pairs": rounds * SH * mesh_waves(4 * B, SH, wave4),
+                    "locate_walk": mesh_walks(found4, SH, wave4)}
+        reset_counts()
+        t2 = time.perf_counter()
+        got = pe.pair(a1, a2)
+        paired[label] = time.perf_counter() - t2
+        by_path[label] = read_counts()
+        same_arrays(f"PairedEndEngine(mesh=...) {label}", got, want)
+        expect_exact(label, by_path[label], need)
+        del pe
+    print(f"    (c) on the {SH} shards, each equal to the one-device engine of phases 12/14 with launches exact: "
+          f"locate_mismatch {MM_READS} reads {approx_s['mm1']:.3f} s (K1 / K4 "
+          f"{by_path['mesh4_mm1']['lf_round_pairs']} / {by_path['mesh4_mm1']['locate_walk']}); locate_approx "
+          f"m={APPROX_M} {SEED_READS} reads {approx_s['mm2']:.3f} s (K1 / K4 / K5 "
+          f"{by_path['mesh4_mm2']['lf_round_pairs']} / {by_path['mesh4_mm2']['locate_walk']} / "
+          f"{by_path['mesh4_mm2']['hamming_verify']}); locate_edits E={APPROX_E} {EDIT_READS} reads "
+          f"{approx_s['e2']:.3f} s (K1 / K4 / K6 {by_path['mesh4_e2']['lf_round_pairs']} / "
+          f"{by_path['mesh4_e2']['locate_walk']} / {by_path['mesh4_e2']['myers_verify']}); PairedEndEngine(mesh=...) exact {PAIRS} pairs "
+          f"{paired['mesh4_paired']:.3f} s, --mismatches 2 and --edits 1 on {PAIRS_APPROX} pairs "
+          f"{paired['mesh4_paired_mm2']:.3f} / {paired['mesh4_paired_e1']:.3f} s; {time.perf_counter() - t1:.2f} s",
+          flush=True)
+
+    # (d) align --mesh 1 on phase 15's FASTA and reads
+    t1 = time.perf_counter()
+    a = align["mesh_inputs"]
+    alut = a["lut"]
+    alut_launches = (4**alut // min(4**alut, 1 << 20)) * (alut // K)
+    arounds = (ALIGN_LEN - alut) // K
+    common = ["align", a["ref"], "--from-store", a["store"], "--mesh", "1"]
+    fq, se_out, se_pos = a["se"]
+    out = os.path.join(tmp, "mesh1_se.sam")
+    cli_run("mesh1_align_se", [*common[:2], fq, *common[2:], "-o", out], lambda run: {
+        "lf_round_pairs": arounds * mesh_waves(2 * ALIGN_READS, 1, one_wave) + alut_launches,
+        "locate_walk": mesh_walks(se_pos[:, 0] != FULL, 1, one_wave)})
+    same_bytes("align --mesh 1", out, se_out)
+    q1, q2, pe_out, pminus = a["paired"]
+    out = os.path.join(tmp, "mesh1_pe.bam")
+    cli_run("mesh1_align_paired", [*common[:2], q1, "-2", q2, *common[2:], "--bam", "--insert-min", str(INSERT_MIN),
+                                   "--insert-max", str(INSERT_MAX), "-o", out], lambda run: {
+        "lf_round_pairs": arounds * mesh_waves(4 * ALIGN_PAIRS, 1, one_wave) + alut_launches,
+        "locate_walk": mesh_walks(np.concatenate([~pminus, ~pminus, pminus, pminus]), 1, one_wave)})
+    same_bytes("align -2 --bam --mesh 1", out, pe_out)
+    vq, v_out, v_pos = a["varlen"]
+    vrounds = (VARLEN_MAX + (-(VARLEN_MAX - alut) % K) - alut) // K
+    out = os.path.join(tmp, "mesh1_v.sam")
+    cli_run("mesh1_align_varlen", [*common[:2], vq, *common[2:], "-o", out], lambda run: {
+        "lf_round_pairs": vrounds + K - 1 + alut_launches,  # the k-step rounds, then the tail's
+        "locate_walk": -(-int((v_pos != FULL).sum()) // DataParallelLocate.WAVE_PER_CHIP)})
+    same_bytes("align --mesh 1 (mixed lengths)", out, v_out)
+    print(f"    (d) align --from-store --mesh 1 on phase 15's reads: {ALIGN_READS} x {ALIGN_LEN} bp "
+          f"{seconds['mesh1_align_se']:.2f} s, -2 --bam {ALIGN_PAIRS} pairs {seconds['mesh1_align_paired']:.2f} s, "
+          f"{ALIGN_VARLEN_READS} reads of {VARLEN_MIN}-{VARLEN_MAX} bp {seconds['mesh1_align_varlen']:.2f} s: each "
+          f"byte-identical to phase 15's, launches exact (K1 / K4: "
+          + ", ".join(f"{by_path[p]['lf_round_pairs']} / {by_path[p]['locate_walk']}" for p in (
+              "mesh1_align_se", "mesh1_align_paired", "mesh1_align_varlen")) + f"); {time.perf_counter() - t1:.2f} s",
+          flush=True)
+
+    # (e) 250 Mbase: the genome record's text, its index and locate tables built on the card from one sort
+    t1 = time.perf_counter()
+    _, gcodes = bench._reference_codes(GENOME_BASES, 0)
+    gcd = upload_text(gcodes, dev)
+    gorder = suffix_array_device_arr(gcd)
+    gidx = build_index_device(gcodes, IndexConfig(k=K, d=D), return_host=False, sa_dev=gorder, codes_dev=gcd)
+    gloc = build_locate_device(gcodes, sample_rate=SAMPLE_RATE, d=D, return_host=False, sa_dev=gorder, codes_dev=gcd)
+    del gcd, gorder
+    torch.cuda.empty_cache()
+    build_s = time.perf_counter() - t1
+    greads, gstarts = generate_reads(gcodes, READ_LEN, GENOME_LOCATE_READS, seed=SEED + 20, return_starts=True)
+    del gcodes
+    single = SearchLocateEngine(gidx, gloc, dev, max_hits=MAX_HITS, lut_m=LUT_M)
+    want_iv, want_pos = single.search_locate(greads)
+    gdp = DataParallelSearchLocate(gidx, gloc, mesh4, max_hits=MAX_HITS, lut_m=LUT_M)
+    if not torch.equal(gdp.engines[0].search_engine.lut, single.search_engine.lut):
+        raise AssertionError("250 Mbase: the mesh engine's LUT differs from the one-device engine's")
+    reset_counts()
+    g_iv, g_pos = gdp.search_locate(greads)
+    by_path["genome_mesh4_search_locate"] = read_counts()
+    same_results("250 Mbase DataParallelSearchLocate intervals", g_iv, want_iv)
+    same_results("250 Mbase DataParallelSearchLocate positions", g_pos, want_pos)
+    expect_exact("250 Mbase DataParallelSearchLocate", by_path["genome_mesh4_search_locate"], {
+        "lf_round_pairs": rounds * SH * mesh_waves(GENOME_LOCATE_READS, SH, wave4),
+        "locate_walk": mesh_walks(g_pos[:, 0] != FULL, SH, wave4)})
+    wide = (g_iv[:, 1] - g_iv[:, 0]) > MAX_HITS
+    if not ((g_pos == gstarts[:, None]).any(axis=1) | wide).all():
+        raise AssertionError("250 Mbase: a read's origin is missing from its positions")
+    gq = torch.from_numpy(greads).to(dev)
+    gparts = [gq[s * (GENOME_LOCATE_READS // SH):(s + 1) * (GENOME_LOCATE_READS // SH)] for s in range(SH)]
+    genome = {"one_device": [], "mesh4": []}
+    for name in ("one_device", "mesh4", "mesh4", "one_device"):
+        fn = (lambda: single.search_locate_device(gq)) if name == "one_device" else (
+            lambda: gdp.search_locate_device(gparts))
+        genome[name].extend(timed_device_passes(fn, iterations=3)[2])
+    genome_s = {name: statistics.mean(t) for name, t in genome.items()}
+    profile_pass("SearchLocateEngine, 250 Mbase", lambda: single.search_locate_device(gq), genome_s["one_device"])
+    profile_pass(f"DataParallelSearchLocate, {SH} shards, 250 Mbase", lambda: gdp.search_locate_device(gparts),
+                 genome_s["mesh4"])
+    del single, gdp, gq, gparts, gidx, gloc
+    torch.cuda.empty_cache()
+    print(f"    (e) {GENOME_BASES} bases, k={K} d={D} s={SAMPLE_RATE} built on the card from one sort ({build_s:.2f} s), "
+          f"lut{LUT_M}, {GENOME_LOCATE_READS} x {READ_LEN} bp: DataParallelSearchLocate on {SH} shards equal to "
+          f"SearchLocateEngine (K1 / K4 {by_path['genome_mesh4_search_locate']['lf_round_pairs']} / "
+          f"{by_path['genome_mesh4_search_locate']['locate_walk']}), every origin found ({int(wide.sum())} reads "
+          f"wider than max-hits); device seconds a pass, in turns: one device {genome_s['one_device']:.6f}, {SH} "
+          f"shards {genome_s['mesh4']:.6f} ({(genome_s['mesh4'] / genome_s['one_device'] - 1) * 100:+.2f}%); "
+          f"{time.perf_counter() - t1:.2f} s; phase {time.perf_counter() - t0:.2f} s", flush=True)
+    return {"seconds": seconds, "fused_seconds_per_pass": fused_s, "genome_seconds_per_pass": genome_s,
+            "paired_seconds": paired, "approx_seconds": approx_s, "lut_loaded": lut_loaded, "bench_locate_mesh1": record["value"],
+            "phase_seconds": time.perf_counter() - t0}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; it runs only on a GPU")
@@ -3097,6 +3453,10 @@ def main() -> None:
         lay = layouts(tmp, index, fmi, qry, reads, main_res, dev, by_path)
         torch.cuda.empty_cache()
         mesh = mesh_phase(tmp, index, fmi, qry, reads, main_res, dev, by_path)
+        torch.cuda.empty_cache()
+        mesh_loc = mesh_locate(tmp, codes, fmi, qry, reads, main_res, store, {
+            "two": pos_two, "fused": pos_fused, "rc": os.path.join(tmp, "rc.pos"), "positions": fused.positions},
+            (mm_reads, mpos), approx, align, dev, by_path)
 
     for pkg in ("jax", "tpufm"):
         if any(m == pkg or m.startswith(pkg + ".") for m in sys.modules):
@@ -3121,6 +3481,9 @@ def main() -> None:
               "paired_e1": ("paired_e1", 1, lut_built), "bench_seed": ("bench_seed", BENCH_PASSES + 1, 0),
               "bench_edit": ("bench_edit", BENCH_PASSES + 1, 0),
               "bench_paired": ("bench_paired", BENCH_PASSES + 1, 0),
+              # phase 20: one pass each; the CLI's builds the LUT, the 4-shard engine loads phase 4's
+              "mesh1_fused_locate": ("mesh1_locate_fused", 1, lut_built),
+              "mesh4_fused_locate": ("mesh4_search_locate", 1, 0),
               # phase 15: one align run each, which builds its own (9-mer) LUT
               **{path: (path, 1, align_lut) for path in ("align_se", "align_m2", "align_paired", "align_e2",
                                                          "align_varlen")}}
@@ -3206,6 +3569,7 @@ def main() -> None:
             "all_rows_plain_ms": walk["all_plain_ms"],
             "launches_per_pass": per_pass("locate_walk"),
             "launches_by_path": {path: c["locate_walk"] for path, c in by_path.items()},
+            "mesh_locate": mesh_loc,
         },
         {
             "name": "hamming_verify",

@@ -229,7 +229,8 @@ def test_unported_engines_raise(engine):
 
 def test_unported_options_raise():
     """pad_words (Queue 1 item 5) is ported: the record's gathered bytes are
-    tpufm's 512 B rows; the multi-device locate (item 6) still raises."""
+    tpufm's 512 B rows; so is the multi-device locate record (item 6b), over
+    two CPU shards."""
     kw = dict(refsize=20_000, k=2, d=64, num_queries=256, query_len=24, iterations=1, pad_words=128,
               compare_reference=False)
     want = jax_bench.run_bench(**kw)
@@ -238,8 +239,9 @@ def test_unported_options_raise():
     assert got["detail"]["bit_exact_vs_oracle"]
     with pytest.raises(ValueError, match="unknown engine"):
         bench.run_bench(refsize=1000, engine="tpu", device="cpu")
-    with pytest.raises(ValueError, match="Queue 1 item 6"):
-        bench.run_bench_locate(refsize=1000, n_devices=2, device="cpu")
+    record = bench.run_bench_locate(refsize=1000, num_rows=257, n_devices=2, device="cpu")
+    assert record["detail"]["devices"] == 2 and record["detail"]["bit_exact_vs_oracle"] is True
+    assert record["detail"]["verified_rows"] == 256 and len(record["detail"]["one_device_pass_seconds"]) == 5
 
 
 def test_records_need_the_card_by_default():

@@ -172,19 +172,15 @@ def test_locate_stores_load_across(tmp_path, ref, writer):
 
 @pytest.mark.parametrize("option", [["--sam"], ["--bam"], ["--contigs"], ["--mesh", "4"]])
 def test_locate_refuses_options_outside_the_slice(tmp_path, ref, option):
-    """SAM and BAM output and the contig map are ported: the port writes
-    tpufm's bytes (the '> 3000' header names the one record '3000'). The
-    mesh locate (--mesh) is not ported: it exits naming ROADMAP item 6b."""
+    """SAM and BAM output, the contig map and the mesh locate (--mesh 4: the
+    port's four CPU shards, tpufm's four virtual devices) are ported: the
+    port writes tpufm's bytes (the '> 3000' header names the one record
+    '3000')."""
     codes, fa = ref
     qry = tmp_path / "q.qry"
     reads, starts = generate_reads(codes, 24, 8, seed=13, return_starts=True)
     write_reads_fasta(qry, reads, starts)
     args = ["locate", str(fa), "3000", str(qry), "24", "8", *option]
-    if option[0] == "--mesh":
-        with pytest.raises(SystemExit) as exit_info:
-            torch_cli.main([*args, "--device", "cpu"])
-        assert "ROADMAP Queue 1 item 6b" in str(exit_info.value.code)
-        return
     jax_cli.main([*args, "--output", str(tmp_path / "jax.out")])
     torch_cli.main([*args, "--device", "cpu", "--output", str(tmp_path / "torch.out")])
     assert (tmp_path / "torch.out").read_bytes() == (tmp_path / "jax.out").read_bytes()
@@ -459,7 +455,9 @@ MESH_BENCH = ["--mesh", "8", "--refsize", "20000", "--numqueries", "256", "--len
 @pytest.mark.parametrize(
     "argv,item",
     [(["bench", "--sharded", *MESH_BENCH], "ported"),
-     (["bench", "--multichip", *MESH_BENCH], "ported"), (["bench", "--locate", "--mesh", "4"], "item 6"),
+     (["bench", "--multichip", *MESH_BENCH], "ported"),
+     (["bench", "--locate", "--mesh", "4", "--refsize", "20000", "--numqueries", "1001", "--iterations", "1"],
+      "ported"),
      (["build", "REF", "100", "--on-device"], None), (["build", "REF", "100", "--sa", "device"], None),
      (["build", "REF", "100", "--mesh", "2"], "item 6"), (["build", "REF", "100", "--store-sharded"], "item 6"),
      (["build", "REF", "100", "--sa", "sharded"], "item 6")],
@@ -471,12 +469,15 @@ def test_unported_flags_exit_naming_their_item(tmp_path, argv, item):
     The device build (``--on-device``, ``--sa device``; item 4) is ported:
     those cases write tpufm's own ``build --on-device`` / ``--sa device``
     bytes with ``--device cpu``, and without a card the default cuda
-    raises. ``bench --sharded`` and ``--multichip`` (item 6a) are ported:
-    their records on 8 CPU shards are bit-exact (tests/test_torch_parallel_cli.py
-    holds them field by field against tpufm's)."""
+    raises. ``bench --sharded`` and ``--multichip`` (item 6a) and ``bench
+    --locate --mesh 4`` (item 6b) are ported: their records on 8 (4) CPU
+    shards are bit-exact (tests/test_torch_parallel_cli.py and
+    test_torch_parallel_locate_cli.py hold them field by field against
+    tpufm's)."""
     if item == "ported":
         record = torch_cli.main([*argv, "--device", "cpu"])
-        assert record["detail"]["devices"] == 8 and record["detail"]["bit_exact_vs_oracle"] is True
+        devices = int(argv[argv.index("--mesh") + 1])
+        assert record["detail"]["devices"] == devices and record["detail"]["bit_exact_vs_oracle"] is True
         return
     if item is None:
         write_reference(tmp_path / "ref.fa", decode_bases(np.random.default_rng(5).integers(0, 4, 100, np.uint8)))

@@ -25,7 +25,8 @@ their tile compaction (2048 lanes a block) on grids with every lane valid,
 none, one at the last slot of each tile, a ragged end, fewer lanes than a
 tile, a read wider than a tile and a mask off its 16-byte boundary; the seed,
 edit and paired engines on the card must equal their plain path and their
-oracles. The table-building kernel (K7) must equal its plain version at k
+oracles, and the mesh locate over two shards of one card the one-device
+engines. The table-building kernel (K7) must equal its plain version at k
 1-8 on edge sizes and texts, as must the pack of its text, and the whole
 device build the host builders.
 Intervals, positions, distances and table words are integers and compare
@@ -689,6 +690,42 @@ def test_edit_extend_on_card_matches_plain_and_oracle(cuda, E, L, lut_m):
         sites = row[row != 0xFFFFFFFF].astype(np.int64)
         assert (want[i, sites] <= E).all()
         assert sites.size and np.abs(sites - origins[i]).min() <= 2 * E
+
+
+@pytest.mark.parametrize("B", [201, 1])
+@pytest.mark.parametrize("source", ["exact", "m2", "e1"])
+def test_data_parallel_search_locate_on_card_matches_one_device(cuda, source, B):
+    """``DataParallelSearchLocate`` over two shards of one card (the batch
+    padded by cycling to an even count) against the one-device engine and
+    the plain path on the same reads; one walk (K4) and one verify (K5,
+    K6) a shard, every shard having lanes to walk."""
+    from tpufm_torch.parallel import DataParallelSearchLocate, Mesh
+
+    codes, index, loc = _approx_setup()
+    qs, _ = _planted(codes, 30, {"exact": 0, "m2": 2, "e1": 1}[source], B, seed=B)
+    dp = DataParallelSearchLocate(index, loc, Mesh([cuda] * 2), max_hits=8, lut_m=6)
+    if source == "exact":
+        run = dp.search_locate
+        one = SearchLocateEngine(index, loc, cuda, max_hits=8, lut_m=6).search_locate
+        counter, verify = loc_mod, {}
+    elif source == "m2":
+        run = functools.partial(dp.locate_approx, text=codes, mismatches=2)
+        one = seed_mod.SeedExtendEngine(index, loc, codes, mismatches=2, max_hits=8, lut_m=6,
+                                        device=cuda).locate_approx
+        counter, verify = seed_mod, {"verify": seed_mod.hamming_to_text_reference}
+    else:
+        run = functools.partial(dp.locate_edits, text=codes, edits=1)
+        one = edit_mod.EditExtendEngine(index, loc, codes, edits=1, max_hits=8, lut_m=6, device=cuda).locate_edits
+        counter, verify = edit_mod, {"verify": edit_mod.myers_verify_reference}
+    run(qs)  # builds the approximate engines and their text
+    before = (counter.LAUNCHES, loc_mod.LAUNCHES)
+    got = run(qs)
+    torch.cuda.synchronize()
+    assert (counter.LAUNCHES - before[0], loc_mod.LAUNCHES - before[1]) == (2, 2)
+    for a, b, c in zip(got, one(qs), run(qs, **verify, **_PLAIN)):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
+        assert a.shape[0] == B
 
 
 @pytest.mark.parametrize("source", [{}, {"mismatches": 1}, {"mismatches": 2}, {"edits": 1}],

@@ -174,8 +174,10 @@ def test_bench_mesh_records_match_tpufm(capsys, mode):
 
 def test_mesh_exits_name_their_items(files, monkeypatch, capsys):
     """A per-shard store: tpufm's exit without --sharded, word for word; with
-    it, and ``locate --mesh``, ``align --mesh``, ``build --mesh``, the exits
-    name ROADMAP items 6c and 6b."""
+    it, and ``locate --on-device --mesh``, ``align --on-device --mesh`` (the
+    sharded build of both table sets) and ``build --mesh``, the exits name
+    ROADMAP item 6c. ``bench --locate --mesh 2`` is ported: it prints its
+    record over two CPU shards."""
     monkeypatch.chdir(files)
     store = files / "s.tpufm"
     store.mkdir()
@@ -184,9 +186,14 @@ def test_mesh_exits_name_their_items(files, monkeypatch, capsys):
     jax_exit = _cli(jax_cli.main, argv, capsys)
     assert _cli(torch_cli.main, [*argv, "--device", "cpu"], capsys) == jax_exit and jax_exit[0]
     for argv, item in ((["search", "s.tpufm", "q.qry", str(L), str(B), "--sharded", "--device", "cpu"], "6c"),
-                       (["locate", "g.fa", str(N), "q.qry", str(L), str(B), "--mesh", "2", "--device", "cpu"], "6b"),
-                       (["align", "g.fa", "q.qry", "--mesh", "2", "--device", "cpu"], "6b"),
-                       (["build", "g.fa", str(N), "--mesh", "2"], "6c"),
-                       (["bench", "--locate", "--mesh", "2", "--device", "cpu"], "6c")):
+                       (["locate", "g.fa", str(N), "q.qry", str(L), str(B), "--on-device", "--mesh", "2",
+                         "--device", "cpu"], "6c"),
+                       (["align", "g.fa", "q.qry", "--on-device", "--mesh", "2", "--device", "cpu"], "6c"),
+                       (["build", "g.fa", str(N), "--mesh", "2"], "6c")):
         code = _cli(torch_cli.main, argv, capsys)[0]
         assert f"ROADMAP Queue 1 item {item}" in str(code), argv
+    code, out, _ = _cli(torch_cli.main, ["bench", "--locate", "--mesh", "2", "--refsize", "20000", "--numqueries",
+                                         "1001", "--iterations", "1", "--device", "cpu"], capsys)
+    record = json.loads(out[-1])
+    assert code is None and record["detail"]["devices"] == 2 and record["detail"]["bit_exact_vs_oracle"] is True
+    assert "over 2 device(s)" in record["metric"] and "1000 rows" in record["metric"]

@@ -34,7 +34,7 @@ names, arguments, defaults and record schema (``metric``, ``value``,
   the device is CUDA and the reference fits ``MAX_DEVICE_BASES``, re-derived
   for the H100 (tpufm's 400 Mbase was sized for a 16 GB chip); else on the
   host.
-- ``run_bench_locate`` runs on one device; the naive scans of
+- The naive scans of
   ``run_bench_mismatch``, ``run_bench_seed`` (``hamming_hits``) and
   ``run_bench_paired`` (``pair_oracle``'s occurrences) run on the bench's
   device.
@@ -48,14 +48,12 @@ names, arguments, defaults and record schema (``metric``, ``value``,
   ``last_repair_fraction``) and pallas, each a ``SearchEngine`` of that
   layout on the bench's device.
 
-- ``run_bench_multichip`` and ``run_bench_sharded`` build their mesh with
-  ``make_mesh(n_devices, device=device)``: the first n cards, or n CPU
-  shards; their one-device denominator runs on a mesh of the first.
-  Their detail adds the ``device`` fields of the mesh run and
-  ``one_device_pass_seconds``.
-
-Not ported yet (ROADMAP Queue 1 item 6c): ``run_bench_locate`` over more
-than one device.
+- ``run_bench_multichip``, ``run_bench_sharded`` and ``run_bench_locate``
+  build their mesh with ``make_mesh(n_devices, device=device)``: the first n
+  cards, or n CPU shards; their one-device denominator runs on a mesh of
+  the first. Their detail adds the ``device`` fields of the mesh run and
+  ``one_device_pass_seconds``. ``run_bench_locate`` on a mesh of one runs a
+  ``LocateEngine`` and reports a scaling efficiency of 1.
 """
 
 from __future__ import annotations
@@ -87,7 +85,7 @@ from tpufm_torch.host.seqio import generate_read_pairs, generate_reads
 from tpufm_torch.host.suffix_array import suffix_array
 from tpufm_torch.index.builder_device import build_index_device
 from tpufm_torch.index.sa_device import MAX_DEVICE_BASES
-from tpufm_torch.parallel import DataParallelEngine, ShardedIndexEngine, make_mesh
+from tpufm_torch.parallel import DataParallelEngine, DataParallelLocate, ShardedIndexEngine, make_mesh
 from tpufm_torch.timer import timed_device_passes
 
 #: HBM rate of one H100 SXM (NVIDIA's data sheet): the speed of light's rate
@@ -423,16 +421,19 @@ def run_bench_locate(
     device: str | torch.device = "cuda",
 ) -> dict:
     """positions/s of the sampled-SA walk (K4) over ``num_rows`` random BWT
-    rows already on the device (tpufm/bench.py:539). One device only: the
-    weak-scaling efficiency is 1 by definition, and n_devices > 1 raises."""
-    if n_devices is not None and n_devices > 1:
-        raise ValueError(f"n_devices={n_devices}: multi-GPU locate is not ported yet "
-                         "(ROADMAP Queue 1 item 6c)")
+    rows already on the device (tpufm/bench.py:539). On one device
+    (``make_mesh(n_devices)`` of one) a ``LocateEngine``, whose weak-scaling
+    efficiency is 1 by definition; over more, ``DataParallelLocate`` and
+    tpufm's weak-scaling efficiency, the per-device part of the rows timed
+    on a one-device mesh."""
     dev = resolve_device(device)
+    mesh = make_mesh(n_devices, device=dev)
     rng, codes = _reference_codes(refsize, seed)
     t0 = time.perf_counter()
     loc = build_locate(codes, sample_rate=sample_rate, d=d)
     build_s = time.perf_counter() - t0
+    if mesh.size > 1:
+        return _bench_locate_mesh(rng, loc, mesh, refsize, d, sample_rate, num_rows, iterations, seed, build_s)
     rows = rng.integers(0, refsize + 1, size=num_rows, dtype=np.uint32)
 
     eng = LocateEngine(loc, dev)
@@ -457,6 +458,49 @@ def run_bench_locate(
             "scaling_efficiency": 1.0,
             "positions_per_s_one_chip": round(pos_s),
             "positions_per_s_per_chip": round(pos_s),
+            "seconds_per_pass": loc_s,
+            "build_seconds": round(build_s, 1),
+            "bit_exact_vs_oracle": exact,
+            "verified_rows": n_verify,
+        },
+    }
+
+
+def _bench_locate_mesh(rng, loc, mesh, refsize, d, sample_rate, num_rows, iterations, seed, build_s) -> dict:
+    """``run_bench_locate`` over a mesh of more than one device
+    (tpufm/bench.py:556-607)."""
+    n_dev = mesh.size
+    num_rows -= num_rows % n_dev
+    rows = rng.integers(0, refsize + 1, size=num_rows, dtype=np.uint32)
+
+    def timed_run(m, r):
+        eng = DataParallelLocate(loc, m)
+        placed = eng.place_rows(r)
+        return _passes(lambda: eng.locate_device(placed), iterations)
+
+    one_times, _ = timed_run(make_mesh(1, device=mesh.devices[0]), rows[: num_rows // n_dev])
+    one_chip_pos_s = (num_rows // n_dev) / (sum(one_times) / len(one_times))
+    times, out = timed_run(mesh, rows)
+    loc_s = sum(times) / len(times)
+    out = _host(out)
+    n_verify = min(num_rows, ORACLE_SAMPLE)
+    vidx = np.sort(np.random.default_rng(seed + 2).choice(num_rows, n_verify, replace=False))
+    exact = bool((out[vidx] == locate_oracle(loc, rows[vidx])).all())
+    pos_s = num_rows / loc_s
+    efficiency = pos_s / (n_dev * one_chip_pos_s)
+    return {
+        "metric": f"sampled-SA locate positions/s over {n_dev} device(s) "
+        f"(d={d}, s={sample_rate}, {num_rows} rows, {refsize} bases)",
+        "value": round(pos_s),
+        "unit": "positions/s",
+        "vs_baseline": round(efficiency, 4),
+        "detail": {
+            **_device_fields(mesh.devices[0], times),
+            "one_device_pass_seconds": list(one_times),
+            "devices": n_dev,
+            "scaling_efficiency": round(efficiency, 4),
+            "positions_per_s_one_chip": round(one_chip_pos_s),
+            "positions_per_s_per_chip": round(pos_s / n_dev),
             "seconds_per_pass": loc_s,
             "build_seconds": round(build_s, 1),
             "bit_exact_vs_oracle": exact,

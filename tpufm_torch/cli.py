@@ -1,7 +1,8 @@
 """Command line of the port: build, genreads, transform, search, count,
 locate, align, bench, sweep, the host-only SAM/BAM tools and faidx
 (tpufm_torch.tools) and the debug commands dumpentry, diff and dumpbwt; on
-one device, and search, count and bench also over a mesh of devices.
+one device, and search, count, locate, align and bench also over a mesh of
+devices.
 
     python -m tpufm_torch.cli build REF REFSIZE [--k K] [--d D] [--auto]
         [--output OUT.fmi|.npz|.tpufm] [--sa auto|native|doubling|device]
@@ -21,10 +22,10 @@ one device, and search, count and bench also over a mesh of devices.
         [--mismatches M | --edits E] [--seed-hits H] [--paired R2.qry
         [--insert-min A] [--insert-max B] [--max-pairs P]]
         [--sam | --bam | --contigs] [--store PREFIX] [--from-store PREFIX]
-        [--on-device] [--resume] [--output OUT] [--device cuda|cpu]
+        [--on-device] [--resume] [--mesh N] [--output OUT] [--device cuda|cpu]
     python -m tpufm_torch.cli align REF READS [-2 R2] [-o OUT] [--bam]
         [--mismatches M | --edits E] [--store PREFIX | --from-store PREFIX]
-        [--on-device]
+        [--on-device] [--mesh N]
         [--max-hits H] [--seed-hits H] [--sample-rate S] [--lut M]
         [--insert-min A] [--insert-max B] [--max-pairs P] [--device cuda|cpu]
     python -m tpufm_torch.cli bench [--refsize N] [--k K] [--d D]
@@ -69,8 +70,10 @@ writing ``<queries>.pairs``) forms, the approximate ones verified against
 the reference's text (read again from its FASTA with --from-store), with
 ``--contigs`` (``record:offset`` labels) and ``--sam`` / ``--bam``
 (tpufm_torch.host.sam and .bam); and of ``tpufm align`` (``cmd_align``,
-:1182-1478) on one device (``locate --mesh``, ``align --mesh``, per-shard
-stores and the mesh build exit naming their ROADMAP items).
+:1182-1478); ``locate`` and ``align`` also over a mesh (``--mesh N``,
+tpufm_torch.parallel's locate engines). Per-shard stores and the sharded
+build (``build --mesh``, ``locate/align --on-device --mesh``) exit naming
+their ROADMAP item.
 ``locate`` and ``align`` with ``--on-device`` build the index and the
 locate tables on the card from one device suffix sort (tpufm_torch.index).
 They read the same index files (.fmi, .npz, .tpufm), derive the k=1 tail
@@ -148,7 +151,13 @@ from tpufm_torch.host.stream import locate_resumable, search_resumable
 from tpufm_torch.host.suffix_array import suffix_array
 from tpufm_torch.index.builder_device import build_index_device, build_locate_device
 from tpufm_torch.index.sa_device import suffix_array_device_arr, upload_text
-from tpufm_torch.parallel import DataParallelEngine, ShardedIndexEngine, make_mesh
+from tpufm_torch.parallel import (
+    DataParallelEngine,
+    DataParallelLocate,
+    DataParallelSearchLocate,
+    ShardedIndexEngine,
+    make_mesh,
+)
 from tpufm_torch.timer import Stages
 
 
@@ -474,10 +483,10 @@ def cmd_locate(args) -> LocateRun | PairRun | SamRun:
     default in ``<queries>.pairs``). --contigs writes ``record:offset``
     labels instead of absolute positions; --sam writes SAM records of both
     strands (``locate_sam``, or with --paired the pairs' records), and
-    --bam the same records as BAM."""
-    if getattr(args, "mesh", None) is not None:  # align drives locate without it
-        sys.exit("locate --mesh: the mesh locate engines are not ported yet (ROADMAP Queue 1 "
-                 "item 6b); drop --mesh to locate on one device")
+    --bam the same records as BAM. ``--mesh N`` runs every form over N
+    devices (0: every card; tpufm/cli.py:994-1114): ``DataParallelEngine``
+    then ``DataParallelLocate`` (two passes), else ``DataParallelSearchLocate``."""
+    refuse_sharded_build(args)
     if args.bam:
         args.sam = True  # BAM is the binary form of the SAM records
     if args.mismatches < 0 or args.edits < 0:
@@ -504,28 +513,21 @@ def cmd_locate(args) -> LocateRun | PairRun | SamRun:
     if args.rc:
         queries = rc_expand(queries)
     intervals = counts = overflow = None
+    mesh = mesh_of(args, device)
     if args.edits or args.mismatches >= 2:
         what = "--edits" if args.edits else "--mismatches >= 2"
         codes = reference_text(args, codes, f"{what} needs the reference FASTA for the verify pass "
                                             "(pass its real path even with --from-store)")
-        if args.edits:
-            engine = EditExtendEngine(index, loc, codes, edits=args.edits, seed_hits=args.seed_hits,
-                                      max_hits=args.max_hits, lut_m=args.lut, device=device)
-            t0 = time.perf_counter()
-            pos, counts, overflow = engine.locate_edits(queries)
-        else:
-            engine = SeedExtendEngine(index, loc, codes, mismatches=args.mismatches,
-                                      seed_hits=args.seed_hits, max_hits=args.max_hits,
-                                      lut_m=args.lut, device=device)
-            t0 = time.perf_counter()
-            pos, counts, overflow = engine.locate_approx(queries)
+        engine = position_engine(args, index, loc, codes, device, mesh)
+        t0 = time.perf_counter()
+        pos, counts, overflow = approx_positions(args, engine, queries, codes)
         seconds = time.perf_counter() - t0
         if overflow.any():
             kind = "site" if args.edits else "hit"
             print(f"warning: {int(overflow.sum())} reads hit the seed-hits={args.seed_hits} cap; "
                   f"their {kind} lists are lower bounds")
     elif args.mismatches or args.fused or args.resume:
-        engine = SearchLocateEngine(index, loc, device, max_hits=args.max_hits, lut_m=args.lut)
+        engine = position_engine(args, index, loc, codes, device, mesh)
         t0 = time.perf_counter()
         if args.mismatches:
             pos = engine.locate_mismatch(queries)
@@ -538,8 +540,12 @@ def cmd_locate(args) -> LocateRun | PairRun | SamRun:
     else:
         # any length: the locate tables' k=1 index is the search's tail
         tail = loc.lf1 if args.qrysize % index.config.k else None
-        search = SearchEngine(index, device, lut_m=args.lut, tail_index=tail)
-        walker = LocateEngine(loc, device)
+        if mesh is not None:
+            search = DataParallelEngine(index, mesh, lut_m=args.lut, tail_index=tail)
+            walker = DataParallelLocate(loc, mesh)
+        else:
+            search = SearchEngine(index, device, lut_m=args.lut, tail_index=tail)
+            walker = LocateEngine(loc, device)
         t0 = time.perf_counter()
         intervals = search.search(queries)
         pos = walker.locate_hits(intervals, max_hits=args.max_hits)
@@ -564,11 +570,29 @@ def reference_text(args, codes, missing: str) -> np.ndarray:
     return read_reference(args.reference, args.refsize or None)
 
 
-def position_engine(args, index, loc, codes, device):
+def mesh_of(args, device):
+    """The mesh of ``--mesh N`` (N = 0: every card), or None without it."""
+    n = getattr(args, "mesh", None)
+    return None if n is None else make_mesh(n or None, device=device)
+
+
+def refuse_sharded_build(args) -> None:
+    """Exit where ``--on-device --mesh N`` asks for tpufm's sharded build of
+    both table sets (tpufm/cli.py:758-775), which is not ported."""
+    if getattr(args, "on_device", False) and getattr(args, "mesh", None) and not args.from_store:
+        sys.exit("--on-device --mesh: the sharded build of the index and the locate tables is not "
+                 "ported yet (ROADMAP Queue 1 item 6c); drop --mesh to build on one device")
+
+
+def position_engine(args, index, loc, codes, device, mesh=None):
     """The engine of ``single_end_positions`` for ``args``' distance model:
     ``SeedExtendEngine`` (--mismatches >= 2), ``EditExtendEngine``
-    (--edits) or ``SearchLocateEngine`` (exact and --mismatches 1). It
-    takes no read length, so one engine serves every length of a run."""
+    (--edits) or ``SearchLocateEngine`` (exact and --mismatches 1), or over
+    ``mesh`` one ``DataParallelSearchLocate`` for all of them (tpufm/cli.py:
+    249). It takes no read length, so one engine serves every length of a
+    run."""
+    if mesh is not None:
+        return DataParallelSearchLocate(index, loc, mesh, max_hits=args.max_hits, lut_m=args.lut)
     if args.mismatches >= 2:
         return SeedExtendEngine(index, loc, codes, mismatches=args.mismatches, seed_hits=args.seed_hits,
                                 max_hits=args.max_hits, lut_m=args.lut, device=device)
@@ -578,18 +602,30 @@ def position_engine(args, index, loc, codes, device):
     return SearchLocateEngine(index, loc, device, max_hits=args.max_hits, lut_m=args.lut)
 
 
-def single_end_positions(args, engine, queries: np.ndarray, **plain):
+def approx_positions(args, engine, queries: np.ndarray, text, **plain):
+    """(positions, counts, overflow) of ``queries`` within --edits or
+    --mismatches (>= 2) from ``position_engine``'s engine; a
+    ``DataParallelSearchLocate`` takes ``text`` (the reference's codes) and
+    the distance with the call."""
+    mesh = isinstance(engine, DataParallelSearchLocate)
+    if args.edits:
+        extra = (text, args.edits, args.seed_hits) if mesh else ()
+        return engine.locate_edits(queries, *extra, **plain)
+    extra = (text, args.mismatches, args.seed_hits) if mesh else ()
+    return engine.locate_approx(queries, *extra, **plain)
+
+
+def single_end_positions(args, engine, queries: np.ndarray, text=None, **plain):
     """Positions of both strands of a batch of reads of one length, in one
     pass (tpufm/cli.py:265): (uint32 [2B, max_hits], the B forward rows
     first, then their reverse complements; the seed overflow flags bool
-    [2B], or None for the exact and Hamming <= 1 engines). ``plain`` passes
-    ``step``, ``walk`` and ``verify`` on to the engine."""
+    [2B], or None for the exact and Hamming <= 1 engines). ``text``: the
+    reference's codes, which a mesh engine's verify pass takes with the
+    call. ``plain`` passes ``step``, ``walk`` and ``verify`` on to the
+    engine."""
     q2 = np.concatenate([queries, reverse_complement(queries)])
-    if args.mismatches >= 2:
-        pos, _, overflow = engine.locate_approx(q2, **plain)
-        return pos, overflow
-    if args.edits:
-        pos, _, overflow = engine.locate_edits(q2, **plain)
+    if args.mismatches >= 2 or args.edits:
+        pos, _, overflow = approx_positions(args, engine, q2, text, **plain)
         return pos, overflow
     if args.mismatches:
         return engine.locate_mismatch(q2, **plain), None
@@ -623,9 +659,9 @@ def locate_sam(args, index, loc, codes, queries: np.ndarray, device, stages: Sta
         if args.from_store and (args.mismatches or args.edits):
             codes = read_reference(args.reference, args.refsize or None)
     with stages("setup"):
-        engine = position_engine(args, index, loc, codes, device)
+        engine = position_engine(args, index, loc, codes, device, mesh_of(args, device))
     with stages("engine"):
-        pos, overflow = single_end_positions(args, engine, queries)
+        pos, overflow = single_end_positions(args, engine, queries, codes)
     with stages("reads"):
         names = load_query_names_packed(args.queries, nq)
         quals = load_query_quals_packed(args.queries, nq)
@@ -666,7 +702,7 @@ def locate_paired(args, index, loc, codes, queries: np.ndarray, device, stages: 
         engine = PairedEndEngine(
             index, loc, args.insert_min, args.insert_max, max_hits=args.max_hits, max_pairs=args.max_pairs,
             lut_m=args.lut, mismatches=args.mismatches, edits=args.edits, seed_hits=args.seed_hits,
-            text=codes if verify else None, device=device,
+            text=codes if verify else None, device=device, mesh=mesh_of(args, device),
         )
     t0 = time.perf_counter()
     with stages("engine"):
@@ -733,9 +769,7 @@ def cmd_align(args) -> SamRun:
     a length (approximate), or one group a pair of mate lengths (paired),
     with the engine built once for all groups, and the blocks written in
     input order."""
-    if args.mesh is not None:
-        sys.exit("align --mesh: multi-GPU alignment is not ported yet (ROADMAP Queue 1 item 6b, "
-                 "the mesh locate engines); drop --mesh to align on one device")
+    refuse_sharded_build(args)
     device = resolve_device(args.device)
     qmin, qlen, nreads = _sniff_reads(args.reads)
     mixed = qmin != qlen
@@ -776,7 +810,7 @@ def cmd_align(args) -> SamRun:
         from_store=args.from_store, rc=False, mismatches=args.mismatches, edits=args.edits,
         seed_hits=args.seed_hits, paired=args.paired, insert_min=args.insert_min, insert_max=args.insert_max,
         max_pairs=args.max_pairs, lut=lut, sam=True, bam=args.bam, contigs=False, output=args.output,
-        device=args.device, on_device=args.on_device, resume=False,
+        device=args.device, on_device=args.on_device, resume=False, mesh=args.mesh,
     )
     if args.paired and pair_mixed:
         return _align_paired_grouped(args, ns, device)
@@ -812,6 +846,7 @@ def _align_paired_grouped(args, ns, device) -> SamRun:
             index, loc, args.insert_min, args.insert_max, max_hits=args.max_hits, max_pairs=args.max_pairs,
             lut_m=ns.lut, mismatches=args.mismatches, edits=args.edits, seed_hits=args.seed_hits,
             text=codes if (args.mismatches >= 2 or args.edits) else None, device=device,
+            mesh=mesh_of(ns, device),
         )
     B = ns.numqueries
     blocks = [None] * B
@@ -864,7 +899,7 @@ def _align_grouped(args, ns, device) -> SamRun:
         quals = load_query_quals(args.reads, ns.numqueries)
     lengths = (batch != VARLEN_PAD).sum(axis=1)
     with stages("setup"):
-        engine = position_engine(ns, index, loc, codes, device)
+        engine = position_engine(ns, index, loc, codes, device, mesh_of(ns, device))
     B = ns.numqueries
     blocks = [None] * B
     overflowed = 0
@@ -873,7 +908,7 @@ def _align_grouped(args, ns, device) -> SamRun:
         qL = np.ascontiguousarray(batch[sel, batch.shape[1] - L:])
         nL = sel.size
         with stages("engine"):
-            pos, ovf = single_end_positions(ns, engine, qL)
+            pos, ovf = single_end_positions(ns, engine, qL, codes)
         if ovf is not None:
             overflowed += int(ovf.sum())
         gnames = [names[i] for i in sel]
@@ -912,9 +947,15 @@ def _align_varlen(args, ns, device) -> SamRun:
         batch = load_queries_varlen(args.reads, ns.numqueries)
     lengths = (batch != VARLEN_PAD).sum(axis=1)
     q2 = np.concatenate([batch, reverse_complement_varlen(batch)])
+    tail = loc.lf1 if index.config.k > 1 else None
     with stages("setup"):
-        search = SearchEngine(index, device, lut_m=ns.lut, tail_index=loc.lf1 if index.config.k > 1 else None)
-        walker = LocateEngine(loc, device)
+        mesh = mesh_of(ns, device)
+        if mesh is not None:
+            search = DataParallelEngine(index, mesh, lut_m=ns.lut, tail_index=tail)
+            walker = DataParallelLocate(loc, mesh)
+        else:
+            search = SearchEngine(index, device, lut_m=ns.lut, tail_index=tail)
+            walker = LocateEngine(loc, device)
     with stages("engine"):
         pos = walker.locate_hits(search.search_varlen(q2), max_hits=args.max_hits)
     B = ns.numqueries
@@ -1078,9 +1119,9 @@ def cmd_dumpbwt(args) -> None:
 def cmd_bench(args) -> dict:
     """One bench record (tpufm_torch.bench), printed as one JSON line, by
     tpufm's dispatch (tpufm/cli.py:508): --genome, --paired, --edits,
-    --mismatches, --locate --fused, --locate, --sharded, --multichip (over
-    ``--mesh N`` devices, default every card), else the search record.
-    ``--locate`` over a mesh exits naming its ROADMAP item."""
+    --mismatches, --locate --fused, --locate (over ``--mesh N`` devices, or
+    every card with --multichip), --sharded, --multichip (over ``--mesh N``
+    devices, default every card), else the search record."""
     if args.mismatches < 0 or args.edits < 0:
         sys.exit("--mismatches/--edits must be >= 0")
     resolve_device(args.device)  # no CPU fallback: fail before any build
@@ -1130,11 +1171,9 @@ def cmd_bench(args) -> dict:
             k=args.k, d=args.d, sample_rate=args.sample_rate, num_queries=args.numqueries,
             query_len=args.length, lut_m=args.lut, max_hits=args.max_hits, **common)
     elif args.locate:
-        if args.multichip or (args.mesh or 1) > 1:
-            sys.exit("bench --locate over --mesh N (or --multichip) is not ported yet (ROADMAP "
-                     "Queue 1 item 6c); drop them for the one-device record")
         record = bench.run_bench_locate(
-            d=args.d, sample_rate=args.sample_rate, num_rows=args.numqueries, n_devices=1, **common)
+            d=args.d, sample_rate=args.sample_rate, num_rows=args.numqueries,
+            n_devices=(args.mesh or None) if args.multichip or args.mesh else 1, **common)
     elif args.sharded:
         record = bench.run_bench_sharded(
             k=args.k, d=args.d, num_queries=args.numqueries, query_len=args.length,
@@ -1347,7 +1386,8 @@ def main(argv=None):
                     help="checkpoint each completed wave next to the output; a killed run "
                          "re-invoked with the same arguments continues (exact positions only)")
     lc.add_argument("--mesh", type=int, default=None, metavar="N",
-                    help="not ported (the mesh locate engines, ROADMAP Queue 1 item 6b)")
+                    help="data-parallel search + locate over an N-device "
+                         "mesh (0 = all local devices)")
     lc.add_argument("--output", default=None)
     _add_device(lc)
     lc.set_defaults(fn=cmd_locate)
@@ -1363,7 +1403,8 @@ def main(argv=None):
     al.add_argument("--edits", type=int, default=0, metavar="E",
                     help="edit distance allowed a read (seeds and the Myers verify)")
     al.add_argument("--mesh", type=int, default=None, metavar="N",
-                    help="not ported (the mesh locate engines, ROADMAP Queue 1 item 6b)")
+                    help="shard the batch over an N-device mesh "
+                         "(0 = all local devices)")
     al.add_argument("--insert-min", type=int, default=0)
     al.add_argument("--insert-max", type=int, default=1000)
     al.add_argument("--max-pairs", type=int, default=4)
@@ -1428,8 +1469,8 @@ def main(argv=None):
     be.add_argument("--sample-rate", type=int, default=32,
                     help="locate SA sampling rate (with --locate)")
     be.add_argument("--mesh", type=int, default=None, metavar="N",
-                    help="device count of --multichip and --sharded (default: every card); "
-                         "for --locate 1 (more is not ported)")
+                    help="device count of --multichip and --sharded (default: every card) "
+                         "and of --locate (default 1; 0 = every card)")
     _add_device(be)
     be.set_defaults(fn=cmd_bench)
 

@@ -244,16 +244,23 @@ class EditExtendEngine(SeedEngine):
         super().__init__(index, loc, text, seed_hits, max_hits, lut_m, resolve_device(device))
         self.edits = edits
 
-    def candidates(self, queries: torch.Tensor, step=None, walk=None):
+    def seeds(self, queries: torch.Tensor, step=None):
+        """The E+1 seed intervals of a wave (``seed_intervals``)."""
+        E = self.edits
+        return self.seed_intervals(queries, E + 1, f"{E} edits", step)
+
+    def candidates(self, queries: torch.Tensor, step=None, walk=None, seeds=None):
         """SEED + LOCATE of a wave on the device (edit.py:269-300): (lo, hi
         int64 [B, C] each candidate's start range, 0 where not valid; valid
         bool [B, C]; peq int64 [B, 4, W] of the reversed reads; overflow bool
         [B]), C = (E+1) * seed_hits. Anchor a = pos - offset, b = a + E:
         valid iff the seed lane is and -E <= a <= n - 1 + E; lo = max(a - E,
-        0), hi = min(a + E, n - 1)."""
+        0), hi = min(a + E, n - 1). ``seeds``: ``seeds(queries)`` when
+        already issued."""
         B, L = queries.shape
         E = self.edits
-        pos, seedok, overflow, offs = self.seed_positions(queries, E + 1, f"{E} edits", step, walk)
+        iv, offs = seeds or self.seeds(queries, step)
+        pos, seedok, overflow = self.seed_positions(iv, walk)
         n_text = self.bwtsize - 1
         offv = torch.tensor(offs, device=pos.device)[None, :, None]
         b = pos + E - offv
@@ -263,11 +270,11 @@ class EditExtendEngine(SeedEngine):
         peq = build_peq(queries.flip(-1), -(-L // 32))
         return lo, hi, valid.reshape(B, -1), peq, overflow
 
-    def locate_edits_device(self, queries: torch.Tensor, step=None, walk=None, verify=None):
+    def locate_edits_device(self, queries: torch.Tensor, step=None, walk=None, verify=None, seeds=None):
         """uint8 [B, L] reads on this engine's device -> (starts int64 [B,
         max_hits] ascending distinct sites, SENTINEL-padded; counts int64
         [B]; overflow bool [B])."""
-        lo, hi, valid, peq, overflow = self.candidates(queries, step, walk)
+        lo, hi, valid, peq, overflow = self.candidates(queries, step, walk, seeds)
         dist, start = (verify or myers_verify)(self.text_words, self.bwtsize - 1, peq, lo, hi, valid,
                                               queries.shape[1], self.edits)
         cand, uniq = sorted_unique(torch.where(valid & (dist <= self.edits), start, SENTINEL))

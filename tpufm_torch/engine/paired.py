@@ -12,8 +12,10 @@ read pair and strand, then the cumsum/scatter compaction to max_pairs. The
 join is plain PyTorch (``pair_join``): a few hundred operations a pair, as
 tpufm leaves it to jnp. Positions come from one of four sources: the
 fused search+locate (exact), the Hamming <= 1 locate, the seed engine
-(m >= 2) or the edit engine (E >= 1). The mesh source of tpufm is not
-ported (ROADMAP Queue 1 item 6).
+(m >= 2) or the edit engine (E >= 1); with a ``mesh``, from the
+``DataParallelSearchLocate`` over it (tpufm/engine/paired.py:173-181),
+whose approximate sources take the text with every call, and the join runs
+on the mesh's first device.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from tpufm_torch.engine.edit import EditExtendEngine
 from tpufm_torch.engine.seed import SENTINEL, SeedExtendEngine
 from tpufm_torch.engine.search_locate import SearchLocateEngine
 from tpufm_torch.host.seqio import reverse_complement
+from tpufm_torch.parallel.locate import DataParallelSearchLocate
 
 
 def _strand_pairs(left: torch.Tensor, right: torch.Tensor, Llast: int, imin: int, imax: int) -> torch.Tensor:
@@ -108,7 +111,7 @@ def pair_oracle(codes, r1, r2, imin: int, imax: int, device: str | torch.device 
 
 
 class PairedEndEngine(torch.nn.Module):
-    """Paired-end placement on one device.
+    """Paired-end placement on one device, or over a mesh.
 
     Runs [R1; rc(R2); rc(R1); R2] as one 4B-read batch through a position
     source and joins the four position sets on the device. The source:
@@ -119,12 +122,13 @@ class PairedEndEngine(torch.nn.Module):
     site count past max_hits, a seed overflow, or for mismatches=1 a full
     row) flags its pair ``overflow``: that pair's list is a lower bound.
     ``step``, ``walk`` and ``verify`` of ``pair``: None runs the kernels;
-    the plain versions replace them.
+    the plain versions replace them. ``mesh``: every source split over
+    that mesh (``DataParallelSearchLocate``; ``device`` is not used).
     """
 
     def __init__(self, index, loc, imin: int, imax: int, max_hits: int = 8, max_pairs: int = 4,
                  lut_m: int = 0, mismatches: int = 0, seed_hits: int = 32, text=None, edits: int = 0,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", mesh=None):
         super().__init__()
         if imin > imax:
             raise ValueError(f"insert range empty: [{imin}, {imax}]")
@@ -135,32 +139,38 @@ class PairedEndEngine(torch.nn.Module):
                 "mismatches >= 2 / edits pairing needs the reference text "
                 "(2-bit codes) for the verify pass"
             )
-        device = resolve_device(device)
-        self.mismatches, self.edits = mismatches, edits
-        if edits:
+        self.mismatches, self.edits, self.seed_hits = mismatches, edits, seed_hits
+        self.mesh, self.text = mesh, text
+        if mesh is not None:
+            self.source = DataParallelSearchLocate(index, loc, mesh, max_hits=max_hits, lut_m=lut_m)
+        elif edits:
             self.source = EditExtendEngine(index, loc, text, edits=edits, seed_hits=seed_hits,
-                                           max_hits=max_hits, lut_m=lut_m, device=device)
+                                           max_hits=max_hits, lut_m=lut_m, device=resolve_device(device))
         elif mismatches >= 2:
             self.source = SeedExtendEngine(index, loc, text, mismatches=mismatches, seed_hits=seed_hits,
-                                           max_hits=max_hits, lut_m=lut_m, device=device)
+                                           max_hits=max_hits, lut_m=lut_m, device=resolve_device(device))
         else:
-            self.source = SearchLocateEngine(index, loc, device, max_hits=max_hits, lut_m=lut_m)
+            self.source = SearchLocateEngine(index, loc, resolve_device(device), max_hits=max_hits, lut_m=lut_m)
         self.imin, self.imax = imin, imax
         self.max_hits, self.max_pairs = max_hits, max_pairs
 
     @property
     def device(self) -> torch.device:
-        return self.source.device
+        """Where the join runs: the source's device, or the mesh's first."""
+        return self.source.device if self.mesh is None else self.mesh.devices[0]
 
     def _positions(self, batch, wave, step, walk, verify):
         """uint8 [N, L] host reads -> (positions uint32 [N, max_hits],
         overflow bool [N]) from the configured source (paired.py:197-239)."""
         cap = np.uint32(self.max_hits)
+        # the mesh source takes the text and the distance with every call
+        approx = () if self.mesh is None else (self.text, self.edits or self.mismatches, self.seed_hits)
         if self.edits:
-            pos, cnt, ovf = self.source.locate_edits(batch, wave, step, walk, verify)
+            pos, cnt, ovf = self.source.locate_edits(batch, *approx, wave=wave, step=step, walk=walk, verify=verify)
             return pos, ovf | (cnt > cap)
         if self.mismatches >= 2:
-            pos, cnt, ovf = self.source.locate_approx(batch, wave, step, walk, verify)
+            pos, cnt, ovf = self.source.locate_approx(batch, *approx, wave=wave, step=step, walk=walk,
+                                                      verify=verify)
             return pos, ovf | (cnt > cap)
         if self.mismatches == 1:
             pos = self.source.locate_mismatch(batch, wave, step, walk)

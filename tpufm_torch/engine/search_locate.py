@@ -29,8 +29,9 @@ class SearchLocateEngine(torch.nn.Module):
 
     index: a KStepFMIndex or ready ``Tables`` (an AltCountersIndex raises
     tpufm's ValueError: the search is the fused layout's); loc: a LocateIndex or ``LocateTables`` over the
-    same text. lut_m > 0 starts every read from the m-mer prefix LUT, built
-    on the device unless ``index`` brings one. ``step`` and ``walk`` of the
+    same text. lut_m > 0 starts every read from the m-mer prefix LUT,
+    loaded from ``lut_cache`` (as ``SearchEngine``'s) or built on the device
+    unless ``index`` brings one. ``step`` and ``walk`` of the
     methods: None runs this engine's kernels (K1, K4); the plain
     ``lf_round_reference`` and ``locate_walk_reference`` replace them.
     """
@@ -46,12 +47,13 @@ class SearchLocateEngine(torch.nn.Module):
         device: str | torch.device,
         max_hits: int = 4,
         lut_m: int = 0,
+        lut_cache: str | None = None,
     ):
         super().__init__()
         if max_hits < 1:
             raise ValueError(f"max_hits must be >= 1, got {max_hits}")
         self.max_hits = max_hits
-        self.search_engine = SearchEngine(index, device, lut_m=lut_m, layout="fused")
+        self.search_engine = SearchEngine(index, device, lut_m=lut_m, lut_cache=lut_cache, layout="fused")
         self.locate_engine = LocateEngine(loc, self.search_engine.device)
         if self.locate_engine.bwtsize != self.search_engine.bwtsize:
             raise ValueError(
@@ -79,13 +81,19 @@ class SearchLocateEngine(torch.nn.Module):
         pos = locate_compacted(lambda p: self.locate_engine.walk(p, walk), rows, valid)
         return torch.where(valid, pos, FULL)
 
+    def locate_intervals_device(self, iv: torch.Tensor, walk=None) -> torch.Tensor:
+        """int64 [B, 2] intervals on this engine's device -> int64 [B, 2 +
+        max_hits]: each interval, then the text positions of its first
+        max_hits rows, 0xFFFFFFFF past its count. Reads the count of rows
+        to walk back to the host."""
+        rows, valid = self._expand(iv)
+        return torch.cat([iv, self._walk_valid(rows, valid, walk)], dim=1)
+
     def search_locate_device(self, queries: torch.Tensor, step=None, walk=None) -> torch.Tensor:
         """uint8 [B, L] reads on this engine's device -> int64 [B, 2 +
         max_hits]: each read's interval, then the text positions of its
         first max_hits rows, 0xFFFFFFFF past its count."""
-        iv = self.search_engine.search_device(queries, step)
-        rows, valid = self._expand(iv)
-        return torch.cat([iv, self._walk_valid(rows, valid, walk)], dim=1)
+        return self.locate_intervals_device(self.search_engine.search_device(queries, step), walk)
 
     def search_locate(self, queries, wave: int | None = None, step=None, walk=None):
         """uint8 [B, L] host reads -> (uint32 [B, 2] intervals, uint32 [B,
@@ -96,15 +104,18 @@ class SearchLocateEngine(torch.nn.Module):
                            self.device, (2 + self.max_hits,))
         return np.ascontiguousarray(out[:, :2]), np.ascontiguousarray(out[:, 2:])
 
-    def locate_mismatch_device(self, queries: torch.Tensor, step=None, walk=None) -> torch.Tensor:
-        """uint8 [W, L] reads on this engine's device -> int64 [W, max_hits]
-        positions of occurrences within Hamming distance 1, 0xFFFFFFFF
-        padded: the first max_hits candidate rows of each read in (variant,
-        row) order (xla.py:1202-1252). Only those walk."""
-        W, L = queries.shape
+    def search_variants_device(self, queries: torch.Tensor, step=None) -> torch.Tensor:
+        """uint8 [W, L] reads on this engine's device -> int64 [W * (3L+1),
+        2]: the intervals of every read's Hamming <= 1 variants."""
+        return self.search_engine.search_device(variants1(queries).reshape(-1, queries.shape[1]), step)
+
+    def locate_variants_device(self, iv: torch.Tensor, W: int, walk=None) -> torch.Tensor:
+        """The variants' intervals of W reads (``search_variants_device``)
+        -> int64 [W, max_hits] positions, 0xFFFFFFFF padded: the first
+        max_hits candidate rows of each read in (variant, row) order
+        (xla.py:1202-1252). Only those walk."""
         mh = self.max_hits
-        iv = self.search_engine.search_device(variants1(queries).reshape(-1, L), step)
-        rows, valid = self._expand(iv.view(W, 3 * L + 1, 2))
+        rows, valid = self._expand(iv.view(W, iv.shape[0] // max(W, 1), 2))
         rows, valid = rows.reshape(W, -1), valid.reshape(W, -1)
         # kept candidates go to columns 0..mh-1 in order; overflow and invalid
         # lanes to the discarded column mh. That column takes duplicate
@@ -116,6 +127,12 @@ class SearchLocateEngine(torch.nn.Module):
         nkept = valid.sum(dim=1).clamp(max=mh)
         keep = torch.arange(mh, device=rows.device) < nkept[:, None]
         return self._walk_valid(kept[:, :mh], keep, walk)
+
+    def locate_mismatch_device(self, queries: torch.Tensor, step=None, walk=None) -> torch.Tensor:
+        """uint8 [W, L] reads on this engine's device -> int64 [W, max_hits]
+        positions of occurrences within Hamming distance 1, 0xFFFFFFFF
+        padded (``locate_variants_device``)."""
+        return self.locate_variants_device(self.search_variants_device(queries, step), queries.shape[0], walk)
 
     def locate_mismatch(self, queries, wave: int | None = None, step=None, walk=None) -> np.ndarray:
         """uint8 [B, L] host reads -> uint32 [B, max_hits] positions within

@@ -3,7 +3,8 @@ distance m >= 1.
 
 Counterpart of tpufm/engine/seed.py: ``pack_text_words`` (:54),
 ``pack_query_words`` (:71), ``_window_mask`` (:84), ``hamming_to_text``
-(:94), ``seed_positions`` (:124), ``compact_hits`` (:186),
+(:94), ``seed_positions`` (:124; here ``seed_intervals`` and
+``seed_positions``), ``compact_hits`` (:186),
 ``make_seed_extend_fn`` (:211), ``seed_extend_oracle`` (:306) and
 ``SeedExtendEngine`` (:322). Three passes per wave:
 
@@ -44,6 +45,7 @@ from tpufm_torch.bitops import FULL, from_u32_bits, popcount32
 from tpufm_torch.device import resolve_device
 from tpufm_torch.engine.locate import LocateEngine, LocateTables, locate_compacted
 from tpufm_torch.engine.search import SearchEngine, _words, stream_waves
+from tpufm_torch.engine.search_locate import SearchLocateEngine
 from tpufm_torch.engine.tables import Tables
 from tpufm_torch.host.index import KStepFMIndex
 from tpufm_torch.host.locate import LocateIndex
@@ -199,15 +201,23 @@ class SeedEngine(torch.nn.Module):
     """The tables every seed-and-extend engine holds on one device: the
     search tables (``search_engine``, K1), the sampled-SA locate tables
     (``locate_engine``, K4) and the 2-bit packed text (``text_words``), and
-    the SEED + LOCATE front end they share (``seed_positions``)."""
+    the SEED + LOCATE front end they share (``seed_intervals``, then
+    ``seed_positions``). ``index``
+    may be a ``SearchLocateEngine``: the engine then runs on its search and
+    locate tables, not copied, with its LUT (``loc``, ``lut_m`` and
+    ``device`` are not used), as the mesh engines share one table set a
+    device among their position sources."""
 
     def __init__(self, index, loc, text, seed_hits: int, max_hits: int, lut_m: int,
                  device: str | torch.device):
         super().__init__()
         if seed_hits < 1 or max_hits < 1:
             raise ValueError(f"seed_hits and max_hits must be >= 1, got {seed_hits}, {max_hits}")
-        self.search_engine = SearchEngine(index, device, lut_m=lut_m, layout="fused")
-        self.locate_engine = LocateEngine(loc, self.search_engine.device)
+        if isinstance(index, SearchLocateEngine):
+            self.search_engine, self.locate_engine = index.search_engine, index.locate_engine
+        else:
+            self.search_engine = SearchEngine(index, device, lut_m=lut_m, layout="fused")
+            self.locate_engine = LocateEngine(loc, self.search_engine.device)
         text = np.asarray(text)  # 2-bit codes, or words already packed
         if text.dtype != np.uint32:
             text = pack_text_words(text)
@@ -219,16 +229,13 @@ class SeedEngine(torch.nn.Module):
     def device(self) -> torch.device:
         return self.search_engine.device
 
-    def seed_positions(self, queries: torch.Tensor, S: int, what: str, step=None, walk=None):
-        """S disjoint fixed-offset seeds of every read through the exact
-        search, each interval's first seed_hits rows through the walk
-        (seed.py:124): (pos int64 [B, S, seed_hits] seed text positions,
-        0 outside the interval; seedok bool [B, S, seed_hits] lanes inside
-        it; overflow bool [B] some interval wider than seed_hits; offs,
-        the S seed offsets)."""
+    def seed_intervals(self, queries: torch.Tensor, S: int, what: str, step=None):
+        """SEED (seed.py:124): S disjoint fixed-offset seeds of every read
+        through the exact search: (iv int64 [B, S, 2] their intervals, offs
+        the S seed offsets). Issues device work only."""
         eng = self.search_engine
         B, L = queries.shape
-        k, H = eng.k, self.seed_hits
+        k = eng.k
         Ls = (L // S) // k * k
         if Ls < k:
             raise ValueError(
@@ -239,30 +246,45 @@ class SeedEngine(torch.nn.Module):
         seeds = torch.stack([queries[:, o:o + Ls] for o in offs], dim=1).reshape(B * S, Ls)
         # the LUT starts a seed only when the seed is at least as long
         use_lut = bool(eng.lut_m) and Ls >= eng.lut_m
-        iv = eng.search_device(seeds, step, use_lut=use_lut).view(B, S, 2)
+        return eng.search_device(seeds, step, use_lut=use_lut).view(B, S, 2), offs
+
+    def seed_positions(self, iv: torch.Tensor, walk=None):
+        """LOCATE: each seed interval's (``seed_intervals``, iv [B, S, 2])
+        first seed_hits rows through the walk: (pos int64 [B, S, seed_hits]
+        seed text positions, 0 outside the interval; seedok bool [B, S,
+        seed_hits] lanes inside it; overflow bool [B] some interval wider
+        than seed_hits). Reads the count of rows to walk back to the host."""
+        H = self.seed_hits
         lo = iv[..., 0]
         width = (iv[..., 1] - lo) & FULL
         overflow = (width > H).any(dim=1)
-        cols = torch.arange(H, device=queries.device)
+        cols = torch.arange(H, device=iv.device)
         seedok = cols < width.clamp(max=H)[..., None]
         rows = torch.where(seedok, lo[..., None] + cols, 0)
         pos = locate_compacted(lambda p: self.locate_engine.walk(p, walk), rows, seedok)
-        return pos, seedok, overflow, offs
+        return pos, seedok, overflow
 
     def _stream(self, queries, wave: int | None, fn):
         """(positions uint32 [B, max_hits], counts uint32 [B], overflow bool
         [B]) of ``fn`` (a wave of reads on the device -> the three as
         int64 tensors) over host reads, in waves of ``wave`` (default WAVE)."""
         queries = np.require(queries, np.uint8, ["C", "W"])
-        mh = self.max_hits
+        out = stream_waves(queries, wave or self.WAVE, lambda q: hits_block(*fn(q)), self.device,
+                           (self.max_hits + 2,))
+        return split_hits(out, self.max_hits)
 
-        def block(q):
-            pos, counts, overflow = fn(q)
-            return torch.cat([pos, counts[:, None], overflow[:, None].to(torch.int64)], dim=1)
 
-        out = stream_waves(queries, wave or self.WAVE, block, self.device, (mh + 2,))
-        return (np.ascontiguousarray(out[:, :mh]), np.ascontiguousarray(out[:, mh]),
-                out[:, mh + 1].astype(bool))
+def hits_block(pos: torch.Tensor, counts: torch.Tensor, overflow: torch.Tensor) -> torch.Tensor:
+    """The three results of a wave as one int64 [B, max_hits + 2] block
+    (one copy to the host): positions, count, overflow."""
+    return torch.cat([pos, counts[:, None], overflow[:, None].to(torch.int64)], dim=1)
+
+
+def split_hits(out: np.ndarray, max_hits: int):
+    """uint32 [B, max_hits + 2] host blocks (``hits_block``) -> (positions
+    uint32 [B, max_hits], counts uint32 [B], overflow bool [B])."""
+    return (np.ascontiguousarray(out[:, :max_hits]), np.ascontiguousarray(out[:, max_hits]),
+            out[:, max_hits + 1].astype(bool))
 
 
 class SeedExtendEngine(SeedEngine):
@@ -297,25 +319,31 @@ class SeedExtendEngine(SeedEngine):
         super().__init__(index, loc, text, seed_hits, max_hits, lut_m, resolve_device(device))
         self.mismatches = mismatches
 
-    def candidates(self, queries: torch.Tensor, step=None, walk=None):
+    def seeds(self, queries: torch.Tensor, step=None):
+        """The m+1 seed intervals of a wave (``seed_intervals``)."""
+        m = self.mismatches
+        return self.seed_intervals(queries, m + 1, f"{m} mismatches", step)
+
+    def candidates(self, queries: torch.Tensor, step=None, walk=None, seeds=None):
         """SEED + LOCATE of a wave on the device: (cand int64 [B, C] candidate
         starts sorted per read, SENTINEL where none; uniq bool [B, C] the
         distinct ones; qwords int64 [B, W] the reads' packed words;
-        overflow bool [B]), C = (m+1) * seed_hits (seed.py:241-266)."""
+        overflow bool [B]), C = (m+1) * seed_hits (seed.py:241-266).
+        ``seeds``: ``seeds(queries)`` when already issued."""
         B, L = queries.shape
-        m = self.mismatches
-        pos, seedok, overflow, offs = self.seed_positions(queries, m + 1, f"{m} mismatches", step, walk)
+        iv, offs = seeds or self.seeds(queries, step)
+        pos, seedok, overflow = self.seed_positions(iv, walk)
         offv = torch.tensor(offs, device=pos.device)[None, :, None]
         n_text = self.bwtsize - 1
         ok = seedok & (pos >= offv) & (pos + (L - offv) <= n_text)
         cand, uniq = sorted_unique(torch.where(ok, pos - offv, SENTINEL).reshape(B, -1))
         return cand, uniq, pack_query_words(queries), overflow
 
-    def locate_approx_device(self, queries: torch.Tensor, step=None, walk=None, verify=None):
+    def locate_approx_device(self, queries: torch.Tensor, step=None, walk=None, verify=None, seeds=None):
         """uint8 [B, L] reads on this engine's device -> (positions int64
         [B, max_hits] ascending, SENTINEL-padded; counts int64 [B] distinct
         positions within distance m; overflow bool [B])."""
-        cand, uniq, qwords, overflow = self.candidates(queries, step, walk)
+        cand, uniq, qwords, overflow = self.candidates(queries, step, walk, seeds)
         L = queries.shape[1]
         dist = (verify or hamming_to_text)(self.text_words, torch.where(uniq, cand, 0), qwords, uniq, L)
         pos, counts = compact_hits(cand, uniq & (dist <= self.mismatches), self.max_hits)

@@ -1,7 +1,9 @@
-"""Multi-device search (tpufm/parallel/): a 1-D mesh of shards, the
-collectives of its programs, the data-parallel and the sharded-index
-engines, and the collective-traffic model."""
+"""Multi-device search and locate (tpufm/parallel/): a 1-D mesh of shards,
+the collectives of its programs, the data-parallel and the sharded-index
+engines, the data-parallel locate engines, and the collective-traffic
+model."""
 
+from tpufm_torch.parallel.locate import DataParallelLocate, DataParallelSearchLocate
 from tpufm_torch.parallel.mesh import Mesh, initialize_distributed, make_mesh
 from tpufm_torch.parallel.search import DataParallelEngine, ShardedIndexEngine
 from tpufm_torch.parallel.traffic import assert_collective_model, collective_bytes_model
@@ -12,6 +14,8 @@ __all__ = [
     "make_mesh",
     "DataParallelEngine",
     "ShardedIndexEngine",
+    "DataParallelLocate",
+    "DataParallelSearchLocate",
     "assert_collective_model",
     "collective_bytes_model",
 ]
