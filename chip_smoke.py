@@ -218,6 +218,26 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      ``SearchLocateEngine`` on 262,144 reads, every origin among its
      positions where the interval fits max-hits, device seconds a pass of
      both.
+ 21. the sharded build (tpufm_torch.index.sa_sharded, builder_sharded), on
+     four shards of this card: (a) phase 4's text sorted once over them, its
+     k=3 d=192 index, k=1 tail and s=32 locate tables built from that sort,
+     each equal to phases 4 and 9 (the suffix array to phase 9's SA-IS), K7
+     and its pack launched once a shard a table set; the sort again round by
+     round (CUDA events), each round's collectives (``recording()``) equal to
+     ``sa_sharded.round_collectives``' closed form; K7 on each shard's rows
+     (``build_tables(..., p0=...)``, the last shard with pads) bit-identical
+     to its plain version and timed beside its bound; (b)
+     ``save_store_sharded`` of the ``return_host=False`` tables, every shard
+     file byte-identical to phase 4's index split four ways,
+     ``load_store_sharded`` and ``ShardedIndexEngine`` (allgather) on phase
+     4's reads equal to phase 4, K9 launches exact; through the CLI at
+     ``--mesh 1``: ``build --on-device --tail`` (phase 4's .fmi bytes),
+     ``--store-sharded`` and ``search --sharded`` of that store (phase 4's
+     intervals), ``locate --on-device --fused --store`` (phase 10's stores,
+     phase 16's .pos); ``build --on-device --mesh 2`` on a one-card machine
+     raises make_mesh's text; (c) the 250 Mbase text sorted on one device and
+     on the four shards, the suffix arrays and k=3 d=192 tables equal, both
+     timed, the sharded build's peak device memory a base.
 Every path is driven with all launch counts set to 0 just before it and
 read just after; a kernel of the path launched too few times fails the run.
 Then one JSON line of kernel figures (each kernel's time beside its bound:
@@ -250,7 +270,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from tpufm_torch import SearchEngine, bench, cli, kernels
+from tpufm_torch import SearchEngine, bench, cli, kernels, profiling
 from tpufm_torch import sweep as sweep_mod
 from tpufm_torch.engine import edit as edit_mod
 from tpufm_torch.engine import lf_round as lf_mod
@@ -285,7 +305,14 @@ from tpufm_torch.engine.lf_round import (
 from tpufm_torch.engine.row_gather import row_gather, row_gather_reference
 from tpufm_torch.host.contigs import read_contigs
 from tpufm_torch.host.bam import read_bam
-from tpufm_torch.host.formats import load_npz, load_store, read_fmi, write_fmi
+from tpufm_torch.host.formats import (
+    load_npz,
+    load_store,
+    load_store_sharded,
+    read_fmi,
+    save_store_sharded,
+    write_fmi,
+)
 from tpufm_torch.host.index import IndexConfig, build_index, derive_tail
 from tpufm_torch.host.locate import build_locate, locate_hits
 from tpufm_torch.host.oracle import search_oracle
@@ -294,7 +321,9 @@ from tpufm_torch.host.stream import locate_resumable, search_resumable
 from tpufm_torch.host.suffix_array import suffix_array
 from tpufm_torch.config import recommend_config
 from tpufm_torch.index import builder_device as bd_mod
+from tpufm_torch.index import builder_sharded as bs_mod
 from tpufm_torch.index import sa_device as sa_mod
+from tpufm_torch.index import sa_sharded as sas_mod
 from tpufm_torch.index.builder_device import (
     build_index_device,
     build_locate_device,
@@ -303,8 +332,10 @@ from tpufm_torch.index.builder_device import (
     pack_text_2bit,
     pack_text_2bit_reference,
 )
+from tpufm_torch.index.builder_sharded import build_index_sharded, build_locate_sharded
 from tpufm_torch.index.sa_device import suffix_array_device_arr, upload_text
-from tpufm_torch.engine.tables import host_words
+from tpufm_torch.index.sa_sharded import suffix_array_sharded_arr
+from tpufm_torch.engine.tables import host_words, shard_tables
 from tpufm_torch.host.index import KStepFMIndex
 from tpufm_torch.host.layouts import make_alt_counters
 from tpufm_torch.parallel import (
@@ -316,6 +347,7 @@ from tpufm_torch.parallel import (
     assert_collective_model,
     make_mesh,
 )
+from tpufm_torch.parallel import collectives as coll
 from tpufm_torch.timer import timed_device_passes
 from tpufm_torch.host.seqio import (
     decode_bases,
@@ -963,7 +995,7 @@ def profile_pass(label: str, fn, pass_s: float) -> None:
     the top operations, each with its share of the device time, and the
     device's busy time against ``pass_s`` (the record's unprofiled mean
     pass) and the profiled pass. Launches here are not counted on a path."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import record_function
 
     def labelled(f):
         def run(*args, **kwargs):
@@ -976,7 +1008,7 @@ def profile_pass(label: str, fn, pass_s: float) -> None:
     try:
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profiling.trace() as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
@@ -2977,6 +3009,257 @@ def mesh_locate(tmp: str, codes: np.ndarray, fmi: str, qry: str, reads: np.ndarr
             "phase_seconds": time.perf_counter() - t0}
 
 
+def k7_slice_case(cd: torch.Tensor, sa_s: torch.Tensor, s: int, k: int, d: int, run: int = 20) -> dict:
+    """K7 on shard ``s``'s rows of the sharded build (``sa_s``, rows s*m ..
+    (s+1)*m - 1): fail unless the wrapper's outputs equal the plain
+    version's, then its device time (``graph_ms``, the pack and K7) beside
+    its bound: the text (the pack reads all of it) and the slice's suffix
+    array read once, its planes, counts and '$' rows written once."""
+    m = sa_s.shape[0]
+    got, want = build_tables(cd, sa_s, k, d, p0=s * m), build_tables_reference(cd, sa_s, k, d, p0=s * m)
+    torch.cuda.synchronize()
+    for g, w, name in zip(got, want, ("counts", "bitmaps", "dollar_pos")):
+        if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w):
+            raise AssertionError(f"K7 k={k} d={d}, shard {s} (rows {s * m}-{(s + 1) * m - 1}): {name} differs "
+                                 "from the plain version's")
+    del got, want
+    E = m // d
+    nbytes = cd.shape[0] + 4 * m + 4 * (E + 1) * 2 * k * (d // 32) + 4 * E * 4**k + 8 * k
+    return {"shard": s, "rows": m, "k": k, "d": d, "max_abs_err": 0, "bytes": nbytes, "bound_ms": bound_ms(nbytes),
+            "ms": graph_ms(lambda: build_tables(cd, sa_s, k, d, p0=s * m), run=run)}
+
+
+def same_log(what: str, log: list, want: list) -> int:
+    """Fail unless the logged collectives are ``want`` (kind, shape, dtype,
+    bytes), in order; returns their bytes."""
+    got = [(c.kind, c.shape, c.dtype, c.bytes) for c in log]
+    if got != want:
+        raise AssertionError(f"{what}: the collectives {got} are not the closed form {want}")
+    return sum(c.bytes for c in log)
+
+
+def sharded_build(tmp: str, ref: str, codes: np.ndarray, index, fmi: str, sa: np.ndarray, loc, store: str,
+                  qry: str, reads: np.ndarray, main_res: np.ndarray, ondev: dict, dev, by_path: dict) -> dict:
+    """Phase 21 (see the module docstring): the sharded build on four
+    colocated shards and through the CLI at --mesh 1, every array held
+    against the one-device build or the host's, every launch count exact."""
+    t0 = time.perf_counter()
+    n, big, SH = codes.shape[0], codes.shape[0] + 1, MESH_SHARDS
+    mesh4 = Mesh([dev] * SH)
+    rounds = (READ_LEN - LUT_M) // K
+
+    # (a) the index, the tail and the locate tables from one sort over four shards
+    torch.cuda.synchronize()
+    reset_counts()
+    t1 = time.perf_counter()
+    order = suffix_array_sharded_arr(codes, mesh4)
+    torch.cuda.synchronize()
+    sort_s = time.perf_counter() - t1
+    s_index = build_index_sharded(codes, IndexConfig(k=K, d=D), mesh4, sa_dev=order)
+    s_tail = build_index_sharded(codes, IndexConfig(k=1, d=D), mesh4, sa_dev=order)
+    s_loc = build_locate_sharded(codes, sample_rate=SAMPLE_RATE, d=D, mesh=mesh4, sa_dev=order)
+    build_s = time.perf_counter() - t1
+    by_path["sharded_build"] = read_counts()
+    expect_exact("sharded build", by_path["sharded_build"], {"build_tables": 3 * SH, "pack_text": 3 * SH})
+    same_tables("sharded k=3 index", s_index, index, INDEX_FIELDS)
+    same_tables("sharded k=1 tail", s_tail, loc.lf1, INDEX_FIELDS)
+    same_tables("sharded locate tables", s_loc, loc, ("samples", "mark_words", "mark_rank"))
+    same_tables("sharded locate k=1 index", s_loc.lf1, loc.lf1, INDEX_FIELDS)
+    if not np.array_equal(sas_mod.gather_rows(order, big).numpy().astype(np.int64), sa):
+        raise AssertionError("sharded suffix array differs from phase 9's SA-IS suffix array")
+    del s_index, s_tail, s_loc
+
+    # the sort again round by round, each between CUDA events, its collectives against the closed form
+    m = sas_mod.shard_lanes(n, SH)
+    c3 = sas_mod.text_lanes(codes, mesh4)
+    round_ms, round_bytes = [], []
+    with coll.recording() as log:
+        (rank, again, distinct), ms = cuda_events_ms(lambda: sas_mod.initial(c3, big))
+    round_ms.append(ms)
+    round_bytes.append(same_log("the sort's first round", log, sas_mod.round_collectives(SH, m)))
+    h = sa_mod.PACK
+    while not bool(distinct) and h < big:
+        with coll.recording() as log:
+            (rank, again, distinct), ms = cuda_events_ms(lambda: sas_mod.step(rank, h, big))
+        round_ms.append(ms)
+        round_bytes.append(same_log(f"the sort's round at h={h}", log, sas_mod.round_collectives(SH, m, h)))
+        h *= 2
+    if not all(torch.equal(a, b) for a, b in zip(again, order)):
+        raise AssertionError("the sharded sort's rounds one by one end elsewhere than suffix_array_sharded_arr")
+    del rank, again, c3
+
+    # K7 on each shard's rows against its plain version; the first and last shard timed
+    sa2 = coll.relayout(order, big, bs_mod.table_rows(big, D, SH))
+    cd = upload_text(codes, dev)
+    slices = [k7_slice_case(cd, x, s, K, D) for s, x in enumerate(sa2)]
+    del sa2, cd
+    torch.cuda.empty_cache()
+    one = ondev["summary"]
+    print(f"[21 sharded build] (a) {n} bases on {SH} shards of this card, k={K} d={D} index + k=1 tail + "
+          f"s={SAMPLE_RATE} locate tables from one sharded sort, each equal to phases 4 and 9 (the suffix array "
+          f"too): {build_s:.3f} s (sort {sort_s:.3f} s; rounds {', '.join(f'{x:.3f}' for x in round_ms)} ms, "
+          f"their collectives the closed form, {', '.join(map(str, round_bytes))} B between shards; K7 / pack "
+          f"launches {by_path['sharded_build']['build_tables']} / {by_path['sharded_build']['pack_text']}); one "
+          f"device (phase 16): {one['device_s']:.3f} s (sort {one['device_sort_s']:.3f} s; rounds "
+          f"{', '.join(f'{x:.3f}' for x in one['round_ms'])} ms)", flush=True)
+    print("    K7 on each shard's rows, bit-identical to plain: " + "; ".join(
+        f"shard {c['shard']} {c['ms']:.4f} ms (bound {c['bound_ms']:.4f} ms, {c['bound_ms'] / c['ms'] * 100:.1f}% "
+        f"of it)" for c in slices), flush=True)
+
+    # (b) the per-shard store, its search, and the CLI at --mesh 1
+    t1 = time.perf_counter()
+    tables = build_index_sharded(codes, IndexConfig(k=K, d=D), mesh4, sa_dev=order, return_host=False)
+    del order
+    root = save_store_sharded(os.path.join(tmp, "sharded4.tpufm"), tables)
+    del tables
+    split = shard_tables(index, SH)
+    for s in range(SH):
+        for name, arr in (("occ", split.occ[s]), ("bitmaps", split.bitmaps[s].reshape(split.e_local, K, 2, D // 32))):
+            buf = io.BytesIO()
+            np.save(buf, np.ascontiguousarray(arr))
+            if (root / f"{name}.shard{s:04d}.npy").read_bytes() != buf.getvalue():
+                raise AssertionError(f"save_store_sharded: {name}.shard{s:04d}.npy differs from phase 4's split")
+    meta = json.loads((root / "meta.json").read_text())
+    if meta != {"kind": "kstep_sharded", "format": 1, "n_shards": SH, "rows": SH * split.e_local, "k": K, "d": D,
+                "layout": "baseline", "bwtsize": big}:
+        raise AssertionError(f"save_store_sharded: meta.json {meta}")
+    reset_counts()
+    eng = ShardedIndexEngine(load_store_sharded(root, mesh4), mesh4, lut_m=LUT_M)
+    by_path["sharded_store_lut"] = read_counts()
+    reset_counts()
+    same_results("the per-shard store's search, 4 shards", eng.search(reads), main_res)
+    by_path["sharded_store_search"] = read_counts()
+    wave = ShardedIndexEngine.WAVE_PER_CHIP * SH
+    expect_exact("the per-shard store's LUT", by_path["sharded_store_lut"],
+                 {"lf_answer_owned": SH * (4**LUT_M // min(4**LUT_M, wave)) * (LUT_M // K), "lf_round_pairs": 0})
+    expect_exact("the per-shard store's search", by_path["sharded_store_search"],
+                 {"lf_answer_owned": SH * rounds * -(-READS // wave), "lf_round_pairs": 0})
+    del eng, split
+    torch.cuda.empty_cache()
+    store_s = time.perf_counter() - t1
+
+    seconds = {}
+
+    def cli_run(label: str, argv: list, exact: dict, least: dict | None = None):
+        t2 = time.perf_counter()
+        reset_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            run = cli.main(argv)
+        by_path[label] = read_counts()
+        expect_exact(label, by_path[label], exact)
+        expect_launches(label, by_path[label], least or {})
+        seconds[label] = time.perf_counter() - t2
+        return run
+
+    build = ["build", ref, str(n), "--k", str(K), "--d", str(D), "--on-device", "--mesh", "1", "--device", "cuda"]
+    out = os.path.join(tmp, "sharded1.fmi")
+    cli_run("build_mesh1", [*build, "--tail", "--output", out], {"build_tables": 2, "pack_text": 2})
+    if Path(out).read_bytes() != Path(fmi).read_bytes():
+        raise AssertionError("build --on-device --mesh 1: the .fmi differs from phase 4's")
+    same_tables("build --on-device --mesh 1 --tail: the tail", load_npz(out + ".tail.npz"), loc.lf1, INDEX_FIELDS)
+    st = os.path.join(tmp, "sharded1.tpufm")
+    cli_run("build_store_sharded", [*build, "--store-sharded", "--output", st], {"build_tables": 1, "pack_text": 1})
+    one_wave = ShardedIndexEngine.WAVE_PER_CHIP
+    run = cli_run("search_store_sharded", [
+        "search", st, qry, str(READ_LEN), str(READS), "--sharded", "--mesh", "1", "--lut", str(LUT_M),
+        "--device", "cuda", "--iterations", "1", "--output", os.path.join(tmp, "sharded1.res")], {
+        "lf_answer_owned": (4**LUT_M // one_wave) * (LUT_M // K) + 2 * rounds * -(-READS // one_wave),
+        "lf_round_pairs": 0})
+    same_results("search --sharded --mesh 1 of the per-shard store", run.results, main_res)
+    del run
+    cli_run("locate_mesh1_on_device", [
+        "locate", ref, str(n), os.path.join(tmp, "ondev.qry"), str(READ_LEN), str(DEVICE_LOCATE_READS), "--k", str(K),
+        "--d", str(D), "--sample-rate", str(SAMPLE_RATE), "--max-hits", str(MAX_HITS), "--lut", str(LUT_M),
+        "--fused", "--on-device", "--mesh", "1", "--store", os.path.join(tmp, "sharded1"), "--device", "cuda",
+        "--output", os.path.join(tmp, "sharded1.pos")], {"build_tables": 2, "pack_text": 2},
+        {"lf_round_pairs": rounds, "locate_walk": 1})
+    for kind in ("search", "locate"):
+        if tree_bytes(os.path.join(tmp, f"sharded1.{kind}.tpufm")) != tree_bytes(f"{store}.{kind}.tpufm"):
+            raise AssertionError(f"locate --on-device --mesh 1 --store: {kind}.tpufm differs from phase 10's store")
+    if Path(os.path.join(tmp, "sharded1.pos")).read_bytes() != Path(os.path.join(tmp, "ondev.pos")).read_bytes():
+        raise AssertionError("locate --on-device --mesh 1: the .pos differs from phase 16's")
+    have = torch.cuda.device_count()
+    if have < 2:
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                cli.main([*build[:8], "--mesh", "2", "--device", "cuda", "--output", os.path.join(tmp, "mesh2.fmi")])
+            raise AssertionError("build --on-device --mesh 2 ran on one card")
+        except ValueError as e:
+            if str(e) != f"need 2 devices, have {have}":
+                raise
+    print(f"    (b) save_store_sharded of (a)'s return_host=False tables: every shard file byte-identical to phase "
+          f"4's index split {SH} ways, meta.json tpufm's; load_store_sharded + ShardedIndexEngine (allgather, "
+          f"lut{LUT_M} built by its own rounds) on phase 4's {READS} reads all equal to phase 4, K9 "
+          f"{by_path['sharded_store_lut']['lf_answer_owned']} (LUT) + "
+          f"{by_path['sharded_store_search']['lf_answer_owned']} launches; {store_s:.2f} s. CLI at --mesh 1: "
+          f"build --on-device --tail (.fmi byte-identical to phase 4's, tail equal), --store-sharded, search "
+          f"--sharded of that store (all equal to phase 4), locate --on-device --fused --store on "
+          f"{DEVICE_LOCATE_READS} reads (both stores byte-identical to phase 10's, .pos to phase 16's); build "
+          f"--mesh 2 on {have} card(s): " + (f"'need 2 devices, have {have}'" if have < 2 else "not tried")
+          + f"; seconds {json.dumps({k: round(v, 2) for k, v in seconds.items()})}", flush=True)
+
+    # (c) the 250 Mbase genome text: one device, then four shards, the suffix array and index compared
+    t1 = time.perf_counter()
+    _, gcodes = bench._reference_codes(GENOME_BASES, 0)
+    gbig = GENOME_BASES + 1
+    cfg = IndexConfig(k=K, d=D)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    gcd = upload_text(gcodes, dev)
+    gorder = suffix_array_device_arr(gcd)
+    torch.cuda.synchronize()
+    one_sort_s = time.perf_counter() - t2
+    gidx = build_index_device(gcodes, cfg, return_host=False, sa_dev=gorder, codes_dev=gcd)
+    torch.cuda.synchronize()
+    one_build_s = time.perf_counter() - t2
+    want = shard_tables(gidx, SH)
+    del gcd, gidx
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t2 = time.perf_counter()
+    gsorder = suffix_array_sharded_arr(gcodes, mesh4)
+    torch.cuda.synchronize()
+    sh_sort_s = time.perf_counter() - t2
+    sort_peak = torch.cuda.max_memory_allocated(dev) - base
+    gm = gsorder[0].shape[0]
+    for s, x in enumerate(gsorder):
+        lo, hi = s * gm, min((s + 1) * gm, gbig)
+        if not torch.equal(x[:hi - lo], gorder[lo:hi]):
+            raise AssertionError(f"250 Mbase: shard {s} of the sharded suffix array differs from the one-device sort's")
+    gtab = build_index_sharded(gcodes, cfg, mesh4, sa_dev=gsorder, return_host=False)
+    torch.cuda.synchronize()
+    sh_build_s = time.perf_counter() - t2
+    build_peak = torch.cuda.max_memory_allocated(dev) - base
+    by_path["genome_sharded_build"] = read_counts()
+    expect_exact("250 Mbase sharded build", by_path["genome_sharded_build"], {"build_tables": SH, "pack_text": SH})
+    if gtab.e_local != want.e_local or not np.array_equal(gtab.dollar, want.dollar) or not all(
+            torch.equal(a, b) for a, b in zip(gtab.occ + gtab.bitmaps, want.occ + want.bitmaps)):
+        raise AssertionError("250 Mbase: the sharded k=3 d=192 tables differ from the one-device build's")
+    nbytes = lambda xs: sum(x.numel() * x.element_size() for x in xs)
+    shard_bytes = {"suffix_array": nbytes(gsorder[:1]), "tables": nbytes([gtab.occ[0], gtab.bitmaps[0]])}
+    del gsorder, gtab, gorder, want, gcodes
+    torch.cuda.empty_cache()
+    genome = {"bases": GENOME_BASES, "one_device_sort_s": one_sort_s, "one_device_build_s": one_build_s,
+              "sharded_sort_s": sh_sort_s, "sharded_build_s": sh_build_s, "sort_peak_bytes": sort_peak,
+              "build_peak_bytes": build_peak, "peak_bytes_per_base": build_peak / GENOME_BASES,
+              "shard0_bytes": shard_bytes, "phase16_peak_bytes_per_base": ondev["summary"]["peak_bytes_per_base"]}
+    print(f"    (c) {GENOME_BASES} bases, k={K} d={D}: the suffix array sorted on {SH} shards equal to the "
+          f"one-device sort's, the tables equal (K7 / pack launches {by_path['genome_sharded_build']['build_tables']}"
+          f" / {by_path['genome_sharded_build']['pack_text']}): sharded sort {sh_sort_s:.3f} s, sort and build "
+          f"{sh_build_s:.3f} s; one device, as phase 16(c): sort {one_sort_s:.3f} s, sort and build "
+          f"{one_build_s:.3f} s; peak device memory of the sharded sort {sort_peak} B ({sort_peak / GENOME_BASES:.2f}"
+          f" B/base), of the sort and build {build_peak} B ({build_peak / GENOME_BASES:.2f} B/base; one device "
+          f"{genome['phase16_peak_bytes_per_base']:.2f}), every shard on this one card; a shard's own tensors at "
+          f"the end: suffix array {shard_bytes['suffix_array']} B, tables {shard_bytes['tables']} B; "
+          f"{time.perf_counter() - t1:.2f} s; phase {time.perf_counter() - t0:.2f} s", flush=True)
+    return {"bases": n, "sort_s": sort_s, "build_s": build_s, "round_ms": round_ms, "round_bytes": round_bytes,
+            "k7_slices": slices, "store_s": store_s, "cli_seconds": seconds, "genome": genome,
+            "phase_seconds": time.perf_counter() - t0}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; it runs only on a GPU")
@@ -3457,6 +3740,9 @@ def main() -> None:
         mesh_loc = mesh_locate(tmp, codes, fmi, qry, reads, main_res, store, {
             "two": pos_two, "fused": pos_fused, "rc": os.path.join(tmp, "rc.pos"), "positions": fused.positions},
             (mm_reads, mpos), approx, align, dev, by_path)
+        torch.cuda.empty_cache()
+        sharded = sharded_build(tmp, ref, codes, index, fmi, sa, loc, store, qry, reads, main_res, ondev, dev,
+                                by_path)
 
     for pkg in ("jax", "tpufm"):
         if any(m == pkg or m.startswith(pkg + ".") for m in sys.modules):
@@ -3642,6 +3928,10 @@ def main() -> None:
             "cases": ondev["k7"]["cases"] + [ondev["k7"]["genome"]],
             "launches_by_path": {path: c["build_tables"] for path, c in by_path.items()},
             "device_build": ondev["summary"],
+            # phase 21: one launch a shard a table set (K7 on each shard's rows of the suffix array)
+            "sharded_launches": by_path["sharded_build"]["build_tables"],
+            "sharded_slices": sharded["k7_slices"],
+            "sharded_build": {key: v for key, v in sharded.items() if key != "k7_slices"},
         },
         {
             "name": "pack_text",

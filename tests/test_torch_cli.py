@@ -459,19 +459,22 @@ MESH_BENCH = ["--mesh", "8", "--refsize", "20000", "--numqueries", "256", "--len
      (["bench", "--locate", "--mesh", "4", "--refsize", "20000", "--numqueries", "1001", "--iterations", "1"],
       "ported"),
      (["build", "REF", "100", "--on-device"], None), (["build", "REF", "100", "--sa", "device"], None),
-     (["build", "REF", "100", "--mesh", "2"], "item 6"), (["build", "REF", "100", "--store-sharded"], "item 6"),
-     (["build", "REF", "100", "--sa", "sharded"], "item 6")],
+     (["build", "REF", "100", "--mesh", "2"], "exit"), (["build", "REF", "100", "--store-sharded"], "exit"),
+     (["build", "REF", "100", "--sa", "sharded"], None)],
     ids=["sharded", "multichip", "locate-mesh", "on-device",
          "sa-device", "mesh", "store-sharded", "sa-sharded"],
 )
 def test_unported_flags_exit_naming_their_item(tmp_path, argv, item):
-    """Each flag of a module not ported yet exits naming its ROADMAP item.
-    The device build (``--on-device``, ``--sa device``; item 4) is ported:
-    those cases write tpufm's own ``build --on-device`` / ``--sa device``
-    bytes with ``--device cpu``, and without a card the default cuda
-    raises. ``bench --sharded`` and ``--multichip`` (item 6a) and ``bench
-    --locate --mesh 4`` (item 6b) are ported: their records on 8 (4) CPU
-    shards are bit-exact (tests/test_torch_parallel_cli.py and
+    """Each flag of a module not ported yet exits naming its ROADMAP item;
+    every flag here is ported now. The device build (``--on-device``, ``--sa
+    device``; item 4) and the sharded sort (``--sa sharded``, item 6c) write
+    tpufm's own ``build`` bytes with ``--device cpu``, and without a card
+    the default cuda raises. ``build --mesh 2`` without ``--on-device`` and
+    ``--store-sharded`` without ``--mesh`` (item 6c) exit with tpufm's
+    texts (the sharded builds themselves: tests/test_torch_build_sharded_cli.py).
+    ``bench --sharded`` and ``--multichip`` (item 6a) and ``bench --locate
+    --mesh 4`` (item 6b) are ported: their records on 8 (4) CPU shards are
+    bit-exact (tests/test_torch_parallel_cli.py and
     test_torch_parallel_locate_cli.py hold them field by field against
     tpufm's)."""
     if item == "ported":
@@ -489,9 +492,13 @@ def test_unported_flags_exit_naming_their_item(tmp_path, argv, item):
             with pytest.raises(RuntimeError, match="cuda"):
                 torch_cli.main([*argv, "--output", str(tmp_path / "none.fmi")])
         return
-    with pytest.raises(SystemExit) as exit_info:
-        torch_cli.main([*argv, "--device", "cpu"] if argv[0] == "bench" else argv)
-    assert f"ROADMAP Queue 1 {item}" in str(exit_info.value.code)
+    write_reference(tmp_path / "ref.fa", decode_bases(np.random.default_rng(5).integers(0, 4, 100, np.uint8)))
+    argv = [str(tmp_path / "ref.fa") if a == "REF" else a for a in argv]
+    with pytest.raises(SystemExit) as jax_exit:
+        jax_cli.main(argv)
+    with pytest.raises(SystemExit) as torch_exit:
+        torch_cli.main([*argv, "--device", "cpu"])
+    assert torch_exit.value.code == jax_exit.value.code and "requires --on-device" in str(jax_exit.value.code)
 
 
 def test_bench_engine_not_ported_raises(capsys):

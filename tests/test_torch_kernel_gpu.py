@@ -27,8 +27,10 @@ tile, a read wider than a tile and a mask off its 16-byte boundary; the seed,
 edit and paired engines on the card must equal their plain path and their
 oracles, and the mesh locate over two shards of one card the one-device
 engines. The table-building kernel (K7) must equal its plain version at k
-1-8 on edge sizes and texts, as must the pack of its text, and the whole
-device build the host builders.
+1-8 on edge sizes and texts, and on each shard's rows of a four-shard
+split, as must the pack of its text; the whole device build the host
+builders, and the sharded build over two shards of one card the one-device
+build.
 Intervals, positions, distances and table words are integers and compare
 exactly (tolerance 0).
 """
@@ -915,6 +917,72 @@ def test_device_build_on_card_matches_host(cuda, n, k, d):
         reads = np.stack([codes[s:s + 24] for s in np.random.default_rng(1).integers(0, n - 24, 256)])
         np.testing.assert_array_equal(SearchEngine(dev, cuda, lut_m=12 - 12 % k).search(reads),
                                       search_oracle(host, reads))
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+@pytest.mark.parametrize("n,d", [(10_000, 192), (4095, 64), (70_001, 32)])
+def test_build_tables_slice_kernel_matches_plain(cuda, n, d, k):
+    """K7 on each shard's rows of a four-shard split, as the sharded build
+    launches it (``build_tables(..., p0=s*m)``, m the d-aligned rows a
+    shard): every shard's counts, planes and global '$' rows equal to the
+    plain version's on the same CUDA tensors: the last shard's rows past n +
+    1 are pads (three whole pad blocks at n = 10,000, d = 192; a part of
+    the last block at n = 70,001, d = 32; none at n = 4095, d = 64, where
+    the four shards hold the n + 1 rows exactly). One launch a shard."""
+    from tpufm_torch.index import builder_device as bd
+    from tpufm_torch.index.builder_sharded import table_rows
+
+    codes = np.random.default_rng(n + k).integers(0, 4, size=n, dtype=np.uint8)
+    cd = torch.from_numpy(codes).to(cuda)
+    m = table_rows(n + 1, d, 4)
+    sa = np.zeros(4 * m, np.int32)
+    sa[:n + 1] = suffix_array(codes)
+    sa[n + 1:] = 7  # a pad's value is never read
+    sa = torch.from_numpy(sa).to(cuda)
+    for s in range(4):
+        rows = sa[s * m:(s + 1) * m]
+        before = bd.LAUNCHES
+        got = bd.build_tables(cd, rows, k, d, p0=s * m, big=n + 1)
+        assert bd.LAUNCHES == before + 1
+        want = bd.build_tables_reference(cd, rows, k, d, p0=s * m)
+        torch.cuda.synchronize()
+        for g, w, name in zip(got, want, ("counts", "bitmaps", "dollar_pos")):
+            assert g.dtype == w.dtype and g.shape == w.shape, (s, name)
+            assert torch.equal(g, w), (s, name)
+
+
+@pytest.mark.parametrize("n,k,d", [(3001, 3, 192), (200_000, 2, 64)])
+def test_sharded_build_on_card_matches_one_device(cuda, n, k, d):
+    """The sharded build over two shards of one card (the mesh suffix sort,
+    K7 a shard, the finish through the collectives) equal to the
+    one-device build on the card, host tables and ``ShardTables`` alike, and
+    its locate tables equal to the one-device locate tables; K7 launched
+    once a shard a table set."""
+    from tpufm_torch.engine.tables import shard_tables
+    from tpufm_torch.index import builder_device as bd
+    from tpufm_torch.index.builder_sharded import build_index_sharded, build_locate_sharded
+    from tpufm_torch.index.sa_sharded import suffix_array_sharded
+    from tpufm_torch.parallel import Mesh
+
+    mesh = Mesh([cuda] * 2)
+    codes = np.random.default_rng(n).integers(0, 4, size=n, dtype=np.uint8)
+    np.testing.assert_array_equal(suffix_array_sharded(codes, mesh), suffix_array(codes))
+    cfg = IndexConfig(k=k, d=d)
+    one = bd.build_index_device(codes, cfg, device=cuda)
+    before = bd.LAUNCHES
+    got = build_index_sharded(codes, cfg, mesh)
+    assert bd.LAUNCHES == before + 2
+    for f in ("occ", "bitmaps", "dollar_pos", "dollar_base"):
+        a, b = getattr(got, f), getattr(one, f)
+        assert a.dtype == b.dtype and np.array_equal(a, b), f
+    tables, want = build_index_sharded(codes, cfg, mesh, return_host=False), shard_tables(one, 2)
+    assert tables.e_local == want.e_local and np.array_equal(tables.dollar, want.dollar)
+    for a, b in zip(tables.occ + tables.bitmaps, want.occ + want.bitmaps):
+        assert a.device.type == "cuda" and np.array_equal(a.cpu().numpy().view(np.uint32), b)
+    loc, one_loc = build_locate_sharded(codes, 8, d, mesh), bd.build_locate_device(codes, 8, d, device=cuda)
+    for f in ("samples", "mark_words", "mark_rank"):
+        a, b = getattr(loc, f), getattr(one_loc, f)
+        assert a.dtype == b.dtype and np.array_equal(a, b), f
 
 
 @pytest.mark.parametrize("width", ["host", "device"])

@@ -13,7 +13,10 @@ two-record reference (its SAM, BAM and contig-map modules imported), then
 ``search --resume`` crashed after one wave and resumed (the SAM/BAM tools,
 faidx, layout and stream modules imported), and a search over 4 CPU shards
 through the mesh engines (tpufm_torch.parallel: data-parallel, and the
-sharded index with the allgather and a2a routings), and checks them against the port's numpy oracles, naive scans of the text and
+sharded index with the allgather and a2a routings), the sharded build of
+the index and the locate tables over those shards and a per-shard store
+written, read back and searched (tpufm_torch.index.builder_sharded,
+tpufm_torch.profiling imported), and checks them against the port's numpy oracles, naive scans of the text and
 each read's origin; the parent holds the result against tpufm's builder
 and oracle.
 chip_smoke itself refuses to run without a GPU, or without the repo around
@@ -188,6 +191,17 @@ want = search_oracle(index, queries)
 assert np.array_equal(DataParallelEngine(index, mesh4, lut_m=6).search(queries), want)
 for routing in ("allgather", "a2a"):
     assert np.array_equal(ShardedIndexEngine(index, mesh4, routing=routing, lut_m=6).search(queries), want)
+import tpufm_torch.profiling  # the sharded build over the 4 CPU shards, and a per-shard store's round trip
+from tpufm_torch.host.formats import load_store_sharded, save_store_sharded
+from tpufm_torch.index.builder_sharded import build_index_sharded, build_locate_sharded
+sharded = build_index_sharded(codes, IndexConfig(k=3, d=64), mesh4)
+assert all(np.array_equal(getattr(sharded, f), getattr(index, f)) for f in ("occ", "bitmaps", "dollar_pos", "dollar_base"))
+sloc = build_locate_sharded(codes, sample_rate=8, d=64, mesh=mesh4)
+assert all(np.array_equal(getattr(sloc, f), getattr(loc, f)) for f in ("samples", "mark_words", "mark_rank"))
+with tempfile.TemporaryDirectory() as d:
+    tables = build_index_sharded(codes, IndexConfig(k=3, d=64), mesh4, return_host=False)
+    back = load_store_sharded(save_store_sharded(os.path.join(d, "s.tpufm"), tables), mesh4)
+    assert np.array_equal(ShardedIndexEngine(back, mesh4, lut_m=6).search(queries), want)
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpufm")]
 print(json.dumps(res.tolist()))
 """

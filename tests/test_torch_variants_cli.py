@@ -102,21 +102,22 @@ def test_search_engine_refusals_byte_identical(files, tmp_path, monkeypatch, cap
 
 def test_search_mesh_exits_naming_item_6(files, monkeypatch):
     """``search --mesh`` and ``--sharded`` are ported (item 6a; their bytes
-    against tpufm's: tests/test_torch_parallel_cli.py); a per-shard .tpufm
-    store (item 6c, the sharded build) still exits naming its item."""
-    import json
-
+    against tpufm's: tests/test_torch_parallel_cli.py), and so is the
+    per-shard .tpufm store (item 6c): one written by ``build --on-device
+    --mesh 2 --store-sharded`` searches with ``--sharded --mesh 2`` to the
+    whole index's intervals."""
     monkeypatch.chdir(files)
-    store = files / "s.tpufm"
-    store.mkdir()
-    (store / "meta.json").write_text(json.dumps({"kind": "kstep_sharded"}))
+    runs = []
     for flag in (["--mesh", "2"], ["--sharded"]):
         run = torch_cli.main(["search", "g.fmi", "q.qry", str(L), str(B), *flag, "--iterations", "1",
                               "--device", "cpu", "--output", "m.res"])
         assert (run.results[:, 1] > run.results[:, 0]).all()
-    with pytest.raises(SystemExit) as exit_info:
-        torch_cli.main(["search", "s.tpufm", "q.qry", str(L), str(B), "--sharded", "--device", "cpu"])
-    assert "ROADMAP Queue 1 item 6c" in str(exit_info.value.code)
+        runs.append(run.results)
+    torch_cli.main(["build", "g.fa", str(N), "--k", str(K), "--d", str(D), "--on-device", "--mesh", "2",
+                    "--store-sharded", "--output", "s.tpufm", "--device", "cpu"])
+    run = torch_cli.main(["search", "s.tpufm", "q.qry", str(L), str(B), "--sharded", "--mesh", "2",
+                          "--iterations", "1", "--device", "cpu", "--output", "s.res"])
+    assert all(np.array_equal(run.results, r) for r in runs)
 
 
 @pytest.mark.parametrize("engine", ["xla-ac", "xla-paired"])

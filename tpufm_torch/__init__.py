@@ -44,7 +44,13 @@ Layers:
   tpufm_torch.index             — the index built on the device: the suffix
                                   array by prefix doubling (torch.sort a
                                   round), the tables by K7, the locate
-                                  tables (tpufm/index/*_device.py)
+                                  tables (tpufm/index/*_device.py); and
+                                  over a mesh of shards, K7 a shard
+                                  (tpufm/index/*_sharded.py)
+  tpufm_torch.parallel          — the mesh, its collectives, the mesh
+                                  search and locate engines
+  tpufm_torch.profiling         — a torch.profiler trace, timed passes,
+                                  a search pass's derived rates
   tpufm_torch.kernels           — nvcc build (one library per csrc/*.cu,
                                   all at once) + ctypes binding
   tpufm_torch.host              — index build (SA-IS in csrc/sais.cpp), index

@@ -1,12 +1,13 @@
 """Command line of the port: build, genreads, transform, search, count,
 locate, align, bench, sweep, the host-only SAM/BAM tools and faidx
 (tpufm_torch.tools) and the debug commands dumpentry, diff and dumpbwt; on
-one device, and search, count, locate, align and bench also over a mesh of
-devices.
+one device, and build, search, count, locate, align and bench also over a
+mesh of devices.
 
     python -m tpufm_torch.cli build REF REFSIZE [--k K] [--d D] [--auto]
-        [--output OUT.fmi|.npz|.tpufm] [--sa auto|native|doubling|device]
-        [--on-device] [--tail] [--save-ref] [--device cuda|cpu]
+        [--output OUT.fmi|.npz|.tpufm] [--sa auto|native|doubling|device|sharded]
+        [--on-device [--mesh N [--store-sharded]]] [--tail] [--save-ref]
+        [--device cuda|cpu]
     python -m tpufm_torch.cli genreads REF REFSIZE LENGTH NUM [--seed S]
         [--output OUT] [--paired] [--insert-min A] [--insert-max B]
     python -m tpufm_torch.cli transform INDEX.fmi [--layouts L ...]
@@ -71,9 +72,10 @@ the reference's text (read again from its FASTA with --from-store), with
 ``--contigs`` (``record:offset`` labels) and ``--sam`` / ``--bam``
 (tpufm_torch.host.sam and .bam); and of ``tpufm align`` (``cmd_align``,
 :1182-1478); ``locate`` and ``align`` also over a mesh (``--mesh N``,
-tpufm_torch.parallel's locate engines). Per-shard stores and the sharded
-build (``build --mesh``, ``locate/align --on-device --mesh``) exit naming
-their ROADMAP item.
+tpufm_torch.parallel's locate engines). ``build``, ``locate`` and ``align``
+with ``--on-device --mesh N`` build over N cards from one mesh suffix sort
+(tpufm_torch.index.builder_sharded); ``build ... --store-sharded`` writes a
+per-shard store, which ``search --sharded`` reads onto its mesh.
 ``locate`` and ``align`` with ``--on-device`` build the index and the
 locate tables on the card from one device suffix sort (tpufm_torch.index).
 They read the same index files (.fmi, .npz, .tpufm), derive the k=1 tail
@@ -111,9 +113,19 @@ from tpufm_torch.engine.paired import PairedEndEngine
 from tpufm_torch.engine.search import SearchEngine
 from tpufm_torch.engine.search_locate import SearchLocateEngine
 from tpufm_torch.engine.seed import SeedExtendEngine
+from tpufm_torch.engine.tables import ShardTables
 from tpufm_torch.host.bam import bgzf_compress, read_sam_or_bam, sam_to_bam
 from tpufm_torch.host.contigs import ContigMap, read_contigs
-from tpufm_torch.host.formats import load_npz, load_store, read_fmi, save_npz, save_store, write_fmi
+from tpufm_torch.host.formats import (
+    load_npz,
+    load_store,
+    load_store_sharded,
+    read_fmi,
+    save_npz,
+    save_store,
+    save_store_sharded,
+    write_fmi,
+)
 from tpufm_torch.host.index import (
     AltCountersIndex,
     IndexConfig,
@@ -150,7 +162,9 @@ from tpufm_torch.host.seqio import (
 from tpufm_torch.host.stream import locate_resumable, search_resumable
 from tpufm_torch.host.suffix_array import suffix_array
 from tpufm_torch.index.builder_device import build_index_device, build_locate_device
+from tpufm_torch.index.builder_sharded import build_index_sharded, build_locate_sharded
 from tpufm_torch.index.sa_device import suffix_array_device_arr, upload_text
+from tpufm_torch.index.sa_sharded import suffix_array_sharded_arr
 from tpufm_torch.parallel import (
     DataParallelEngine,
     DataParallelLocate,
@@ -265,7 +279,7 @@ def load_tail(index, index_path: str, qrysize: int, tail_path: str | None):
     """The k=1 tail index when the query length needs one (tpufm/cli.py:202):
     ``tail_path`` or ``<index>.tail.npz`` if present, else derived from the
     index itself."""
-    k = index.config.k
+    k = index.k if isinstance(index, ShardTables) else index.config.k
     if qrysize % k == 0:
         return None
     if isinstance(index, AltCountersIndex):
@@ -281,7 +295,7 @@ def load_tail(index, index_path: str, qrysize: int, tail_path: str | None):
         f"note: query length {qrysize} % k={k} != 0 — deriving the "
         f"k=1 tail from the index (`tpufm build --tail` precomputes it)"
     )
-    return derive_tail(index)
+    return derive_tail(index.host_index() if isinstance(index, ShardTables) else index)
 
 
 def search_engine(index, args, device, tail):
@@ -343,12 +357,13 @@ def sharded_store_meta(path: str) -> dict | None:
 def cmd_search(args) -> SearchRun:
     device = resolve_device(args.device)
     if sharded_store_meta(args.index):
+        # a per-shard store: each shard's files onto its device, no whole-table copy
         if not args.sharded:
             sys.exit(f"{args.index} is a per-shard store; search it with "
                      "--sharded [--mesh N]")
-        sys.exit(f"{args.index}: per-shard stores are not ported yet (ROADMAP Queue 1 item 6c, the "
-                 "sharded build); search the whole index with --sharded [--mesh N]")
-    index = load_index(args.index)
+        index = load_store_sharded(args.index, make_mesh(args.mesh or None, device=device))
+    else:
+        index = load_index(args.index)
     # writable once here, so the timed passes copy nothing (SearchEngine.search)
     queries = np.require(
         load_queries(args.queries, args.qrysize, args.numqueries), np.uint8, ["C", "W"]
@@ -422,15 +437,23 @@ def device_sort(codes: np.ndarray, device):
 def locate_tables(args):
     """(index, locate tables, codes): loaded from ``PREFIX.search.tpufm`` and
     ``PREFIX.locate.tpufm`` with --from-store (codes None), else built from
-    the reference with one suffix sort, on the host or with --on-device on
-    the card, and stored under --store (tpufm/cli.py:744-807)."""
+    the reference with one suffix sort, on the host, with --on-device on
+    the card, or with --on-device --mesh N over N cards, and stored under
+    --store (tpufm/cli.py:744-807)."""
     codes = None
     if args.from_store:
         index = load_store(f"{args.from_store}.search.tpufm")
         loc = load_store(f"{args.from_store}.locate.tpufm")
     else:
         codes = read_reference(args.reference, args.refsize)
-        if args.on_device:
+        if args.on_device and args.mesh:
+            # the sharded build: one mesh suffix sort for both table sets
+            mesh = make_mesh(args.mesh, device=args.device)
+            order = suffix_array_sharded_arr(codes, mesh)
+            index = build_index_sharded(codes, IndexConfig(k=args.k, d=args.d), mesh, sa_dev=order)
+            loc = build_locate_sharded(codes, sample_rate=args.sample_rate, d=args.d, mesh=mesh, sa_dev=order)
+            del order
+        elif args.on_device:
             cd, order = device_sort(codes, args.device)
             index = build_index_device(codes, IndexConfig(k=args.k, d=args.d), sa_dev=order, codes_dev=cd)
             loc = build_locate_device(codes, sample_rate=args.sample_rate, d=args.d, sa_dev=order, codes_dev=cd)
@@ -486,7 +509,6 @@ def cmd_locate(args) -> LocateRun | PairRun | SamRun:
     --bam the same records as BAM. ``--mesh N`` runs every form over N
     devices (0: every card; tpufm/cli.py:994-1114): ``DataParallelEngine``
     then ``DataParallelLocate`` (two passes), else ``DataParallelSearchLocate``."""
-    refuse_sharded_build(args)
     if args.bam:
         args.sam = True  # BAM is the binary form of the SAM records
     if args.mismatches < 0 or args.edits < 0:
@@ -574,14 +596,6 @@ def mesh_of(args, device):
     """The mesh of ``--mesh N`` (N = 0: every card), or None without it."""
     n = getattr(args, "mesh", None)
     return None if n is None else make_mesh(n or None, device=device)
-
-
-def refuse_sharded_build(args) -> None:
-    """Exit where ``--on-device --mesh N`` asks for tpufm's sharded build of
-    both table sets (tpufm/cli.py:758-775), which is not ported."""
-    if getattr(args, "on_device", False) and getattr(args, "mesh", None) and not args.from_store:
-        sys.exit("--on-device --mesh: the sharded build of the index and the locate tables is not "
-                 "ported yet (ROADMAP Queue 1 item 6c); drop --mesh to build on one device")
 
 
 def position_engine(args, index, loc, codes, device, mesh=None):
@@ -769,7 +783,6 @@ def cmd_align(args) -> SamRun:
     a length (approximate), or one group a pair of mate lengths (paired),
     with the engine built once for all groups, and the blocks written in
     input order."""
-    refuse_sharded_build(args)
     device = resolve_device(args.device)
     qmin, qlen, nreads = _sniff_reads(args.reads)
     mixed = qmin != qlen
@@ -977,43 +990,62 @@ def _align_varlen(args, ns, device) -> SamRun:
 def cmd_build(args) -> BuildRun:
     """The k-step FM-index of a FASTA reference, built on the host (with
     --sa device its suffix sort on the card) or with --on-device wholly on
-    the card (``--device``), as an .fmi image (the default name
+    the card (``--device``), or with --on-device --mesh N over N cards
+    (with --store-sharded its tables written a shard at a time into a
+    per-shard .tpufm store), as an .fmi image (the default name
     ``<ref>.<refsize>.<d>fmi<k>steps.fmi``), an .npz archive or a .tpufm
     store; with --tail also its k=1 tail index (``<out>.tail.npz``) from the
     same suffix sort; with --save-ref the reference re-emitted as
     ``<ref>.<refsize>.fa`` (tpufm/cli.py:54)."""
-    if args.mesh or args.store_sharded or args.sa == "sharded":
-        sys.exit("build --mesh / --store-sharded / --sa sharded: the multi-GPU build is not "
-                 "ported yet (ROADMAP Queue 1 item 6c); drop them to build on the host")
     codes = read_reference(args.reference, args.refsize)
     if args.auto:
         rec = recommend_config(args.refsize)
         args.k, args.d = rec["k"], rec["d"]
         print(f"auto config: k={args.k} d={args.d} (recommend lut_m={rec['lut_m']})")
     t0 = time.perf_counter()
+    if args.mesh and not args.on_device:
+        sys.exit("build --mesh requires --on-device (the sharded build runs "
+                 "on the accelerator mesh; the host build has no mesh mode)")
+    if args.store_sharded and not (args.mesh and args.on_device):
+        sys.exit("--store-sharded persists the device-resident sharded "
+                 "tables; it requires --on-device --mesh N")
+    if args.store_sharded and not (args.output or "").endswith(".tpufm"):
+        sys.exit("--store-sharded writes a .tpufm store; pass "
+                 "--output <name>.tpufm")
     method = "native" if args.sa == "auto" else args.sa
     # one suffix sort for the index and its tail; at k=1 the index is the tail
     want_tail = args.tail and args.k != 1
     tail = None
-    if args.on_device:
+    if args.on_device and args.mesh:
+        # the sharded build; --store-sharded keeps the tables on the shards
+        mesh = make_mesh(args.mesh, device=args.device)
+        order = suffix_array_sharded_arr(codes, mesh)
+        index = build_index_sharded(codes, IndexConfig(k=args.k, d=args.d), mesh, sa_dev=order,
+                                    return_host=not args.store_sharded)
+        if want_tail:
+            tail = build_index_sharded(codes, IndexConfig(k=1, d=args.d), mesh, sa_dev=order)
+        del order
+    elif args.on_device:
         cd, order = device_sort(codes, args.device)
         index = build_index_device(codes, IndexConfig(k=args.k, d=args.d), sa_dev=order, codes_dev=cd)
         if want_tail:
             tail = build_index_device(codes, IndexConfig(k=1, d=args.d), sa_dev=order, codes_dev=cd)
         del cd, order
     else:
-        sa = suffix_array(codes, method, device=args.device) if want_tail or method == "device" else None
+        sa = suffix_array(codes, method, device=args.device) if want_tail or method in ("device", "sharded") else None
         index = build_index(codes, IndexConfig(k=args.k, d=args.d), sa_method=method, sa=sa)
         if want_tail:
             tail = build_index(codes, IndexConfig(k=1, d=args.d), sa=sa)
         del sa
     if args.tail and args.k == 1:
-        tail = index
+        tail = index.host_index() if isinstance(index, ShardTables) else index
     print(f"built k={args.k} d={args.d} bwtsize={index.bwtsize} "
           f"entries={index.nentries} in {time.perf_counter() - t0:.1f}s"
           f"{' (on device)' if args.on_device else ''}")
     out = args.output or f"{args.reference}.{args.refsize}.{args.d}fmi{args.k}steps.fmi"
-    if out.endswith(".tpufm"):
+    if args.store_sharded:
+        save_store_sharded(out, index)
+    elif out.endswith(".tpufm"):
         save_store(out, index)
     elif out.endswith(".npz"):
         save_npz(out, index)
@@ -1262,12 +1294,15 @@ def main(argv=None):
                    help=".fmi (reference format), .npz, or .tpufm (memory-mapped store)")
     b.add_argument("--sa", default="auto", choices=["auto", "native", "doubling", "device", "sharded"],
                    help="suffix sort: auto = native (SA-IS); device = prefix doubling on --device; "
-                        "sharded is not ported (ROADMAP Queue 1 item 6c)")
+                        "sharded = prefix doubling over every card (one CPU shard with --device cpu)")
     b.add_argument("--on-device", action="store_true",
                    help="build the whole index on --device (tpufm_torch.index.builder_device)")
-    b.add_argument("--mesh", type=int, default=0, help="not ported (the multi-GPU build, ROADMAP Queue 1 item 6c)")
+    b.add_argument("--mesh", type=int, default=0,
+                   help="with --on-device: build sharded over an N-device mesh "
+                        "(tpufm_torch.index.builder_sharded)")
     b.add_argument("--store-sharded", action="store_true",
-                   help="not ported (per-shard stores, ROADMAP Queue 1 item 6c)")
+                   help="with --on-device --mesh N: write one table file per "
+                        "shard into --output X.tpufm (search it with --sharded)")
     b.add_argument("--save-ref", action="store_true",
                    help="also write the reference as <ref>.<refsize>.fa")
     b.add_argument("--tail", action="store_true",

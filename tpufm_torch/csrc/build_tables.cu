@@ -2,13 +2,16 @@
 // Hopper (sm_90a).
 //
 // A new kernel with no Pallas counterpart: tpufm computes this pass as jnp
-// (_build_tables, tpufm/index/builder_device.py:35-101), and this kernel
-// computes what it computes. With bwtsize big = n + 1, E = ceil(big / d)
+// (_build_tables, tpufm/index/builder_device.py:35-101; per shard,
+// _table_program in tpufm/index/builder_sharded.py:36-198), and this
+// kernel computes what it computes, on a slice of the suffix array: rows
+// [p0, p0 + rows) of it, p0 a multiple of d (the whole build is the slice
+// p0 = 0, rows = n + 1). With bwtsize big = n + 1, E = ceil(rows / d)
 // blocks of d = 32 * nb positions, T the text with T[n] = 0 ('$' read as
-// 'A'):
+// 'A'), sa[p] = SA[p0 + p], and the row p0 + p a pad where p >= rows or
+// p0 + p >= big (a pad's SA value is not read):
 //
-//   BWT_i[p] = T[(SA[p] - 1 - i) mod big] for p < big, 0 past it (the
-//              padding up to E * d), for each level i < k
+//   BWT_i[p] = T[(sa[p] - 1 - i) mod big], 0 at a pad, for each level i < k
 //   bitmaps[e, i, plane, w]: bit 31 - j set iff bit `plane` of
 //              BWT_i[e * d + 32 * w + j] is set (MSB-first); row E is the
 //              wrapper's (zero)
@@ -16,8 +19,9 @@
 //              levels of the planes (or their complements) that k-mer c
 //              selects, i.e. the positions of block e whose k-mer code
 //              sum_i BWT_i[p] << 2i is c; uncorrected, as tpufm's: each '$'
-//              is counted as its 'A'-read k-mer and the padding as k-mer 0
-//   dollar_pos[SA[p]] = p where SA[p] < k
+//              is counted as its 'A'-read k-mer and each pad as k-mer 0
+//   dollar_pos[sa[p]] = p (the row within the slice) where sa[p] < k; the
+//              wrapper adds p0
 //
 // The wrapper (build_tables) packs the text 2 bits a base first, a launch
 // of pack_text_kernel below on each call: 16 bases a uint32 word, base j at
@@ -62,7 +66,8 @@
 //     which is also the position's k-mer code (level i in bits 2i, 2i + 1).
 //     Only the k rows with s < k can wrap below 0; they take a slow path
 //     that keeps the modulo loop (several wraps when n + 1 < k) and set
-//     dollar_pos. The padding (p >= big) has code 0 and loads nothing.
+//     dollar_pos. A pad (p past the slice's rows below big, one compare
+//     with the launcher's min(rows, big - p0)) has code 0 and loads nothing.
 //   * Plane j of a word (bit j of the codes: level j / 2, plane j % 2) is
 //     __brev(__ballot_sync(bit j)); lane u keeps the 2k words of word
 //     w0 + u, and the warp stores each plane's kBatch words as one run.
@@ -96,7 +101,8 @@ constexpr unsigned kAll = 0xFFFFFFFFu;
 struct Args {
   const uint32_t* words;  // packed text, ceil(n / 16) + 1 words
   long long n;
-  const int* sa;
+  const int* sa;  // rows [p0, p0 + rows) of the suffix array
+  long long real;  // its rows below big: min(rows, big - p0), the rest pads
   int nb;
   long long E;
   uint32_t* bitmaps;
@@ -109,8 +115,14 @@ __device__ __forceinline__ uint32_t symbol(const uint32_t* words, long long q, l
   return q < n ? (__ldg(words + (q >> 4)) >> (30 - 2 * (int)(q & 15))) & 3u : 0u;
 }
 
+// The k=3 instance (the main path's) is held to 4 blocks an SM (at most
+// 64 registers a thread), the others to 1. Measured on the H100 against
+// the kernel before it took slices (scripts/k7_ab.py, K7 alone at
+// 10 Mbase): with no minimum, k=3 was 0.5-1.7% slower (60 registers) and
+// k=4 3-4%; with 4 for every k, k=4 5% and k=6 1.5%; as here, k=1-3 and 6
+// 0.2-3.0% faster, k=4 2.2% slower.
 template <int K>
-__global__ void __launch_bounds__(kThreads) build_tables_kernel(Args a) {
+__global__ void __launch_bounds__(kThreads, K == 3 ? 4 : 1) build_tables_kernel(Args a) {
   constexpr int C = 1 << (2 * K);
   constexpr bool kSharedCounts = K <= 4;
   __shared__ int hist[kWarps][kSharedCounts ? C : 1];
@@ -134,7 +146,7 @@ __global__ void __launch_bounds__(kThreads) build_tables_kernel(Args a) {
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
       const long long p = first + 32LL * (w0 + u) + lane;
-      s[u] = w0 + u < nb && p < big ? __ldcs(a.sa + p) : -1;
+      s[u] = w0 + u < nb && p < a.real ? __ldcs(a.sa + p) : -1;
     }
     // the 32 bases of the aligned word pair that holds base s - K, and the
     // next word where the window runs past them ((s - K) % 32 > 32 - K)
@@ -159,8 +171,7 @@ __global__ void __launch_bounds__(kThreads) build_tables_kernel(Args a) {
         if (off > 32 - K) x |= ((unsigned long long)next[u] << 32) >> (64 - 2 * off);
         code = (uint32_t)(x >> (64 - 2 * K));
       } else if (s[u] >= 0) {  // a '$' row: its levels wrap
-        const long long p = first + 32LL * (w0 + u) + lane;
-        a.dollar_pos[s[u]] = p;
+        a.dollar_pos[s[u]] = first + 32LL * (w0 + u) + lane;
 #pragma unroll
         for (int i = 0; i < K; ++i) {
           long long q = (long long)s[u] - 1 - i;
@@ -233,15 +244,19 @@ extern "C" int tpufm_pack_text(const void* codes, long long n, void* words, void
 
 // Launches K7 on `stream` and returns cudaGetLastError() (0 on success).
 // words: the packed text, uint32 [ceil(n / 16) + 1], 8-byte aligned; sa:
-// int32 [n + 1]; bitmaps: uint32 [E + 1, k, 2, nb] (rows 0..E-1 written);
-// counts: int32 [E, 4^k] (16-byte aligned); dollar_pos: int64 [k] (zeroed
-// by the caller; entry SA[p] set to p where SA[p] < k). Does not
+// int32 [rows], rows p0 .. p0 + rows - 1 of the suffix array (p0 a
+// multiple of 32 * nb; rows >= 1); bitmaps: uint32 [E + 1, k, 2, nb] with
+// E = ceil(rows / (32 * nb)) (rows 0..E-1 written); counts: int32 [E, 4^k]
+// (16-byte aligned); dollar_pos: int64 [k] (set by the caller; entry sa[p]
+// set to p, the row within the slice, where sa[p] < k). Does not
 // synchronise.
-extern "C" int tpufm_build_tables(const void* words, long long n, const void* sa, int k, int nb,
-                                  void* bitmaps, void* counts, void* dollar_pos, void* stream) {
-  if (n < 0 || k < 1 || k > 8 || nb < 1) return (int)cudaErrorInvalidValue;
-  Args a{static_cast<const uint32_t*>(words), n, static_cast<const int*>(sa), nb,
-         (n + 1 + 32LL * nb - 1) / (32LL * nb), static_cast<uint32_t*>(bitmaps), static_cast<int*>(counts),
+extern "C" int tpufm_build_tables(const void* words, long long n, const void* sa, long long rows, long long p0,
+                                  int k, int nb, void* bitmaps, void* counts, void* dollar_pos, void* stream) {
+  if (n < 0 || rows < 1 || p0 < 0 || k < 1 || k > 8 || nb < 1 || p0 % (32LL * nb))
+    return (int)cudaErrorInvalidValue;
+  const long long real = p0 > n ? 0 : (rows < n + 1 - p0 ? rows : n + 1 - p0);
+  Args a{static_cast<const uint32_t*>(words), n, static_cast<const int*>(sa), real, nb,
+         (rows + 32LL * nb - 1) / (32LL * nb), static_cast<uint32_t*>(bitmaps), static_cast<int*>(counts),
          static_cast<long long*>(dollar_pos)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (k) {

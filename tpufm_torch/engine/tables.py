@@ -27,7 +27,7 @@ import zlib
 import numpy as np
 import torch
 
-from tpufm_torch.host.index import AltCountersIndex, KStepFMIndex
+from tpufm_torch.host.index import AltCountersIndex, IndexConfig, KStepFMIndex
 
 #: largest prefix LUT the npz cache persists: the same ceiling as the JAX
 #: engine's LUT_CACHE_MAX_BYTES (xla.py:1424), so both write the same files
@@ -331,6 +331,19 @@ class ShardTables:
     def n_shards(self) -> int:
         return len(self.occ)
 
+    @property
+    def nentries(self) -> int:
+        return -(-self.bwtsize // self.d)
+
+    def host_index(self) -> KStepFMIndex:
+        """The index on the host, every shard's rows copied there: E + 1
+        rows and the zero rows that pad them to D * e_local, as tpufm's
+        index of row-sharded arrays holds them."""
+        rows = lambda xs: np.concatenate([host_words(x) for x in xs])
+        return KStepFMIndex(config=IndexConfig(k=self.k, d=self.d), bwtsize=self.bwtsize, occ=rows(self.occ),
+                            bitmaps=rows(self.bitmaps).reshape(-1, self.k, 2, self.d // 32),
+                            dollar_pos=self.dollar[0].copy(), dollar_base=self.dollar[1].copy())
+
 
 def _split_rows(table, n: int, e_local: int) -> list:
     """``table`` [rows, W] padded with zero rows to n * e_local and cut into n
@@ -360,11 +373,14 @@ def shard_tables(index: KStepFMIndex, n_shards: int, tail_index: KStepFMIndex | 
         bitmaps=_split_rows(index.bitmaps.reshape(total, -1), n_shards, e_local),
         dollar=_dollar(index),
     )
-    if tail_index is not None:
-        tables.tail_d = tail_index.config.d
-        tables.tail_entries = build_fused_entries(tail_index)
-        tables.tail_dollar = _dollar(tail_index)
-    return tables
+    return tables if tail_index is None else with_tail(tables, tail_index)
+
+
+def with_tail(tables: ShardTables, tail_index: KStepFMIndex) -> ShardTables:
+    """``tables`` with the k=1 ``tail_index`` beside them, whole, as fused
+    rows (its checks are the engine's)."""
+    return dataclasses.replace(tables, tail_d=tail_index.config.d, tail_entries=build_fused_entries(tail_index),
+                               tail_dollar=_dollar(tail_index))
 
 
 def shards_from_jax(eng) -> ShardTables:

@@ -3,7 +3,8 @@
 Counterparts of tpufm/index/formats.py (``read_fmi`` :112, ``write_fmi`` :56,
 ``save_npz`` :218, ``load_npz`` :234) and tpufm/index/store.py (``save_store`` :67,
 ``load_store`` :217: it reads kinds kstep, alt_counters and locate, and
-writes kstep and locate, each readable by tpufm). An .fmi
+writes kstep and locate, each readable by tpufm; ``save_store_sharded``
+:111 and ``load_store_sharded`` :167, the per-shard store). An .fmi
 image is a uint32 little-endian header {tag, k, bwtsize, ncounters,
 nentries, d}, dollar_pos[k], dollar_base[k], then the entry table:
 
@@ -262,3 +263,67 @@ def load_store(path, mmap: bool = True) -> KStepFMIndex | AltCountersIndex | Loc
     arr = arrays(_KSTEP + (("occ_slim",) if kind == "alt_counters" else ()))
     index = _kstep_from(meta, arr)
     return AltCountersIndex(base=index, occ_slim=arr["occ_slim"]) if kind == "alt_counters" else index
+
+
+def save_store_sharded(path, tables) -> Path:
+    """Write the ``ShardTables`` of a sharded index
+    (``build_index_sharded(..., return_host=False)``) as a per-shard store
+    (kind ``kstep_sharded``, tpufm/index/store.py:111-164): each shard's
+    tables copied from its own tensors into ``occ.shard%04d.npy`` (uint32
+    [rows/D, 4^k]) and ``bitmaps.shard%04d.npy`` ([rows/D, k, 2, nb]), with
+    ``dollar_pos.npy``, ``dollar_base.npy`` and ``meta.json``; the files are
+    tpufm's, byte for byte. No table is assembled whole."""
+    from tpufm_torch.engine.tables import ShardTables, host_words
+
+    if not isinstance(tables, ShardTables):
+        raise TypeError("save_store_sharded expects row-sharded tables "
+                        "(build_index_sharded(..., return_host=False)); use "
+                        "save_store for host indexes")
+    root = _store_root(path)
+    root.mkdir(parents=True, exist_ok=True)
+    nb = tables.d // 32
+    for s in range(tables.n_shards):
+        np.save(root / f"occ.shard{s:04d}.npy", np.ascontiguousarray(host_words(tables.occ[s])))
+        np.save(root / f"bitmaps.shard{s:04d}.npy", np.ascontiguousarray(
+            host_words(tables.bitmaps[s]).reshape(tables.e_local, tables.k, 2, nb)))
+    np.save(root / "dollar_pos.npy", np.ascontiguousarray(tables.dollar[0], np.uint32))
+    np.save(root / "dollar_base.npy", np.ascontiguousarray(tables.dollar[1], np.uint32))
+    meta = {"kind": "kstep_sharded", "format": STORE_FORMAT, "n_shards": tables.n_shards,
+            "rows": tables.n_shards * tables.e_local, "k": tables.k, "d": tables.d,
+            "layout": Layout.BASELINE.value, "bwtsize": tables.bwtsize}
+    (root / "meta.json").write_text(json.dumps(meta, indent=1))
+    return root
+
+
+def load_store_sharded(path, mesh):
+    """A per-shard store as ``ShardTables`` on ``mesh``, each shard's files
+    read and put on that shard's device (no whole-table copy). The mesh
+    must have as many shards as the store (tpufm/index/store.py:167-214)."""
+    import torch
+
+    from tpufm_torch.engine.tables import ShardTables
+
+    root = _store_root(path)
+    meta = json.loads((root / "meta.json").read_text())
+    if meta.get("format", 0) > STORE_FORMAT:
+        raise ValueError(f"store format {meta['format']} is newer than supported ({STORE_FORMAT})")
+    if meta["kind"] != "kstep_sharded":
+        raise ValueError(f"not a sharded store: kind={meta['kind']!r}")
+    n_shards, rows = meta["n_shards"], meta["rows"]
+    if mesh.size != n_shards:
+        raise ValueError(f"store has {n_shards} shards; mesh has {mesh.size} devices "
+                         "(per-shard stores reload onto an equal-size mesh)")
+    e_local, k, d = rows // n_shards, meta["k"], meta["d"]
+
+    def shard(name, s):
+        a = np.load(root / f"{name}.shard{s:04d}.npy").reshape(e_local, -1)
+        return torch.from_numpy(a.view(np.int32)).to(mesh.devices[s])
+
+    dollar_pos = np.load(root / "dollar_pos.npy").astype(np.uint32)
+    return ShardTables(
+        k=k, d=d, bwtsize=meta["bwtsize"], e_local=e_local,
+        occ=[shard("occ", s) for s in range(n_shards)],
+        bitmaps=[shard("bitmaps", s) for s in range(n_shards)],
+        dollar=np.stack([dollar_pos, np.load(root / "dollar_base.npy").astype(np.uint32),
+                         dollar_pos // np.uint32(d)]),
+    )

@@ -1,6 +1,6 @@
 """Suffix array of a 2-bit text plus its sentinel (host side).
 
-Counterpart of tpufm/index/suffix_array.py. Three methods:
+Counterpart of tpufm/index/suffix_array.py. Four methods:
 
 * ``native``: SA-IS in C++ (tpufm_torch/csrc/sais.cpp), compiled at first
   use with the host C++ compiler (``$CXX``, else ``g++``) into
@@ -10,6 +10,9 @@ Counterpart of tpufm/index/suffix_array.py. Three methods:
 * ``device``: prefix doubling on a torch device
   (tpufm_torch/index/sa_device.py), ``device`` cuda unless asked for the
   CPU (tpufm's ``method="device"``, tpufm/index/suffix_array.py:152).
+* ``sharded``: prefix doubling over ``make_mesh(device=device)``, every
+  card or one CPU shard (tpufm_torch/index/sa_sharded.py; tpufm's
+  ``method="sharded"``, :156).
 
 There is no silent fallback between them: a native library that cannot be
 built raises. For codes of length n the result has n+1 entries and
@@ -76,7 +79,8 @@ def suffix_array_doubling(codes: np.ndarray) -> np.ndarray:
 
 def suffix_array(codes: np.ndarray, method: str = "native", device="cuda") -> np.ndarray:
     """int64 [n+1] suffix array of ``codes`` + sentinel; method is
-    ``native``, ``doubling`` or ``device`` (sorted on ``device``)."""
+    ``native``, ``doubling``, ``device`` (sorted on ``device``) or
+    ``sharded`` (sorted over every card, or one CPU shard)."""
     if method == "native":
         return suffix_array_native(codes)
     if method == "doubling":
@@ -85,4 +89,8 @@ def suffix_array(codes: np.ndarray, method: str = "native", device="cuda") -> np
         from tpufm_torch.index.sa_device import suffix_array_device
 
         return suffix_array_device(codes, device)
-    raise ValueError(f"unknown suffix array method {method!r} (native, doubling or device)")
+    if method == "sharded":
+        from tpufm_torch.index.sa_sharded import suffix_array_sharded
+
+        return suffix_array_sharded(codes, device=device)
+    raise ValueError(f"unknown suffix array method {method!r} (native, doubling, device or sharded)")

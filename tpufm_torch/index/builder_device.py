@@ -12,7 +12,9 @@ Counterpart of tpufm/index/builder_device.py (``_build_tables`` :35,
                 BWT levels straight from the suffix array and the packed
                 text, packed into the bit-planes, the per-block k-mer
                 counts, and the '$' positions; plain version
-                ``build_tables_reference``, tpufm's jnp pass in torch
+                ``build_tables_reference``, tpufm's jnp pass in torch;
+                also on a slice of the suffix array (``p0``), a shard of
+                the sharded build (index.builder_sharded)
   corrections   the k + 1 point corrections ('$' counted as its 'A' k-mer,
                 the tail padding as k-mer 0), the exclusive cumulative sum
                 plus the sentinel row, and C (4^k scalars on the host)
@@ -56,23 +58,30 @@ def _pack_words(bits: torch.Tensor) -> torch.Tensor:
     return (bits << torch.from_numpy(_SHIFTS).to(bits.device)).sum(dim=-1)
 
 
-def build_tables_reference(codes: torch.Tensor, sa: torch.Tensor, k: int, d: int):
-    """Plain PyTorch K7 on any device (tpufm's ``_build_tables`` in torch):
-    uint8 text [n] and int32 suffix array [n+1] -> (counts int32 [E, 4^k],
+def build_tables_reference(codes: torch.Tensor, sa: torch.Tensor, k: int, d: int, p0: int = 0,
+                           big: int | None = None):
+    """Plain PyTorch K7 on any device (tpufm's ``_build_tables`` in torch,
+    and per shard its ``_table_program``): uint8 text [n] and rows [p0, p0 +
+    rows) of its suffix array, int32 [rows] (p0 a multiple of d; the whole
+    array by default) -> (counts int32 [E, 4^k], E = ceil(rows / d),
     uncorrected; bitmaps int32 [E+1, k, 2, d/32] holding the uint32 words,
-    row E zero; dollar_pos int64 [k])."""
-    n = codes.shape[0]
+    row E zero; dollar_pos int64 [k], the global rows of the suffixes below
+    k that the slice holds, 0 elsewhere). ``big`` is the suffix array's
+    length, n + 1: a row p0 + p at or past it is a pad, read as 'A' at every
+    level (k-mer 0), as past the last block."""
+    n, rows = codes.shape[0], sa.shape[0]
     big, nb, dev = n + 1, d // 32, codes.device
-    E = -(-big // d)
+    E = -(-rows // d)
     t = torch.cat([codes, torch.zeros(1, dtype=torch.uint8, device=dev)])  # '$' read as 'A'
-    sa = sa.to(torch.int64)
-    (small,) = torch.nonzero(sa < k, as_tuple=True)
+    real = torch.arange(p0, p0 + rows, device=dev) < big
+    sa = torch.where(real, sa.to(torch.int64), 0)
+    (small,) = torch.nonzero(real & (sa < k), as_tuple=True)
     dollar_pos = torch.zeros(k, dtype=torch.int64, device=dev)
-    dollar_pos[sa[small]] = small
-    pad = E * d - big
+    dollar_pos[sa[small]] = small + p0
+    pad = E * d - rows
     bitmaps = torch.zeros((E + 1, k, 2, nb), dtype=torch.int64, device=dev)
     for i in range(k):
-        level = t[(sa + (big - 1 - i)) % big].to(torch.int64)
+        level = torch.where(real, t[(sa + (big - 1 - i)) % big], 0).to(torch.int64)
         level = torch.cat([level, level.new_zeros(pad)]).view(E, nb, 32)
         for plane in range(2):
             bitmaps[:E, i, plane] = _pack_words((level >> plane) & 1)
@@ -124,15 +133,22 @@ def pack_text_2bit(codes: torch.Tensor) -> torch.Tensor:
     return words
 
 
-def _check_tables(codes: torch.Tensor, sa: torch.Tensor, k: int, d: int) -> None:
+def _check_tables(codes: torch.Tensor, sa: torch.Tensor, k: int, d: int, p0: int, big: int | None) -> None:
     if not 1 <= k <= 8:
         raise ValueError(f"k must be in [1, 8], got {k}")
     if d <= 0 or d % 32:
         raise ValueError(f"d must be a positive multiple of 32, got {d}")
     if codes.dtype != torch.uint8 or codes.dim() != 1:
         raise ValueError(f"codes must be uint8 [n], got {codes.dtype} {tuple(codes.shape)}")
-    if sa.dtype != torch.int32 or tuple(sa.shape) != (codes.shape[0] + 1,):
-        raise ValueError(f"sa must be int32 [{codes.shape[0] + 1}], got {sa.dtype} {tuple(sa.shape)}")
+    n1 = codes.shape[0] + 1
+    if big is not None and big != n1:
+        raise ValueError(f"big is the suffix array's length, n + 1 = {n1}; got {big}")
+    if p0 < 0 or p0 % d:
+        raise ValueError(f"p0 must be a non-negative multiple of d={d}, got {p0}")
+    if sa.dtype != torch.int32 or sa.dim() != 1 or sa.shape[0] < 1 or (
+            sa.shape[0] % d and p0 + sa.shape[0] < n1):
+        raise ValueError(f"sa must be int32 [{n1}], or rows of it from p0 in whole blocks of d={d} (the "
+                         f"last may end past row {n1}), got {sa.dtype} {tuple(sa.shape)} at p0={p0}")
     if not (codes.is_contiguous() and sa.is_contiguous()):
         raise ValueError("codes and sa must be contiguous")
     if codes.device != sa.device:
@@ -141,22 +157,26 @@ def _check_tables(codes: torch.Tensor, sa: torch.Tensor, k: int, d: int) -> None
         raise ValueError(f"the table build runs on cpu or cuda tensors, got {codes.device}")
 
 
-def build_tables(codes: torch.Tensor, sa: torch.Tensor, k: int, d: int):
-    """The tables of ``build_tables_reference`` (its contract and dtypes).
+def build_tables(codes: torch.Tensor, sa: torch.Tensor, k: int, d: int, p0: int = 0, big: int | None = None):
+    """The tables of ``build_tables_reference`` (its contract and dtypes),
+    of the whole suffix array or of the slice of it that starts at row
+    ``p0`` (a shard of the sharded build).
 
     CPU tensors take the plain version; CUDA tensors launch the pack
     (``pack_text_2bit``) and K7 on its words, and a kernel that cannot be
     built or launched raises."""
-    _check_tables(codes, sa, k, d)
+    _check_tables(codes, sa, k, d, p0, big)
     if codes.device.type == "cpu":
-        return build_tables_reference(codes, sa, k, d)
+        return build_tables_reference(codes, sa, k, d, p0)
     words = pack_text_2bit(codes)
-    n, nb, dev = codes.shape[0], d // 32, codes.device
-    E = -(-(n + 1) // d)
+    n, nb, dev, rows = codes.shape[0], d // 32, codes.device, sa.shape[0]
+    E = -(-rows // d)
     bitmaps = torch.empty((E + 1, k, 2, nb), dtype=torch.int32, device=dev)
     bitmaps[E].zero_()
     counts = torch.empty((E, 4**k), dtype=torch.int32, device=dev)
-    dollar_pos = torch.zeros(k, dtype=torch.int64, device=dev)
+    # K7 writes a '$' row within the slice: -1 marks the entries of '$'
+    # rows outside it, which leave as 0, as the whole array's unset ones
+    dollar_pos = torch.full((k,), -1 if p0 else 0, dtype=torch.int64, device=dev)
     global LAUNCHES
     from tpufm_torch import kernels
 
@@ -164,12 +184,14 @@ def build_tables(codes: torch.Tensor, sa: torch.Tensor, k: int, d: int):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.tpufm_build_tables(
-            words.data_ptr(), n, sa.data_ptr(), k, nb, bitmaps.data_ptr(), counts.data_ptr(),
+            words.data_ptr(), n, sa.data_ptr(), rows, p0, k, nb, bitmaps.data_ptr(), counts.data_ptr(),
             dollar_pos.data_ptr(), stream,
         )
     if err:
         raise RuntimeError(f"build_tables kernel launch failed: {kernels.error_string('build_tables', err)}")
     LAUNCHES += 1
+    if p0:
+        dollar_pos = torch.where(dollar_pos >= 0, dollar_pos + p0, 0)
     return counts, bitmaps, dollar_pos
 
 

@@ -69,8 +69,8 @@ SIGNATURES = {
         "tpufm_myers_verify_slots": [_LL],
     },
     "build_tables": {
-        # packed text words, n, sa, k, nb, bitmaps, counts, dollar_pos, stream
-        "tpufm_build_tables": [_P, _LL, _P, _I, _I, _P, _P, _P, _P],
+        # packed text words, n, sa, rows, p0, k, nb, bitmaps, counts, dollar_pos, stream
+        "tpufm_build_tables": [_P, _LL, _P, _LL, _LL, _I, _I, _P, _P, _P, _P],
         # codes, n, words, stream
         "tpufm_pack_text": [_P, _LL, _P, _P],
     },

@@ -3,7 +3,11 @@
 Counterparts of the ``jax.lax`` collectives that tpufm's ``shard_map``
 programs use (tpufm/parallel/search.py: ``all_gather`` and ``psum`` in
 ``_sharded_lf_step``, ``ppermute`` in the ring, ``all_to_all`` and ``pmax``
-in the a2a routing; ``axis_index`` is the shard's place in the list). Each
+in the a2a routing; tpufm/index/sa_sharded.py and builder_sharded.py:
+``ppermute`` of pairs and shifts, ``all_gather`` and ``psum`` in the
+sharded sort and table build; ``axis_index`` is the shard's place in the
+list), and ``relayout``, the move of a row-sharded array between two row
+splits that a jit with other ``out_shardings`` makes there. Each
 op takes a list with one tensor per shard, ``xs[s]`` on ``mesh.devices[s]``,
 and returns a list of new tensors, one per shard on that shard's device: a
 result never aliases an input, so that a shard's later in-place update
@@ -93,13 +97,25 @@ def pmax(xs: list) -> list:
     return out
 
 
-def ppermute(xs: list, shift: int = 1) -> list:
-    """``jax.lax.ppermute`` with the ring permutation ``[(i, (i + shift) %
-    D)]``: shard (i + shift) % D gets shard i's tensor, as a copy."""
+def ppermute(xs: list, perm=1) -> list:
+    """``jax.lax.ppermute``. ``perm`` is a list of (src, dst) pairs, no src
+    and no dst twice: shard dst gets a copy of shard src's tensor, and a
+    shard that no pair reaches gets zeros of its own tensor's shape and
+    dtype. An int ``perm`` is the ring ``[(i, (i + perm) % D)]`` of the
+    engines. The bytes logged are those of the pairs whose src and dst
+    differ."""
     D = len(xs)
+    if isinstance(perm, int):
+        perm = [(i, (i + perm) % D) for i in range(D)]
+    src_of = {}
+    for src, dst in perm:
+        if not (0 <= src < D and 0 <= dst < D) or dst in src_of or src in src_of.values():
+            raise ValueError(f"ppermute: {perm} is not a partial permutation of {D} shards")
+        src_of[dst] = src
     devs = [x.device for x in xs]
-    out = [xs[(s - shift) % D].to(devs[s], non_blocking=True, copy=True) for s in range(D)]
-    _record("collective-permute", out[0], D * _nbytes(xs[0]), D)
+    out = [xs[src_of[s]].to(devs[s], non_blocking=True, copy=True) if s in src_of else torch.zeros_like(xs[s])
+           for s in range(D)]
+    _record("collective-permute", out[0], sum(_nbytes(xs[src]) for src, dst in perm if src != dst), D)
     return out
 
 
@@ -110,6 +126,29 @@ def all_to_all(xs: list) -> list:
     D = len(xs)
     out = [torch.stack([x[s].to(xs[s].device, non_blocking=True) for x in xs]) for s in range(D)]
     _record("all-to-all", out[0], (D - 1) * _nbytes(xs[0]), D)
+    return out
+
+
+def relayout(xs: list, total: int, rows: int) -> list:
+    """Rows moved from one row sharding to another: ``xs[s]`` holds global
+    rows s*r .. (s+1)*r - 1 (r = ``xs[0].shape[0]``, the same on every
+    shard); shard t gets rows t*rows .. (t+1)*rows - 1 of the first
+    ``total``, zeros past them (the reshard of an array between two
+    ``PartitionSpec`` row splits of different lengths). Logged as one
+    all-to-all with the bytes of the rows that change shard."""
+    D, r = len(xs), xs[0].shape[0]
+    out, moved = [], 0
+    for t, x in enumerate(xs):
+        parts, g, end = [], t * rows, min((t + 1) * rows, total)
+        while g < end:
+            s, off = divmod(g, r)
+            part = xs[s][off:off + min(end - g, r - off)]
+            parts.append(part.to(x.device, non_blocking=True))
+            moved += _nbytes(part) if s != t else 0
+            g += part.shape[0]
+        parts.append(x.new_zeros((rows - max(end - t * rows, 0), *x.shape[1:])))
+        out.append(torch.cat(parts))
+    _record("all-to-all", out[0], moved, D)
     return out
 
 

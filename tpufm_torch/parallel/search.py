@@ -57,7 +57,7 @@ from tpufm_torch.engine.search import (
     pad_cycle,
     stream_waves,
 )
-from tpufm_torch.engine.tables import ShardTables, is_alt_counters, shard_tables
+from tpufm_torch.engine.tables import ShardTables, is_alt_counters, shard_tables, with_tail
 from tpufm_torch.host.index import IndexConfig, KStepFMIndex
 from tpufm_torch.host.seqio import VARLEN_PAD
 from tpufm_torch.parallel import collectives as coll
@@ -221,18 +221,20 @@ class ShardedIndexEngine:
             )
         self.mesh = mesh
         D = mesh.size
+        if tail_index is not None and (tail_index.config.k != 1 or tail_index.bwtsize != index.bwtsize):
+            raise ValueError("tail_index must be a k=1 index over the same text")
         if isinstance(index, ShardTables):
             tables = index
             if tables.n_shards != D:
                 raise ValueError(f"tables of {tables.n_shards} shards on a mesh of {D}")
             if tables.lut is not None:
                 lut_m = (tables.lut.shape[0].bit_length() - 1) // 2
+            if tail_index is not None and tables.tail_d is None:  # e.g. a per-shard store's
+                tables = with_tail(tables, tail_index)
         k = index.k if isinstance(index, ShardTables) else index.config.k
         if lut_m and lut_m % k:
             raise ValueError(f"lut_m={lut_m} must be a multiple of k={k}")
         if not isinstance(index, ShardTables):
-            if tail_index is not None and (tail_index.config.k != 1 or tail_index.bwtsize != index.bwtsize):
-                raise ValueError("tail_index must be a k=1 index over the same text")
             tables = shard_tables(index, D, tail_index)
         if routing not in ("allgather", "ring", "a2a"):
             raise ValueError(f"unknown routing {routing!r}")
