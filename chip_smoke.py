@@ -238,6 +238,31 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      raises make_mesh's text; (c) the 250 Mbase text sorted on one device and
      on the four shards, the suffix arrays and k=3 d=192 tables equal, both
      timed, the sharded build's peak device memory a base.
+ 22. the port across processes (tpufm_torch.parallel.mesh
+     ``initialize_distributed``): two worker processes (this script with
+     ``--mesh-worker``, on the kernels phase 2 built) join one gloo group
+     over a localhost coordinator, each owning two shards of this card (a
+     four-shard mesh); a worker that fails or runs past its time limit
+     fails the run. Each process's results are held to the earlier phase's
+     and its launch counts to the exact numbers: (a) phase 4's index and
+     1,048,576 reads through ``DataParallelEngine`` (phase 4's LUT) and
+     ``ShardedIndexEngine`` allgather (its LUT built by its own rounds
+     across processes, equal to phase 4's) and a2a, host seconds a pass, a
+     device pass of every read placed at once beside phase 19's, its
+     collectives' bytes between shards and across processes against the
+     closed form (``traffic.wave_bytes``), the a2a overflow rounds; (b) on
+     65,536 of those reads the ring, ``DataParallelLocate.locate_hits`` and
+     ``DataParallelSearchLocate.search_locate`` (lut12, max-hits 16, equal
+     to phase 10), ``locate_approx`` m=2 on phase 14's seed reads; (c) phase
+     4's text sorted over the four shards of both processes (the suffix
+     array equal to phase 9's), its k=3 d=192 index and k=1 tail (equal to
+     phases 4 and 10), ``save_store_sharded`` by both processes (every file
+     byte-identical to phase 21's), ``load_store_sharded`` and
+     ``ShardedIndexEngine`` on 65,536 reads; (d) tpufm's chromosome-scale
+     case: a seeded 100 Mbase k=3 d=128 index built on the card and stored
+     with ``save_store``, opened by both workers, 8,192 x 120 bp reads
+     streamed in waves of 2,048 through ``DataParallelEngine`` lut9, equal
+     to the one-device ``SearchEngine``. NCCL is not run: one card.
 Every path is driven with all launch counts set to 0 just before it and
 read just after; a kernel of the path launched too few times fails the run.
 Then one JSON line of kernel figures (each kernel's time beside its bound:
@@ -255,11 +280,13 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import io
 import json
 import os
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -285,6 +312,7 @@ from tpufm_torch.engine.locate import (
     locate_walk_reference,
 )
 from tpufm_torch.engine.paired import PairedEndEngine, pair_oracle
+from tpufm_torch.engine.search import stream_waves
 from tpufm_torch.engine.search_locate import SearchLocateEngine
 from tpufm_torch.engine.seed import (
     SeedExtendEngine,
@@ -310,6 +338,7 @@ from tpufm_torch.host.formats import (
     load_store,
     load_store_sharded,
     read_fmi,
+    save_store,
     save_store_sharded,
     write_fmi,
 )
@@ -2687,12 +2716,13 @@ def mesh_phase(tmp: str, index, fmi: str, qry: str, reads: np.ndarray, main_res:
             "dp4_s": dp4_s, "ac4_s": ac4_s}
 
 
-def mesh_walks(found: np.ndarray, n: int, wave: int) -> int:
+def mesh_walks(found: np.ndarray, n: int, wave: int, shards=None) -> int:
     """The walks (K4 launches) a mesh engine of ``n`` shards makes over a
     batch whose read i has rows to walk where ``found[i]``: the batch padded
     by cycling to a mesh multiple, streamed in waves of ``wave`` reads (past
     one wave the last padded by cycling to a whole one), each wave cut into
-    n parts; a part with no row to walk launches no walk."""
+    n parts; a part with no row to walk launches no walk. ``shards``: count
+    the parts of those shards only (one process of a multi-process mesh)."""
     B = found.shape[0]
     idx = np.resize(np.arange(B), B + (-B % n))
     walks = 0
@@ -2700,7 +2730,8 @@ def mesh_walks(found: np.ndarray, n: int, wave: int) -> int:
         chunk = idx[start:start + wave]
         if idx.size > wave and chunk.size < wave:
             chunk = np.resize(chunk, wave)
-        walks += sum(bool(found[part].any()) for part in np.split(chunk, n))
+        parts = np.split(chunk, n)
+        walks += sum(bool(found[parts[s]].any()) for s in (range(n) if shards is None else shards))
     return walks
 
 
@@ -3260,6 +3291,291 @@ def sharded_build(tmp: str, ref: str, codes: np.ndarray, index, fmi: str, sa: np
             "phase_seconds": time.perf_counter() - t0}
 
 
+#: phase 22: the processes of the multi-process mesh, the shards each owns
+#: on this card, the reads of its reduced parts, (d)'s reference, reads,
+#: wave and LUT, and the seconds a worker may take
+MP_PROCS, MP_SHARDS, MP_READS = 2, 2, 1 << 16
+MP_SCALE_BASES, MP_SCALE_D, MP_SCALE_READS, MP_SCALE_WAVE, MP_SCALE_LUT = 100_000_000, 128, 8192, 2048, 9
+MP_TIMEOUT_S = 420
+
+
+def mesh_worker(argv: list) -> None:
+    """One process of phase 22 (``chip_smoke.py --mesh-worker COORDINATOR
+    PID DIR``): joins the gloo group, owns MP_SHARDS shards of cuda:0, runs
+    (a)-(d) on the inputs the parent wrote to DIR, holds every result to
+    the earlier phase's (an AssertionError exits non-zero), and writes its
+    launch counts, seconds and collective bytes to DIR/worker_PID.json."""
+    from tpufm_torch.engine.tables import shard_tables
+    from tpufm_torch.parallel import initialize_distributed, shutdown_distributed
+    from tpufm_torch.parallel.traffic import check_collective_log, wave_bytes
+
+    coordinator, pid, work = argv[0], int(argv[1]), Path(argv[2])
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke --mesh-worker: torch.cuda.is_available() is false")
+    initialize_distributed(coordinator, num_processes=MP_PROCS, process_id=pid, local_device_ids=[0] * MP_SHARDS,
+                           backend="gloo", timeout=MP_TIMEOUT_S - 60)
+    mesh = make_mesh()
+    SH, mine = mesh.size, mesh.local_shards
+    if (SH, mesh.process_index, mesh.local_count) != (MP_PROCS * MP_SHARDS, pid, MP_SHARDS):
+        raise AssertionError(f"process {pid}: {mesh}")
+    inp = json.loads((work / "inputs.json").read_text())
+    index, _ = read_fmi(inp["fmi"])
+    index_s, loc_s = load_store(f"{inp['store']}.search.tpufm"), load_store(f"{inp['store']}.locate.tpufm")
+    reads, main_res = np.load(work / "reads.npy"), np.load(work / "main_res.npy")
+    codes = np.load(work / "codes.npy")
+    out = {"counts": {}, "seconds": {}, "bytes": {}, "overflow_rounds": {}, "process": pid, "shards": list(mine)}
+
+    def counted(label: str, fn):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        out["seconds"][label] = time.perf_counter() - t0
+        out["counts"][label] = read_counts()
+        return r
+
+    def logged(label: str, eng, routing: str):
+        """A second host pass (warm), then one device pass of every read
+        placed at once (phase 19's protocol), its collectives held to the
+        closed form."""
+        t0 = time.perf_counter()
+        eng.search(reads)
+        out["seconds"][label + "_warm"] = time.perf_counter() - t0
+        placed = eng.place_queries(reads) if routing != "dp" else eng.shard_queries(reads)
+        with coll.recording() as log:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = eng.search_device(placed)
+            torch.cuda.synchronize()
+        out["seconds"][label + "_device"] = time.perf_counter() - t0
+        overflow = () if routing == "dp" else r[1]
+        got = check_collective_log(log, routing, SH, READS, overflow, mesh.local_count)
+        out["bytes"][label] = {k: got[k] for k in ("bytes", "within", "across")}
+        out["bytes"][label]["closed_form"] = wave_bytes(routing, SH, READS, overflow, mesh.local_count)
+
+    # (a) phase 4's index and reads at full width
+    lut_cache = f"{inp['fmi']}.lut{LUT_M}.npz"
+    dp = counted("a_dp_lut", lambda: DataParallelEngine(index, mesh, lut_m=LUT_M, lut_cache=lut_cache))
+    same_results(f"process {pid}: DataParallelEngine", counted("a_dp", lambda: dp.search(reads)), main_res)
+    logged("a_dp", dp, "dp")
+    del dp
+    with np.load(lut_cache) as z:
+        main_lut = z["lut"]
+    ag = counted("a_allgather_lut", lambda: ShardedIndexEngine(index, mesh, routing="allgather", lut_m=LUT_M))
+    if not np.array_equal(ag.lut[0].cpu().numpy().view(np.uint32), main_lut.view(np.uint32)):
+        raise AssertionError(f"process {pid}: the sharded LUT differs from phase 4's")
+    out["seconds"]["a_allgather_lut_build"] = ag.lut_build_seconds
+    same_results(f"process {pid}: ShardedIndexEngine allgather", counted("a_allgather", lambda: ag.search(reads)),
+                 main_res)
+    logged("a_allgather", ag, "allgather")
+    del ag
+    with_lut = dataclasses.replace(shard_tables(index, SH), lut=main_lut.view(np.uint32))
+    a2a = ShardedIndexEngine(with_lut, mesh, routing="a2a")
+    same_results(f"process {pid}: ShardedIndexEngine a2a", counted("a_a2a", lambda: a2a.search(reads)), main_res)
+    out["overflow_rounds"]["a_a2a"] = int(sum(ov.sum() for ov in a2a.last_overflow_waves))
+    logged("a_a2a", a2a, "a2a")
+    del a2a
+    torch.cuda.empty_cache()
+
+    # (b) at MP_READS reads: the ring, the locate engines, seed-and-extend
+    part = reads[:MP_READS]
+    ring = ShardedIndexEngine(with_lut, mesh, routing="ring")
+    same_results(f"process {pid}: ring", counted("b_ring", lambda: ring.search(part)), main_res[:MP_READS])
+    del ring
+    positions = np.load(work / "positions.npy")
+    dpl = DataParallelLocate(loc_s, mesh)
+    same_results(f"process {pid}: DataParallelLocate.locate_hits",
+                 counted("b_locate_hits", lambda: dpl.locate_hits(main_res[:MP_READS], MAX_HITS)), positions)
+    dpsl = counted("b_dpsl_lut", lambda: DataParallelSearchLocate(index_s, loc_s, mesh, max_hits=MAX_HITS,
+                                                                  lut_m=LUT_M, lut_cache=lut_cache))
+    iv, pos = counted("b_search_locate", lambda: dpsl.search_locate(part))
+    same_results(f"process {pid}: search_locate intervals", iv, main_res[:MP_READS])
+    same_results(f"process {pid}: search_locate positions", pos, positions)
+    sreads = np.load(work / "seed_reads.npy")
+    with np.load(work / "seed_want.npz") as z:
+        swant = (z["pos"], z["cnt"], z["ovf"])
+    dpsl.locate_approx(sreads[:SH], codes, APPROX_M)  # builds the seed engines over the packed text
+    same_arrays(f"process {pid}: locate_approx", counted("b_seed", lambda: dpsl.locate_approx(sreads, codes, APPROX_M)),
+                swant)
+    del dpsl, dpl
+    torch.cuda.empty_cache()
+
+    # (c) the sharded build of phase 4's text across both processes
+    def build():
+        order = suffix_array_sharded_arr(codes, mesh)
+        return (order, build_index_sharded(codes, IndexConfig(k=K, d=D), mesh, sa_dev=order),
+                build_index_sharded(codes, IndexConfig(k=1, d=D), mesh, sa_dev=order),
+                build_index_sharded(codes, IndexConfig(k=K, d=D), mesh, sa_dev=order, return_host=False))
+
+    order, s_index, s_tail, tables = counted("c_build", build)
+    big = codes.shape[0] + 1
+    if not np.array_equal(sas_mod.gather_rows(order, big, mesh).numpy().astype(np.int64), np.load(work / "sa.npy")):
+        raise AssertionError(f"process {pid}: the sharded suffix array differs from phase 9's")
+    same_tables(f"process {pid}: sharded k=3 index", s_index, index, INDEX_FIELDS)
+    same_tables(f"process {pid}: sharded k=1 tail", s_tail, loc_s.lf1, INDEX_FIELDS)
+    del order, s_index, s_tail
+    root = save_store_sharded(work / "sharded.tpufm", tables)
+    if tree_bytes(root) != tree_bytes(inp["sharded4"]):
+        raise AssertionError(f"process {pid}: save_store_sharded's files differ from phase 21's")
+    del tables
+    eng = ShardedIndexEngine(load_store_sharded(root, mesh), mesh)
+    same_results(f"process {pid}: load_store_sharded search", counted("c_store_search", lambda: eng.search(part)),
+                 main_res[:MP_READS])
+    del eng
+    torch.cuda.empty_cache()
+
+    # (d) the chromosome-scale store, streamed in waves
+    big_index = load_store(inp["scale_store"])
+    queries = np.load(work / "scale_reads.npy")
+    eng = counted("d_lut", lambda: DataParallelEngine(big_index, mesh, lut_m=MP_SCALE_LUT))
+    got = counted("d_stream", lambda: stream_waves(queries, MP_SCALE_WAVE,
+                                                   lambda q: eng.search_device(eng.shard_queries(q)), None, (2,)))
+    same_results(f"process {pid}: the chromosome-scale stream", got, np.load(work / "scale_want.npy"))
+    del eng, big_index
+    for pkg in ("jax", "tpufm"):
+        if any(m == pkg or m.startswith(pkg + ".") for m in sys.modules):
+            raise AssertionError(f"{pkg} was imported")
+    (work / f"worker_{pid}.json").write_text(json.dumps(out))
+    shutdown_distributed()
+
+
+def multi_process(tmp: str, codes: np.ndarray, index, fmi: str, reads: np.ndarray, main_res: np.ndarray,
+                  positions: np.ndarray, sa: np.ndarray, store: str, approx: dict, mesh: dict, dev,
+                  by_path: dict) -> dict:
+    """Phase 22 (see the module docstring): MP_PROCS processes of the port,
+    MP_SHARDS shards each on this card, joined by gloo over a localhost
+    coordinator (``mesh_worker``); each process's results held to the
+    earlier phases (in the worker) and its launch counts to the exact
+    numbers (here)."""
+    t0 = time.perf_counter()
+    work = Path(tmp) / "p22"
+    work.mkdir()
+    # the inputs, written once: phase 4's reads and intervals, phase 10's positions, phase 9's suffix array,
+    # phase 14's seed reads and one-device results
+    np.save(work / "reads.npy", reads)
+    np.save(work / "main_res.npy", main_res)
+    np.save(work / "codes.npy", codes)
+    np.save(work / "positions.npy", positions[:MP_READS])
+    np.save(work / "sa.npy", sa)
+    sreads, (spos, scnt, sovf) = approx["runs"]["seed"]
+    np.save(work / "seed_reads.npy", sreads)
+    np.savez(work / "seed_want.npz", pos=spos, cnt=scnt, ovf=sovf)
+    # (d) tpufm's chromosome-scale case: a seeded 100 Mbase text, k=3 d=128 built on the card, its store
+    t1 = time.perf_counter()
+    scodes = np.random.default_rng(SEED + 22).integers(0, 4, MP_SCALE_BASES, dtype=np.uint8)
+    sidx = build_index_device(scodes, IndexConfig(k=K, d=MP_SCALE_D), device=dev)
+    scale_store = save_store(work / "chrom.tpufm", sidx)
+    squeries = generate_reads(scodes, READ_LEN, MP_SCALE_READS, seed=SEED + 22)
+    np.save(work / "scale_reads.npy", squeries)
+    one = SearchEngine(sidx, dev, lut_m=MP_SCALE_LUT)
+    np.save(work / "scale_want.npy", one.search(squeries))
+    del one, sidx, scodes
+    torch.cuda.empty_cache()
+    scale_s = time.perf_counter() - t1
+    (work / "inputs.json").write_text(json.dumps({"fmi": fmi, "store": store, "scale_store": str(scale_store),
+                                                  "sharded4": os.path.join(tmp, "sharded4.tpufm")}))
+    setup_s = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    with socket.socket() as free:
+        free.bind(("127.0.0.1", 0))
+        coordinator = f"127.0.0.1:{free.getsockname()[1]}"
+    procs = []
+    try:
+        for pid in range(MP_PROCS):
+            with open(work / f"worker_{pid}.log", "w") as log:
+                procs.append(subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), "--mesh-worker",
+                                               coordinator, str(pid), str(work)], cwd=REPO, stdout=log,
+                                              stderr=subprocess.STDOUT))
+        # until both end, one fails (its peer would wait out the group's timeout) or the time is up
+        while any(p.poll() is None for p in procs) and not any(p.poll() for p in procs):
+            if time.perf_counter() - t1 > MP_TIMEOUT_S:
+                raise AssertionError(f"phase 22: a worker ran past {MP_TIMEOUT_S} s")
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    run_s = time.perf_counter() - t1
+    failed = [(pid, p.returncode) for pid, p in enumerate(procs) if p.returncode != 0]
+    if failed:  # each failed worker's exit code and the end of its log (a peer killed here exits -9)
+        raise AssertionError("phase 22: " + "\n".join(
+            f"worker {pid} exited {rc}:\n{(work / f'worker_{pid}.log').read_text()[-4000:]}" for pid, rc in failed))
+    results = [json.loads((work / f"worker_{pid}.json").read_text()) for pid in range(MP_PROCS)]
+
+    # the exact launches of one process (MP_SHARDS shards): every count read in the worker
+    L, SH = MP_SHARDS, MP_PROCS * MP_SHARDS
+    rounds = (READ_LEN - LUT_M) // K
+    wave = ShardedIndexEngine.WAVE_PER_CHIP * SH
+    waves, lut_waves = -(-READS // wave), 4**LUT_M // min(4**LUT_M, wave)
+    hits = int(np.minimum(main_res[:MP_READS, 1] - main_res[:MP_READS, 0], MAX_HITS).sum())
+    found = positions[:MP_READS, 0] != 0xFFFFFFFF
+    seed_n = L * mesh_waves(SEED_READS, SH, SeedExtendEngine.WAVE * SH)
+    seed_rounds = ((READ_LEN // (APPROX_M + 1)) // K * K - LUT_M) // K
+    scale_rounds = (READ_LEN - MP_SCALE_LUT) // K
+    for r in results:
+        shards = r["shards"]
+        need = {
+            "a_dp_lut": {"lf_round_pairs": 0},
+            "a_dp": {"lf_round_pairs": L * rounds, "lf_answer_owned": 0},
+            "a_allgather_lut": {"lf_answer_owned": L * lut_waves * (LUT_M // K), "lf_round_pairs": 0},
+            "a_allgather": {"lf_answer_owned": L * rounds * waves, "lf_round_pairs": 0},
+            "a_a2a": {"lf_answer_owned": L * rounds * waves, "lf_round_pairs": 0},
+            "b_ring": {"lf_answer_owned": 2 * SH * L * rounds, "lf_round_pairs": 0},
+            "b_locate_hits": {"locate_walk": L * mesh_waves(hits, SH, DataParallelLocate.WAVE_PER_CHIP * SH)},
+            "b_dpsl_lut": {"lf_round_pairs": 0},
+            "b_search_locate": {"lf_round_pairs": L * rounds * mesh_waves(MP_READS, SH,
+                                                                           DataParallelSearchLocate.WAVE_PER_CHIP * SH),
+                                "locate_walk": mesh_walks(found, SH, DataParallelSearchLocate.WAVE_PER_CHIP * SH,
+                                                          shards)},
+            "b_seed": {"lf_round_pairs": seed_rounds * seed_n, "locate_walk": seed_n, "hamming_verify": seed_n},
+            "c_build": {"build_tables": 3 * L, "pack_text": 3 * L},
+            "c_store_search": {"lf_answer_owned": L * (READ_LEN // K), "lf_round_pairs": 0},
+            "d_lut": {"lf_round_pairs": (4**MP_SCALE_LUT // min(4**MP_SCALE_LUT, SearchEngine.WAVE))
+                      * (MP_SCALE_LUT // K)},
+            "d_stream": {"lf_round_pairs": L * scale_rounds * (MP_SCALE_READS // MP_SCALE_WAVE)},
+        }
+        for label, n in need.items():
+            expect_exact(f"phase 22 process {r['process']} {label}", r["counts"][label], n)
+            by_path[f"mp_{label}_p{r['process']}"] = r["counts"][label]
+        if any(r["counts"][label]["build_tables"] for label in need if label != "c_build"):
+            raise AssertionError(f"phase 22 process {r['process']}: K7 launched outside the build")
+    one19 = {"dp": mesh["dp4_s"], "allgather": mesh["routings"]["mesh4_allgather"]["device_seconds_per_pass"],
+             "a2a": mesh["routings"]["mesh4_a2a"]["device_seconds_per_pass"]}
+    print(f"[22 multi-process] {MP_PROCS} processes of the port, {MP_SHARDS} shards each on this card (a "
+          f"{SH}-shard mesh), joined by gloo over {coordinator}: every result equal to its earlier phase in every "
+          f"process, every launch count exact; set-up {setup_s:.2f} s (the {MP_SCALE_BASES}-base store "
+          f"{scale_s:.2f} s), workers {run_s:.2f} s", flush=True)
+    print("    NCCL was not run: this machine has one card, and NCCL refuses two ranks on one card; the collectives "
+          "crossed processes through gloo, staged through the host", flush=True)
+    for r in results:
+        sec, b = r["seconds"], r["bytes"]
+        print(f"    process {r['process']} (shards {r['shards']}): (a) {READS} x {READ_LEN} bp, host seconds a pass, "
+              "the first / a second: "
+              + ", ".join(f"{name} {sec['a_' + name]:.3f} / {sec['a_' + name + '_warm']:.3f}"
+                          for name in ("dp", "allgather", "a2a"))
+              + "; device seconds a pass (all reads placed), phase 19's four colocated shards in one process "
+              "beside: " + ", ".join(f"{name} {sec['a_' + name + '_device']:.3f} ({one19[name]:.3f})"
+                                     for name in ("dp", "allgather", "a2a"))
+              + f"; allgather LUT built by its own rounds {sec['a_allgather_lut_build']:.2f} s; a2a overflow rounds "
+              f"{r['overflow_rounds']['a_a2a']}; bytes a pass between shards / across processes (closed form): "
+              + ", ".join(f"{name} {b['a_' + name]['bytes']} / {b['a_' + name]['across']} "
+                          f"({b['a_' + name]['closed_form']['across']})" for name in ("dp", "allgather", "a2a")),
+              flush=True)
+        print(f"      (b) {MP_READS} reads: ring {sec['b_ring']:.3f} s, locate_hits {sec['b_locate_hits']:.3f} s, "
+              f"search_locate {sec['b_search_locate']:.3f} s, locate_approx m={APPROX_M} {sec['b_seed']:.3f} s; "
+              f"(c) sort and three table sets {sec['c_build']:.3f} s, the store's search {sec['c_store_search']:.3f} "
+              f"s; (d) {MP_SCALE_BASES} bases k={K} d={MP_SCALE_D} from its store, {MP_SCALE_READS} x {READ_LEN} bp "
+              f"in waves of {MP_SCALE_WAVE}, lut{MP_SCALE_LUT} {sec['d_lut']:.3f} s, stream {sec['d_stream']:.3f} s; "
+              "launches " + json.dumps({label: {k: v for k, v in c.items() if v} for label, c in r["counts"].items()}),
+              flush=True)
+    print(f"    phase {time.perf_counter() - t0:.2f} s", flush=True)
+    return {"processes": MP_PROCS, "shards_a_process": MP_SHARDS, "workers": results, "phase19_device_s": one19,
+            "setup_s": setup_s, "run_s": run_s, "phase_seconds": time.perf_counter() - t0}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; it runs only on a GPU")
@@ -3743,6 +4059,9 @@ def main() -> None:
         torch.cuda.empty_cache()
         sharded = sharded_build(tmp, ref, codes, index, fmi, sa, loc, store, qry, reads, main_res, ondev, dev,
                                 by_path)
+        torch.cuda.empty_cache()
+        multi = multi_process(tmp, codes, index, fmi, reads, main_res, fused.positions, sa, store, approx, mesh, dev,
+                              by_path)
 
     for pkg in ("jax", "tpufm"):
         if any(m == pkg or m.startswith(pkg + ".") for m in sys.modules):
@@ -3978,6 +4297,8 @@ def main() -> None:
             "routings": mesh["routings"],
             "genome": mesh["genome"],
             "mesh1_seconds_per_pass": mesh["overhead"],
+            # phase 22: each process's launches, seconds and bytes across processes
+            "multi_process": multi,
             "launches_by_path": {path: c["lf_answer_owned"] for path, c in by_path.items()},
         },
     ]}))
@@ -3989,4 +4310,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        mesh_worker(sys.argv[2:])
+    else:
+        main()

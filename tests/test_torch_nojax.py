@@ -16,7 +16,9 @@ through the mesh engines (tpufm_torch.parallel: data-parallel, and the
 sharded index with the allgather and a2a routings), the sharded build of
 the index and the locate tables over those shards and a per-shard store
 written, read back and searched (tpufm_torch.index.builder_sharded,
-tpufm_torch.profiling imported), and checks them against the port's numpy oracles, naive scans of the text and
+tpufm_torch.profiling imported), a one-process gloo group of world size 1
+started through ``initialize_distributed`` and a search over its mesh,
+and checks them against the port's numpy oracles, naive scans of the text and
 each read's origin; the parent holds the result against tpufm's builder
 and oracle.
 chip_smoke itself refuses to run without a GPU, or without the repo around
@@ -202,6 +204,17 @@ with tempfile.TemporaryDirectory() as d:
     tables = build_index_sharded(codes, IndexConfig(k=3, d=64), mesh4, return_host=False)
     back = load_store_sharded(save_store_sharded(os.path.join(d, "s.tpufm"), tables), mesh4)
     assert np.array_equal(ShardedIndexEngine(back, mesh4, lut_m=6).search(queries), want)
+import socket  # a one-process gloo group of world size 1, and a search over its mesh
+from tpufm_torch.parallel import initialize_distributed, shutdown_distributed
+with socket.socket() as free:
+    free.bind(("127.0.0.1", 0))
+    port = free.getsockname()[1]
+initialize_distributed(f"127.0.0.1:{port}", num_processes=1, process_id=0, backend="gloo", timeout=60)
+group_mesh = make_mesh(2, device="cpu")
+assert (group_mesh.size, group_mesh.process_count, group_mesh.local_shards) == (2, 1, (0, 1))
+assert np.array_equal(ShardedIndexEngine(index, group_mesh, routing="ring", lut_m=6).search(queries), want)
+assert np.array_equal(DataParallelEngine(index, group_mesh).search(queries), want)
+shutdown_distributed()
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpufm")]
 print(json.dumps(res.tolist()))
 """
@@ -230,7 +243,8 @@ def test_port_imports_and_searches_without_jax_or_tpufm(sa_method):
 
 def test_package_sources_never_import_jax_or_tpufm():
     banned = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|tpufm)\b", re.M)
-    for path in [*(REPO / "tpufm_torch").rglob("*.py"), REPO / "chip_smoke.py"]:
+    for path in [*(REPO / "tpufm_torch").rglob("*.py"), REPO / "chip_smoke.py",
+                 *(REPO / "tests").glob("torch_distworker*.py")]:
         assert not banned.search(path.read_text()), path
 
 

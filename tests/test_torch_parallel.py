@@ -393,7 +393,7 @@ def test_collectives_semantics_and_no_aliasing():
     assert log1 == []
 
 
-def test_mesh_pad_cycle_and_stream_waves():
+def test_mesh_pad_cycle_and_stream_waves(monkeypatch):
     from tpufm.utils.waves import pad_cycle as jax_pad_cycle
 
     rows = np.arange(15, dtype=np.uint8).reshape(5, 3)
@@ -409,8 +409,24 @@ def test_mesh_pad_cycle_and_stream_waves():
         np.testing.assert_array_equal(seen[-1][:, 0], last)
     assert make_mesh(3, device="cpu").size == 3 and make_mesh(device="cpu").size == 1
     assert Mesh([torch.device("cpu")] * 2, "x").axis_names == ("x",)
-    with pytest.raises(NotImplementedError, match="item 6d"):
+    # initialize_distributed's refusals, before it joins any group: no
+    # coordinator and no torchrun environment; NCCL with two ranks on one card
+    for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(ValueError, match="no coordinator given and no torchrun environment"):
         initialize_distributed()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match=r"backend='nccl' puts 2 ranks on this host's 1 card\(s\): NCCL refuses"):
+        initialize_distributed("127.0.0.1:1", num_processes=2, process_id=0, backend="nccl")
+    monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
+    monkeypatch.setenv("MASTER_PORT", "1")
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setenv("RANK", "1")
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "2")
+    with pytest.raises(ValueError, match="NCCL refuses two ranks on one card"):
+        initialize_distributed(backend="nccl")
+    assert not torch.distributed.is_initialized()
 
 
 def test_make_mesh_needs_the_cards(monkeypatch):

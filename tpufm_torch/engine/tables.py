@@ -307,12 +307,15 @@ class ShardTables:
 
     occ: D tables uint32 [e_local, 4^k], shard s holding entries s*e_local ..
         (s+1)*e_local - 1 (host numpy, or int32 tensors of the same bits where
-        the index lies on a device).
+        the index lies on a device; None for a shard that another process
+        of ``mesh`` holds).
     bitmaps: D tables uint32 [e_local, 2k*nb], likewise.
     dollar: uint32 [3, k] rows dollar_pos, dollar_base, dollar_block (global
         blocks), replicated.
     tail_*: the k=1 tail table (fused rows), replicated, or None.
     lut: uint32 [4^m, 2] prefix LUT, replicated, or None.
+    mesh: the mesh the shards were built or loaded on, or None (cut on the
+        host or from one device's index).
     """
 
     k: int
@@ -326,6 +329,7 @@ class ShardTables:
     tail_entries: np.ndarray | None = None
     tail_dollar: np.ndarray | None = None
     lut: np.ndarray | None = None
+    mesh: object = None
 
     @property
     def n_shards(self) -> int:
@@ -338,7 +342,11 @@ class ShardTables:
     def host_index(self) -> KStepFMIndex:
         """The index on the host, every shard's rows copied there: E + 1
         rows and the zero rows that pad them to D * e_local, as tpufm's
-        index of row-sharded arrays holds them."""
+        index of row-sharded arrays holds them. Every shard must be in this
+        process (across processes, build with ``return_host=True``)."""
+        if any(x is None for x in self.occ):
+            raise ValueError("host_index: other processes hold some of these shards; build the index with "
+                             "return_host=True for a host copy in every process")
         rows = lambda xs: np.concatenate([host_words(x) for x in xs])
         return KStepFMIndex(config=IndexConfig(k=self.k, d=self.d), bwtsize=self.bwtsize, occ=rows(self.occ),
                             bitmaps=rows(self.bitmaps).reshape(-1, self.k, 2, self.d // 32),
@@ -451,6 +459,11 @@ def load_lut_cache(path: str, fingerprint: np.ndarray) -> np.ndarray | None:
 
 
 def save_lut_cache(path: str, lut: np.ndarray, fingerprint: np.ndarray) -> None:
-    """Persist a LUT of sane size (m=12 is 134 MB) in the JAX engine's format."""
+    """Persist a LUT of sane size (m=12 is 134 MB) in the JAX engine's format,
+    written whole under another name first, so that processes writing and
+    reading one cache at once (a multi-process mesh) never see a part."""
     if lut.nbytes <= LUT_CACHE_MAX_BYTES:
-        np.savez(lut_cache_path(path), lut=lut, fingerprint=fingerprint)
+        path = lut_cache_path(path)
+        tmp = f"{path}.{os.getpid()}.tmp.npz"
+        np.savez(tmp, lut=lut, fingerprint=fingerprint)
+        os.replace(tmp, path)

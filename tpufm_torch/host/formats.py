@@ -272,7 +272,11 @@ def save_store_sharded(path, tables) -> Path:
     tables copied from its own tensors into ``occ.shard%04d.npy`` (uint32
     [rows/D, 4^k]) and ``bitmaps.shard%04d.npy`` ([rows/D, k, 2, nb]), with
     ``dollar_pos.npy``, ``dollar_base.npy`` and ``meta.json``; the files are
-    tpufm's, byte for byte. No table is assembled whole."""
+    tpufm's, byte for byte. No table is assembled whole. Across processes
+    (tables on a mesh of ``initialize_distributed``; every process calls
+    this) each process writes its own shards' files and process 0 alone the
+    shared ones (tpufm's store.py:148); all wait for each other before
+    returning, so that any may read the store then."""
     from tpufm_torch.engine.tables import ShardTables, host_words
 
     if not isinstance(tables, ShardTables):
@@ -282,23 +286,36 @@ def save_store_sharded(path, tables) -> Path:
     root = _store_root(path)
     root.mkdir(parents=True, exist_ok=True)
     nb = tables.d // 32
+    mesh = tables.mesh
+    across = mesh is not None and mesh.process_count > 1
+    if not across and any(x is None for x in tables.occ):
+        raise ValueError("save_store_sharded: some shards are missing and the tables name no multi-process mesh")
     for s in range(tables.n_shards):
+        if tables.occ[s] is None:  # another process's shard: that process writes it
+            continue
         np.save(root / f"occ.shard{s:04d}.npy", np.ascontiguousarray(host_words(tables.occ[s])))
         np.save(root / f"bitmaps.shard{s:04d}.npy", np.ascontiguousarray(
             host_words(tables.bitmaps[s]).reshape(tables.e_local, tables.k, 2, nb)))
-    np.save(root / "dollar_pos.npy", np.ascontiguousarray(tables.dollar[0], np.uint32))
-    np.save(root / "dollar_base.npy", np.ascontiguousarray(tables.dollar[1], np.uint32))
-    meta = {"kind": "kstep_sharded", "format": STORE_FORMAT, "n_shards": tables.n_shards,
-            "rows": tables.n_shards * tables.e_local, "k": tables.k, "d": tables.d,
-            "layout": Layout.BASELINE.value, "bwtsize": tables.bwtsize}
-    (root / "meta.json").write_text(json.dumps(meta, indent=1))
+    if not across or mesh.process_index == 0:
+        np.save(root / "dollar_pos.npy", np.ascontiguousarray(tables.dollar[0], np.uint32))
+        np.save(root / "dollar_base.npy", np.ascontiguousarray(tables.dollar[1], np.uint32))
+        meta = {"kind": "kstep_sharded", "format": STORE_FORMAT, "n_shards": tables.n_shards,
+                "rows": tables.n_shards * tables.e_local, "k": tables.k, "d": tables.d,
+                "layout": Layout.BASELINE.value, "bwtsize": tables.bwtsize}
+        (root / "meta.json").write_text(json.dumps(meta, indent=1))
+    if across:
+        import torch.distributed as dist
+
+        dist.barrier()
     return root
 
 
 def load_store_sharded(path, mesh):
     """A per-shard store as ``ShardTables`` on ``mesh``, each shard's files
     read and put on that shard's device (no whole-table copy). The mesh
-    must have as many shards as the store (tpufm/index/store.py:167-214)."""
+    must have as many shards as the store (tpufm/index/store.py:167-214).
+    Across processes each process reads only the shards it owns (None for
+    the others')."""
     import torch
 
     from tpufm_torch.engine.tables import ShardTables
@@ -317,13 +334,15 @@ def load_store_sharded(path, mesh):
 
     def shard(name, s):
         a = np.load(root / f"{name}.shard{s:04d}.npy").reshape(e_local, -1)
-        return torch.from_numpy(a.view(np.int32)).to(mesh.devices[s])
+        return torch.from_numpy(a.view(np.int32)).to(device[s])
 
     dollar_pos = np.load(root / "dollar_pos.npy").astype(np.uint32)
+    device = dict(zip(mesh.local_shards, mesh.devices))
     return ShardTables(
         k=k, d=d, bwtsize=meta["bwtsize"], e_local=e_local,
-        occ=[shard("occ", s) for s in range(n_shards)],
-        bitmaps=[shard("bitmaps", s) for s in range(n_shards)],
+        occ=[shard("occ", s) if s in device else None for s in range(n_shards)],
+        bitmaps=[shard("bitmaps", s) if s in device else None for s in range(n_shards)],
         dollar=np.stack([dollar_pos, np.load(root / "dollar_base.npy").astype(np.uint32),
                          dollar_pos // np.uint32(d)]),
+        mesh=mesh,
     )

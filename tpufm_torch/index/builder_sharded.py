@@ -22,7 +22,11 @@ that shard's device, on lists of one tensor a shard
                 totals) plus C, and the sentinel row
 
 Counters are summed in int64 and kept mod 2^32 (tpufm's uint32
-arithmetic). Every array is bit-identical to ``host.index.build_index`` and
+arithmetic). Across processes (a mesh of ``initialize_distributed``) each
+process builds the shards it owns, the collectives cross processes, and
+``return_host=True`` gives every process the whole host index (tpufm's
+``_replicated_get``); ``return_host=False`` leaves each process its own
+shards' tables. Every array is bit-identical to ``host.index.build_index`` and
 ``host.locate.build_locate``. ``return_host=False`` leaves the index as the
 ``ShardTables`` that ``ShardedIndexEngine`` takes, moved from the build's
 ceil(E / D) blocks a shard to the engine's ceil((E + 1) / D) rows a shard
@@ -41,7 +45,7 @@ from tpufm_torch.host.index import IndexConfig, KStepFMIndex, normalize_referenc
 from tpufm_torch.host.locate import LocateIndex
 from tpufm_torch.index.builder_device import _pack_words, build_tables
 from tpufm_torch.index.sa_device import upload_text
-from tpufm_torch.index.sa_sharded import gather_rows, suffix_array_sharded_arr
+from tpufm_torch.index.sa_sharded import gather_rows, host_rows, suffix_array_sharded_arr
 from tpufm_torch.parallel import collectives as coll
 
 
@@ -73,10 +77,10 @@ def _table_sa(codes: np.ndarray, mesh, sa_dev, big: int, d: int) -> list:
     """The suffix array (sorted here, or ``sa_dev`` from
     ``suffix_array_sharded_arr``) on the d-aligned table shards."""
     order = suffix_array_sharded_arr(codes, mesh) if sa_dev is None else sa_dev
-    if len(order) != mesh.size or order[0].shape[0] * mesh.size < big:
+    if len(order) != mesh.local_count or order[0].shape[0] * mesh.size < big:
         raise ValueError(f"sa_dev has {len(order)} shards of {order[0].shape[0]} rows; expected "
-                         f"{mesh.size} shards holding {big} rows")
-    return coll.relayout(order, big, table_rows(big, d, mesh.size))
+                         f"{mesh.local_count} of {mesh.size} shards holding {big} rows")
+    return coll.relayout(order, big, table_rows(big, d, mesh.size), mesh)
 
 
 def _dollar_codes(bm: torch.Tensor, dpos: torch.Tensor, s: int, eloc: int, k: int, d: int) -> torch.Tensor:
@@ -92,36 +96,36 @@ def _dollar_codes(bm: torch.Tensor, dpos: torch.Tensor, s: int, eloc: int, k: in
     return torch.where(mine, (bits << shift).sum(dim=(1, 2)), 0)
 
 
-def _table_shards(text: list, sa: list, k: int, d: int, big: int) -> tuple:
+def _table_shards(text: list, sa: list, k: int, d: int, big: int, mesh) -> tuple:
     """K7 and the finish a shard: (occ rows int32 [eloc, 4^k] of every
     shard, zero past block E; the sentinel row int64 [4^k] on every shard;
     the planes int32 [eloc, k, 2, nb]; dollar_pos and dollar_base as
     uint32 numpy)."""
-    D, m = len(sa), sa[0].shape[0]
+    ids, m = mesh.local_shards, sa[0].shape[0]
     eloc, C, E = m // d, 4**k, -(-big // d)
-    built = [build_tables(t, x, k, d, p0=s * m, big=big) for s, (t, x) in enumerate(zip(text, sa))]
+    built = [build_tables(t, x, k, d, p0=s * m, big=big) for s, t, x in zip(ids, text, sa)]
     bm = [b[:eloc] for _, b, _ in built]
-    dpos = coll.psum([p for _, _, p in built])
-    dbase = coll.psum([_dollar_codes(b, p, s, eloc, k, d) for s, (b, p) in enumerate(zip(bm, dpos))])
+    dpos = coll.psum([p for _, _, p in built], mesh)
+    dbase = coll.psum([_dollar_codes(b, p, s, eloc, k, d) for s, b, p in zip(ids, bm, dpos)], mesh)
     pad = E * d - big
     inc, counts = [], []
-    for s, (c, _, _) in enumerate(built):
+    for s, (c, _, _), p, db in zip(ids, built, dpos, dbase):
         dev = c.device
         blk = s * eloc + torch.arange(eloc, device=dev)
         cnt = torch.zeros((eloc + 1, C), dtype=torch.int64, device=dev)  # row eloc: a scratch row
         cnt[:eloc] = c * (blk < E)[:, None]
-        lb = dpos[s] // d - s * eloc
+        lb = p // d - s * eloc
         lb = torch.where((lb >= 0) & (lb < eloc), lb, eloc)
-        cnt.index_put_((lb, dbase[s]), torch.full((k,), -1, dtype=torch.int64, device=dev), accumulate=True)
+        cnt.index_put_((lb, db), torch.full((k,), -1, dtype=torch.int64, device=dev), accumulate=True)
         cnt = cnt[:eloc]
         if pad and s == (E - 1) // eloc:
             cnt[(E - 1) % eloc, 0] -= pad
         counts.append(cnt)
         inc.append(torch.cumsum(cnt, dim=0))
     del built
-    tots = coll.all_gather([x[-1] for x in inc])  # [D, C]
+    tots = coll.all_gather([x[-1] for x in inc], mesh)  # [D, C]
     occ, final = [], []
-    for s, (x, cnt, t, db) in enumerate(zip(inc, counts, tots, dbase)):
+    for s, x, cnt, t, db in zip(ids, inc, counts, tots, dbase):
         dev = x.device
         totals = t.sum(dim=0)
         acc = torch.zeros(C, dtype=torch.int64, device=dev)
@@ -135,29 +139,31 @@ def _table_shards(text: list, sa: list, k: int, d: int, big: int) -> tuple:
     return occ, final, bm, dpos[0].cpu().numpy().astype(np.uint32), dbase[0].cpu().numpy().astype(np.uint32)
 
 
-def _host_rows(xs: list, total: int) -> np.ndarray:
-    return gather_rows(xs, total).numpy().view(np.uint32)
+def _host_rows(xs: list, total: int, mesh) -> np.ndarray:
+    return gather_rows(xs, total, mesh).numpy().view(np.uint32)
 
 
-def _index_from_shards(text: list, sa: list, config: IndexConfig, big: int, return_host: bool):
-    k, d, D = config.k, config.d, len(sa)
+def _index_from_shards(text: list, sa: list, config: IndexConfig, big: int, return_host: bool, mesh):
+    k, d, D = config.k, config.d, mesh.size
     E = config.num_entries(big)
-    occ, final, bm, dollar_pos, dollar_base = _table_shards(text, sa, k, d, big)
+    occ, final, bm, dollar_pos, dollar_base = _table_shards(text, sa, k, d, big, mesh)
     if return_host:
         return KStepFMIndex(
             config=config, bwtsize=big,
-            occ=np.concatenate([_host_rows(occ, E), final[0].cpu().numpy().astype(np.uint32)[None]]),
-            bitmaps=np.concatenate([_host_rows(bm, E), np.zeros((1, *bm[0].shape[1:]), np.uint32)]),
+            occ=np.concatenate([_host_rows(occ, E, mesh), final[0].cpu().numpy().astype(np.uint32)[None]]),
+            bitmaps=np.concatenate([_host_rows(bm, E, mesh), np.zeros((1, *bm[0].shape[1:]), np.uint32)]),
             dollar_pos=dollar_pos, dollar_base=dollar_base,
         )
     e_local = -(-(E + 1) // D)
-    occ = coll.relayout(occ, E, e_local)
-    owner = E // e_local
-    occ[owner][E % e_local] = to_u32_bits(final[owner])
+    occ = coll.relayout(occ, E, e_local, mesh)
+    owner, first = E // e_local, mesh.local_shards[0]
+    if owner in mesh.local_shards:  # the sentinel row (``final`` is the same on every shard)
+        occ[owner - first][E % e_local] = to_u32_bits(final[owner - first])
+    bitmaps = coll.relayout([b.reshape(b.shape[0], -1) for b in bm], E, e_local, mesh)
+    full = lambda xs: [xs[s - first] if s in mesh.local_shards else None for s in range(D)]
     return ShardTables(
-        k=k, d=d, bwtsize=big, e_local=e_local, occ=occ,
-        bitmaps=coll.relayout([b.reshape(b.shape[0], -1) for b in bm], E, e_local),
-        dollar=np.stack([dollar_pos, dollar_base, dollar_pos // np.uint32(d)]),
+        k=k, d=d, bwtsize=big, e_local=e_local, occ=full(occ), bitmaps=full(bitmaps),
+        dollar=np.stack([dollar_pos, dollar_base, dollar_pos // np.uint32(d)]), mesh=mesh,
     )
 
 
@@ -170,12 +176,13 @@ def build_index_sharded(reference, config: IndexConfig = IndexConfig(), mesh=Non
     mesh, so that an index, its k=1 tail and the locate tables share one
     sort. ``return_host=True`` gives the host ``KStepFMIndex``;
     ``return_host=False`` the ``ShardTables`` of ``ShardedIndexEngine``,
-    e_local = ceil((E + 1) / D) rows a shard, zero rows at the end."""
+    e_local = ceil((E + 1) / D) rows a shard, zero rows at the end (across
+    processes, None for the shards another process holds)."""
     mesh = _mesh(mesh)
     codes = normalize_reference(reference)
     big = codes.shape[0] + 1
     sa = _table_sa(codes, mesh, sa_dev, big, config.d)
-    return _index_from_shards(_text(codes, mesh), sa, config, big, return_host)
+    return _index_from_shards(_text(codes, mesh), sa, config, big, return_host, mesh)
 
 
 def build_locate_sharded(reference, sample_rate: int = 32, d: int = 128, mesh=None,
@@ -191,20 +198,20 @@ def build_locate_sharded(reference, sample_rate: int = 32, d: int = 128, mesh=No
     big, nb = codes.shape[0] + 1, d // 32
     E = -(-big // d)
     sa = _table_sa(codes, mesh, sa_dev, big, d)
-    lf1 = _index_from_shards(_text(codes, mesh), sa, IndexConfig(k=1, d=d), big, True)
+    lf1 = _index_from_shards(_text(codes, mesh), sa, IndexConfig(k=1, d=d), big, True, mesh)
     m = sa[0].shape[0]
     words, per_block, samples = [], [], []
-    for s, x in enumerate(sa):
+    for s, x in zip(mesh.local_shards, sa):
         marked = (torch.arange(s * m, (s + 1) * m, device=x.device) < big) & (x % sample_rate == 0)
         w = _pack_words(marked.to(torch.int64).view(m // d, nb, 32))
         words.append(to_u32_bits(w))
         per_block.append(popcount32(w).sum(dim=1))
-        samples.append(x[marked].cpu())
+        samples.append(x[marked])
     mark_rank = np.zeros(E + 1, np.uint32)
-    mark_rank[1:] = (np.cumsum(gather_rows(per_block, E).numpy()) & FULL).astype(np.uint32)
+    mark_rank[1:] = (np.cumsum(gather_rows(per_block, E, mesh).numpy()) & FULL).astype(np.uint32)
     return LocateIndex(
         lf1=lf1, sample_rate=sample_rate,
-        mark_words=np.concatenate([_host_rows(words, E), np.zeros((1, nb), np.uint32)]),
+        mark_words=np.concatenate([_host_rows(words, E, mesh), np.zeros((1, nb), np.uint32)]),
         mark_rank=mark_rank,
-        samples=torch.cat(samples).numpy().astype(np.uint32),
+        samples=host_rows(samples, mesh).numpy().astype(np.uint32),
     )

@@ -8,7 +8,12 @@ Every array of the sort is a list of one tensor a shard, shard s holding
 global lanes s*m .. (s+1)*m - 1 on ``mesh.devices[s]``, with ``m =
 max(ceil((n + 1) / D), PACK)`` (the neighbour fetch of the first key reads
 PACK lanes of the next shard). Lanes at or past n + 1 are pads. The
-collectives are tpufm_torch.parallel.collectives'.
+collectives are tpufm_torch.parallel.collectives'. Every function takes
+the ``mesh`` the lists live on; None is one process owning every shard of
+the list. Across processes (a mesh of ``initialize_distributed``) each
+list holds the shards this process owns, shard ids stay global, and the
+pairs of a merge-split may lie in two processes: each sorts the same
+concatenation, lower shard first, as in one process.
 
 - The global sort is a ``torch.sort`` a shard, then D rounds of odd-even
   block transposition: in round r the shards (i, i + 1), i = r % 2, 2 + r %
@@ -71,96 +76,111 @@ def shard_lanes(n: int, D: int) -> int:
     return max(-(-(n + 1) // D), PACK)
 
 
-def lane_index(xs: list) -> list:
+def _shards(xs: list, mesh) -> tuple:
+    """(D, the global shard of each entry of ``xs``)."""
+    if mesh is None:
+        return len(xs), tuple(range(len(xs)))
+    return mesh.size, mesh.local_shards
+
+
+def lane_index(xs: list, mesh=None) -> list:
     """Each shard's global lane numbers, int32 [m]."""
     m = xs[0].shape[0]
-    return [torch.arange(s * m, (s + 1) * m, dtype=torch.int32, device=x.device) for s, x in enumerate(xs)]
+    return [torch.arange(s * m, (s + 1) * m, dtype=torch.int32, device=x.device)
+            for s, x in zip(_shards(xs, mesh)[1], xs)]
 
 
-def global_sort(keys: list, payload: list) -> tuple:
+def global_sort(keys: list, payload: list, mesh=None) -> tuple:
     """Sort (key, payload) lanes over the mesh by key: shard s ends with the
     s-th block of m lanes in key order (tpufm's ``make_global_sort``). The
     two lists are sorted in place, each tensor replaced as its shard
     moves on (so that the unsorted ones are freed), and returned."""
-    D, m = len(keys), keys[0].shape[0]
-    for s in range(D):
-        keys[s], order = torch.sort(keys[s])
-        payload[s] = payload[s][order]
+    (D, ids), m = _shards(keys, mesh), keys[0].shape[0]
+    at = {s: i for i, s in enumerate(ids)}
+    for i in range(len(keys)):
+        keys[i], order = torch.sort(keys[i])
+        payload[i] = payload[i][order]
     for r in range(D):
         pairs = [(a, a + 1) for a in range(r % 2, D - 1, 2)]
         if not pairs:
             continue
         perm = [(a, b) for a, b in pairs] + [(b, a) for a, b in pairs]
-        got_k, got_p = coll.ppermute(keys, perm), coll.ppermute(payload, perm)
+        got_k, got_p = coll.ppermute(keys, perm, mesh), coll.ppermute(payload, perm, mesh)
         for a, b in pairs:
             for s, half in ((a, slice(0, m)), (b, slice(m, 2 * m))):
-                both_k = torch.cat([keys[s], got_k[s]] if s == a else [got_k[s], keys[s]])
-                both_p = torch.cat([payload[s], got_p[s]] if s == a else [got_p[s], payload[s]])
+                if s not in at:  # another process's shard
+                    continue
+                i = at[s]
+                both_k = torch.cat([keys[i], got_k[i]] if s == a else [got_k[i], keys[i]])
+                both_p = torch.cat([payload[i], got_p[i]] if s == a else [got_p[i], payload[i]])
                 merged, order = torch.sort(both_k, stable=True)
-                keys[s], payload[s] = merged[half].clone(), both_p[order[half]]
+                keys[i], payload[i] = merged[half].clone(), both_p[order[half]]
     return keys, payload
 
 
-def boundary_prev(keys: list) -> list:
+def boundary_prev(keys: list, mesh=None) -> list:
     """Each shard's previous global key (the last of the shard before it;
     shard 0 gets 0), int64 [1]."""
-    return coll.ppermute([k[-1:] for k in keys], [(i, i + 1) for i in range(len(keys) - 1)])
+    D = _shards(keys, mesh)[0]
+    return coll.ppermute([k[-1:] for k in keys], [(i, i + 1) for i in range(D - 1)], mesh)
 
 
-def global_rank_from_sorted(keys: list, idx: list, big: int) -> tuple:
+def global_rank_from_sorted(keys: list, idx: list, big: int, mesh=None) -> tuple:
     """Sorted keys and their lanes -> (the global rank of each sorted lane,
     int32 [m] a shard; whether the real lanes' keys are all distinct, a 0-d
-    bool tensor on shard 0's device)."""
+    bool tensor on the first shard's device, the same in every process)."""
+    ids = _shards(keys, mesh)[1]
     changed = []
-    for s, (k, prev) in enumerate(zip(keys, boundary_prev(keys))):
+    for s, k, prev in zip(ids, keys, boundary_prev(keys, mesh)):
         c = torch.empty_like(k, dtype=torch.bool)
         c[1:] = k[1:] != k[:-1]
         c[:1] = (k[:1] != prev) if s else False
         changed.append(c)
     loc = [torch.cumsum(c, 0, dtype=torch.int32) for c in changed]
-    totals = coll.all_gather([x[-1] for x in loc])
-    ranks = [x + totals[s][:s].sum(dtype=torch.int32) for s, x in enumerate(loc)]
-    real = coll.psum([(c & (i < big)).sum() for c, i in zip(changed, idx)])
+    totals = coll.all_gather([x[-1] for x in loc], mesh)
+    ranks = [x + totals[i][:s].sum(dtype=torch.int32) for i, (s, x) in enumerate(zip(ids, loc))]
+    real = coll.psum([(c & (i < big)).sum() for c, i in zip(changed, idx)], mesh)
     return ranks, real[0] + 1 == big
 
 
-def restore_index_order(idx: list, rank_sorted: list) -> list:
+def restore_index_order(idx: list, rank_sorted: list, mesh=None) -> list:
     """Ranks of sorted lanes -> ranks in lane order (a second global sort,
     by lane index: shard s ends with lanes s*m .. (s+1)*m - 1). Consumes
     ``rank_sorted``; ``idx`` is left as it is."""
-    _, ranks = global_sort(list(idx), rank_sorted)
+    _, ranks = global_sort(list(idx), rank_sorted, mesh)
     return ranks
 
 
 def text_lanes(codes: np.ndarray, mesh) -> list:
     """A host text as the first key's lanes: symbol + 1 (int32), 0 at the
-    sentinel and the pads, ``shard_lanes`` a shard, each on its device."""
+    sentinel and the pads, ``shard_lanes`` a shard, this process's shards
+    each on its device."""
     n, D = codes.shape[0], mesh.size
     m = shard_lanes(n, D)
     c = np.zeros(D * m, np.int32)
     c[:n] = codes
     c[:n] += 1
-    return [torch.from_numpy(c[s * m:(s + 1) * m]).to(dev) for s, dev in enumerate(mesh.devices)]
+    return [torch.from_numpy(c[s * m:(s + 1) * m]).to(dev) for s, dev in zip(mesh.local_shards, mesh.devices)]
 
 
-def _round(keys: list, big: int) -> tuple:
+def _round(keys: list, big: int, mesh) -> tuple:
     """Sort the lanes' keys (the list is consumed), rank them, and bring
     the ranks to lane order: (rank int32 [m], the sorted lanes int32 [m],
     distinct)."""
-    sidx = lane_index(keys)
+    sidx = lane_index(keys, mesh)
     for k, i in zip(keys, sidx):
         k.masked_fill_(i >= big, PAD_KEY)
-    global_sort(keys, sidx)
-    rank_sorted, distinct = global_rank_from_sorted(keys, sidx, big)
+    global_sort(keys, sidx, mesh)
+    rank_sorted, distinct = global_rank_from_sorted(keys, sidx, big, mesh)
     keys.clear()
-    return restore_index_order(sidx, rank_sorted), sidx, distinct
+    return restore_index_order(sidx, rank_sorted, mesh), sidx, distinct
 
 
-def initial(c3: list, big: int) -> tuple:
+def initial(c3: list, big: int, mesh=None) -> tuple:
     """The first round on ``text_lanes``: ranks over PACK-symbol prefixes
     (lane order), the lanes in that order, and whether they are distinct."""
-    D, m = len(c3), c3[0].shape[0]
-    nxt = coll.ppermute([c[:PACK] for c in c3], [(i + 1, i) for i in range(D - 1)])
+    D, m = _shards(c3, mesh)[0], c3[0].shape[0]
+    nxt = coll.ppermute([c[:PACK] for c in c3], [(i + 1, i) for i in range(D - 1)], mesh)
     keys = []
     for c, x in zip(c3, nxt):
         ext = torch.cat([c, x]).to(torch.int64)
@@ -169,23 +189,23 @@ def initial(c3: list, big: int) -> tuple:
             key <<= 3
             key |= ext[j:j + m]
         keys.append(key)
-    return _round(keys, big)
+    return _round(keys, big, mesh)
 
 
-def step(rank: list, h: int, big: int) -> tuple:
+def step(rank: list, h: int, big: int, mesh=None) -> tuple:
     """One doubling round at shift ``h``: ranks over h-prefixes (lane order)
     -> ranks over 2h-prefixes, the sorted lanes, and whether distinct.
     ``rank`` is consumed: once the keys hold it, its tensors' storage is
     released (they are left empty), so that the round's peak does not hold
     it too."""
-    D, m = len(rank), rank[0].shape[0]
-    gidx = lane_index(rank)
+    D, m = _shards(rank, mesh)[0], rank[0].shape[0]
+    gidx = lane_index(rank, mesh)
     # second[i] = rank[i + h] + 1, 0 past the text: whole shards q and q + 1 on
     y = [torch.where(i < big, r + 1, 0) for r, i in zip(rank, gidx)]
     q, r = divmod(h, m)
-    recv_a = y if q == 0 else coll.ppermute(y, [(i, i - q) for i in range(q, D)])
+    recv_a = y if q == 0 else coll.ppermute(y, [(i, i - q) for i in range(q, D)], mesh)
     if r:
-        recv_b = coll.ppermute(y, [(i, i - q - 1) for i in range(q + 1, D)])
+        recv_b = coll.ppermute(y, [(i, i - q - 1) for i in range(q + 1, D)], mesh)
         second = [torch.cat([a[r:], b[:r]]) for a, b in zip(recv_a, recv_b)]
     else:
         second = recv_a
@@ -197,7 +217,7 @@ def step(rank: list, h: int, big: int) -> tuple:
         keys.append(k)
         x.set_()
     del y, recv_a, second
-    return _round(keys, big)
+    return _round(keys, big, mesh)
 
 
 def suffix_array_sharded_arr(codes, mesh) -> list:
@@ -205,23 +225,34 @@ def suffix_array_sharded_arr(codes, mesh) -> list:
     numpy or a tensor) + sentinel, sorted over ``mesh``: a list of int32 [m]
     tensors, one a shard on its device, global lanes s*m .. (s+1)*m - 1,
     the first n + 1 lanes holding the suffix array and the pads values at or
-    past n + 1 (``shard_lanes`` gives m). Symbols are not checked here."""
+    past n + 1 (``shard_lanes`` gives m); across processes, the shards this
+    process owns. Symbols are not checked here."""
     codes = np.asarray(codes.cpu() if isinstance(codes, torch.Tensor) else codes, np.uint8)
     n = codes.shape[0]
     check_size(n)
     big = n + 1
-    rank, order, distinct = initial(text_lanes(codes, mesh), big)
+    rank, order, distinct = initial(text_lanes(codes, mesh), big, mesh)
     h = PACK
     while not bool(distinct) and h < big:
         del order
-        rank, order, distinct = step(rank, h, big)
+        rank, order, distinct = step(rank, h, big, mesh)
         h *= 2
     return order
 
 
-def gather_rows(xs: list, total: int) -> torch.Tensor:
-    """The first ``total`` global rows of a row-sharded array, on the host."""
-    return torch.cat([x.cpu() for x in xs])[:total]
+def gather_rows(xs: list, total: int, mesh=None) -> torch.Tensor:
+    """The first ``total`` global rows of a row-sharded array, on the host
+    of every process (across processes a replicating ``gather``, the
+    counterpart of tpufm's ``_replicated_get``, sa_sharded.py:289)."""
+    return host_rows(xs, mesh)[:total]
+
+
+def host_rows(xs: list, mesh=None) -> torch.Tensor:
+    """Every shard's rows (the shards' lengths may differ) concatenated in
+    shard order on the host, in every process."""
+    if mesh is None or mesh.process_count == 1:
+        return torch.cat([x.cpu() for x in xs])
+    return coll.gather(xs, mesh).cpu()
 
 
 def suffix_array_sharded(codes: np.ndarray, mesh=None, device="cuda") -> np.ndarray:
@@ -241,7 +272,7 @@ def suffix_array_sharded(codes: np.ndarray, mesh=None, device="cuda") -> np.ndar
             f"(got max {int(codes.max())}); use method='native'"
         )
     order = suffix_array_sharded_arr(codes, mesh)
-    return gather_rows(order, codes.shape[0] + 1).numpy().astype(np.int64)
+    return gather_rows(order, codes.shape[0] + 1, mesh).numpy().astype(np.int64)
 
 
 def round_collectives(D: int, m: int, h: int | None = None) -> list:

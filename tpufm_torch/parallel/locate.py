@@ -4,8 +4,8 @@ Counterparts of tpufm/parallel/locate.py, bit-identical to its engines:
 
 ``DataParallelLocate`` (:39-98): the locate tables replicated on every shard
 (small beside the search index), the batch of BWT rows split along the mesh;
-each shard walks its part (K4) and the SA values are merged onto shard 0, 4 B
-a value. A batch off the mesh multiple is padded with row 0, as tpufm pads
+each shard walks its part (K4) and the SA values are merged, 4 B a value,
+every process getting the whole. A batch off the mesh multiple is padded with row 0, as tpufm pads
 it, and the pad's values dropped.
 
 ``DataParallelSearchLocate`` (:101-365): both table sets replicated, the read
@@ -30,6 +30,10 @@ boolean compaction of ``locate_compacted``). So a wave issues every shard's
 search first (K1, no host read) and only then runs each shard's walk and
 verify, so that a card's search is not held behind another card's read. On
 colocated shards the order changes nothing.
+
+Across processes (a mesh of ``initialize_distributed``) every process
+passes the same batch and text, runs the shards it owns, and gets the whole
+result from the merge; no other collective runs.
 """
 
 from __future__ import annotations
@@ -73,12 +77,12 @@ class DataParallelLocate:
             raise ValueError(f"batch {rows.shape[0]} not divisible by mesh size {n}; pad it")
         per = rows.shape[0] // n
         return [torch.from_numpy(rows[s * per:(s + 1) * per].astype(np.int64)).to(dev)
-                for s, dev in enumerate(self.mesh.devices)]
+                for s, dev in zip(self.mesh.local_shards, self.mesh.devices)]
 
     def locate_device(self, parts: list, walk=None) -> torch.Tensor:
-        """Per-shard rows (``place_rows``) -> int64 [N] SA values on shard
-        0's device, no host sync: the bench's entry."""
-        return _merge([e.walk(p, walk) for e, p in zip(self.engines, parts)])
+        """Per-shard rows (``place_rows``) -> int64 [N] SA values on the
+        first shard's device, no host sync: the bench's entry."""
+        return _merge([e.walk(p, walk) for e, p in zip(self.engines, parts)], self.mesh)
 
     def locate_rows(self, rows, wave: int | None = None, walk=None) -> np.ndarray:
         """uint32 [N] BWT rows -> uint32 [N] SA values, in waves of ``wave``
@@ -151,10 +155,10 @@ class DataParallelSearchLocate:
 
     def search_locate_device(self, parts: list, step=None, walk=None) -> torch.Tensor:
         """Per-shard reads (one uint8 [b, L] tensor a shard on its device)
-        -> int64 [B, 2 + max_hits] on shard 0's device: each read's
+        -> int64 [B, 2 + max_hits] on the first shard's device: each read's
         interval, then the positions of its first max_hits rows."""
         ivs = [e.search_engine.search_device(q, step) for e, q in zip(self.engines, parts)]
-        return _merge([e.locate_intervals_device(iv, walk) for e, iv in zip(self.engines, ivs)])
+        return _merge([e.locate_intervals_device(iv, walk) for e, iv in zip(self.engines, ivs)], self.mesh)
 
     def search_locate(self, queries, wave: int | None = None, step=None, walk=None):
         """uint8 [B, L] -> (intervals uint32 [B, 2], positions uint32 [B,
@@ -183,7 +187,7 @@ class DataParallelSearchLocate:
             parts = _split(q, self.mesh)
             ivs = [e.search_variants_device(p, step) for e, p in zip(self.engines, parts)]
             return _merge([e.locate_variants_device(iv, p.shape[0], walk)
-                           for e, iv, p in zip(self.engines, ivs, parts)])
+                           for e, iv, p in zip(self.engines, ivs, parts)], self.mesh)
 
         return stream_waves(queries, self._wave(wave, per_chip), run, None, (self.max_hits,))[:B]
 
@@ -212,7 +216,7 @@ class DataParallelSearchLocate:
         def run(q):
             parts = _split(q, self.mesh)
             seeds = [e.seeds(p, step) for e, p in zip(engines, parts)]
-            return _merge([hits_block(*locate(e, p, s)) for e, p, s in zip(engines, parts, seeds)])
+            return _merge([hits_block(*locate(e, p, s)) for e, p, s in zip(engines, parts, seeds)], self.mesh)
 
         out = stream_waves(queries, self._wave(wave, engine_cls.WAVE), run, None, (mh + 2,))[:B]
         return split_hits(out, mh)

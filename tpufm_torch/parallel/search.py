@@ -6,8 +6,8 @@ Counterparts of tpufm/parallel/search.py, bit-identical to its engines:
 query batch split along the mesh; each shard runs a ``SearchEngine`` on its
 part (K1's pair entry on the fused rows, or K8's alternate-counters entry on
 ``occ_slim`` for an alternate-counters index, tpufm's ``layout="split"``
-branch), and the per-shard (lo, hi) results are merged onto shard 0 at the
-end, 8 B a read: the counterpart of the replicated out-sharding. Colocated
+branch), and the per-shard (lo, hi) results are merged at the end, 8 B a
+read, every process getting the whole: the replicated out-sharding. Colocated
 shards (one device repeated) share one engine and its tables, which no
 search writes.
 
@@ -34,6 +34,16 @@ the prefix LUT is built by the engine's own LUT-less sharded search.
 Batches are padded to a mesh multiple by cycling their own reads (pad_cycle),
 never with zeros, which would crowd one a2a bucket. The collectives
 (tpufm_torch.parallel.collectives) take and return one tensor per shard.
+
+Across processes (a mesh of ``initialize_distributed``) both engines run
+SPMD: every process passes the same host batch (and builds or loads the
+same index), places the parts of the shards it owns (``put_global``'s
+counterpart, tpufm/parallel/search.py:55), runs their rounds, and gets the
+whole result. Shard ids stay global (K9's owner test, the query split);
+"the first shard" is this process's first. Each process builds its own
+copy of a data-parallel prefix LUT, bit-identical to the others'; the
+sharded engine's LUT comes from its own sharded search, which every
+process runs.
 """
 
 from __future__ import annotations
@@ -66,16 +76,17 @@ from tpufm_torch.parallel.mesh import Mesh
 
 def _split(queries: np.ndarray, mesh: Mesh) -> list:
     """A host batch [B, L], B a mesh multiple, cut into one part a shard,
-    each on its shard's device."""
+    the parts of this process's shards each on its shard's device."""
     q = np.require(queries, np.uint8, ["C", "W"])
     per = q.shape[0] // mesh.size
-    return [torch.from_numpy(q[s * per:(s + 1) * per]).to(dev) for s, dev in enumerate(mesh.devices)]
+    return [torch.from_numpy(q[s * per:(s + 1) * per]).to(dev) for s, dev in zip(mesh.local_shards, mesh.devices)]
 
 
-def _merge(parts: list) -> torch.Tensor:
-    """Per-shard int64 results (uint32 values) -> one int64 tensor on shard
-    0's device, in shard order; 4 B a value cross between shards."""
-    return from_u32_bits(coll.gather([to_u32_bits(p) for p in parts]))
+def _merge(parts: list, mesh: Mesh) -> torch.Tensor:
+    """Per-shard int64 results (uint32 values) -> one int64 tensor of every
+    shard's, in shard order, on this process's first shard's device (every
+    process gets the whole); 4 B a value cross between shards."""
+    return from_u32_bits(coll.gather([to_u32_bits(p) for p in parts], mesh))
 
 
 def _per_device(devices, make) -> list:
@@ -140,8 +151,9 @@ class DataParallelEngine:
 
     def search_device(self, queries_sharded: list, step=None) -> torch.Tensor:
         """Per-shard reads (``shard_queries``) -> int64 [B, 2] intervals on
-        shard 0's device, no host sync. ``step`` as ``SearchEngine``'s."""
-        return _merge([e.search_device(q, step) for e, q in zip(self.engines, queries_sharded)])
+        the first shard's device, no host sync. ``step`` as
+        ``SearchEngine``'s."""
+        return _merge([e.search_device(q, step) for e, q in zip(self.engines, queries_sharded)], self.mesh)
 
     def search(self, queries, step=None) -> np.ndarray:
         """uint8 [B, L] -> uint32 [B, 2]. A batch not divisible by the mesh
@@ -169,7 +181,7 @@ class DataParallelEngine:
             raise ValueError(f"shortest read ({int(lengths.min())}) is below lut_m={self.lut_m}")
         queries, B = self._padded(queries)
         parts = [e.search_varlen_device(q, step) for e, q in zip(self.engines, self.shard_queries(queries))]
-        return _merge(parts).cpu().numpy().astype(np.uint32)[:B]
+        return _merge(parts, self.mesh).cpu().numpy().astype(np.uint32)[:B]
 
     def count(self, queries, mismatches: int = 0, step=None) -> np.ndarray:
         """Occurrence counts per read over the mesh, uint32 [B]: exact, or
@@ -190,7 +202,8 @@ class DataParallelEngine:
         wave = max(1, (1 << 20) // (3 * L + 1)) * n
 
         def counts(q):
-            return _merge([e.count_mismatch_device(p, step) for e, p in zip(self.engines, self.shard_queries(q))])
+            return _merge([e.count_mismatch_device(p, step) for e, p in zip(self.engines, self.shard_queries(q))],
+                          self.mesh)
 
         return stream_waves(queries, wave, counts, None)[:B]
 
@@ -242,9 +255,9 @@ class ShardedIndexEngine:
         self.k, self.d, self.bwtsize, self.e_local = tables.k, tables.d, tables.bwtsize, tables.e_local
         self.config = IndexConfig(k=self.k, d=self.d)
         self.lut_m = lut_m
-        devs = mesh.devices
-        self.occ = [_words(t, dev) for t, dev in zip(tables.occ, devs)]
-        self.bitmaps = [_rows(t, dev) for t, dev in zip(tables.bitmaps, devs)]
+        devs, mine = mesh.devices, mesh.local_shards
+        self.occ = [_words(tables.occ[s], dev) for s, dev in zip(mine, devs)]
+        self.bitmaps = [_rows(tables.bitmaps[s], dev) for s, dev in zip(mine, devs)]
         self.dollar = _per_device(devs, lambda dev: _int64(tables.dollar, dev))
         # the k=1 tail, replicated: its rounds run on each shard's own reads
         self.tail_d = tables.tail_d
@@ -257,7 +270,7 @@ class ShardedIndexEngine:
         self.last_overflow_waves = []
         #: seconds the LUT build took (None: no LUT built here)
         self.lut_build_seconds = None
-        self.lut = [None] * D
+        self.lut = [None] * len(devs)
         if tables.lut is not None:
             self.lut = _per_device(devs, lambda dev: _words(tables.lut, dev))
         elif lut_m:
@@ -276,17 +289,20 @@ class ShardedIndexEngine:
         """(block, code, interval) of every end, int32 [B, 3] (uint32 bits)."""
         return [to_u32_bits(torch.stack([e // self.d, c, e], dim=1)) for e, c in zip(ends, codes)]
 
-    def _answer(self, s: int, req: torch.Tensor) -> torch.Tensor:
-        """Shard ``s``'s owner answers to the requests ``req`` (K9)."""
-        return lf_answer_owned(self.bitmaps[s], self.occ[s], req, s, self.e_local, self.dollar[s], self.k, self.d)
+    def _answer(self, i: int, req: torch.Tensor) -> torch.Tensor:
+        """The owner answers of this process's i-th shard (global shard
+        ``mesh.local_shards[i]``) to the requests ``req`` (K9)."""
+        return lf_answer_owned(self.bitmaps[i], self.occ[i], req, self.mesh.local_shards[i], self.e_local,
+                               self.dollar[i], self.k, self.d)
 
     def _step_allgather(self, ends, codes, answer):
-        D = self.mesh.size
+        mesh = self.mesh
+        D = mesh.size
         reqs = self._requests(ends, codes)
         B = reqs[0].shape[0]
-        gathered = coll.all_gather(reqs)  # [D, B, 3] on every shard
-        answers = [answer(s, g.view(D * B, 3)).view(D, B) for s, g in enumerate(gathered)]
-        return [from_u32_bits(c[s]) for s, c in enumerate(coll.psum(answers))], False
+        gathered = coll.all_gather(reqs, mesh)  # [D, B, 3] on every shard
+        answers = [answer(i, g.view(D * B, 3)).view(D, B) for i, g in enumerate(gathered)]
+        return [from_u32_bits(c[s]) for s, c in zip(mesh.local_shards, coll.psum(answers, mesh))], False
 
     def _step_ring(self, ends, codes, answer):
         D = self.mesh.size
@@ -297,17 +313,17 @@ class ShardedIndexEngine:
             reqs = [torch.cat([r, r.new_zeros((1, 3))]) for r in reqs]
         ans = [r.new_zeros(2 * half) for r in reqs]
 
-        def compute(h):  # every shard answers half h where it lies, in place
+        def compute(h):  # every shard (of this process) answers half h where it lies, in place
             part = slice(h * half, (h + 1) * half)
-            for s in range(D):
-                ans[s][part] += answer(s, reqs[s][part])
+            for i in range(len(reqs)):
+                ans[i][part] += answer(i, reqs[i][part])
 
         def transit(h):  # half h, requests and answers, one hop along the ring
             part = slice(h * half, (h + 1) * half)
-            moved_r = coll.ppermute([r[part] for r in reqs])
-            moved_a = coll.ppermute([a[part] for a in ans])
-            for s in range(D):
-                reqs[s][part], ans[s][part] = moved_r[s], moved_a[s]
+            moved_r = coll.ppermute([r[part] for r in reqs], 1, self.mesh)
+            moved_a = coll.ppermute([a[part] for a in ans], 1, self.mesh)
+            for i in range(len(reqs)):
+                reqs[i][part], ans[i][part] = moved_r[i], moved_a[i]
 
         if D == 1:  # the degenerate ring: answer everything at home
             compute(0)
@@ -336,11 +352,12 @@ class ShardedIndexEngine:
         C = max(1, int(-(-B * slack // D)))
         owners = [(e // self.d // self.e_local).clamp(max=D - 1) for e in ends]
         counts = [torch.bincount(o, minlength=D) for o in owners]
-        if bool(coll.pmax([c.max() for c in counts])[0] > C):  # a bucket overflows somewhere
+        # a bucket overflows somewhere (every shard's copy is the same: read the first)
+        if bool(coll.pmax([c.max() for c in counts], self.mesh)[0] > C):
             return self._step_allgather(ends, codes, answer)[0], True
         rows = torch.arange(C, device=reqs[0].device)
         perms, offs, send = [], [], []
-        for s in range(D):
+        for s in range(len(reqs)):  # this process's shards
             perm = torch.argsort(owners[s], stable=True)
             off = torch.cumsum(counts[s], 0) - counts[s]
             # destination j gets rows off[j] .. off[j] + C of the sorted
@@ -350,11 +367,11 @@ class ShardedIndexEngine:
             send.append(stream[off[:, None] + rows.to(stream.device)])
             perms.append(perm)
             offs.append(off)
-        recv = coll.all_to_all(send)  # recv[s][j]: shard j's bucket for s
+        recv = coll.all_to_all(send, self.mesh)  # recv[s][j]: shard j's bucket for s
         answers = [answer(s, r.view(D * C, 3)).view(D, C) for s, r in enumerate(recv)]
-        back = coll.all_to_all(answers)  # back[s][j]: owner j's answers to s
+        back = coll.all_to_all(answers, self.mesh)  # back[s][j]: owner j's answers to s
         out = []
-        for s in range(D):
+        for s in range(len(reqs)):
             # write back in destination order: bucket j + 1 starts at
             # off[j] + cnt[j] and overwrites bucket j's rows past its count
             # (the trailing C slots take the last bucket's)
@@ -380,7 +397,7 @@ class ShardedIndexEngine:
 
     def search_device(self, queries_sharded: list, use_lut: bool = True):
         """Per-shard reads (``place_queries``) -> (int64 [B, 2] intervals on
-        shard 0's device, bool [rounds] numpy: the rounds that took the a2a
+        the first shard's device, bool [rounds] numpy: the rounds that took the a2a
         fallback). The owner answers are K9's and the tail rounds K1's.
         ``use_lut=False`` starts from the full interval."""
         B, L = queries_sharded[0].shape
@@ -414,10 +431,10 @@ class ShardedIndexEngine:
             ivs = [_rounds(iv, h.flip(1).to(torch.int64).T.contiguous(),
                            _fused_round(te, td, 1, self.tail_d, None))
                    for iv, h, te, td in zip(ivs, heads, self.tail_entries, self.tail_dollar)]
-        return _merge(ivs), np.asarray(overflow, dtype=bool)
+        return _merge(ivs, self.mesh), np.asarray(overflow, dtype=bool)
 
     def _build_lut(self, m: int) -> torch.Tensor:
-        """int32 [4^m, 2] (uint32 bits) on shard 0's device: the SA interval
+        """int32 [4^m, 2] (uint32 bits) on the first shard's device: the SA interval
         of every m-mer from this engine's LUT-less sharded search, in waves
         of a mesh multiple of codes (the last padded with code 0, its rows
         dropped), each shard decoding its codes on its own device."""
@@ -428,7 +445,7 @@ class ShardedIndexEngine:
         parts = []
         for start in range(0, n, wave):
             shards = []
-            for s, dev in enumerate(self.mesh.devices):
+            for s, dev in zip(self.mesh.local_shards, self.mesh.devices):
                 codes = torch.arange(start + s * per, start + (s + 1) * per, dtype=torch.int64, device=dev)
                 shards.append(decode_prefix_codes(torch.where(codes < n, codes, 0), m))
             out, _ = self.search_device(shards, use_lut=False)

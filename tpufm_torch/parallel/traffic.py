@@ -21,6 +21,12 @@ per-shard shape, round by round, against the routing's plan:
   [D, C, 3] and [D, C] with C = ceil(2B / D), or, on a round the search
   reports as overflowing, the allgather round.
 A mesh of one shard logs no collectives, and the check requires that.
+
+``wave_bytes`` is the closed form of the bytes such a wave logs, summed over
+the mesh and split into bytes between shards of one process and bytes
+across processes (a mesh of P processes owning L shards each; the log's
+``cross``), and the check holds the log to it as well. The log is the same
+on every process, and so is the check.
 """
 
 from __future__ import annotations
@@ -67,6 +73,57 @@ def collective_bytes_model(routing: str, n_devices: int,
     raise ValueError(f"unknown routing {routing!r}")
 
 
+def _op_bytes(kind: str, n: int, D: int, L: int) -> tuple:
+    """(bytes, cross) that ``recording()`` logs for an op whose per-shard
+    tensor has ``n`` bytes: an all-gather or all-reduce moves every shard's
+    tensor to each of the D - 1 others (D - L of them in other processes),
+    an all-to-all each of the D - 1 rows it does not keep."""
+    if kind in ("all-gather", "all-reduce"):
+        return D * (D - 1) * n, D * (D - L) * n
+    return (D - 1) * n, (D - L) * n
+
+
+def wave_bytes(routing: str, D: int, B_total: int, overflow=(), L: int | None = None) -> dict:
+    """The bytes one wave of B_total reads logs on D shards, L a process
+    (default D: one process), by routing ("dp" the data-parallel engine),
+    ``overflow`` its per-round a2a flags (one a k-step round): {"bytes":
+    between distinct shards, "across": between shards of different
+    processes, "within": the rest}. Per round, B = 2 * (B_total / D) ends a
+    shard: allgather an all-gather of [B, 3] and an all-reduce of [D, B]
+    (int32); ring 2D hops of [B/2, 3] and [B/2] (rounded up), of which P of
+    the D ring edges cross processes where P > 1; a2a a pmax of one int64,
+    then the all-to-alls of [D, C, 3] and [D, C], or the allgather round.
+    Last the merge of every shard's [B_total / D, 2] int32 onto shard 0
+    (those of processes other than shard 0's across)."""
+    L = D if L is None else L
+    P, B, per = D // L, 2 * (B_total // D), B_total // D
+    total, cross = 0, 0
+
+    def add(kind, n):
+        nonlocal total, cross
+        b, c = _op_bytes(kind, n, D, L)
+        total, cross = total + b, cross + c
+
+    if D > 1:
+        for ov in (overflow if routing != "dp" else ()):
+            if routing == "a2a":
+                add("all-reduce", 8)
+            if routing == "allgather" or (routing == "a2a" and ov):
+                add("all-gather", 12 * B)
+                add("all-reduce", 4 * D * B)
+            elif routing == "a2a":
+                C = max(1, -(-2 * B // D))
+                add("all-to-all", 12 * D * C)
+                add("all-to-all", 4 * D * C)
+            else:  # ring: 2D hops, each of requests and answers
+                half = (B + 1) // 2
+                total += 2 * D * D * 16 * half
+                cross += 2 * D * (P if P > 1 else 0) * 16 * half
+        total += 8 * per * (D - 1)
+        cross += 8 * per * (D - L)
+    return {"bytes": total, "across": cross, "within": total - cross}
+
+
 def _round_plan(routing: str, D: int, B: int, overflow: bool) -> list:
     """[(kind, shape, why)] of one LF round's collectives, in order."""
     allgather = [("all-gather", (D, B, 3), f"request circulation, 12*{B}*{D} B materialized/chip/round"),
@@ -86,11 +143,12 @@ def _round_plan(routing: str, D: int, B: int, overflow: bool) -> list:
                    ("all-to-all", (D, C), "bucketed answers, 4 B/row")]
 
 
-def check_collective_log(log: list, routing: str, D: int, B_total: int, overflow=()) -> dict:
+def check_collective_log(log: list, routing: str, D: int, B_total: int, overflow=(), L: int | None = None) -> dict:
     """Hold ``log`` (``Collective``s of one search of B_total reads on D
-    shards, ``overflow`` its per-round a2a flags, one per k-step round for a
-    sharded engine) to the routing's plan; raise AssertionError naming the
-    first op missing or out of place, beside what was logged."""
+    shards, L a process, ``overflow`` its per-round a2a flags, one per
+    k-step round for a sharded engine) to the routing's plan and to
+    ``wave_bytes``; raise AssertionError naming the first op missing or out
+    of place, beside what was logged."""
     got = [(c.kind, c.shape) for c in log]
     B = 2 * (B_total // D)  # interval ends per shard
     model = (collective_bytes_model(routing, D, B) if routing != "dp" else {"sent": 0, "received": 0})
@@ -109,23 +167,28 @@ def check_collective_log(log: list, routing: str, D: int, B_total: int, overflow
     )
     if routing == "ring":
         assert not any(k == "all-gather" for k, _ in got), "ring routing must not materialize the full request set"
-    return {"model": model, "shapes": got, "bytes": sum(c.bytes for c in log)}
+    want = wave_bytes(routing, D, B_total, overflow, L)
+    logged = {"bytes": sum(c.bytes for c in log), "across": sum(c.cross for c in log)}
+    logged["within"] = logged["bytes"] - logged["across"]
+    assert logged == want, f"routing={routing}: logged bytes {logged}, closed form {want}"
+    return {"model": model, "shapes": got, **logged}
 
 
 def assert_collective_model(eng, queries) -> dict:
     """Run one wave of ``eng``'s search on ``queries`` (a host batch [B_total,
     L], B_total a mesh multiple, or the per-shard parts ``shard_queries`` /
     ``place_queries`` give) with the collectives log on, and hold the log to
-    the model (``check_collective_log``). Returns {"model": ..., "shapes":
-    [...], "bytes": ...} for the caller to log."""
+    the model (``check_collective_log``); across processes every process
+    runs it on the same batch. Returns {"model": ..., "shapes": [...],
+    "bytes": ..., "within": ..., "across": ...} for the caller to log."""
     from tpufm_torch.parallel import collectives as coll
 
     D = eng.mesh.size
     routing = getattr(eng, "routing", "dp")
     if not isinstance(queries, (list, tuple)):
         queries = eng.place_queries(queries) if routing != "dp" else eng.shard_queries(queries)
-    B_total = sum(q.shape[0] for q in queries)
+    B_total = sum(q.shape[0] for q in queries) * eng.mesh.process_count
     with coll.recording() as log:
         out = eng.search_device(list(queries))
     overflow = () if routing == "dp" else out[1]
-    return check_collective_log(log, routing, D, B_total, overflow)
+    return check_collective_log(log, routing, D, B_total, overflow, eng.mesh.local_count)
