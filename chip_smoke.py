@@ -281,12 +281,12 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import datetime
 import io
 import json
 import os
 import re
 import shutil
-import socket
 import statistics
 import subprocess
 import sys
@@ -3478,15 +3478,18 @@ def multi_process(tmp: str, codes: np.ndarray, index, fmi: str, reads: np.ndarra
     setup_s = time.perf_counter() - t0
 
     t1 = time.perf_counter()
-    with socket.socket() as free:
-        free.bind(("127.0.0.1", 0))
-        coordinator = f"127.0.0.1:{free.getsockname()[1]}"
+    # the coordinator's store is held here, on a port the system picks, for the workers' whole run, as
+    # torchrun's agent holds it: no port is freed and bound again, so no other process can take it between
+    store = torch.distributed.TCPStore("127.0.0.1", 0, world_size=MP_PROCS, is_master=True, wait_for_workers=False,
+                                       timeout=datetime.timedelta(seconds=MP_TIMEOUT_S))
+    coordinator = f"127.0.0.1:{store.port}"
+    env = {**os.environ, "TORCHELASTIC_USE_AGENT_STORE": "True"}
     procs = []
     try:
         for pid in range(MP_PROCS):
             with open(work / f"worker_{pid}.log", "w") as log:
                 procs.append(subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), "--mesh-worker",
-                                               coordinator, str(pid), str(work)], cwd=REPO, stdout=log,
+                                               coordinator, str(pid), str(work)], cwd=REPO, env=env, stdout=log,
                                               stderr=subprocess.STDOUT))
         # until both end, one fails (its peer would wait out the group's timeout) or the time is up
         while any(p.poll() is None for p in procs) and not any(p.poll() for p in procs):
@@ -3498,6 +3501,7 @@ def multi_process(tmp: str, codes: np.ndarray, index, fmi: str, reads: np.ndarra
             if p.poll() is None:
                 p.kill()
                 p.wait()
+        del store
     run_s = time.perf_counter() - t1
     failed = [(pid, p.returncode) for pid, p in enumerate(procs) if p.returncode != 0]
     if failed:  # each failed worker's exit code and the end of its log (a peer killed here exits -9)

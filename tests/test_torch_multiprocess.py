@@ -6,20 +6,20 @@ the collectives over the global 4-shard mesh that ``make_mesh()`` spans
 of tests/test_multiprocess.py, at its sizes: a 4,096-base text, k=2 d=32,
 64 x 24 bp reads, locate s=8, 21 seed reads at m=2. Every process's result
 must equal tpufm's one-process oracle or builder; the search-and-locate,
-Hamming <= 1, edit and paired sources equal the port's one-process mesh of
-four CPU shards (held to tpufm's in tests/test_torch_parallel_locate.py);
-each collective equals the same op on ``make_mesh(4, device="cpu")`` in one
+Hamming <= 1, seed, edit, variable-length and paired sources equal tpufm's
+engines on jax's CPU mesh of four devices on the workers' own inputs (and
+the port's one-process mesh of four CPU shards); each collective equals the same op on ``make_mesh(4, device="cpu")`` in one
 process, shard by shard, and logs the same bytes, with the cross-process
 share its closed form. Integers throughout: tolerance 0.
 
 Every spawn has a time limit that kills both workers, and the group its
 own timeout (120 s) so that a lost peer fails the run."""
 
+import datetime
 import importlib.util
 import io
 import json
 import os
-import socket
 import subprocess
 import sys
 import time
@@ -35,18 +35,18 @@ NPROC, SHARDS = 2, 2
 D = NPROC * SHARDS
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _spawn(worker: Path, outdir, *extra, timeout: int = 240) -> None:
     """Run NPROC workers against one coordinator; fail, every worker
     killed, past ``timeout`` seconds or as soon as one exits non-zero (its
-    peers would wait out the group's timeout)."""
-    coordinator = f"127.0.0.1:{_free_port()}"
+    peers would wait out the group's timeout). The coordinator's store is
+    held here, on a port the system picks, for the workers' whole run, as
+    torchrun's agent holds it (TORCHELASTIC_USE_AGENT_STORE): no port is
+    freed and then bound again, so no other process can take it between."""
+    store = torch.distributed.TCPStore("127.0.0.1", 0, world_size=NPROC, is_master=True, wait_for_workers=False,
+                                       timeout=datetime.timedelta(seconds=timeout))
+    coordinator = f"127.0.0.1:{store.port}"
     env = {k: v for k, v in os.environ.items() if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")}
+    env["TORCHELASTIC_USE_AGENT_STORE"] = "True"
     logs = [Path(outdir) / f"worker_{pid}.log" for pid in range(NPROC)]
     procs, start = [], time.monotonic()
     try:
@@ -63,6 +63,7 @@ def _spawn(worker: Path, outdir, *extra, timeout: int = 240) -> None:
             if p.poll() is None:
                 p.kill()
                 p.wait()
+        del store
     for p, log in zip(procs, logs):
         assert p.returncode == 0, f"worker failed ({p.returncode}):\n{log.read_text()[-6000:]}"
 
@@ -153,34 +154,53 @@ def _npy(arr: np.ndarray) -> bytes:
 
 def test_two_process_sources_match_one_process(cpu_run):
     """search_varlen, count(mismatches=1), search_locate, locate_mismatch,
-    locate_edits and the paired engine's three sources across processes
-    equal the port's one-process mesh."""
+    locate_approx, locate_edits and the paired engine's three sources across
+    processes, on the workers' own inputs: equal to tpufm's engines on jax's
+    CPU mesh of four devices, and to the port's one-process mesh."""
+    from tpufm.engine.paired import PairedEndEngine as JaxPaired
+    from tpufm.index.builder import derive_tail as jax_derive_tail
+    from tpufm.parallel import DataParallelEngine as JaxDPE
+    from tpufm.parallel import DataParallelSearchLocate as JaxDPSL
+    from tpufm.parallel import make_mesh as jax_make_mesh
     from tpufm_torch.engine.paired import PairedEndEngine
     from tpufm_torch.host.index import IndexConfig, build_index, derive_tail
     from tpufm_torch.host.locate import build_locate
-    from tpufm_torch.host.seqio import generate_read_pairs
     from tpufm_torch.parallel import DataParallelEngine, DataParallelSearchLocate, make_mesh
 
-    codes, _, _, queries = _case()
+    codes, jidx, jloc, queries = _case()
+    mut, varlen = _load(cpu_run, "seed_mut", 0), _load(cpu_run, "varlen_in", 0)
+    r1, r2 = _load(cpu_run, "pairs_r1", 0), _load(cpu_run, "pairs_r2", 0)
+    sources = (("exact", {}), ("m2", {"mismatches": 2, "text": codes}), ("e1", {"edits": 1, "text": codes}))
+
+    def run(dpe, dpsl, dpsl_lut, paired, tail):
+        out = dict(zip(("sl_iv", "sl_pos"), dpsl_lut.search_locate(queries)))
+        out["mm1_pos"] = dpsl.locate_mismatch(mut)
+        out.update(zip(("seed_pos", "seed_cnt", "seed_ovf"), dpsl.locate_approx(mut, codes, mismatches=2,
+                                                                                 seed_hits=64)))
+        out.update(zip(("edit_pos", "edit_cnt", "edit_ovf"), dpsl.locate_edits(mut, codes, edits=2, seed_hits=64)))
+        out["count_mm1"] = dpe(lut_m=0).count(queries, mismatches=1)
+        out["varlen"] = dpe(lut_m=4, tail_index=tail).search_varlen(varlen)
+        for name, kw in sources:
+            for i, arr in enumerate(paired(**kw).pair(r1, r2)):
+                out[f"paired_{name}_{i}"] = arr
+        return {k: np.asarray(v) for k, v in out.items()}
+
+    jmesh = jax_make_mesh(D)
+    want = run(lambda **kw: JaxDPE(jidx, jmesh, **kw), JaxDPSL(jidx, jloc, jmesh, max_hits=8),
+               JaxDPSL(jidx, jloc, jmesh, max_hits=8, lut_m=4),
+               lambda **kw: JaxPaired(jidx, jloc, 60, 200, max_hits=8, mesh=jmesh, **kw), jax_derive_tail(jidx))
     index, loc = build_index(codes, IndexConfig(k=2, d=32)), build_locate(codes, sample_rate=8, d=32)
     mesh = make_mesh(D, device="cpu")
-    mut = _load(cpu_run, "seed_mut", 0)
-    dpsl = DataParallelSearchLocate(index, loc, mesh, max_hits=8)
-    iv, pos = DataParallelSearchLocate(index, loc, mesh, max_hits=8, lut_m=4).search_locate(queries)
-    epos, ecnt, _ = dpsl.locate_edits(mut, codes, edits=1, seed_hits=64)
-    _, _, sovf = dpsl.locate_approx(mut, codes, mismatches=2, seed_hits=64)
-    varlen = queries.copy()
-    varlen[::3, :5] = 0xFF
-    want = {"sl_iv": iv, "sl_pos": pos, "mm1_pos": dpsl.locate_mismatch(mut), "edit_pos": epos, "edit_cnt": ecnt,
-            "seed_ovf": sovf, "count_mm1": DataParallelEngine(index, mesh).count(queries, mismatches=1),
-            "varlen": DataParallelEngine(index, mesh, lut_m=4, tail_index=derive_tail(index)).search_varlen(varlen)}
-    r1, r2 = generate_read_pairs(codes, 24, 19, 60, 200, seed=9)
-    for name, kw in (("exact", {}), ("m2", {"mismatches": 2, "text": codes}), ("e1", {"edits": 1, "text": codes})):
-        for i, arr in enumerate(PairedEndEngine(index, loc, 60, 200, max_hits=8, mesh=mesh, **kw).pair(r1, r2)):
-            want[f"paired_{name}_{i}"] = arr
+    one = run(lambda **kw: DataParallelEngine(index, mesh, **kw), DataParallelSearchLocate(index, loc, mesh, max_hits=8),
+              DataParallelSearchLocate(index, loc, mesh, max_hits=8, lut_m=4),
+              lambda **kw: PairedEndEngine(index, loc, 60, 200, max_hits=8, mesh=mesh, **kw), derive_tail(index))
+    assert want["seed_cnt"].sum() > 0 and want["edit_cnt"].sum() > 0 and want["paired_exact_2"].sum() > 0
     for pid in range(NPROC):
         for name, arr in want.items():
-            np.testing.assert_array_equal(_load(cpu_run, name, pid), arr, err_msg=name)
+            got = _load(cpu_run, name, pid)
+            assert (got.dtype, got.shape) == (arr.dtype, arr.shape), name
+            np.testing.assert_array_equal(got, arr, err_msg=name)
+            np.testing.assert_array_equal(got, one[name], err_msg=name)
 
 
 #: (bytes, cross) each op logs on 2 x 2 shards: all-gather and all-reduce

@@ -204,12 +204,10 @@ with tempfile.TemporaryDirectory() as d:
     tables = build_index_sharded(codes, IndexConfig(k=3, d=64), mesh4, return_host=False)
     back = load_store_sharded(save_store_sharded(os.path.join(d, "s.tpufm"), tables), mesh4)
     assert np.array_equal(ShardedIndexEngine(back, mesh4, lut_m=6).search(queries), want)
-import socket  # a one-process gloo group of world size 1, and a search over its mesh
+# a one-process gloo group of world size 1, and a search over its mesh; port 0:
+# its store listens on a port the system picks (no peer needs to know it)
 from tpufm_torch.parallel import initialize_distributed, shutdown_distributed
-with socket.socket() as free:
-    free.bind(("127.0.0.1", 0))
-    port = free.getsockname()[1]
-initialize_distributed(f"127.0.0.1:{port}", num_processes=1, process_id=0, backend="gloo", timeout=60)
+initialize_distributed("127.0.0.1:0", num_processes=1, process_id=0, backend="gloo", timeout=60)
 group_mesh = make_mesh(2, device="cpu")
 assert (group_mesh.size, group_mesh.process_count, group_mesh.local_shards) == (2, 1, (0, 1))
 assert np.array_equal(ShardedIndexEngine(index, group_mesh, routing="ring", lut_m=6).search(queries), want)

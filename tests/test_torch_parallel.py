@@ -8,6 +8,7 @@ under ``shard_map``, the collectives and the mesh. The cases mirror
 tests/test_parallel.py. Inputs come from numpy seeds; intervals, counts and
 flags are integers and compare exactly (tolerance 0)."""
 
+import datetime
 import functools
 
 import jax
@@ -36,6 +37,7 @@ from tpufm_torch.parallel import (
     collective_bytes_model,
     initialize_distributed,
     make_mesh,
+    shutdown_distributed,
 )
 from tpufm_torch.parallel import collectives as coll
 from tpufm_torch.parallel import traffic
@@ -411,7 +413,7 @@ def test_mesh_pad_cycle_and_stream_waves(monkeypatch):
     assert Mesh([torch.device("cpu")] * 2, "x").axis_names == ("x",)
     # initialize_distributed's refusals, before it joins any group: no
     # coordinator and no torchrun environment; NCCL with two ranks on one card
-    for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_WORLD_SIZE"):
+    for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_WORLD_SIZE", "LOCAL_RANK"):
         monkeypatch.delenv(var, raising=False)
     with pytest.raises(ValueError, match="no coordinator given and no torchrun environment"):
         initialize_distributed()
@@ -426,6 +428,23 @@ def test_mesh_pad_cycle_and_stream_waves(monkeypatch):
     monkeypatch.setenv("LOCAL_WORLD_SIZE", "2")
     with pytest.raises(ValueError, match="NCCL refuses two ranks on one card"):
         initialize_distributed(backend="nccl")
+    # NCCL where every rank would take every card: a host of unknown ranks
+    # (a coordinator off this host) or of two ranks with two cards; none of
+    # these reaches the group
+    monkeypatch.setattr(torch.distributed, "init_process_group", lambda **kw: bound.append(kw))
+    monkeypatch.setattr(torch.cuda, "set_device", lambda i: bound.append(i))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    bound = []
+    for coordinator in ("coordinator.invalid:1", "127.0.0.1:1"):
+        with pytest.raises(ValueError, match="backend='nccl' with no local_device_ids and no LOCAL_RANK"):
+            initialize_distributed(coordinator, num_processes=2, process_id=0, backend="nccl")
+    assert bound == []
+    # a named card binds the process to it before the group forms
+    initialize_distributed("coordinator.invalid:1", num_processes=2, process_id=1, local_device_ids=[1],
+                           backend="nccl")
+    assert bound == [1, {"backend": "nccl", "init_method": "tcp://coordinator.invalid:1", "world_size": 2,
+                         "rank": 1, "timeout": datetime.timedelta(seconds=300)}]
+    shutdown_distributed()
     assert not torch.distributed.is_initialized()
 
 

@@ -123,6 +123,7 @@ def main() -> None:
     save("result", DataParallelEngine(index, mesh, lut_m=4).search(queries))
     varlen = queries.copy()
     varlen[::3, :5] = 0xFF  # every third read 19 bp, right-aligned
+    save("varlen_in", varlen)
     save("varlen", DataParallelEngine(index, mesh, lut_m=4, tail_index=derive_tail(index)).search_varlen(varlen))
     save("count_mm1", DataParallelEngine(index, mesh).count(queries, mismatches=1))
     traffic = {"dp": assert_collective_model(DataParallelEngine(index, mesh), queries)}
@@ -171,10 +172,13 @@ def main() -> None:
     save("sl_iv", iv)
     save("sl_pos", pos)
     save("mm1_pos", dpsl.locate_mismatch(mut))
-    epos, ecnt, eovf = dpsl.locate_edits(mut, codes, edits=1, seed_hits=64)
+    epos, ecnt, eovf = dpsl.locate_edits(mut, codes, edits=2, seed_hits=64)
     save("edit_pos", epos)
     save("edit_cnt", ecnt)
+    save("edit_ovf", eovf)
     r1, r2 = generate_read_pairs(codes, 24, 19, 60, 200, seed=9)
+    save("pairs_r1", r1)
+    save("pairs_r2", r2)
     for name, kw in (("exact", {}), ("m2", {"mismatches": 2, "text": codes}), ("e1", {"edits": 1, "text": codes})):
         got = PairedEndEngine(index, loc, 60, 200, max_hits=8, mesh=mesh, **kw).pair(r1, r2)
         for i, arr in enumerate(got):

@@ -113,10 +113,16 @@ def _distributed() -> bool:
 
 
 def _local_cards() -> list:
-    ids = _group.get("local_device_ids")
-    if ids is None:
-        ids = [int(os.environ["LOCAL_RANK"])] if "LOCAL_RANK" in os.environ else range(torch.cuda.device_count())
-    return [torch.device("cuda", i) for i in ids]
+    ids = _card_ids(_group.get("local_device_ids"))
+    return [torch.device("cuda", i) for i in (range(torch.cuda.device_count()) if ids is None else ids)]
+
+
+def _card_ids(local_device_ids) -> list | None:
+    """This process's cards as the caller named them: ``local_device_ids``,
+    else the card torchrun's LOCAL_RANK names, else None (every card)."""
+    if local_device_ids is not None:
+        return list(local_device_ids)
+    return [int(os.environ["LOCAL_RANK"])] if "LOCAL_RANK" in os.environ else None
 
 
 def _spanning(n_devices: int | None, axis_name: str, dev: torch.device) -> Mesh:
@@ -137,7 +143,8 @@ def _spanning(n_devices: int | None, axis_name: str, dev: torch.device) -> Mesh:
         devices = cards[:per]
         nccl = "nccl" in backend
         if nccl:
-            _check_nccl_cards(_group.get("ranks_on_host"))
+            _check_nccl_cards(_group.get("ranks_on_host"), _group.get("local_device_ids"))
+            torch.cuda.set_device(devices[0])
         transport = devices[0] if nccl else torch.device("cpu")
     if n_devices is not None and (n_devices % P or not per):
         raise ValueError(f"a mesh of {n_devices} shards over {P} processes: give each process the same "
@@ -158,8 +165,12 @@ def _loopback(host: str) -> bool:
         return False
 
 
-def _check_nccl_cards(ranks_on_host: int | None) -> None:
-    """Raise where NCCL would find two ranks of this host on one card."""
+def _check_nccl_cards(ranks_on_host: int | None, local_device_ids) -> int:
+    """Raise where NCCL would find two ranks of this host on one card, or
+    where every process would take every card of its host (no
+    ``local_device_ids`` and no LOCAL_RANK, and more than one rank on the
+    host or no way to know): the ranks would then all send through cuda:0.
+    Returns the first card of this process, the one its NCCL traffic uses."""
     have = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if have == 0:
         raise ValueError("backend='nccl' needs CUDA cards; pass backend='gloo' for a CPU mesh")
@@ -168,6 +179,14 @@ def _check_nccl_cards(ranks_on_host: int | None) -> None:
             f"backend='nccl' puts {ranks_on_host} ranks on this host's {have} card(s): NCCL refuses two ranks "
             "on one card (duplicate GPU); give each rank a card of its own, or pass backend='gloo', under "
             "which the collectives stage CUDA shards through the host")
+    ids = _card_ids(local_device_ids)
+    if ids is None and ranks_on_host != 1:
+        host = "an unknown number of" if ranks_on_host is None else str(ranks_on_host)
+        raise ValueError(
+            f"backend='nccl' with no local_device_ids and no LOCAL_RANK: each of {host} ranks on this host would "
+            "take every card, and all of them would send through cuda:0; pass local_device_ids (this process's "
+            "cards), or start the processes with torchrun")
+    return 0 if ids is None else ids[0]
 
 
 def initialize_distributed(coordinator: str | None = None, num_processes: int | None = None,
@@ -185,9 +204,13 @@ def initialize_distributed(coordinator: str | None = None, num_processes: int | 
     process's shards (a card may repeat). ``backend``: "gloo" or "nccl";
     None gives torch's own default, NCCL for CUDA tensors and gloo for CPU
     ones (gloo alone where there is no CUDA). Under gloo the collectives
-    stage CUDA shards through the host; NCCL with two ranks on one card
-    raises here, and nothing switches to gloo on its own. ``timeout`` (s):
-    how long a collective waits for a peer before the run fails."""
+    stage CUDA shards through the host. Under NCCL the process is bound to
+    its first card (``torch.cuda.set_device``); NCCL with two ranks on one
+    card raises, and so does NCCL where a process would take every card of
+    a host that runs several ranks (name the cards with
+    ``local_device_ids`` or LOCAL_RANK); nothing switches to gloo on its
+    own. ``timeout`` (s): how long a collective waits for a peer before the
+    run fails."""
     import torch.distributed as dist
 
     if not dist.is_available():
@@ -218,12 +241,12 @@ def initialize_distributed(coordinator: str | None = None, num_processes: int | 
         backend = "cpu:gloo,cuda:nccl" if torch.cuda.is_available() else "gloo"
     elif backend not in ("gloo", "nccl"):
         raise ValueError(f"initialize_distributed: backend {backend!r} (use 'gloo' or 'nccl')")
-    if backend == "nccl":
-        _check_nccl_cards(ranks_on_host)
     if local_device_ids is not None:
         local_device_ids = [int(i) for i in local_device_ids]
         if not local_device_ids:
             raise ValueError("initialize_distributed: local_device_ids is empty")
+    if backend == "nccl":
+        torch.cuda.set_device(_check_nccl_cards(ranks_on_host, local_device_ids))
     if not isinstance(timeout, datetime.timedelta):
         timeout = datetime.timedelta(seconds=float(timeout))
     dist.init_process_group(backend=backend, init_method=init_method, world_size=world, rank=rank,

@@ -22,14 +22,16 @@ per-shard shape, round by round, against the routing's plan:
   reports as overflowing, the allgather round.
 A mesh of one shard logs no collectives, and the check requires that.
 
-``wave_bytes`` is the closed form of the bytes such a wave logs, summed over
-the mesh and split into bytes between shards of one process and bytes
-across processes (a mesh of P processes owning L shards each; the log's
-``cross``), and the check holds the log to it as well. The log is the same
-on every process, and so is the check.
+``wave_bytes`` is the closed form of the bytes such a wave logs, worked out
+from the same plan, summed over the mesh and split into bytes between
+shards of one process and bytes across processes (a mesh of P processes
+owning L shards each; the log's ``cross``), and the check holds the log to
+it as well. The log is the same on every process, and so is the check.
 """
 
 from __future__ import annotations
+
+import math
 
 
 def collective_bytes_model(routing: str, n_devices: int,
@@ -73,105 +75,95 @@ def collective_bytes_model(routing: str, n_devices: int,
     raise ValueError(f"unknown routing {routing!r}")
 
 
-def _op_bytes(kind: str, n: int, D: int, L: int) -> tuple:
-    """(bytes, cross) that ``recording()`` logs for an op whose per-shard
-    tensor has ``n`` bytes: an all-gather or all-reduce moves every shard's
-    tensor to each of the D - 1 others (D - L of them in other processes),
-    an all-to-all each of the D - 1 rows it does not keep."""
+def _round_plan(routing: str, D: int, B: int, overflow: bool) -> list:
+    """[(kind, shape, itemsize, why)] of one LF round's collectives, in
+    order: the logged result shape and its element size."""
+    allgather = [("all-gather", (D, B, 3), 4, f"request circulation, 12*{B}*{D} B materialized/chip/round"),
+                 ("all-reduce", (D, B), 4, f"answer psum, 4*{B}*{D} B/chip/round")]
+    if routing == "allgather":
+        return allgather
+    if routing == "ring":
+        half = (B + 1) // 2
+        hop = [("collective-permute", (half, 3), 4, "half-block request hop, 12 B/end"),
+               ("collective-permute", (half,), 4, "half-block answer hop, 4 B/end")]
+        return hop * (2 * D)
+    C = max(1, -(-2 * B // D))
+    pmax = [("all-reduce", (), 8, "bucket overflow predicate (pmax)")]
+    if overflow:
+        return pmax + allgather
+    return pmax + [("all-to-all", (D, C, 3), 4, f"bucketed requests, capacity C={C} rows x 12 B per peer"),
+                   ("all-to-all", (D, C), 4, "bucketed answers, 4 B/row")]
+
+
+def _wave_plan(routing: str, D: int, B_total: int, overflow=()) -> list:
+    """The plan of one wave: each round's (``overflow`` one flag a k-step
+    round; none for "dp"), then the merge of the result onto one shard."""
+    B = 2 * (B_total // D)  # interval ends per shard
+    plan = [] if routing == "dp" else [op for ov in overflow for op in _round_plan(routing, D, B, bool(ov))]
+    return plan + [("gather", (B_total, 2), 4, "result merge, 8 B/read")]
+
+
+def _op_bytes(kind: str, shape: tuple, itemsize: int, D: int, L: int) -> tuple:
+    """(bytes, cross) that ``recording()`` logs for one op of the plan, from
+    its result shape, on D shards, L a process: an all-gather (its input one
+    row of the result) or an all-reduce moves every shard's tensor to each
+    of the D - 1 others, D - L of them in other processes; an all-to-all, or
+    the merge of each shard's 1/D of the result, each of the D - 1 parts a
+    shard does not keep; a ring hop every shard's tensor to its neighbour,
+    across processes on the ring's edges between two processes."""
+    n = itemsize * math.prod(shape[1:] if kind == "all-gather" else shape)
+    if kind == "collective-permute":
+        return D * n, n * sum(i // L != (i + 1) % D // L for i in range(D))
     if kind in ("all-gather", "all-reduce"):
         return D * (D - 1) * n, D * (D - L) * n
+    if kind == "gather":
+        n //= D
     return (D - 1) * n, (D - L) * n
 
 
 def wave_bytes(routing: str, D: int, B_total: int, overflow=(), L: int | None = None) -> dict:
     """The bytes one wave of B_total reads logs on D shards, L a process
     (default D: one process), by routing ("dp" the data-parallel engine),
-    ``overflow`` its per-round a2a flags (one a k-step round): {"bytes":
-    between distinct shards, "across": between shards of different
-    processes, "within": the rest}. Per round, B = 2 * (B_total / D) ends a
-    shard: allgather an all-gather of [B, 3] and an all-reduce of [D, B]
-    (int32); ring 2D hops of [B/2, 3] and [B/2] (rounded up), of which P of
-    the D ring edges cross processes where P > 1; a2a a pmax of one int64,
-    then the all-to-alls of [D, C, 3] and [D, C], or the allgather round.
-    Last the merge of every shard's [B_total / D, 2] int32 onto shard 0
-    (those of processes other than shard 0's across)."""
+    ``overflow`` its per-round a2a flags: the sum of ``_op_bytes`` over the
+    wave's plan, {"bytes": between distinct shards, "across": between
+    shards of different processes, "within": the rest}."""
     L = D if L is None else L
-    P, B, per = D // L, 2 * (B_total // D), B_total // D
-    total, cross = 0, 0
-
-    def add(kind, n):
-        nonlocal total, cross
-        b, c = _op_bytes(kind, n, D, L)
+    total = cross = 0
+    for kind, shape, itemsize, _ in (_wave_plan(routing, D, B_total, overflow) if D > 1 else ()):
+        b, c = _op_bytes(kind, shape, itemsize, D, L)
         total, cross = total + b, cross + c
-
-    if D > 1:
-        for ov in (overflow if routing != "dp" else ()):
-            if routing == "a2a":
-                add("all-reduce", 8)
-            if routing == "allgather" or (routing == "a2a" and ov):
-                add("all-gather", 12 * B)
-                add("all-reduce", 4 * D * B)
-            elif routing == "a2a":
-                C = max(1, -(-2 * B // D))
-                add("all-to-all", 12 * D * C)
-                add("all-to-all", 4 * D * C)
-            else:  # ring: 2D hops, each of requests and answers
-                half = (B + 1) // 2
-                total += 2 * D * D * 16 * half
-                cross += 2 * D * (P if P > 1 else 0) * 16 * half
-        total += 8 * per * (D - 1)
-        cross += 8 * per * (D - L)
     return {"bytes": total, "across": cross, "within": total - cross}
-
-
-def _round_plan(routing: str, D: int, B: int, overflow: bool) -> list:
-    """[(kind, shape, why)] of one LF round's collectives, in order."""
-    allgather = [("all-gather", (D, B, 3), f"request circulation, 12*{B}*{D} B materialized/chip/round"),
-                 ("all-reduce", (D, B), f"answer psum, 4*{B}*{D} B/chip/round")]
-    if routing == "allgather":
-        return allgather
-    if routing == "ring":
-        half = (B + 1) // 2
-        hop = [("collective-permute", (half, 3), "half-block request hop, 12 B/end"),
-               ("collective-permute", (half,), "half-block answer hop, 4 B/end")]
-        return hop * (2 * D)
-    C = max(1, -(-2 * B // D))
-    pmax = [("all-reduce", (), "bucket overflow predicate (pmax)")]
-    if overflow:
-        return pmax + allgather
-    return pmax + [("all-to-all", (D, C, 3), f"bucketed requests, capacity C={C} rows x 12 B per peer"),
-                   ("all-to-all", (D, C), "bucketed answers, 4 B/row")]
 
 
 def check_collective_log(log: list, routing: str, D: int, B_total: int, overflow=(), L: int | None = None) -> dict:
     """Hold ``log`` (``Collective``s of one search of B_total reads on D
     shards, L a process, ``overflow`` its per-round a2a flags, one per
-    k-step round for a sharded engine) to the routing's plan and to
-    ``wave_bytes``; raise AssertionError naming the first op missing or out
-    of place, beside what was logged."""
-    got = [(c.kind, c.shape) for c in log]
+    k-step round for a sharded engine) to the routing's plan, op by op
+    (kind, shape and element size), and to ``wave_bytes``; raise
+    AssertionError naming the first op missing or out of place, beside what
+    was logged."""
+    got = [(c.kind, c.shape, c.dtype.itemsize) for c in log]
     B = 2 * (B_total // D)  # interval ends per shard
     model = (collective_bytes_model(routing, D, B) if routing != "dp" else {"sent": 0, "received": 0})
     if D == 1:
         assert not got, f"a mesh of one shard logged collectives: {got}"
         return {"model": model, "shapes": got}
-    plan = [] if routing == "dp" else [op for ov in overflow for op in _round_plan(routing, D, B, bool(ov))]
-    plan.append(("gather", (B_total, 2), "result merge, 8 B/read"))
-    for i, (kind, shape, why) in enumerate(plan):
-        assert i < len(got) and got[i] == (kind, shape), (
-            f"routing={routing}: expected collective `{kind} {list(shape)}` ({why}) as op {i}, "
-            f"found {got[i] if i < len(got) else 'nothing'}; logged collectives: {got}"
+    plan = _wave_plan(routing, D, B_total, overflow)
+    for i, (kind, shape, itemsize, why) in enumerate(plan):
+        assert i < len(got) and got[i] == (kind, shape, itemsize), (
+            f"routing={routing}: expected collective `{kind} {list(shape)}` of {itemsize} B elements ({why}) as "
+            f"op {i}, found {got[i] if i < len(got) else 'nothing'}; logged collectives: {got}"
         )
     assert len(got) == len(plan), (
         f"routing={routing}: {len(got) - len(plan)} collectives past the plan; logged: {got[len(plan):]}"
     )
     if routing == "ring":
-        assert not any(k == "all-gather" for k, _ in got), "ring routing must not materialize the full request set"
+        assert not any(k == "all-gather" for k, _, _ in got), "ring routing must not materialize the full request set"
     want = wave_bytes(routing, D, B_total, overflow, L)
     logged = {"bytes": sum(c.bytes for c in log), "across": sum(c.cross for c in log)}
     logged["within"] = logged["bytes"] - logged["across"]
     assert logged == want, f"routing={routing}: logged bytes {logged}, closed form {want}"
-    return {"model": model, "shapes": got, **logged}
+    return {"model": model, "shapes": [g[:2] for g in got], **logged}
 
 
 def assert_collective_model(eng, queries) -> dict:
