@@ -192,7 +192,10 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      1,048,576 reads, the first 65,536 to the oracle, device seconds a pass
      of each; (e) K9 (``lf_answer_owned``) against its plain version at
      rounds 1 and 18 of (c)'s allgather wave on every shard (shard 0 timed
-     beside its bound) and on edge cases (zero rows, '$' blocks, shard
+     beside its bound), on the ring's half-blocks and the a2a buckets of
+     (c)'s lut12 waves (call 1 of every shard, shard 0 timed), on the ring's
+     first half at an odd row offset (a stream base off 16 bytes), and on
+     edge cases (zero rows, '$' blocks, shard
      edges, rows past the table, owners past the mesh). Four shards on one
      card copy within its memory: no transport time is measured.
  20. the mesh locate (tpufm_torch.parallel.locate), every result held
@@ -2432,8 +2435,10 @@ def k9_bytes(req: torch.Tensor, shard: int, e_local: int, k: int, d: int) -> int
 
 def check_k9(eng, s: int, req: torch.Tensor, timed: bool) -> dict:
     """K9 on shard ``s`` of the sharded engine ``eng`` against its plain
-    version on ``req``: every answer bit-identical; timed (CUDA events,
-    median of 7) beside its bound where ``timed``."""
+    version on ``req``: every answer bit-identical; timed beside its bound
+    where ``timed``: the kernel on the device alone (``graph_ms``: it is
+    shorter than its wrapper's host time), the plain version with CUDA
+    events (median of 7)."""
     args = (eng.bitmaps[s], eng.occ[s], req, s, eng.e_local, eng.dollar[s], eng.k, eng.d)
     got = lf_mod.lf_answer_owned(*args)
     ref = lf_mod.lf_answer_owned_reference(*args)
@@ -2445,7 +2450,7 @@ def check_k9(eng, s: int, req: torch.Tensor, timed: bool) -> dict:
     row = {"shard": s, "requests": int(req.shape[0]), "max_abs_err": err,
            "owned": int((block // eng.e_local == s).sum())}
     if timed:
-        row.update(ms=cuda_ms(lambda: lf_mod.lf_answer_owned(*args)),
+        row.update(ms=graph_ms(lambda: lf_mod.lf_answer_owned(*args)),
                    plain_ms=cuda_ms(lambda: lf_mod.lf_answer_owned_reference(*args)),
                    bound_ms=bound_ms(k9_bytes(req, s, eng.e_local, eng.k, eng.d)))
     return row
@@ -2581,7 +2586,7 @@ def mesh_phase(tmp: str, index, fmi: str, qry: str, reads: np.ndarray, main_res:
           f"shard), {ac4_s:.6f} s a device pass; {time.perf_counter() - t1:.2f} s", flush=True)
 
     # (c) ShardedIndexEngine over four shards on this card, each routing
-    routings, k9 = {}, {"rounds": [], "edges": []}
+    routings, k9 = {}, {"rounds": [], "edges": [], "streams": []}
     same_reads = np.repeat(reads[:1], SAME_READS, axis=0)
     same_want = np.repeat(main_res[:1], SAME_READS, axis=0)
     place = placed4  # the device passes: all reads at once, as the bench records time them
@@ -2616,6 +2621,17 @@ def mesh_phase(tmp: str, index, fmi: str, qry: str, reads: np.ndarray, main_res:
             edges = torch.from_numpy(k9_edge_requests(rng, eng.bwtsize, K, D, dollar, SH, eng.e_local,
                                                       1 << 16)).to(dev)
             k9["edges"] = [check_k9(eng, s, edges, timed=False) for s in range(SH)]
+        elif lut:
+            # the ring's half-blocks and the a2a buckets (call 1 of each shard), and the ring's first
+            # half copied to an odd row offset: K9 loads such a stream by words, not 16-byte units
+            (_, _), kept = capture_requests(eng, eng.place_queries(reads[:wave]), (1,))
+            for (j, s), req in sorted(kept.items()):
+                k9["streams"].append({"routing": routing, "call": j, **check_k9(eng, s, req, timed=s == 0)})
+            if routing == "ring":
+                odd = torch.zeros((kept[1, 0].shape[0] + 1, 3), dtype=torch.int32, device=dev)
+                odd[1:] = kept[1, 0]
+                k9["streams"].append({"routing": "ring, odd row offset", "call": 1,
+                                      **check_k9(eng, 0, odd[1:], timed=True)})
         dev_s = timed_device_passes(lambda: eng.search_device(place), iterations=3)[0]
         same_overflow = None
         if routing == "a2a" and lut:
@@ -2703,8 +2719,9 @@ def mesh_phase(tmp: str, index, fmi: str, qry: str, reads: np.ndarray, main_res:
           f"{ORACLE_READS} to the oracle; {time.perf_counter() - t1:.2f} s", flush=True)
 
     # (e) K9 against its plain version
-    for c in k9["rounds"]:
-        line = f"round {c['round']} shard {c['shard']}: {c['requests']} requests, {c['owned']} owned"
+    for c in k9["rounds"] + k9["streams"]:
+        where = f"round {c['round']}" if "round" in c else f"{c['routing']} call {c['call']}"
+        line = f"{where} shard {c['shard']}: {c['requests']} requests, {c['owned']} owned"
         if "ms" in c:
             line += (f": kernel {c['ms']:.4f} ms (bound {c['bound_ms']:.4f} ms, {c['bound_ms'] / c['ms'] * 100:.1f}% "
                      f"of it), plain {c['plain_ms']:.4f} ms")
@@ -4288,7 +4305,8 @@ def main() -> None:
             "source": "tpufm_torch/csrc/lf_round_split.cu",
             "replaces": "tpufm/parallel/search.py:267 (jnp _answer_owned, no pallas_call)",
             "launches": by_path["mesh4_allgather"]["lf_answer_owned"],
-            "max_abs_err": max(c["max_abs_err"] for c in mesh["k9"]["rounds"] + mesh["k9"]["edges"]),
+            "max_abs_err": max(c["max_abs_err"] for c in mesh["k9"]["rounds"] + mesh["k9"]["edges"]
+                               + mesh["k9"]["streams"]),
             "ms": k9_last["ms"],
             "plain_ms": k9_last["plain_ms"],
             "bound_ms": k9_last["bound_ms"],
@@ -4298,6 +4316,7 @@ def main() -> None:
                      f"card), shard 0: {k9_last['requests']} requests, {k9_last['owned']} owned",
             "rounds": mesh["k9"]["rounds"],
             "edges": mesh["k9"]["edges"],
+            "streams": mesh["k9"]["streams"],
             "routings": mesh["routings"],
             "genome": mesh["genome"],
             "mesh1_seconds_per_pass": mesh["overhead"],

@@ -266,6 +266,53 @@ def test_lf_round_ac_kernel_matches_plain(cuda, k, d, width, n):
     assert torch.equal(got, lf_mod.lf_round_pairs_reference(fused, iv, code, dollar, k, d))
 
 
+def _wide_reads(rng, bwtsize: int, d: int, reads: str, n: int) -> np.ndarray:
+    """int64 [n, 2] reads over [0, bwtsize]: every read the full interval
+    (round 1 after no LUT), or each read's hi in the block after its lo's."""
+    if reads == "full":
+        return np.tile(np.array([[0, bwtsize]], dtype=np.int64), (n, 1))
+    lo = rng.integers(0, bwtsize - d, size=n)
+    hi = np.minimum((lo // d + 1) * d + rng.integers(0, d, size=n), bwtsize)
+    return np.stack([lo, hi], axis=1)
+
+
+@pytest.mark.parametrize("n", [31, 33, 4099])
+@pytest.mark.parametrize("width", ["host", "device"])
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+@pytest.mark.parametrize("reads", ["full", "adjacent"])
+@pytest.mark.parametrize("entry", ["split", "ac"])
+def test_lf_round_split_kernels_on_reads_across_blocks(cuda, entry, reads, k, width, n):
+    """K8's entries where every read's ends lie in two blocks (both rows in
+    one staging batch): every read the full interval, or the ends in
+    adjacent blocks; random codes, so the AC entry counts both forward and
+    back; n off a multiple of 32. Bit-identical to the plain version and to
+    the fused round on the same text."""
+    d = 192
+    _, index = _index(k, d, 20_000)
+    rng = np.random.default_rng(n + 7 * k + len(reads))
+    iv = _wide_reads(rng, index.bwtsize, d, reads, n)
+    code = rng.integers(0, 4**k, size=n)
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa: E731
+    t = tables_from_index(index if entry == "split" else make_alt_counters(index), layout="split")
+    planes = t.bitmaps if width == "host" else _rows(t.bitmaps, torch.device("cpu")).numpy().view(np.uint32)
+    bitmaps = put(planes.view(np.int32))
+    counters = put((t.occ if entry == "split" else t.occ_slim).view(np.int32))
+    ivd, coded, dollar = put(iv), put(code), put(index_dollar(index))
+    fn, plain, attr = {"split": (lf_mod.lf_round_split, lf_mod.lf_round_split_reference, "SPLIT_LAUNCHES"),
+                       "ac": (lf_mod.lf_round_ac, lf_mod.lf_round_ac_reference, "AC_LAUNCHES")}[entry]
+    if entry == "ac":
+        S = 4**k // 2
+        back = ((iv // d) % 2 == 1) ^ (code[:, None] >= S)
+        assert back.any() and not back.all()
+    before = getattr(lf_mod, attr)
+    got = fn(bitmaps, counters, ivd, coded, dollar, k, d)
+    torch.cuda.synchronize()
+    assert getattr(lf_mod, attr) == before + 1
+    assert torch.equal(got, plain(bitmaps, counters, ivd, coded, dollar, k, d))
+    fused = put(tables_from_index(index).entries.view(np.int32))
+    assert torch.equal(got, lf_mod.lf_round_pairs_reference(fused, ivd, coded, dollar, k, d))
+
+
 @pytest.mark.parametrize("n", [31, 4099])
 @pytest.mark.parametrize("width", ["host", "device"])
 @pytest.mark.parametrize("k,d", LAYOUT_KD)
@@ -1025,3 +1072,58 @@ def test_lf_answer_owned_kernel_matches_plain(cuda, k, d, D, width):
     assert torch.equal(total[:n] & 0xFFFFFFFF, lf_mod.lf_round_reference(fused, ends, code, dol, k, d))
     empty = req[:0]
     assert lf_mod.lf_answer_owned(bitmaps, occ, empty, 0, t.e_local, dol, k, d).shape == (0,)
+
+
+def _owned_requests(rng, bwtsize: int, d: int, e_local: int, shard: int, share: str, n: int) -> np.ndarray:
+    """int32 [n, 3] requests (block, code, interval; uint32 bits) of which
+    shard ``shard`` owns none, the first of every 32 (one lane a warp), a
+    random quarter, or all; the others' blocks lie anywhere else in the
+    table."""
+    E = bwtsize // d + 1
+    mine = np.arange(shard * e_local, min((shard + 1) * e_local, E))
+    rest = np.setdiff1d(np.arange(E), mine)
+    own = {"none": np.zeros(n, bool), "one a warp": np.arange(n) % 32 == 0,
+           "quarter": rng.random(n) < 0.25, "all": np.ones(n, bool)}[share]
+    block = np.where(own, rng.choice(mine, size=n), rng.choice(rest, size=n))
+    iv = np.minimum(block * d + rng.integers(0, d, size=n), bwtsize)
+    return np.stack([iv // d, rng.integers(0, 4**3, size=n), iv], axis=1).astype(np.uint32).view(np.int32)
+
+
+@pytest.mark.parametrize("width", ["host", "device"])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", [1, 31, 33, 4099, (1 << 17) + 1])
+@pytest.mark.parametrize("share", ["none", "one a warp", "quarter", "all"])
+def test_lf_answer_owned_kernel_owned_shares(cuda, share, n, offset, width):
+    """K9 on shard 1 of a four-way split (k=3 d=192) where it owns none of
+    the requests, one a warp, a quarter or all of them (its warps that own
+    nothing write zeros and stop; the others stage only the owned rows); n
+    off a multiple of 32; the stream as a view at row ``offset`` of a
+    larger tensor (offset 1: a base 12 bytes off 16, as a ring half at an
+    odd row, which the kernel loads by words); host-width plane rows and the
+    engines' padded rows. Bit-identical to the plain version."""
+    from tpufm_torch.engine.tables import shard_tables
+
+    k, d, s = 3, 192, 1
+    _, index = _index(k, d, 20_000)
+    t = shard_tables(index, 4)
+    rng = np.random.default_rng(n + 3 * offset + len(share))
+    req_h = _owned_requests(rng, index.bwtsize, d, t.e_local, s, share, n)
+    buf = torch.zeros((n + offset, 3), dtype=torch.int32, device=cuda)
+    buf[offset:] = torch.from_numpy(req_h).to(cuda)
+    req = buf[offset:]
+    assert req.is_contiguous() and (req.data_ptr() % 16 == 0) == (offset == 0)
+    if width == "device":
+        bitmaps = _rows(t.bitmaps[s], cuda)
+    else:
+        bitmaps = torch.from_numpy(np.ascontiguousarray(t.bitmaps[s]).view(np.int32)).to(cuda)
+    occ = torch.from_numpy(np.ascontiguousarray(t.occ[s]).view(np.int32)).to(cuda)
+    dol = torch.from_numpy(index_dollar(index)).to(cuda)
+    before = lf_mod.OWNED_LAUNCHES
+    got = lf_mod.lf_answer_owned(bitmaps, occ, req, s, t.e_local, dol, k, d)
+    torch.cuda.synchronize()
+    assert lf_mod.OWNED_LAUNCHES == before + 1
+    want = lf_mod.lf_answer_owned_reference(bitmaps, occ, req, s, t.e_local, dol, k, d)
+    assert torch.equal(got, want)
+    owned = (req[:, 0].to(torch.int64) // t.e_local == s).cpu().numpy()
+    assert owned.sum() == {"none": 0, "one a warp": -(-n // 32), "all": n}.get(share, owned.sum())
+    assert not bool(got[torch.from_numpy(~owned).to(cuda)].any())

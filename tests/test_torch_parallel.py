@@ -367,6 +367,35 @@ def test_answer_owned_plain_matches_tpufm_under_shard_map(k, d, D):
         np.testing.assert_array_equal(got.numpy().view(np.uint32), want[s])
 
 
+@pytest.mark.parametrize("routing", ROUTINGS)
+def test_k9_request_streams_at_the_timed_shapes(routing):
+    """The request streams ``chip_smoke.capture_requests`` keeps, on a CPU
+    mesh of D = 4 at the engine's wave (WAVE_PER_CHIP = 2^17 reads a shard,
+    B = 2^18 ends), are the shapes K9 is designed and timed for
+    (scripts/k89_ab.py): allgather D x B = 2^20 rows, each shard owning
+    about 1/D of them after the LUT start; the ring's half-blocks of B / 2 =
+    2^17 rows, 2D a shard a round, about 1/D owned; a2a's D x C = 2^19
+    rows (C = 2B / D), about half owned. The first reads' intervals equal
+    the oracle's."""
+    import chip_smoke
+
+    D, wave = 4, ShardedIndexEngine.WAVE_PER_CHIP
+    codes, jidx, tidx = _case(1, 32, 8192)
+    eng = ShardedIndexEngine(tidx, _cpu(D), routing=routing, lut_m=4)
+    q = _reads(codes, 6, D * wave, seed=7)  # two rounds after the 4-mer LUT
+    per_round = 2 * D if routing == "ring" else 1
+    (iv, _), kept = chip_smoke.capture_requests(eng, eng.place_queries(q), (1, per_round + 1))
+    np.testing.assert_array_equal(iv[:512].numpy().astype(np.uint32), search_oracle(jidx, q[:512]))
+    rows = {"allgather": D * 2 * wave, "ring": wave, "a2a": D * (2 * 2 * wave // D)}[routing]
+    # a2a: bucket j holds the about B / D requests of j, then the next buckets' (owned elsewhere)
+    owned = {"allgather": 1 / D, "ring": 1 / D, "a2a": 1 / 2}[routing]
+    assert sorted(kept) == [(j, s) for j in (1, per_round + 1) for s in range(D)]
+    for (j, s), req in kept.items():
+        assert req.dtype == torch.int32 and tuple(req.shape) == (rows, 3), (j, s)
+        share = float((req[:, 0].to(torch.int64) // eng.e_local == s).double().mean())
+        assert abs(share - owned) < 0.05, (j, s, share)
+
+
 def test_collectives_semantics_and_no_aliasing():
     xs = [torch.arange(6, dtype=torch.int32).reshape(2, 3) + 10 * s for s in range(4)]
     with coll.recording() as log:

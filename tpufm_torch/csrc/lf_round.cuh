@@ -193,7 +193,8 @@ inline int stage_block(int stride, size_t* smem) {
 }
 
 // The warp's slot of the block's dynamic shared memory for its staged rows
-// of 2K*nb words each (K1's and K8's kernels).
+// of 2K*nb words each (K1's kernels; K8 and K9 take async_stage.cuh's
+// WarpStage: row slots and a copy list).
 template <int K>
 __device__ __forceinline__ uint32_t* warp_stage(int nb) {
   extern __shared__ uint4 staged[];

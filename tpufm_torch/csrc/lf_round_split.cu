@@ -15,77 +15,152 @@
 //                         entries the low half, odd the high), S = 4^k / 2:
 //     back = (block odd) XOR (code >= S)
 //     cnt  = occ_slim[block + back, code & (S-1)]
-//     back == 0: out = cnt + count          - #levels(block, code, iv >  pos)
-//     back == 1: out = cnt - (count_after    - #levels(block, code, iv <= pos))
+//     back == 0: out = cnt + count       - #levels(block, code, iv >  pos)
+//     back == 1: out = cnt - (count_after - #levels(block, code, iv <= pos))
 //   where count is the popcount of the k-mer's matches in the block before
-//   iv and count_after the popcount after it (the complemented prefix masks
-//   of tpufm, here the block's whole count less count), all mod 2^32.
-// Both ends of a read take one code; ends in one block share the row, the
-// counter and `back`, so the kernel runs one thread per read, as K1's pair
-// entry does: the warp stages the bit-plane rows of its reads' lo blocks
-// (stage_rows, lf_round.cuh: coalesced 16-byte units), each lane loads its
-// counter before the staging, and reads whose hi lies in another block take
-// a second staging round. Indices clamp as jnp gathers clamp: the row to
-// bitmaps' last (row E, zeros), occ's row and column to its last, the slim
-// row (block + back) to occ_slim's last (E+1, the safety row).
-//
-// Bound. As K1's pair entry: per read int64 iv [2], code and out [2] (40 B)
-// and, once, the table words its ends need. A simple kernel: the
-// alternate-counters entry counts every window of the block, where K1
-// counts only the windows before the end.
-//
-// K9, tpufm_lf_answer_owned: the owner answer of the sharded-index engine
-// (_answer_owned, tpufm/parallel/search.py:267-290, which JAX runs as jnp,
-// no pallas_call): the split round's per-end math on one shard of the entry
-// table. Each request j of a stream (block, code, interval; uint32 [n, 3],
-// the rows the routings circulate) is owned by shard block / e_local; the
-// shard answers its own requests from its local rows (block - shard *
-// e_local) of occ [e_local, 4^k] and bitmaps [e_local, >= 2k*nb]:
+//   iv and count_after the popcount from iv to the block's end (the
+//   complemented prefix masks of tpufm), all mod 2^32.
+//   tpufm_lf_answer_owned (K9) the owner answer of the sharded-index engine
+//                         (_answer_owned, tpufm/parallel/search.py:267-290,
+//                         jnp): the split round's per-end math on one shard
+//                         of the entry table. Request j of a stream (block,
+//                         code, interval; uint32 [n, 3], the rows the
+//                         routings circulate) is owned by shard block /
+//                         e_local; the shard answers its own from its local
+//                         row (block - shard * e_local) of occ [e_local,
+//                         4^k] and bitmaps [e_local, >= 2k*nb]:
 //     out = occ[local, code] + count - #levels(block, code, iv > pos)
-// with the '$' levels compared on the GLOBAL block (the '$' triple is
-// replicated), and writes 0 for every request it does not own. One thread
-// per request; the warp stages the rows of its owned requests (stage_rows),
-// the others take no row. Bound: per request its 12 B in and 4 B out, and,
-// once, the table words the owned requests need; the stream is read once,
-// so this kernel is bound by bytes. A simple kernel: requests owned by
-// other shards still cost their 16 B, which is the routings' design (the
-// allgather and ring routings send every request to every shard).
+//                         with the '$' levels compared on the GLOBAL block
+//                         (the '$' triple is replicated), and 0 for every
+//                         request it does not own.
+// Indices clamp as jnp gathers clamp: the row to bitmaps' last (row E,
+// zeros), occ's row and column to its last, the slim row (block + back) to
+// occ_slim's last (E+1, the safety row).
+//
+// Bound. Bytes: K8 per read int64 iv [2], code and out [2] (40 B), K9 per
+// request 12 B in and 4 B out, and, once, the table words the ends need
+// (of every distinct row the plane words of the windows the ends cover,
+// and each distinct counter), over 3.35 TB/s: 15.7-15.8 us for K8 at 1M
+// reads, 5.69 us for K9 at 2^20 requests (k=3 d=192, 10 Mbase). The bound
+// counts a row once; the kernels fetch one a read (K8) or an owned request
+// (K9) from L2, 144 B at k=3 d=192, and a 32-byte counter sector, so L2
+// traffic (about 255 MB a K8 round at 1M reads) and the latency of those
+// fetches are what hold them above it.
+//
+// Design. One thread a read (K8) or one or two requests (K9). A warp
+// stages the plane rows it needs into shared memory by asynchronous copies
+// (async_stage.cuh): the rows are listed by ballot, every 16-byte unit of
+// every listed row is one cp.async, and the warp waits once; each lane's
+// counter loads are issued before the copies and land meanwhile. Then each
+// lane counts on its staged row: at d = 192 (nb = 6) and k <= 3 the row is
+// read as 16-byte vectors into registers (no bank conflicts), elsewhere
+// word by word.
+// - K8: a read's lo row in the lane's slot; where its hi lies in another
+//   block, its hi row in one of kHiSlots (4) slots after the lo slots,
+//   one a distinct hi block (__match_any_sync: every read of round 1 from
+//   the full interval shares one), listed in the same batch with its
+//   counter load; more distinct hi rows take further batches. The AC entry
+//   counts one side of the end only: forward the windows before it, back
+//   the windows from floor(s/32) to the block's end under the complemented
+//   prefix masks, which is count_after itself. Reads stay one a thread; iv,
+//   code and out stay int64 as the engines pass them, iv and out moved as
+//   16-byte pairs where aligned.
+// - K9: the warp loads its requests (384 B for 32) as 16-byte units when
+//   the stream's base is 16-byte aligned, else as coalesced words (a ring
+//   half may start at any row), through shared memory; it stages only the
+//   owned requests' rows, packed (about 1/D of an allgather or ring stream,
+//   half of an a2a bucket), so its copies are popc(owned) x units; a warp
+//   that owns nothing writes its zeros and stops. Where the grid at two
+//   requests a lane still fills the card twice over (2^20-request allgather
+//   streams on the H100), each lane takes two, so a warp's fetches of 64
+//   requests overlap: one wait for them all while 32 slots hold the rows.
+// Times (NVIDIA H100 80GB HBM3, 700 W, scripts/k89_ab.py, PERF.md §6): the
+// first versions staged through stage_rows (a register trip a 16-byte
+// unit, 32 x units trips a warp, every lane's row, K8's hi rows in a second
+// staging round, the AC entry counting every window): K8 split
+// 0.0533-0.0552 ms, AC 0.0564-0.0569 (round 18) and 0.0720-0.0723 (round
+// 1), K9 0.0316-0.0318 at 2^20 requests; this design 0.0425-0.0432,
+// 0.0418-0.0422 and 0.0425, 0.0165-0.0167.
+// Tried and slower: two full slots a lane for K8 (half the resident
+// warps), 8 or 16 hi slots, K8 held to 48 registers for 40 warps an SM
+// (4-25% slower: more traffic in flight, no gain), four requests a lane
+// for K9 (too few warps for 2^17 and 2^19 requests), K9's lanes each
+// answering their own requests (most of a warp idle on the requests it
+// does not own), a persistent K9 whose warps fetch their next requests
+// behind the current rows (0.0214 against 0.0159 ms: 92 registers, fewer
+// warps), the word-by-word count at d = 192, and async_stage.cuh's
+// dropped copy paths.
 //
 // Types. Intervals are uint32_t here and int64 on the torch side; table
 // words arrive as int32 tensors holding the uint32 bits.
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
+#include "async_stage.cuh"
 #include "lf_round.cuh"
 
 namespace {
 
 using tpufm::LoadCached;
+using tpufm::WarpStage;
 using tpufm::dollar_hits;
 using tpufm::kFullWarp;
-using tpufm::lf_counts;
 using tpufm::prefix_mask;
-using tpufm::stage_rows;
+using tpufm::issue_rows_async;
+using tpufm::stage_rows_async;
+using tpufm::wait_rows_async;
 using tpufm::stage_stride;
-using tpufm::warp_stage;
 
-// Popcounts of the k-mer c's matches before the in-block offsets s0 and s1
-// and in the whole block (all nb windows), on staged plane words s.
-template <int K>
-__device__ __forceinline__ void block_counts(const uint32_t* s, int nb, uint32_t c, int s0, int s1,
-                                             uint32_t& n0, uint32_t& n1, uint32_t& all) {
-  n0 = n1 = all = 0;
-  for (int w = 0; w < nb; ++w) {
-    uint32_t m = 0xFFFFFFFFu;
+// Popcounts of the k-mer c's matches on a staged row s (plane q, window w
+// at s[q*nb + w]) before the in-block offsets s0 and s1 (forward: K1's
+// windows, ceil(max/32) of them), or from them to the block's end (back:
+// the windows from floor(min/32) on, under the complemented prefix masks).
+// NB > 0: nb == NB, and the row is read as 16-byte vectors into registers
+// (the slot 16-byte aligned), every window counted under its masks, which
+// are 0 past the side counted; a lane's vector reads of its own slot (9
+// units at k=3 d=192) meet no bank conflict, where its word reads of the
+// generic path (NB = 0) meet four-way ones.
+template <int K, int NB>
+__device__ __forceinline__ void row_counts(const uint32_t* s, int nb, uint32_t c, int s0, int s1, bool back,
+                                           uint32_t& n0, uint32_t& n1) {
+  n0 = n1 = 0;
+  const auto add = [&](uint32_t m, int w) {
+    const uint32_t f = back ? 0xFFFFFFFFu : 0u;
+    n0 += __popc(m & (prefix_mask(s0, w) ^ f));
+    n1 += __popc(m & (prefix_mask(s1, w) ^ f));
+  };
+  if constexpr (NB > 0) {
+    constexpr int U = (2 * K * NB + 3) / 4;
+    uint32_t r[4 * U];
 #pragma unroll
-    for (int q = 0; q < 2 * K; ++q) {
-      const uint32_t x = s[q * nb + w];
-      m &= ((c >> q) & 1u) ? x : ~x;
+    for (int u = 0; u < U; ++u) {
+      const uint4 x = reinterpret_cast<const uint4*>(s)[u];
+      r[4 * u] = x.x;
+      r[4 * u + 1] = x.y;
+      r[4 * u + 2] = x.z;
+      r[4 * u + 3] = x.w;
     }
-    n0 += __popc(m & prefix_mask(s0, w));
-    n1 += __popc(m & prefix_mask(s1, w));
-    all += __popc(m);
+#pragma unroll
+    for (int w = 0; w < NB; ++w) {
+      uint32_t m = 0xFFFFFFFFu;
+#pragma unroll
+      for (int q = 0; q < 2 * K; ++q) m &= ((c >> q) & 1u) ? r[q * NB + w] : ~r[q * NB + w];
+      add(m, w);
+    }
+  } else {
+    const int lo = back ? (s0 < s1 ? s0 : s1) >> 5 : 0;
+    const int hi = back ? nb : ((s0 > s1 ? s0 : s1) + 31) >> 5;
+    for (int w = lo; w < hi; ++w) {
+      uint32_t m = 0xFFFFFFFFu;
+#pragma unroll
+      for (int q = 0; q < 2 * K; ++q) {
+        const uint32_t x = s[q * nb + w];
+        m &= ((c >> q) & 1u) ? x : ~x;
+      }
+      add(m, w);
+    }
   }
 }
 
@@ -125,30 +200,33 @@ __device__ __forceinline__ uint32_t counter(const uint32_t* __restrict__ occ, lo
   return LoadCached::ld(occ + row * (unsigned long long)occ_words + col);
 }
 
-// One round's result for the end v in block b, from its counter and counts.
-template <int K, bool AC>
-__device__ __forceinline__ uint32_t finish(uint32_t cnt, bool back, uint32_t before, uint32_t all,
-                                           uint32_t b, uint32_t c, uint32_t v,
-                                           const long long* __restrict__ dollar) {
-  if (!AC) return cnt + before - dollar_hits<K>(b, c, v, dollar);
-  if (back) return cnt - (all - before - dollar_hits_ac<K>(b, c, v, true, dollar));
-  return cnt + (before - dollar_hits_ac<K>(b, c, v, false, dollar));
-}
-
-// The in-block popcounts of one staged row: K1's windows before the ends
-// (split), or every window (AC, which also needs the block's whole count).
-template <int K, bool AC>
-__device__ __forceinline__ void counts(const uint32_t* s, int nb, uint32_t c, int s0, int s1,
-                                       uint32_t& n0, uint32_t& n1, uint32_t& all) {
-  if (AC) {
-    block_counts<K>(s, nb, c, s0, s1, n0, n1, all);
+// The rounds of the ends v0 and v1 (in-block offsets s0, s1) of block b
+// under code c, from the staged row s and the block's counter: the split
+// entry counts before the ends, the AC entry on the side `back` selects.
+template <int K, int NB, bool AC>
+__device__ __forceinline__ void finish(const uint32_t* s, int nb, uint32_t cnt, bool back, uint32_t b,
+                                       uint32_t c, uint32_t v0, uint32_t v1, int s0, int s1,
+                                       const long long* __restrict__ dollar, uint32_t& o0, uint32_t& o1) {
+  uint32_t n0, n1;
+  row_counts<K, NB>(s, nb, c, s0, s1, AC && back, n0, n1);
+  if (!AC) {
+    o0 = cnt + n0 - dollar_hits<K>(b, c, v0, dollar);
+    o1 = cnt + n1 - dollar_hits<K>(b, c, v1, dollar);
+  } else if (back) {
+    o0 = cnt - (n0 - dollar_hits_ac<K>(b, c, v0, true, dollar));
+    o1 = cnt - (n1 - dollar_hits_ac<K>(b, c, v1, true, dollar));
   } else {
-    all = 0;
-    lf_counts<K>(s, nb, c, s0, s1, n0, n1);
+    o0 = cnt + (n0 - dollar_hits_ac<K>(b, c, v0, false, dollar));
+    o1 = cnt + (n1 - dollar_hits_ac<K>(b, c, v1, false, dollar));
   }
 }
 
-template <int K, int V, bool AC>
+// K8's slots a warp for the hi rows of its reads whose ends lie in two
+// blocks, beside a lo slot a lane; more distinct hi rows take further
+// batches. (8, 16 and 32 were slower: fewer warps resident.)
+constexpr int kHiSlots = 4;
+
+template <int K, int V, int NB, bool AC>
 __global__ void lf_round_split_kernel(const uint32_t* __restrict__ bitmaps, long long bm_rows,
                                       int bm_words, const uint32_t* __restrict__ occ,
                                       long long occ_rows, int occ_words, int nb,
@@ -156,42 +234,79 @@ __global__ void lf_round_split_kernel(const uint32_t* __restrict__ bitmaps, long
                                       const long long* __restrict__ code,
                                       const long long* __restrict__ dollar,
                                       long long* __restrict__ out, long long n) {
+  const int lane = threadIdx.x & 31;
   const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const bool active = j < n;  // every lane stays: the warp stages rows together
-  const uint32_t lo = active ? (uint32_t)__ldcs(iv + 2 * j) : 0u;
-  const uint32_t hi = active ? (uint32_t)__ldcs(iv + 2 * j + 1) : 0u;
-  const uint32_t c = active ? (uint32_t)__ldcs(code + j) : 0u;
+  if (j - lane >= n) return;  // the whole warp is past the end
+  const bool active = j < n;  // every lane of a live warp stays: the warp stages rows together
+  const bool pairs = ((reinterpret_cast<uintptr_t>(iv) | reinterpret_cast<uintptr_t>(out)) & 15u) == 0;
+  uint32_t lo = 0, hi = 0, c = 0;
+  if (active) {
+    if (pairs) {
+      const longlong2 e = __ldcs(reinterpret_cast<const longlong2*>(iv) + j);
+      lo = (uint32_t)e.x;
+      hi = (uint32_t)e.y;
+    } else {
+      lo = (uint32_t)__ldcs(iv + 2 * j);
+      hi = (uint32_t)__ldcs(iv + 2 * j + 1);
+    }
+    c = (uint32_t)__ldcs(code + j);
+  }
   const uint32_t d = 32u * (uint32_t)nb;
   const int words = 2 * K * nb, stride = stage_stride(words);
-  uint32_t* stage = warp_stage<K>(nb);
-  const uint32_t* s = stage + (threadIdx.x & 31) * stride;
   const auto row_of = [&](uint32_t block) {
     return bitmaps + min((unsigned long long)block, (unsigned long long)(bm_rows - 1)) *
                          (unsigned long long)bm_words;
   };
   const uint32_t b_lo = lo / d, b_hi = hi / d;
-  const bool split = b_lo != b_hi;
-  bool back = false;
+  const bool split = active && b_lo != b_hi;
+  bool back = false, back2 = false;
   const uint32_t cnt = active ? counter<K, AC>(occ, occ_rows, occ_words, b_lo, c, back) : 0u;
-  stage_rows<V, LoadCached>(stage, stride, row_of(b_lo), active, words);
-  uint32_t n_lo, n_hi, all;
-  counts<K, AC>(s, nb, c, (int)(lo - b_lo * d), split ? 0 : (int)(hi - b_lo * d), n_lo, n_hi, all);
-  const uint32_t o_lo = finish<K, AC>(cnt, back, n_lo, all, b_lo, c, lo, dollar);
-  uint32_t o_hi = finish<K, AC>(cnt, back, n_hi, all, b_lo, c, hi, dollar);
-  if (__any_sync(kFullWarp, active && split)) {
-    __syncwarp();  // every lane is done with the first rows
-    bool back2 = false;
-    const uint32_t cnt2 = active && split ? counter<K, AC>(occ, occ_rows, occ_words, b_hi, c, back2) : 0u;
-    stage_rows<V, LoadCached>(stage, stride, row_of(b_hi), active && split, words);
-    if (active && split) {
-      counts<K, AC>(s, nb, c, (int)(hi - b_hi * d), 0, n_hi, n_lo, all);
-      o_hi = finish<K, AC>(cnt2, back2, n_hi, all, b_hi, c, hi, dollar);
+  const uint32_t cnt2 = split ? counter<K, AC>(occ, occ_rows, occ_words, b_hi, c, back2) : 0u;
+  // lo rows in slot lane; the split reads' hi rows, one a distinct block
+  // (every read of round 1 from the full interval shares one), by rank in
+  // the kHiSlots slots after them, as many a batch
+  const unsigned same = __match_any_sync(kFullWarp, split ? b_hi : 0xFFFFFFFFu);
+  const int leader = __ffs(same) - 1;
+  const bool lead = split && leader == lane;
+  const unsigned leads = __ballot_sync(kFullWarp, lead);
+  const int rank = __shfl_sync(kFullWarp, __popc(leads & tpufm::lanes_below()), leader);
+  const int n_hi = __popc(leads);
+  const WarpStage<32 + kHiSlots> w = WarpStage<32 + kHiSlots>::at(stride, 0);
+  int jobs = w.list(0, active, row_of(b_lo), lane);
+  jobs = w.list(jobs, lead && rank < kHiSlots, row_of(b_hi), 32 + rank);
+  stage_rows_async<V>(w, stride, jobs, words);
+  const int s_lo = (int)(lo - b_lo * d), s_hi = (int)(hi - b_hi * d);
+  uint32_t o_lo = 0, o_hi = 0, unused;
+  if (active)
+    finish<K, NB, AC>(w.rows + lane * stride, nb, cnt, back, b_lo, c, lo, hi, s_lo, split ? s_lo : s_hi, dollar,
+                      o_lo, o_hi);
+  for (int base = 0; base < n_hi; base += kHiSlots) {
+    if (base > 0) {  // the hi rows past the slots: a further batch
+      __syncwarp();  // every lane is done with the slots
+      jobs = w.list(0, lead && rank >= base && rank < base + kHiSlots, row_of(b_hi), 32 + rank - base);
+      stage_rows_async<V>(w, stride, jobs, words);
     }
+    if (split && rank >= base && rank < base + kHiSlots)
+      finish<K, NB, AC>(w.rows + (32 + rank - base) * stride, nb, cnt2, back2, b_hi, c, hi, hi, s_hi, s_hi,
+                        dollar, o_hi, unused);
   }
-  if (active) {
+  if (!active) return;
+  if (pairs) {
+    __stcs(reinterpret_cast<longlong2*>(out) + j, make_longlong2((long long)o_lo, (long long)o_hi));
+  } else {
     __stcs(out + 2 * j, (long long)o_lo);
     __stcs(out + 2 * j + 1, (long long)o_hi);
   }
+}
+
+// f(NB) as an integral constant: 6 (d = 192, the recommended width) where
+// a row of K <= 3 fits registers, else 0 (nb at run time).
+template <int K, class F>
+int dispatch_nb(int nb, F f) {
+  if constexpr (K <= 3) {
+    if (nb == 6) return f(std::integral_constant<int, 6>{});
+  }
+  return f(std::integral_constant<int, 0>{});
 }
 
 template <bool AC>
@@ -203,42 +318,122 @@ int launch(const void* bitmaps, long long bm_rows, int bm_words, const void* occ
   if (nb <= 0 || k < 1 || k > 8 || bm_rows <= 0 || occ_rows <= 0 || bm_words < 2 * k * nb ||
       occ_words < need)
     return (int)cudaErrorInvalidValue;
+  const size_t warp_bytes = WarpStage<32 + kHiSlots>::bytes(stage_stride(2 * k * nb), 0);
   return tpufm::dispatch_kv(k, tpufm::unit_words(bitmaps, bm_words), [&](auto K, auto V) {
-    return tpufm::launch_staged(
-        lf_round_split_kernel<decltype(K)::value, decltype(V)::value, AC>, k, nb, n,
-        static_cast<cudaStream_t>(stream), static_cast<const uint32_t*>(bitmaps), bm_rows, bm_words,
-        static_cast<const uint32_t*>(occ), occ_rows, occ_words, nb, static_cast<const long long*>(iv),
-        static_cast<const long long*>(code), static_cast<const long long*>(dollar),
-        static_cast<long long*>(out), n);
+    return dispatch_nb<decltype(K)::value>(nb, [&](auto NB) {
+      return tpufm::launch_async_staged(
+          lf_round_split_kernel<decltype(K)::value, decltype(V)::value, decltype(NB)::value, AC>, warp_bytes, n,
+          static_cast<cudaStream_t>(stream), static_cast<const uint32_t*>(bitmaps), bm_rows, bm_words,
+          static_cast<const uint32_t*>(occ), occ_rows, occ_words, nb, static_cast<const long long*>(iv),
+          static_cast<const long long*>(code), static_cast<const long long*>(dollar),
+          static_cast<long long*>(out), n);
+    });
   });
 }
 
-// K9: the owner answer of one request a thread (see the header).
-template <int K, int V>
+// K9's least count of the card's resident warps its grid must fill before
+// it takes two or four requests a lane. (At 1 the 2^20-request streams
+// took four: 12% slower at 10 Mbase, 6% faster at 250 Mbase.)
+constexpr int kK9Waves = 2;
+
+// K9's words of shared memory a warp beside its row slots: its requests (G
+// a lane), then each slot's request (block, code, interval, counter) and
+// answer.
+__host__ __device__ constexpr int k9_extra_words(int G) { return 3 * 32 * G + 5 * 32; }
+
+// K9: the owner answers of G requests a lane (see the header).
+template <int K, int V, int NB, int G>
 __global__ void lf_answer_owned_kernel(const uint32_t* __restrict__ bitmaps, long long bm_rows,
                                        int bm_words, const uint32_t* __restrict__ occ,
                                        long long occ_rows, int occ_words, int nb,
                                        const uint32_t* __restrict__ req, uint32_t shard,
                                        uint32_t e_local, const long long* __restrict__ dollar,
                                        uint32_t* __restrict__ out, long long n) {
-  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const bool in = j < n;  // every lane stays: the warp stages rows together
-  const uint32_t block = in ? __ldcs(req + 3 * j) : 0u;
-  const uint32_t c = in ? __ldcs(req + 3 * j + 1) : 0u;
-  const uint32_t v = in ? __ldcs(req + 3 * j + 2) : 0u;
-  const bool owned = in && block / e_local == shard;
-  const uint32_t local = block - shard * e_local;  // meaningful where owned
-  const uint32_t d = 32u * (uint32_t)nb;
+  const int lane = threadIdx.x & 31;
+  const long long first = ((long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5)) * (32 * G);
+  if (first >= n) return;  // the whole warp is past the end
   const int words = 2 * K * nb, stride = stage_stride(words);
-  uint32_t* stage = warp_stage<K>(nb);
-  const uint32_t* s = stage + (threadIdx.x & 31) * stride;
-  bool back = false;
-  const uint32_t cnt = owned ? counter<K, false>(occ, occ_rows, occ_words, local, c, back) : 0u;
-  const unsigned long long row = min((unsigned long long)local, (unsigned long long)(bm_rows - 1));
-  stage_rows<V, LoadCached>(stage, stride, bitmaps + row * (unsigned long long)bm_words, owned, words);
-  uint32_t before = 0, unused = 0;
-  if (owned) lf_counts<K>(s, nb, c, (int)(v % d), 0, before, unused);
-  if (in) __stcs(out + j, owned ? cnt + before - dollar_hits<K>(block, c, v, dollar) : 0u);
+  const WarpStage<32> w = WarpStage<32>::at(stride, k9_extra_words(G));
+  uint32_t* const reqs = w.extra;              // [32 G][3]
+  uint32_t* const meta = w.extra + 3 * 32 * G;  // [4][32]: a slot's block, code, interval, counter
+  uint32_t* const answers = meta + 4 * 32;      // [32]
+  // the warp's requests, coalesced, through shared memory: 16-byte units
+  // where the stream is aligned and the warp full (its requests start on a
+  // 16-byte boundary), else words
+  const uint32_t* base = req + 3 * first;
+  const int have = n - first < 32 * G ? (int)(n - first) : 32 * G;
+  if (have == 32 * G && (reinterpret_cast<uintptr_t>(req) & 15u) == 0) {
+    for (int t = lane; t < 3 * 32 * G / 4; t += 32)
+      reinterpret_cast<uint4*>(reqs)[t] = __ldcs(reinterpret_cast<const uint4*>(base) + t);
+  } else {
+    for (int t = lane; t < 3 * have; t += 32) reqs[t] = __ldcs(base + t);
+  }
+  __syncwarp();
+  uint32_t block[G], cnt[G], res[G];
+  bool owned[G];
+  int at[G];
+  bool mine = false;
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const int r = 32 * g + lane;
+    block[g] = r < have ? reqs[3 * r] : 0u;
+    owned[g] = r < have && block[g] / e_local == shard;
+    bool back;  // the split table's counter: no back entry
+    cnt[g] = owned[g] ? counter<K, false>(occ, occ_rows, occ_words, block[g] - shard * e_local, reqs[3 * r + 1],
+                                          back)
+                      : 0u;
+    res[g] = 0u;
+    at[g] = -1;
+    mine = mine || owned[g];
+  }
+  if (__any_sync(kFullWarp, mine)) {
+    const uint32_t d = 32u * (uint32_t)nb;
+    // the owned requests packed into the 32 slots, group after group; a
+    // batch is staged, then answered a slot a lane (no lane idles on a
+    // request it does not own), each answer read back by its request's lane
+    const auto answer = [&](int jobs) {
+      issue_rows_async<V>(w, stride, jobs, words);
+#pragma unroll
+      for (int g = 0; g < G; ++g)  // the counters, landed while the copies were issued
+        if (at[g] >= 0) meta[96 + at[g]] = cnt[g];
+      wait_rows_async();
+      if (lane < jobs) {
+        const uint32_t b = meta[lane], c = meta[32 + lane], v = meta[64 + lane];
+        const int s0 = (int)(v % d);
+        uint32_t before, unused;
+        row_counts<K, NB>(w.rows + lane * stride, nb, c, s0, s0, false, before, unused);
+        answers[lane] = meta[96 + lane] + before - dollar_hits<K>(b, c, v, dollar);
+      }
+      __syncwarp();
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        if (at[g] >= 0) res[g] = answers[at[g]];
+        at[g] = -1;
+      }
+      __syncwarp();  // every lane is done with the slots
+    };
+    int jobs = 0;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      if (jobs + __popc(__ballot_sync(kFullWarp, owned[g])) > 32) {  // the slots are full
+        answer(jobs);
+        jobs = 0;
+      }
+      const unsigned long long local = min((unsigned long long)(block[g] - shard * e_local),
+                                           (unsigned long long)(bm_rows - 1));
+      jobs = w.list_packed(jobs, owned[g], bitmaps + local * (unsigned long long)bm_words, at[g]);
+      if (owned[g]) {
+        const int r = 32 * g + lane;
+        meta[at[g]] = block[g];
+        meta[32 + at[g]] = reqs[3 * r + 1];
+        meta[64 + at[g]] = reqs[3 * r + 2];
+      }
+    }
+    answer(jobs);
+  }
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+    if (32 * g + lane < have) __stcs(out + first + 32 * g + lane, res[g]);
 }
 
 }  // namespace
@@ -246,8 +441,9 @@ __global__ void lf_answer_owned_kernel(const uint32_t* __restrict__ bitmaps, lon
 // Launches K9 on `stream` and returns cudaGetLastError() (0 on success):
 // bitmaps: uint32 [bm_rows, bm_words >= 2k*nb] and occ: uint32 [occ_rows,
 // occ_words >= 4^k], shard `shard`'s rows (e_local of them, > 0); req:
-// uint32 [n, 3] rows (block, code, interval); dollar: int64 [3, k] (rows
-// pos, base, block; blocks global); out: uint32 [n]. Does not synchronise.
+// uint32 [n, 3] rows (block, code, interval), at any 4-byte offset; dollar:
+// int64 [3, k] (rows pos, base, block; blocks global); out: uint32 [n].
+// Does not synchronise.
 extern "C" int tpufm_lf_answer_owned(const void* bitmaps, long long bm_rows, int bm_words,
                                      const void* occ, long long occ_rows, int occ_words, int k,
                                      int nb, const void* req, long long shard, long long e_local,
@@ -257,13 +453,32 @@ extern "C" int tpufm_lf_answer_owned(const void* bitmaps, long long bm_rows, int
       occ_words < (1 << (2 * k)) || e_local <= 0 || e_local > 0xFFFFFFFFLL || shard < 0 ||
       shard > 0xFFFFFFFFLL)
     return (int)cudaErrorInvalidValue;
+  // G requests a lane, the most of 1, 2 and 4 at which the grid still
+  // fills the card's resident warps kK9Waves times over (on the H100: 2 for
+  // the 2^20-request allgather streams, 1 for 2^19 and 2^17): more a lane
+  // overlap more fetches a warp, fewer warps idle SMs at the grid's tail
+  const int stride = stage_stride(2 * k * nb);
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int groups = 1;
+  for (int g = 2; g <= 4; g *= 2) {
+    const int resident = tpufm::resident_warps(WarpStage<32>::bytes(stride, k9_extra_words(g)));
+    if (n >= (long long)kK9Waves * 32 * g * sms * resident) groups = g;
+  }
   return tpufm::dispatch_kv(k, tpufm::unit_words(bitmaps, bm_words), [&](auto K, auto V) {
-    return tpufm::launch_staged(
-        lf_answer_owned_kernel<decltype(K)::value, decltype(V)::value>, k, nb, n,
-        static_cast<cudaStream_t>(stream), static_cast<const uint32_t*>(bitmaps), bm_rows, bm_words,
-        static_cast<const uint32_t*>(occ), occ_rows, occ_words, nb, static_cast<const uint32_t*>(req),
-        (uint32_t)shard, (uint32_t)e_local, static_cast<const long long*>(dollar),
-        static_cast<uint32_t*>(out), n);
+    return dispatch_nb<decltype(K)::value>(nb, [&](auto NB) {
+      const auto run = [&](auto G) {
+        return tpufm::launch_async_staged(
+            lf_answer_owned_kernel<decltype(K)::value, decltype(V)::value, decltype(NB)::value, decltype(G)::value>,
+            WarpStage<32>::bytes(stride, k9_extra_words(G)), (n + G - 1) / G, static_cast<cudaStream_t>(stream),
+            static_cast<const uint32_t*>(bitmaps), bm_rows, bm_words, static_cast<const uint32_t*>(occ), occ_rows,
+            occ_words, nb, static_cast<const uint32_t*>(req), (uint32_t)shard, (uint32_t)e_local,
+            static_cast<const long long*>(dollar), static_cast<uint32_t*>(out), n);
+      };
+      if (groups == 4) return run(std::integral_constant<int, 4>{});
+      return groups == 2 ? run(std::integral_constant<int, 2>{}) : run(std::integral_constant<int, 1>{});
+    });
   });
 }
 
