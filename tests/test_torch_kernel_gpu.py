@@ -1091,19 +1091,25 @@ def _owned_requests(rng, bwtsize: int, d: int, e_local: int, shard: int, share: 
 
 @pytest.mark.parametrize("width", ["host", "device"])
 @pytest.mark.parametrize("offset", [0, 1])
-@pytest.mark.parametrize("n", [1, 31, 33, 4099, (1 << 17) + 1])
+@pytest.mark.parametrize("n,d", [(1, 192), (31, 192), (33, 192), (4099, 192), ((1 << 17) + 1, 192),
+                                 ((1 << 20) + 33, 192), ((1 << 20) + 33, 160)])
 @pytest.mark.parametrize("share", ["none", "one a warp", "quarter", "all"])
-def test_lf_answer_owned_kernel_owned_shares(cuda, share, n, offset, width):
-    """K9 on shard 1 of a four-way split (k=3 d=192) where it owns none of
-    the requests, one a warp, a quarter or all of them (its warps that own
+def test_lf_answer_owned_kernel_owned_shares(cuda, share, n, d, offset, width):
+    """K9 on shard 1 of a four-way split (k=3) where it owns none of the
+    requests, one a warp, a quarter or all of them (its warps that own
     nothing write zeros and stop; the others stage only the owned rows); n
     off a multiple of 32; the stream as a view at row ``offset`` of a
     larger tensor (offset 1: a base 12 bytes off 16, as a ring half at an
     odd row, which the kernel loads by words); host-width plane rows and the
-    engines' padded rows. Bit-identical to the plain version."""
+    engines' padded rows. From 2^20 + 33 requests the H100 takes two a lane
+    (from about 608k at d = 160 and 192): then every two groups that own
+    more than 32 rows take a second batch, the last warp holds 33 of its 64
+    requests, and at d = 160 the count is the word path's (no 16-byte
+    vectors) on host-width rows of 30 words, copied by 4-byte units.
+    Bit-identical to the plain version."""
     from tpufm_torch.engine.tables import shard_tables
 
-    k, d, s = 3, 192, 1
+    k, s = 3, 1
     _, index = _index(k, d, 20_000)
     t = shard_tables(index, 4)
     rng = np.random.default_rng(n + 3 * offset + len(share))

@@ -44,8 +44,9 @@
 // reads, 5.69 us for K9 at 2^20 requests (k=3 d=192, 10 Mbase). The bound
 // counts a row once; the kernels fetch one a read (K8) or an owned request
 // (K9) from L2, 144 B at k=3 d=192, and a 32-byte counter sector, so L2
-// traffic (about 255 MB a K8 round at 1M reads) and the latency of those
-// fetches are what hold them above it.
+// traffic (about 225 MB a K8 round at 1M reads: 1M x (144 + 32 B) for the
+// rows and counters, plus 40 MB of iv, code and out) and the latency of
+// those fetches are what hold them above it.
 //
 // Design. One thread a read (K8) or one or two requests (K9). A warp
 // stages the plane rows it needs into shared memory by asynchronous copies
@@ -84,7 +85,9 @@
 // Tried and slower: two full slots a lane for K8 (half the resident
 // warps), 8 or 16 hi slots, K8 held to 48 registers for 40 warps an SM
 // (4-25% slower: more traffic in flight, no gain), four requests a lane
-// for K9 (too few warps for 2^17 and 2^19 requests), K9's lanes each
+// for K9 (too few warps for 2^17 and 2^19 requests; taken by size, 12%
+// slower on the 2^20-request allgather stream at 10 Mbase, 6% faster at
+// 250 Mbase), K9's lanes each
 // answering their own requests (most of a warp idle on the requests it
 // does not own), a persistent K9 whose warps fetch their next requests
 // behind the current rows (0.0214 against 0.0159 ms: 92 registers, fewer
@@ -332,8 +335,7 @@ int launch(const void* bitmaps, long long bm_rows, int bm_words, const void* occ
 }
 
 // K9's least count of the card's resident warps its grid must fill before
-// it takes two or four requests a lane. (At 1 the 2^20-request streams
-// took four: 12% slower at 10 Mbase, 6% faster at 250 Mbase.)
+// it takes two requests a lane.
 constexpr int kK9Waves = 2;
 
 // K9's words of shared memory a warp beside its row slots: its requests (G
@@ -453,19 +455,17 @@ extern "C" int tpufm_lf_answer_owned(const void* bitmaps, long long bm_rows, int
       occ_words < (1 << (2 * k)) || e_local <= 0 || e_local > 0xFFFFFFFFLL || shard < 0 ||
       shard > 0xFFFFFFFFLL)
     return (int)cudaErrorInvalidValue;
-  // G requests a lane, the most of 1, 2 and 4 at which the grid still
-  // fills the card's resident warps kK9Waves times over (on the H100: 2 for
-  // the 2^20-request allgather streams, 1 for 2^19 and 2^17): more a lane
-  // overlap more fetches a warp, fewer warps idle SMs at the grid's tail
+  // two requests a lane where the grid at two still fills the card's
+  // resident warps kK9Waves times over (on the H100 at k=3 d=192: from
+  // 608,256 requests, so the 2^20-request allgather streams), else one:
+  // two a lane overlap more fetches a warp, fewer warps idle SMs at the
+  // grid's tail
   const int stride = stage_stride(2 * k * nb);
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  int groups = 1;
-  for (int g = 2; g <= 4; g *= 2) {
-    const int resident = tpufm::resident_warps(WarpStage<32>::bytes(stride, k9_extra_words(g)));
-    if (n >= (long long)kK9Waves * 32 * g * sms * resident) groups = g;
-  }
+  const int resident = tpufm::resident_warps(WarpStage<32>::bytes(stride, k9_extra_words(2)));
+  const bool two = n >= (long long)kK9Waves * 32 * 2 * sms * resident;
   return tpufm::dispatch_kv(k, tpufm::unit_words(bitmaps, bm_words), [&](auto K, auto V) {
     return dispatch_nb<decltype(K)::value>(nb, [&](auto NB) {
       const auto run = [&](auto G) {
@@ -476,8 +476,7 @@ extern "C" int tpufm_lf_answer_owned(const void* bitmaps, long long bm_rows, int
             occ_words, nb, static_cast<const uint32_t*>(req), (uint32_t)shard, (uint32_t)e_local,
             static_cast<const long long*>(dollar), static_cast<uint32_t*>(out), n);
       };
-      if (groups == 4) return run(std::integral_constant<int, 4>{});
-      return groups == 2 ? run(std::integral_constant<int, 2>{}) : run(std::integral_constant<int, 1>{});
+      return two ? run(std::integral_constant<int, 2>{}) : run(std::integral_constant<int, 1>{});
     });
   });
 }
