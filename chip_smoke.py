@@ -168,7 +168,9 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      waves on K1's pair entry, the repair fraction printed); (d) ``search
      --pad-words 128``; each kernel entry at rounds 1 and 18 of phase 4's
      first wave (the alternate counters' from the full interval) against its
-     plain version, timed beside its bound; (e) the ``bench --engine xla-ac
+     plain version, timed beside its bound (``cuda_ms``, a wrapper call back
+     to back, and ``graph_ms``, the kernel on the device alone); (e) the
+     ``bench --engine xla-ac
      | xla-split | xla-paired`` records at the flagship's shape; (f) a
      ``sweep`` of 1 Mbase, k 1-3, d 64/128, all five engines, LUT 0 and 6,
      65,536 reads, every row bit-exact
@@ -2180,8 +2182,9 @@ def layout_rounds(label: str, fn, plain_fn, tables: tuple, dollar, iv, codes, wa
     4's first wave replayed from ``iv`` through ``fn``, the (iv, code)
     entering CAPTURED_ROUNDS kept; the replay must end on ``want`` (the
     paired layout's on its ok reads). Each captured round: the kernel against
-    its plain version ``plain_fn`` (every output bit-identical), both timed,
-    beside ``bound(iv, code)`` (bytes)."""
+    its plain version ``plain_fn`` (every output bit-identical), both timed
+    (``cuda_ms``; the kernel also alone on the device, ``graph_ms``), beside
+    ``bound(iv, code)`` (bytes)."""
     captured, ok = {}, None
     for j, code in enumerate(codes, start=1):
         if j in CAPTURED_ROUNDS:
@@ -2209,6 +2212,7 @@ def layout_rounds(label: str, fn, plain_fn, tables: tuple, dollar, iv, codes, wa
             "round": j, "reads": int(iv.shape[0]), "max_abs_err": err,
             "same_block_share": float((blocks[:, 0] == blocks[:, 1]).double().mean()),
             "ms": cuda_ms(lambda: fn(*args)),
+            "graph_ms": graph_ms(lambda: fn(*args)),
             "plain_ms": cuda_ms(lambda: plain_fn(*args)),
             "bound_ms": bound_ms(bound(iv, code)),
         })
@@ -2318,7 +2322,8 @@ def layouts(tmp: str, index, fmi: str, qry: str, reads: np.ndarray, main_res: np
         for c in rows:
             print(f"    {name} round {c['round']}: {c['reads']} reads, {c['same_block_share'] * 100:.2f}% with both "
                   f"ends in one block: kernel {c['ms']:.4f} ms (bound {c['bound_ms']:.4f} ms, "
-                  f"{c['bound_ms'] / c['ms'] * 100:.1f}% of it), plain {c['plain_ms']:.4f} ms", flush=True)
+                  f"{c['bound_ms'] / c['ms'] * 100:.1f}% of it), on the device alone {c['graph_ms']:.4f} ms "
+                  f"({c['bound_ms'] / c['graph_ms'] * 100:.1f}%), plain {c['plain_ms']:.4f} ms", flush=True)
 
     # (e) the bench records of the three engines at the flagship's shape
     t1 = time.perf_counter()
@@ -2372,6 +2377,7 @@ def layout_kernel(name: str, rows: list, by_path: dict, path: str, counter: str,
         "launches": by_path[path][counter],
         "max_abs_err": max(c["max_abs_err"] for c in rows),
         "ms": last["ms"],
+        "graph_ms": last["graph_ms"],
         "plain_ms": last["plain_ms"],
         "bound_ms": last["bound_ms"],
         "bound_by": "bytes",

@@ -3,13 +3,13 @@
     python3 scripts/k89_ab.py OLD_lf_round_split.cu [--rounds R] [--no-genome]
 
 OLD is a ``tpufm_torch/csrc/lf_round_split.cu`` of an earlier tree, beside
-its own ``lf_round.cuh`` (the include resolves from OLD's directory); it
-exports the same three launchers as the checkout's (``tpufm_lf_round_split``,
+its own headers (its includes resolve from OLD's directory); it exports the
+same three launchers as the checkout's (``tpufm_lf_round_split``,
 ``tpufm_lf_round_ac``, ``tpufm_lf_answer_owned``; argument types
-``kernels.SIGNATURES["lf_round_split"]``). Built with nvcc
-(``kernels.compile_libraries``, into ``tpufm_torch/_build/``): OLD as
-``old`` and the checkout's ``csrc/lf_round_split.cu`` as ``new``;
-ptxas's registers and spill stores of each K=3 instance are printed.
+``kernels.SIGNATURES["lf_round_split"]``). Built with nvcc by
+``kernel_ab.builds`` (into ``tpufm_torch/_build/``): OLD as ``old`` and the
+checkout's ``csrc/lf_round_split.cu`` as ``new``; ptxas's registers and
+spill stores of each K=3 instance are printed.
 
 Shapes, each on the same inputs for every build (10 Mbase text of
 ``chip_smoke.SEED``, k=3 d=192, 1,048,576 x 120 bp reads of
@@ -27,20 +27,17 @@ Shapes, each on the same inputs for every build (10 Mbase text of
     card): its table does not fit L2.
 Both outputs are held equal to each other and to the plain version (every
 word), then each build is timed in turns, old, new, new, old, R times
-(default 3; each time ``chip_smoke.graph_ms``: a CUDA graph of 20
-launches, median of 7 replays), beside the shape's bound (``chip_smoke``'s
-byte counts over 3.35 TB/s). Prints the card's name and power limit (nvidia-smi), a line a
+(default 3; ``kernel_ab.in_turns``, each time ``chip_smoke.graph_ms``: a
+CUDA graph of 20 launches, median of 7 replays), beside the shape's bound
+(``chip_smoke``'s byte counts over 3.35 TB/s). Prints the card's name and power limit (nvidia-smi), a line a
 shape, then one JSON line of every time. Needs a GPU.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import re
-import statistics
-import subprocess
 import sys
 from pathlib import Path
 
@@ -50,8 +47,9 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import chip_smoke  # noqa: E402
+import kernel_ab  # noqa: E402
 from chip_smoke import K, D, LUT_M, READ_LEN  # noqa: E402
-from tpufm_torch import SearchEngine, bench, kernels  # noqa: E402
+from tpufm_torch import SearchEngine, bench  # noqa: E402
 from tpufm_torch.bitops import from_u32_bits  # noqa: E402
 from tpufm_torch.config import recommend_config  # noqa: E402
 from tpufm_torch.engine import lf_round as lf_mod  # noqa: E402
@@ -66,46 +64,19 @@ from tpufm_torch.parallel import Mesh, ShardedIndexEngine  # noqa: E402
 ENTRIES = {"split": "tpufm_lf_round_split", "ac": "tpufm_lf_round_ac", "owned": "tpufm_lf_answer_owned"}
 
 
-def registers(log: str) -> dict:
-    """{instance: "R regs, S B spill"} of each K=3 kernel instance, from
-    ``nvcc -Xptxas -v``."""
-    out, name = {}, None
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            m = re.search(r"(lf_round_split_kernel|lf_answer_owned_kernel)I((?:Li\d+E)+)(Lb(\d)E)?", line)
-            name = None
-            if m and m.group(2).startswith("Li3E"):
-                kind = "owned" if m.group(1) == "lf_answer_owned_kernel" else ("ac" if m.group(4) == "1" else "split")
-                name = f"{kind} " + " ".join(f"{p}{x}" for p, x in zip(("k", "v", "nb", "g"),
-                                                                       re.findall(r"Li(\d+)E", m.group(2))))
-        elif name and (m := re.search(r"(\d+) bytes spill stores", line)):
-            out[name] = out.get(name, "") + f", {m.group(1)} B spill stores"
-        elif name and (m := re.search(r"Used (\d+) registers", line)):
-            out[name] = f"{m.group(1)} registers" + out.get(name, "")
-    return out
-
-
-def builds(old: Path) -> dict:
-    """{label: (ctypes library, registers)} of the old source and the
-    checkout's, compiled at once."""
-    new = kernels.CSRC_DIR / "lf_round_split.cu"
-    deps = sorted(old.parent.glob("*.cuh")) + kernels.headers()
-    paths = kernels.compile_libraries(kernels._nvcc(), kernels.NVCC_FLAGS,
-                                      [([old], "libtpufm_k89_old"), ([new], "libtpufm_k89_new")], deps)
-    out = {}
-    for label, path in zip(("old", "new"), paths):
-        lib = ctypes.CDLL(str(path))
-        for fn in ENTRIES.values():
-            getattr(lib, fn).argtypes = kernels.SIGNATURES["lf_round_split"][fn]
-            getattr(lib, fn).restype = ctypes.c_int
-        out[label] = (lib, registers(path.with_suffix(".log").read_text()))
-    return out
+def label(line: str):
+    """The name of a K=3 kernel instance from ptxas's "Compiling entry
+    function" line, else None."""
+    m = re.search(r"(lf_round_split_kernel|lf_answer_owned_kernel)I((?:Li\d+E)+)(Lb(\d)E)?", line)
+    if not (m and m.group(2).startswith("Li3E")):
+        return None
+    kind = "owned" if m.group(1) == "lf_answer_owned_kernel" else ("ac" if m.group(4) == "1" else "split")
+    return f"{kind} " + " ".join(f"{p}{x}" for p, x in zip(("k", "v", "nb", "g"), re.findall(r"Li(\d+)E", m.group(2))))
 
 
 def launcher(lib, entry: str, args: tuple):
     """A call of ``entry`` of ``lib`` on the current stream with the
     wrapper's arguments ``args``, into an output of its own: (run, out)."""
-    fn = getattr(lib, ENTRIES[entry])
     if entry == "owned":
         bitmaps, occ, req, shard, e_local, dollar, k, d = args
         out = torch.empty(req.shape[0], dtype=torch.int32, device=req.device)
@@ -116,53 +87,14 @@ def launcher(lib, entry: str, args: tuple):
         out = torch.empty_like(iv)
         call = (bitmaps.data_ptr(), bitmaps.shape[0], bitmaps.shape[1], occ.data_ptr(), occ.shape[0], occ.shape[1],
                 k, d // 32, iv.data_ptr(), code.data_ptr(), dollar.data_ptr(), out.data_ptr(), iv.shape[0])
-
-    def run():
-        err = fn(*call, torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"{ENTRIES[entry]} failed to launch: cudaError {err}")
-
-    return run, out
+    return kernel_ab.runner(lib, ENTRIES[entry], call), out
 
 
 def case(label: str, entry: str, args: tuple, bound_bytes: int, libs: dict, rounds: int, **info) -> dict:
     runs = {name: launcher(lib, entry, args) for name, (lib, _) in libs.items()}
-    for run, _ in runs.values():
-        run()
-    torch.cuda.synchronize()
-    for name, (_, out) in runs.items():
-        if not torch.equal(out, runs["old"][1]):
-            raise AssertionError(f"{label}: {name} differs from old in {int((out != runs['old'][1]).sum())} words")
     plain = {"split": lf_mod.lf_round_split_reference, "ac": lf_mod.lf_round_ac_reference,
              "owned": lf_mod.lf_answer_owned_reference}[entry](*args)
-    if not torch.equal(plain, runs["old"][1]):
-        raise AssertionError(f"{label}: the builds differ from the plain version")
-    order = ["old", "new"]
-    turns = order + order[::-1]
-    times = {name: [] for name in runs}
-    for _ in range(rounds):
-        for name in turns:
-            times[name].append(chip_smoke.graph_ms(runs[name][0]))
-    bound = chip_smoke.bound_ms(bound_bytes)
-    med = {name: statistics.median(t) for name, t in times.items()}
-    row = {"case": label, "entry": entry, **info, "bound_ms": bound, "ms": times, "median_ms": med,
-           "spread_ms": {name: max(t) - min(t) for name, t in times.items()},
-           "share": {name: bound / m for name, m in med.items()}}
-    print(f"{label}: bound {bound:.4f} ms; " + "; ".join(
-        f"{name} {med[name]:.4f} ms ({min(times[name]):.4f}-{max(times[name]):.4f}, {bound / med[name] * 100:.1f}%)"
-        for name in order), flush=True)
-    return row
-
-
-def replay(fn, tables: tuple, dollar, iv, codes, keep: tuple) -> dict:
-    """The (iv, code) entering the rounds ``keep`` of the rounds ``codes``
-    from ``iv``, each round through ``fn`` (a plain version)."""
-    kept = {}
-    for j, code in enumerate(codes, start=1):
-        if j in keep:
-            kept[j] = (iv, code)
-        iv = fn(*tables, iv, code, dollar, K, D)
-    return kept
+    return kernel_ab.in_turns(label, runs, plain, bound_bytes, rounds, entry=entry, **info)
 
 
 def owned_case(label: str, eng, req: torch.Tensor, libs: dict, rounds: int, **info) -> dict:
@@ -185,16 +117,16 @@ def measure(libs: dict, dev: torch.device, R: int, genome: bool) -> list:
 
     split = SearchEngine(index, dev, layout="split", lut_m=LUT_M)
     start = from_u32_bits(split.lut[fuse_prefix_codes(q, LUT_M)])
-    kept = replay(lf_mod.lf_round_split_reference, (split.bitmaps, split.occ), split.dollar, start,
-                  fuse_round_codes(q[:, : READ_LEN - LUT_M], K), capture)
+    kept = kernel_ab.replay(lf_mod.lf_round_split_reference, (split.bitmaps, split.occ), split.dollar, start,
+                            fuse_round_codes(q[:, : READ_LEN - LUT_M], K), capture, K, D)
     for j, (iv, code) in kept.items():
         rows.append(case(f"K8 split round {j}", "split", (split.bitmaps, split.occ, iv, code, split.dollar, K, D),
                          40 * iv.shape[0] + chip_smoke.k1_table_bytes(iv, code, K, D, split.bitmaps.shape[0]),
                          libs, R, round=j, reads=int(iv.shape[0])))
     del split, kept
     ac = SearchEngine(make_alt_counters(index), dev)
-    kept = replay(lf_mod.lf_round_ac_reference, (ac.bitmaps, ac.occ_slim), ac.dollar, ac._full_interval(wave),
-                  fuse_round_codes(q, K), capture)
+    kept = kernel_ab.replay(lf_mod.lf_round_ac_reference, (ac.bitmaps, ac.occ_slim), ac.dollar,
+                            ac._full_interval(wave), fuse_round_codes(q, K), capture, K, D)
     for j, (iv, code) in kept.items():
         rows.append(case(f"K8 AC round {j}", "ac", (ac.bitmaps, ac.occ_slim, iv, code, ac.dollar, K, D),
                          40 * iv.shape[0] + chip_smoke.ac_table_bytes(iv, code, K, D, ac.bitmaps.shape[0],
@@ -245,9 +177,8 @@ def main() -> None:
     args = p.parse_args()
     if not torch.cuda.is_available():
         sys.exit("k89_ab: needs a GPU")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0], flush=True)
-    libs = builds(args.old.resolve())
+    print(kernel_ab.card(), flush=True)
+    libs = kernel_ab.builds(args.old.resolve(), "lf_round_split", label)
     for name, (_, regs) in libs.items():
         print(f"{name}: {json.dumps(regs)}", flush=True)
     rows = measure(libs, torch.device("cuda", 0), args.rounds, not args.no_genome)

@@ -333,6 +333,91 @@ def test_lf_round_paired_kernel_matches_plain(cuda, k, d, width, n):
     assert torch.equal(got[ok], lf_mod.lf_round_pairs_reference(fused, iv, code, dollar, k, d)[ok])
 
 
+def _paired_reads(rng, nrows: int, d: int, pattern: str, n: int) -> np.ndarray:
+    """int64 [n, 2] reads on a paired table of ``nrows`` rows (lo's block b
+    picks the pair, clamped to the last), by ``pattern``:
+    "mixed": each read at random one of hi in lo's block (delta 0), in the
+    next (delta 1), 2-5 blocks on, in the block before lo's (hi < lo: delta
+    wraps to 2^32 - 1), or lo in the last pair row (hi in its block or the
+    next: its second half, zeros), lo's block random;
+    "next distinct": every hi in the next block, the 32 reads of a warp in
+    32 distinct pairs (more next halves than a warp's hi slots: batches);
+    "next shared": every hi in the next block, every read of a warp in the
+    warp's one pair; "far or wrapped": half 2-5 blocks on, half in the
+    block before lo's; "last row": lo in the last pair row (half of them
+    past it, clamped), hi in lo's block or the next."""
+    off = lambda: rng.integers(0, d, size=n)  # noqa: E731
+    b = rng.integers(1, nrows - 6, size=n)
+    step = {"next distinct": np.ones(n, np.int64), "next shared": np.ones(n, np.int64)}.get(pattern)
+    if pattern == "mixed":
+        kind = rng.integers(0, 5, size=n)
+        step = np.choose(kind, [0, 1, rng.integers(2, 6, size=n), -1, rng.integers(0, 2, size=n)])
+        b = np.where(kind == 4, nrows - 1, b)
+    elif pattern == "next distinct":
+        P = (nrows - 2) // 32 * 32
+        b = np.tile(rng.permutation(P), -(-n // P))[:n]
+    elif pattern == "next shared":
+        b = np.repeat(rng.integers(0, nrows - 2, size=-(-n // 32)), 32)[:n]
+    elif pattern == "far or wrapped":
+        step = np.where(np.arange(n) % 2 == 0, rng.integers(2, 6, size=n), -1)
+    elif pattern == "last row":
+        b = nrows - 1 + np.arange(n) % 2
+        step = rng.integers(0, 2, size=n)
+    return np.stack([b * d + off(), (b + step) * d + off()], axis=1)
+
+
+@pytest.mark.parametrize("width", ["host", "device"])
+@pytest.mark.parametrize("d", [192, 160])
+@pytest.mark.parametrize("pattern", ["mixed", "next distinct", "next shared", "far or wrapped", "last row"])
+def test_lf_round_paired_kernel_hi_slots(cuda, pattern, d, width):
+    """K1's paired entry on 2^20 + 33 reads (k=3; full slots and a ragged
+    last warp), one pattern of hi's block against lo's each
+    (``_paired_reads``): the next halves in the hi slots, several batches of
+    them, one shared by a warp, and every other hi counted on lo's row at
+    its own offset, wrapped deltas and the last pair row included. At d=192
+    the count reads 16-byte vectors, at d=160 words. "host": host-width
+    rows at a base 4 B off a 16-byte boundary (copied by 4-byte units), iv
+    8 B off (loaded and stored by words); "device": the engine's padded
+    rows (16-byte units), iv aligned (16-byte pairs). out and ok
+    bit-identical to the plain version; the ok reads whose hi lies in the
+    table equal to K1's pair entry on the fused rows."""
+    k, n = 3, (1 << 20) + 33
+    _, index = _index(k, d, 20_000)
+    fused_h = tables_from_index(index).entries
+    table_h = build_paired_entries(fused_h if width == "host" else _rows(fused_h, torch.device("cpu")).numpy()
+                                   .view(np.uint32))
+    rng = np.random.default_rng(n + d + len(pattern) + len(width))
+    iv_h = _paired_reads(rng, table_h.shape[0], d, pattern, n)
+    skew = 1 if width == "host" else 0  # a word (4 B) into the table, an int64 (8 B) into iv
+    buf = torch.zeros(table_h.size + skew, dtype=torch.int32, device=cuda)
+    buf[skew:] = torch.from_numpy(np.ascontiguousarray(table_h).view(np.int32).reshape(-1)).to(cuda)
+    paired = buf[skew:].view(table_h.shape)
+    ivbuf = torch.zeros(2 * n + skew, dtype=torch.int64, device=cuda)
+    ivbuf[skew:] = torch.from_numpy(iv_h.reshape(-1)).to(cuda)
+    iv = ivbuf[skew:].view(n, 2)
+    assert (paired.data_ptr() % 16 == 0) == (iv.data_ptr() % 16 == 0) == (width == "device")
+    code = torch.from_numpy(rng.integers(0, 4**k, size=n)).to(cuda)
+    dollar = torch.from_numpy(index_dollar(index)).to(cuda)
+    delta = ((iv_h[:, 1] // d - iv_h[:, 0] // d) & 0xFFFFFFFF)
+    assert {"next distinct": (delta == 1).all(), "next shared": (delta == 1).all(),
+            "far or wrapped": (delta > 1).all() and (iv_h[:, 1] < iv_h[:, 0]).any(),
+            "last row": (iv_h[:, 0] // d >= table_h.shape[0] - 1).all(),
+            "mixed": all((delta == v).any() for v in (0, 1, 2, 0xFFFFFFFF))}[pattern]
+    before = lf_mod.PAIRED_LAUNCHES
+    got, ok = lf_mod.lf_round_paired(paired, iv, code, dollar, k, d)
+    torch.cuda.synchronize()
+    assert lf_mod.PAIRED_LAUNCHES == before + 1
+    want, want_ok = lf_mod.lf_round_paired_reference(paired, iv, code, dollar, k, d)
+    assert torch.equal(got, want) and torch.equal(ok, want_ok)
+    assert torch.equal(ok.cpu(), torch.from_numpy(delta <= 1))
+    # the fused rows are the pairs' first halves; past the last row the
+    # paired layout reads its zero half where the fused round clamps
+    fused = torch.from_numpy(np.ascontiguousarray(table_h[:, : table_h.shape[1] // 2]).view(np.int32)).to(cuda)
+    inside = ok & (iv[:, 1] // d < table_h.shape[0])
+    assert bool(inside.any()) == (pattern != "far or wrapped")
+    assert torch.equal(got[inside], lf_mod.lf_round_pairs(fused, iv, code, dollar, k, d)[inside])
+
+
 @pytest.mark.parametrize("layout", ["split", "alt_counters", "paired", "pad_words"])
 @pytest.mark.parametrize("L,lut_m", [(24, 0), (24, 6), (31, 6)])
 def test_layout_search_on_card_matches_plain_and_oracle(cuda, layout, L, lut_m):

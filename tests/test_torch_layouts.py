@@ -114,6 +114,45 @@ def test_paired_round_equals_lf_step_paired(k, d, n):
                                   got.numpy())
 
 
+def _paired_case(index, rows: int, pattern: str, n=320, seed=4):
+    """uint32 [n, 2] reads and codes whose hi lies, against lo's block b
+    (the pair the paired round takes, clamped to the last of ``rows``):
+    "same" in b, "next" in b + 1 (hi on the pair's second half), "far" 2-5
+    blocks on, "wrapped" in b - 1 (hi < lo, delta 2^32 - 1), "last row" b
+    the last pair row or past it, hi in b or b + 1 (the zero half)."""
+    rng = np.random.default_rng(seed + len(pattern))
+    d, k = index.config.d, index.config.k
+    b = rng.integers(1, rows - 6, size=n)
+    step = {"same": 0, "next": 1, "far": rng.integers(2, 6, size=n), "wrapped": -1,
+            "last row": rng.integers(0, 2, size=n)}[pattern]
+    if pattern == "last row":
+        b = rows - 1 + np.arange(n) % 2
+    iv = np.stack([b * d + rng.integers(0, d, size=n), (b + step) * d + rng.integers(0, d, size=n)], axis=1)
+    return iv.astype(np.uint32), rng.integers(0, 4**k, size=n).astype(np.uint32)
+
+
+@pytest.mark.parametrize("width", ["host", "padded"])
+@pytest.mark.parametrize("pattern", ["same", "next", "far", "wrapped", "last row"])
+@pytest.mark.parametrize("k,d,n", [(1, 64, 1500), (3, 128, 128 * 18 - 1), (4, 64, 2000)])
+def test_paired_round_cases_equal_lf_step_paired(k, d, n, pattern, width):
+    """The cases the paired kernel branches on (delta 0, 1, >= 2, wrapped,
+    lo in the last pair row or past it), each on every read: the port's
+    paired round on tpufm's table (host widths, through ``tables_from_jax``)
+    or on the engine's padded device rows, against ``lf_step_paired``."""
+    _, index = _text(k, d, n)
+    jt = XLAEngine(index, layout="paired", lut_m=k).tables
+    t = tables_from_jax(jt)
+    rows = (_t(t.entries_paired, torch.int32) if width == "host"
+            else SearchEngine(index_port(index), "cpu", layout="paired", lut_m=k).entries_paired)
+    iv, code = _paired_case(index, rows.shape[0], pattern)
+    want, want_ok = lf_step_paired(jt, (k, d, d // 32), jnp.asarray(iv), jnp.asarray(code))
+    delta = (iv[:, 1] // d - iv[:, 0] // d).astype(np.uint32)
+    np.testing.assert_array_equal(np.asarray(want_ok), delta <= 1)
+    got, ok = lf_mod.lf_round_paired(rows, _t(iv), _t(code), _t(t.dollar), k, d)
+    np.testing.assert_array_equal(ok.numpy(), np.asarray(want_ok))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want).astype(np.int64))
+
+
 def index_port(index):
     """The port's index of the same arrays."""
     cfg = IndexConfig(k=index.config.k, d=index.config.d)

@@ -1,6 +1,6 @@
 // Rows staged by asynchronous copies: the staging of K8 and K9
-// (lf_round_split.cu), beside lf_round.cuh's stage_rows, which K1 and K4
-// keep.
+// (lf_round_split.cu) and of K1's paired entry (lf_round.cu), beside
+// lf_round.cuh's stage_rows, which K1's other entries and K4 keep.
 //
 // stage_rows walks 32 x units copy trips a warp, each a load into a
 // register and a store to shared memory, every lane's row whether it needs
@@ -10,8 +10,8 @@
 // one cp.async (LDGSTS; 4-byte copies on tables whose rows are not 16-byte
 // units), consecutive lanes on consecutive units of one row, and waits once
 // (cp.async.wait_all, __syncwarp). No register holds a unit, so all of a
-// warp's units are in flight together, and K8's second rows ride in the
-// same batch as the first.
+// warp's units are in flight together, and the second rows of K8 and of
+// K1's paired entry (HiRows) ride in the same batch as the first.
 //
 // Tried and dropped (scripts/k89_ab.py, PERF.md §6): each row as one
 // cp.async.bulk completed on an mbarrier by its transaction count (TMA on
@@ -109,6 +109,45 @@ struct WarpStage {
       slot[at] = (uint8_t)at;
     }
     return listed + __popc(m);
+  }
+};
+
+// Slots a warp for the second rows of its reads (K8's hi rows, K1-paired's
+// next halves), after its 32 lo slots, one a distinct row; more distinct
+// rows take further batches. (8, 16 and 32 were slower on K8: fewer warps
+// resident.)
+constexpr int kHiSlots = 4;
+
+// The second rows of a warp's reads, in the kHiSlots slots after the 32 lo
+// slots: the lanes where `want` holds, grouped by `key` (their row; never
+// 0xFFFFFFFF), each group's row staged once, by its lowest lane (`lead`),
+// into slot 32 + rank - base of the batch whose first rank is `base`
+// (every read of round 1 from the full interval shares one).
+struct HiRows {
+  bool want, lead;
+  int rank, groups;
+
+  // Warp-collective.
+  __device__ HiRows(bool want_row, uint32_t key) : want(want_row) {
+    const unsigned same = __match_any_sync(kFullWarp, want ? key : 0xFFFFFFFFu);
+    const int leader = __ffs(same) - 1;
+    lead = want && leader == (int)(threadIdx.x & 31);
+    const unsigned leads = __ballot_sync(kFullWarp, lead);
+    rank = __shfl_sync(kFullWarp, __popc(leads & lanes_below()), leader);
+    groups = __popc(leads);
+  }
+
+  // Whether the lane's row is in the batch from rank `base`.
+  __device__ bool in(int base) const { return want && rank >= base && rank < base + kHiSlots; }
+
+  // The lane's slot in the batch from rank `base`.
+  __device__ int slot(int base) const { return 32 + rank - base; }
+
+  // Lists the batch from rank `base` (the leaders' `row`) after the `listed`
+  // jobs of `w`; returns the new count. Warp-collective.
+  template <int Slots>
+  __device__ int list(const WarpStage<Slots>& w, int listed, int base, const uint32_t* row) const {
+    return w.list(listed, lead && in(base), row, slot(base));
   }
 };
 

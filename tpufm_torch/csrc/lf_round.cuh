@@ -1,6 +1,9 @@
 // The LF round of one interval end, or of both ends of a read: the round
-// body shared by K1 (lf_round.cu, all three entries) and K4's LF(1) hop
-// (locate_walk.cu), so that one copy of the LF math serves every kernel.
+// body shared by K1 (lf_round.cu: lf_rounds for its pair, per-end and rows
+// entries) and K4's LF(1) hop (locate_walk.cu), and the count (row_counts,
+// lf_finish) that K1's paired entry, K8 and K9 (lf_round_split.cu) take on
+// rows staged by async_stage.cuh, so that one copy of the LF math serves
+// every kernel.
 //
 //   count  = sum over windows w of popcount(prefix_mask(v % d, w)
 //            & AND over levels i of plane pair i, each plane taken as is or
@@ -110,24 +113,65 @@ __device__ __forceinline__ uint32_t prefix_mask(int shift, int w) {
   return cov <= 0 ? 0u : (cov >= 32 ? 0xFFFFFFFFu : 0xFFFFFFFFu << (32 - cov));
 }
 
-// The popcount part of two LF rounds under one k-mer c on one row, whose
-// plane words are `s` (plane q, window w at s[q*nb + w]): for the in-block
-// offsets s0 and s1, the positions before each whose K characters are c.
+// Popcounts of the k-mer c's matches on a staged row s (plane q, window w
+// at s[q*nb + w]) before the in-block offsets s0 and s1 (forward: the
+// windows before the larger, ceil(max/32) of them), or from them to the
+// block's end (back, the alternate counters' side: the windows from
+// floor(min/32) on, under the complemented prefix masks). The one copy of
+// the count: K1's entries, K4's hop, K8 and K9.
+// NB > 0: nb == NB, and the row is read as 16-byte vectors into registers
+// (the slot 16-byte aligned), every window counted under its masks, which
+// are 0 past the side counted; a lane's vector reads of its own slot (9
+// units at k=3 d=192) meet no bank conflict, where its word reads of the
+// generic path (NB = 0) meet four-way ones.
+template <int K, int NB>
+__device__ __forceinline__ void row_counts(const uint32_t* s, int nb, uint32_t c, int s0, int s1, bool back,
+                                           uint32_t& n0, uint32_t& n1) {
+  n0 = n1 = 0;
+  const auto add = [&](uint32_t m, int w) {
+    const uint32_t f = back ? 0xFFFFFFFFu : 0u;
+    n0 += __popc(m & (prefix_mask(s0, w) ^ f));
+    n1 += __popc(m & (prefix_mask(s1, w) ^ f));
+  };
+  if constexpr (NB > 0) {
+    constexpr int U = (2 * K * NB + 3) / 4;
+    uint32_t r[4 * U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const uint4 x = reinterpret_cast<const uint4*>(s)[u];
+      r[4 * u] = x.x;
+      r[4 * u + 1] = x.y;
+      r[4 * u + 2] = x.z;
+      r[4 * u + 3] = x.w;
+    }
+#pragma unroll
+    for (int w = 0; w < NB; ++w) {
+      uint32_t m = 0xFFFFFFFFu;
+#pragma unroll
+      for (int q = 0; q < 2 * K; ++q) m &= ((c >> q) & 1u) ? r[q * NB + w] : ~r[q * NB + w];
+      add(m, w);
+    }
+  } else {
+    const int lo = back ? (s0 < s1 ? s0 : s1) >> 5 : 0;
+    const int hi = back ? nb : ((s0 > s1 ? s0 : s1) + 31) >> 5;
+    for (int w = lo; w < hi; ++w) {
+      uint32_t m = 0xFFFFFFFFu;
+#pragma unroll
+      for (int q = 0; q < 2 * K; ++q) {
+        const uint32_t x = s[q * nb + w];
+        m &= ((c >> q) & 1u) ? x : ~x;
+      }
+      add(m, w);
+    }
+  }
+}
+
+// The forward count on a row read word by word (K1's staged entries, K4's
+// hop): row_counts<K, 0> before s0 and s1.
 template <int K>
 __device__ __forceinline__ void lf_counts(const uint32_t* s, int nb, uint32_t c, int s0, int s1,
                                           uint32_t& n0, uint32_t& n1) {
-  const int nw = ((s0 > s1 ? s0 : s1) + 31) >> 5;  // windows the prefix masks cover
-  n0 = n1 = 0;
-  for (int w = 0; w < nw; ++w) {
-    uint32_t m = 0xFFFFFFFFu;
-#pragma unroll
-    for (int q = 0; q < 2 * K; ++q) {
-      const uint32_t x = s[q * nb + w];
-      m &= ((c >> q) & 1u) ? x : ~x;
-    }
-    n0 += __popc(m & prefix_mask(s0, w));
-    n1 += __popc(m & prefix_mask(s1, w));
-  }
+  row_counts<K, 0>(s, nb, c, s0, s1, false, n0, n1);
 }
 
 // The '$' correction: levels whose '$' lies in this block before v with
@@ -141,6 +185,51 @@ __device__ __forceinline__ uint32_t dollar_hits(uint32_t block, uint32_t c, uint
     n += (block == (uint32_t)dollar[2 * K + i] && c == (uint32_t)dollar[K + i] &&
           v > (uint32_t)dollar[i]) ? 1u : 0u;
   return n;
+}
+
+// The LF rounds of the ends v0 (block b0, in-block offset s0) and v1 (b1,
+// s1) under code c, both counted forward on the staged row s whose counter
+// for c is cnt, each end's '$' levels taken at its own block (K8's split
+// entry, K1's paired entry).
+template <int K, int NB>
+__device__ __forceinline__ void lf_finish(const uint32_t* s, int nb, uint32_t cnt, uint32_t c, uint32_t b0,
+                                          uint32_t v0, int s0, uint32_t b1, uint32_t v1, int s1,
+                                          const long long* __restrict__ dollar, uint32_t& o0, uint32_t& o1) {
+  uint32_t n0, n1;
+  row_counts<K, NB>(s, nb, c, s0, s1, false, n0, n1);
+  o0 = cnt + n0 - dollar_hits<K>(b0, c, v0, dollar);
+  o1 = cnt + n1 - dollar_hits<K>(b1, c, v1, dollar);
+}
+
+// A read's ends (lo, hi: int64 iv [n, 2]) and code (int64 [n]) at read j,
+// evict-first: iv as one 16-byte pair where `pairs` (iv and out 16-byte
+// aligned), else as words. 0 where not `active`.
+__device__ __forceinline__ void load_read(const long long* __restrict__ iv, const long long* __restrict__ code,
+                                          long long j, bool active, bool pairs, uint32_t& lo, uint32_t& hi,
+                                          uint32_t& c) {
+  lo = hi = c = 0u;
+  if (!active) return;
+  if (pairs) {
+    const longlong2 e = __ldcs(reinterpret_cast<const longlong2*>(iv) + j);
+    lo = (uint32_t)e.x;
+    hi = (uint32_t)e.y;
+  } else {
+    lo = (uint32_t)__ldcs(iv + 2 * j);
+    hi = (uint32_t)__ldcs(iv + 2 * j + 1);
+  }
+  c = (uint32_t)__ldcs(code + j);
+}
+
+// Stores read j's new ends into out (int64 [n, 2]), evict-first, as
+// load_read loads them.
+__device__ __forceinline__ void store_read(long long* __restrict__ out, long long j, bool pairs, uint32_t o_lo,
+                                           uint32_t o_hi) {
+  if (pairs) {
+    __stcs(reinterpret_cast<longlong2*>(out) + j, make_longlong2((long long)o_lo, (long long)o_hi));
+  } else {
+    __stcs(out + 2 * j, (long long)o_lo);
+    __stcs(out + 2 * j + 1, (long long)o_hi);
+  }
 }
 
 // LF rounds of the ends lo and hi under code c, each on the row of its
@@ -199,6 +288,17 @@ template <int K>
 __device__ __forceinline__ uint32_t* warp_stage(int nb) {
   extern __shared__ uint4 staged[];
   return reinterpret_cast<uint32_t*>(staged) + (threadIdx.x & ~31) * stage_stride(2 * K * nb);
+}
+
+// f(NB) as an integral constant: 6 (d = 192, the recommended width) where
+// a row of K <= 3 fits registers (row_counts' vector reads), else 0 (nb at
+// run time).
+template <int K, class F>
+int dispatch_nb(int nb, F f) {
+  if constexpr (K <= 3) {
+    if (nb == 6) return f(std::integral_constant<int, 6>{});
+  }
+  return f(std::integral_constant<int, 0>{});
 }
 
 // f(K, V) as integral constants, for k in [1, 8] and v in {1, 4}.

@@ -53,19 +53,21 @@
 // (async_stage.cuh): the rows are listed by ballot, every 16-byte unit of
 // every listed row is one cp.async, and the warp waits once; each lane's
 // counter loads are issued before the copies and land meanwhile. Then each
-// lane counts on its staged row: at d = 192 (nb = 6) and k <= 3 the row is
-// read as 16-byte vectors into registers (no bank conflicts), elsewhere
-// word by word.
+// lane counts on its staged row (lf_round.cuh's row_counts, which K1's
+// paired entry shares): at d = 192 (nb = 6) and k <= 3 the row is read as
+// 16-byte vectors into registers (no bank conflicts), elsewhere word by
+// word.
 // - K8: a read's lo row in the lane's slot; where its hi lies in another
-//   block, its hi row in one of kHiSlots (4) slots after the lo slots,
-//   one a distinct hi block (__match_any_sync: every read of round 1 from
-//   the full interval shares one), listed in the same batch with its
-//   counter load; more distinct hi rows take further batches. The AC entry
-//   counts one side of the end only: forward the windows before it, back
-//   the windows from floor(s/32) to the block's end under the complemented
-//   prefix masks, which is count_after itself. Reads stay one a thread; iv,
-//   code and out stay int64 as the engines pass them, iv and out moved as
-//   16-byte pairs where aligned.
+//   block, its hi row in one of kHiSlots (4) slots after the lo slots
+//   (async_stage.cuh's HiRows, as K1's paired entry stages its next
+//   halves), one a distinct hi block (__match_any_sync: every read of
+//   round 1 from the full interval shares one), listed in the same batch
+//   with its counter load; more distinct hi rows take further batches.
+//   The AC entry counts one side of the end only: forward the windows
+//   before it, back the windows from floor(s/32) to the block's end under
+//   the complemented prefix masks, which is count_after itself. Reads stay
+//   one a thread; iv, code and out stay int64 as the engines pass them, iv
+//   and out moved as 16-byte pairs where aligned.
 // - K9: the warp loads its requests (384 B for 32) as 16-byte units when
 //   the stream's base is 16-byte aligned, else as coalesced words (a ring
 //   half may start at any row), through shared memory; it stages only the
@@ -106,66 +108,21 @@
 
 namespace {
 
+using tpufm::HiRows;
 using tpufm::LoadCached;
 using tpufm::WarpStage;
+using tpufm::dispatch_nb;
 using tpufm::dollar_hits;
-using tpufm::kFullWarp;
-using tpufm::prefix_mask;
 using tpufm::issue_rows_async;
+using tpufm::kFullWarp;
+using tpufm::kHiSlots;
+using tpufm::lf_finish;
+using tpufm::load_read;
+using tpufm::row_counts;
 using tpufm::stage_rows_async;
-using tpufm::wait_rows_async;
 using tpufm::stage_stride;
-
-// Popcounts of the k-mer c's matches on a staged row s (plane q, window w
-// at s[q*nb + w]) before the in-block offsets s0 and s1 (forward: K1's
-// windows, ceil(max/32) of them), or from them to the block's end (back:
-// the windows from floor(min/32) on, under the complemented prefix masks).
-// NB > 0: nb == NB, and the row is read as 16-byte vectors into registers
-// (the slot 16-byte aligned), every window counted under its masks, which
-// are 0 past the side counted; a lane's vector reads of its own slot (9
-// units at k=3 d=192) meet no bank conflict, where its word reads of the
-// generic path (NB = 0) meet four-way ones.
-template <int K, int NB>
-__device__ __forceinline__ void row_counts(const uint32_t* s, int nb, uint32_t c, int s0, int s1, bool back,
-                                           uint32_t& n0, uint32_t& n1) {
-  n0 = n1 = 0;
-  const auto add = [&](uint32_t m, int w) {
-    const uint32_t f = back ? 0xFFFFFFFFu : 0u;
-    n0 += __popc(m & (prefix_mask(s0, w) ^ f));
-    n1 += __popc(m & (prefix_mask(s1, w) ^ f));
-  };
-  if constexpr (NB > 0) {
-    constexpr int U = (2 * K * NB + 3) / 4;
-    uint32_t r[4 * U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const uint4 x = reinterpret_cast<const uint4*>(s)[u];
-      r[4 * u] = x.x;
-      r[4 * u + 1] = x.y;
-      r[4 * u + 2] = x.z;
-      r[4 * u + 3] = x.w;
-    }
-#pragma unroll
-    for (int w = 0; w < NB; ++w) {
-      uint32_t m = 0xFFFFFFFFu;
-#pragma unroll
-      for (int q = 0; q < 2 * K; ++q) m &= ((c >> q) & 1u) ? r[q * NB + w] : ~r[q * NB + w];
-      add(m, w);
-    }
-  } else {
-    const int lo = back ? (s0 < s1 ? s0 : s1) >> 5 : 0;
-    const int hi = back ? nb : ((s0 > s1 ? s0 : s1) + 31) >> 5;
-    for (int w = lo; w < hi; ++w) {
-      uint32_t m = 0xFFFFFFFFu;
-#pragma unroll
-      for (int q = 0; q < 2 * K; ++q) {
-        const uint32_t x = s[q * nb + w];
-        m &= ((c >> q) & 1u) ? x : ~x;
-      }
-      add(m, w);
-    }
-  }
-}
+using tpufm::store_read;
+using tpufm::wait_rows_async;
 
 // The alternate counters' '$' correction: levels whose '$' lies in this
 // block with k-mer c, before v (forward) or at or after it (back).
@@ -205,17 +162,19 @@ __device__ __forceinline__ uint32_t counter(const uint32_t* __restrict__ occ, lo
 
 // The rounds of the ends v0 and v1 (in-block offsets s0, s1) of block b
 // under code c, from the staged row s and the block's counter: the split
-// entry counts before the ends, the AC entry on the side `back` selects.
+// entry counts before the ends (lf_finish), the AC entry on the side `back`
+// selects.
 template <int K, int NB, bool AC>
 __device__ __forceinline__ void finish(const uint32_t* s, int nb, uint32_t cnt, bool back, uint32_t b,
                                        uint32_t c, uint32_t v0, uint32_t v1, int s0, int s1,
                                        const long long* __restrict__ dollar, uint32_t& o0, uint32_t& o1) {
-  uint32_t n0, n1;
-  row_counts<K, NB>(s, nb, c, s0, s1, AC && back, n0, n1);
   if (!AC) {
-    o0 = cnt + n0 - dollar_hits<K>(b, c, v0, dollar);
-    o1 = cnt + n1 - dollar_hits<K>(b, c, v1, dollar);
-  } else if (back) {
+    lf_finish<K, NB>(s, nb, cnt, c, b, v0, s0, b, v1, s1, dollar, o0, o1);
+    return;
+  }
+  uint32_t n0, n1;
+  row_counts<K, NB>(s, nb, c, s0, s1, back, n0, n1);
+  if (back) {
     o0 = cnt - (n0 - dollar_hits_ac<K>(b, c, v0, true, dollar));
     o1 = cnt - (n1 - dollar_hits_ac<K>(b, c, v1, true, dollar));
   } else {
@@ -223,11 +182,6 @@ __device__ __forceinline__ void finish(const uint32_t* s, int nb, uint32_t cnt, 
     o1 = cnt + (n1 - dollar_hits_ac<K>(b, c, v1, false, dollar));
   }
 }
-
-// K8's slots a warp for the hi rows of its reads whose ends lie in two
-// blocks, beside a lo slot a lane; more distinct hi rows take further
-// batches. (8, 16 and 32 were slower: fewer warps resident.)
-constexpr int kHiSlots = 4;
 
 template <int K, int V, int NB, bool AC>
 __global__ void lf_round_split_kernel(const uint32_t* __restrict__ bitmaps, long long bm_rows,
@@ -242,18 +196,8 @@ __global__ void lf_round_split_kernel(const uint32_t* __restrict__ bitmaps, long
   if (j - lane >= n) return;  // the whole warp is past the end
   const bool active = j < n;  // every lane of a live warp stays: the warp stages rows together
   const bool pairs = ((reinterpret_cast<uintptr_t>(iv) | reinterpret_cast<uintptr_t>(out)) & 15u) == 0;
-  uint32_t lo = 0, hi = 0, c = 0;
-  if (active) {
-    if (pairs) {
-      const longlong2 e = __ldcs(reinterpret_cast<const longlong2*>(iv) + j);
-      lo = (uint32_t)e.x;
-      hi = (uint32_t)e.y;
-    } else {
-      lo = (uint32_t)__ldcs(iv + 2 * j);
-      hi = (uint32_t)__ldcs(iv + 2 * j + 1);
-    }
-    c = (uint32_t)__ldcs(code + j);
-  }
+  uint32_t lo, hi, c;
+  load_read(iv, code, j, active, pairs, lo, hi, c);
   const uint32_t d = 32u * (uint32_t)nb;
   const int words = 2 * K * nb, stride = stage_stride(words);
   const auto row_of = [&](uint32_t block) {
@@ -265,51 +209,27 @@ __global__ void lf_round_split_kernel(const uint32_t* __restrict__ bitmaps, long
   bool back = false, back2 = false;
   const uint32_t cnt = active ? counter<K, AC>(occ, occ_rows, occ_words, b_lo, c, back) : 0u;
   const uint32_t cnt2 = split ? counter<K, AC>(occ, occ_rows, occ_words, b_hi, c, back2) : 0u;
-  // lo rows in slot lane; the split reads' hi rows, one a distinct block
-  // (every read of round 1 from the full interval shares one), by rank in
-  // the kHiSlots slots after them, as many a batch
-  const unsigned same = __match_any_sync(kFullWarp, split ? b_hi : 0xFFFFFFFFu);
-  const int leader = __ffs(same) - 1;
-  const bool lead = split && leader == lane;
-  const unsigned leads = __ballot_sync(kFullWarp, lead);
-  const int rank = __shfl_sync(kFullWarp, __popc(leads & tpufm::lanes_below()), leader);
-  const int n_hi = __popc(leads);
+  // lo rows in slot lane; the split reads' hi rows, one a distinct block, in
+  // the hi slots of the same batch
+  const HiRows his(split, b_hi);
   const WarpStage<32 + kHiSlots> w = WarpStage<32 + kHiSlots>::at(stride, 0);
-  int jobs = w.list(0, active, row_of(b_lo), lane);
-  jobs = w.list(jobs, lead && rank < kHiSlots, row_of(b_hi), 32 + rank);
-  stage_rows_async<V>(w, stride, jobs, words);
+  const int jobs = w.list(0, active, row_of(b_lo), lane);
+  stage_rows_async<V>(w, stride, his.list(w, jobs, 0, row_of(b_hi)), words);
   const int s_lo = (int)(lo - b_lo * d), s_hi = (int)(hi - b_hi * d);
   uint32_t o_lo = 0, o_hi = 0, unused;
   if (active)
     finish<K, NB, AC>(w.rows + lane * stride, nb, cnt, back, b_lo, c, lo, hi, s_lo, split ? s_lo : s_hi, dollar,
                       o_lo, o_hi);
-  for (int base = 0; base < n_hi; base += kHiSlots) {
+  for (int base = 0; base < his.groups; base += kHiSlots) {
     if (base > 0) {  // the hi rows past the slots: a further batch
       __syncwarp();  // every lane is done with the slots
-      jobs = w.list(0, lead && rank >= base && rank < base + kHiSlots, row_of(b_hi), 32 + rank - base);
-      stage_rows_async<V>(w, stride, jobs, words);
+      stage_rows_async<V>(w, stride, his.list(w, 0, base, row_of(b_hi)), words);
     }
-    if (split && rank >= base && rank < base + kHiSlots)
-      finish<K, NB, AC>(w.rows + (32 + rank - base) * stride, nb, cnt2, back2, b_hi, c, hi, hi, s_hi, s_hi,
-                        dollar, o_hi, unused);
+    if (his.in(base))
+      finish<K, NB, AC>(w.rows + his.slot(base) * stride, nb, cnt2, back2, b_hi, c, hi, hi, s_hi, s_hi, dollar,
+                        o_hi, unused);
   }
-  if (!active) return;
-  if (pairs) {
-    __stcs(reinterpret_cast<longlong2*>(out) + j, make_longlong2((long long)o_lo, (long long)o_hi));
-  } else {
-    __stcs(out + 2 * j, (long long)o_lo);
-    __stcs(out + 2 * j + 1, (long long)o_hi);
-  }
-}
-
-// f(NB) as an integral constant: 6 (d = 192, the recommended width) where
-// a row of K <= 3 fits registers, else 0 (nb at run time).
-template <int K, class F>
-int dispatch_nb(int nb, F f) {
-  if constexpr (K <= 3) {
-    if (nb == 6) return f(std::integral_constant<int, 6>{});
-  }
-  return f(std::integral_constant<int, 0>{});
+  if (active) store_read(out, j, pairs, o_lo, o_hi);
 }
 
 template <bool AC>
