@@ -22,7 +22,7 @@ from tpufm.index.store import load_store as jax_load_store
 from tpufm_torch import SearchEngine, bench
 from tpufm_torch.config import recommend_config
 from tpufm_torch.host.index import IndexConfig, build_index
-from tpufm_torch.timer import device_sync, timed_device_passes, timed_iterations
+from tpufm_torch.timer import device_sync, timed_device_passes
 
 #: detail fields every port record adds to tpufm's
 ADDED = {"device", "power_limit_w", "pass_seconds", "seconds_per_pass_median"}
@@ -49,8 +49,6 @@ def test_timed_device_passes_warms_up_and_lists_passes(iterations):
     assert len(calls) == iterations + 1  # one warm-up pass
     assert len(times) == iterations and all(t >= 0 for t in times)
     assert mean == pytest.approx(sum(times) / iterations) and least == min(times)
-    assert timed_iterations(lambda: calls.append(1), iterations=iterations) >= 0
-    assert len(calls) == 2 * iterations + 1
     device_sync((torch.zeros(2), [torch.ones(1), np.zeros(1)], None))  # CPU: no barrier, no error
 
 

@@ -1,35 +1,14 @@
-"""tpufm_torch.profiling against tpufm/utils/profiling.py: ``search_stats``
-field by field on the same arguments (the memory rate passed to both; the
-port's default is the H100's 3.35e12 B/s, tpufm's a TPU's), ``timed`` (one
+"""tpufm_torch.profiling against tpufm/utils/profiling.py: ``timed`` (one
 timing path, ``timer.timed_device_passes``: the calls it makes and the last
 output) and ``trace`` (a Chrome trace of the block's activity written where
-asked). The stats are floats of the same formulas and compare exactly
-(tolerance 0)."""
+asked, the program's spans in it). The spans and counters themselves:
+tests/test_torch_spans.py."""
 
-import inspect
 import json
 
-import pytest
 import torch
 
-from tpufm.utils import profiling as jax_profiling
 from tpufm_torch import profiling
-
-
-@pytest.mark.parametrize("args", [(0.0296, 1 << 20, 120, 3, 400), (1.5, 1000, 151, 1, 48), (2e-3, 7, 24, 4, 1152)])
-@pytest.mark.parametrize("hbm_bw", [8.1e11, 3.35e12])
-def test_search_stats_matches_tpufm(args, hbm_bw):
-    got = profiling.search_stats(*args, hbm_bw=hbm_bw)
-    assert got == jax_profiling.search_stats(*args, hbm_bw=hbm_bw)
-    assert list(got) == ["reads_per_s", "rounds_per_s", "gathers_per_s", "gathered_bytes_per_s",
-                         "fraction_of_hbm_sol"]
-
-
-def test_search_stats_default_rate_is_the_h100s():
-    default = inspect.signature(profiling.search_stats).parameters["hbm_bw"].default
-    assert default == profiling.H100_HBM_BYTES_PER_S == 3.35e12
-    assert inspect.signature(jax_profiling.search_stats).parameters["hbm_bw"].default == 8.1e11
-    assert profiling.search_stats(1.0, 1, 3, 3, 1)["fraction_of_hbm_sol"] == 2 / 3.35e12
 
 
 def test_timed_runs_warmup_and_passes(monkeypatch):
@@ -52,9 +31,11 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     ``with`` and, with ``out_dir``, its Chrome trace lands in
     ``out_dir/trace.json`` with the block's operations in it."""
     with profiling.trace(str(tmp_path / "t")) as prof:
-        torch.ones(64, 64).matmul(torch.ones(64, 64)).sum()
+        with profiling.span("tpufm.test"):
+            torch.ones(64, 64).matmul(torch.ones(64, 64)).sum()
     events = json.loads((tmp_path / "t" / "trace.json").read_text())["traceEvents"]
     assert any("matmul" in e.get("name", "") for e in events)
+    assert any(e.get("name") == "tpufm.test" for e in events)
     assert any("matmul" in e.name for e in prof.events())
     with profiling.trace() as prof:
         torch.arange(10).cumsum(0)

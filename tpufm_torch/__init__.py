@@ -49,8 +49,8 @@ Layers:
                                   (tpufm/index/*_sharded.py)
   tpufm_torch.parallel          — the mesh, its collectives, the mesh
                                   search and locate engines
-  tpufm_torch.profiling         — a torch.profiler trace, timed passes,
-                                  a search pass's derived rates
+  tpufm_torch.profiling         — a torch.profiler trace, the program's
+                                  spans and counters on it, timed passes
   tpufm_torch.kernels           — nvcc build (one library per csrc/*.cu,
                                   all at once) + ctypes binding
   tpufm_torch.host              — index build (SA-IS in csrc/sais.cpp), index

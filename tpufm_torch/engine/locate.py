@@ -43,6 +43,7 @@ from tpufm_torch.engine.lf_round import lf_round_rows_reference
 from tpufm_torch.engine.search import _int64, _rows, _words, stream_waves
 from tpufm_torch.engine.tables import _check_d, _dollar, concat_words
 from tpufm_torch.host.locate import LocateIndex, locate_hits_compacted
+from tpufm_torch.profiling import span
 
 #: kernel launches made by ``locate_walk`` in this process (plain-path calls
 #: on CPU tensors do not count)
@@ -195,11 +196,14 @@ def locate_compacted(walk_rows, rows: torch.Tensor, valid: torch.Tensor) -> torc
     int64 [N]), 0 where not ``valid``: only the valid lanes walk. A boolean
     index packs them (one device-to-host read of their count) and a masked
     store puts them back, the work of ``compact_slots`` and
-    ``scatter_back`` (xla.py:1102-1118); JAX compacts into a fixed budget
+    ``scatter_back`` (xla.py:1102-1118); the packing is the span
+    ``tpufm.locate.compact``; JAX compacts into a fixed budget
     behind a ``lax.cond`` only because its shapes must be static. Every
     lane walks independently, so the positions are the same either way."""
     pos = torch.zeros_like(rows)
-    pos[valid] = walk_rows(rows[valid])
+    with span("tpufm.locate.compact"):
+        lanes = rows[valid]
+    pos[valid] = walk_rows(lanes)
     return pos
 
 

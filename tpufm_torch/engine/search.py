@@ -70,6 +70,7 @@ from tpufm_torch.engine.tables import (
 )
 from tpufm_torch.host.index import AltCountersIndex, KStepFMIndex
 from tpufm_torch.host.seqio import VARLEN_PAD
+from tpufm_torch.profiling import H2D_BYTES, count, span
 
 
 def _words(a: np.ndarray | torch.Tensor | None, device: torch.device) -> torch.Tensor | None:
@@ -385,18 +386,23 @@ class SearchEngine(torch.nn.Module):
                 + "; supply a tail_index (k=1) to search any length"
             )
         head, body = queries[:, :r], queries[:, r:]
-        if m:
-            if body.shape[1] < m:
-                raise ValueError(f"query length {L} shorter than lut_m={m}")
-            iv = from_u32_bits(self.lut[fuse_prefix_codes(body, m)])
-            body = body[:, : body.shape[1] - m]
-        else:
-            iv = self._full_interval(queries.shape[0])
+        if m and body.shape[1] < m:
+            raise ValueError(f"query length {L} shorter than lut_m={m}")
+        with span("tpufm.search.start"):
+            if m:
+                iv = from_u32_bits(self.lut[fuse_prefix_codes(body, m)])
+                body = body[:, : body.shape[1] - m]
+            else:
+                iv = self._full_interval(queries.shape[0])
         if body.shape[1]:
-            iv = _rounds(iv, fuse_round_codes(body, k), round_fn)
+            with span("tpufm.search.codes"):
+                codes = fuse_round_codes(body, k)
+            with span("tpufm.search.rounds"):
+                iv = _rounds(iv, codes, round_fn)
         if r:
             # the leftover leading characters, right to left, one per round
-            iv = _rounds(iv, head.flip(1).to(torch.int64).T.contiguous(), self._tail_round(step))
+            with span("tpufm.search.tail"):
+                iv = _rounds(iv, head.flip(1).to(torch.int64).T.contiguous(), self._tail_round(step))
         return iv
 
     def search_device_waved(self, queries: torch.Tensor, wave: int | None = None):
@@ -490,23 +496,24 @@ class SearchEngine(torch.nn.Module):
         interval spanned more than two blocks again on the fused table, in
         waves of ``REPAIR_WAVE``, and records their share in
         ``last_repair_fraction`` (xla.py:711-731)."""
-        if self.layout != "paired":
-            return self._stream(queries, wave, lambda q: self.search_device(q, step))
+        with span("tpufm.search"):
+            if self.layout != "paired":
+                return self._stream(queries, wave, lambda q: self.search_device(q, step))
 
-        def with_ok(q):
-            iv, ok = self.search_device(q, step)
-            return torch.cat([iv, ok[:, None].to(torch.int64)], dim=1)
+            def with_ok(q):
+                iv, ok = self.search_device(q, step)
+                return torch.cat([iv, ok[:, None].to(torch.int64)], dim=1)
 
-        out3 = self._stream(queries, wave, with_ok, (3,))
-        iv = np.ascontiguousarray(out3[:, :2])
-        bad = np.flatnonzero(out3[:, 2] == 0)
-        self.last_repair_fraction = bad.size / max(1, out3.shape[0])
-        if bad.size:
-            queries = np.require(queries, np.uint8, ["C", "W"])
-            fused = self._fused_k(step)
-            iv[bad] = self._stream(queries[bad], self.REPAIR_WAVE,
-                                   lambda q: self._search_fixed(q, self.lut_m, fused, step))
-        return iv
+            out3 = self._stream(queries, wave, with_ok, (3,))
+            iv = np.ascontiguousarray(out3[:, :2])
+            bad = np.flatnonzero(out3[:, 2] == 0)
+            self.last_repair_fraction = bad.size / max(1, out3.shape[0])
+            if bad.size:
+                queries = np.require(queries, np.uint8, ["C", "W"])
+                fused = self._fused_k(step)
+                iv[bad] = self._stream(queries[bad], self.REPAIR_WAVE,
+                                       lambda q: self._search_fixed(q, self.lut_m, fused, step))
+            return iv
 
     def search_varlen(self, queries, wave: int | None = None, step=None) -> np.ndarray:
         """Right-aligned ``VARLEN_PAD``-padded host reads (the shape
@@ -525,8 +532,11 @@ class SearchEngine(torch.nn.Module):
             raise ValueError("count(mismatches=1) requires the fused layout")
         self._check_queries(queries)
         W, L = queries.shape
-        iv = self.search_device(variants1(queries).reshape(-1, L), step).view(W, 3 * L + 1, 2)
-        return (iv[..., 1] - iv[..., 0]).sum(dim=-1) & FULL
+        with span("tpufm.count.variants"):
+            lanes = variants1(queries).reshape(-1, L)
+        iv = self.search_device(lanes, step).view(W, 3 * L + 1, 2)
+        with span("tpufm.count.sum"):
+            return (iv[..., 1] - iv[..., 0]).sum(dim=-1) & FULL
 
     def count(self, queries, mismatches: int = 0, wave: int | None = None, step=None) -> np.ndarray:
         """uint32 [B] occurrence count of every read: R - L of its exact
@@ -534,20 +544,21 @@ class SearchEngine(torch.nn.Module):
         (mismatches=1, the fused layout only), in waves of ``wave`` reads; a
         Hamming wave defaults to WAVE // (3L + 1) reads, so that it searches
         about WAVE lanes (``XLAEngine.count``, xla.py:866)."""
-        queries = np.require(queries, np.uint8, ["C", "W"])
-        if mismatches == 0:
-            iv = self.search(queries, wave=wave, step=step)
-            return (iv[:, 1] - iv[:, 0]).astype(np.uint32)
-        if mismatches != 1:
-            raise NotImplementedError(
-                f"mismatches={mismatches}: only 0 and 1 are supported (the "
-                "variant fan-out grows as (3L)^e — distance 2 at L=120 is "
-                "~65K variants/read; use a seed-and-verify pipeline instead)"
-            )
-        if self.layout != "fused":
-            raise ValueError("count(mismatches=1) requires the fused layout")
-        wave = wave or max(1, self.WAVE // (3 * queries.shape[1] + 1))
-        return self._stream(queries, wave, lambda q: self.count_mismatch_device(q, step), ())
+        with span("tpufm.count"):
+            queries = np.require(queries, np.uint8, ["C", "W"])
+            if mismatches == 0:
+                iv = self.search(queries, wave=wave, step=step)
+                return (iv[:, 1] - iv[:, 0]).astype(np.uint32)
+            if mismatches != 1:
+                raise NotImplementedError(
+                    f"mismatches={mismatches}: only 0 and 1 are supported (the "
+                    "variant fan-out grows as (3L)^e — distance 2 at L=120 is "
+                    "~65K variants/read; use a seed-and-verify pipeline instead)"
+                )
+            if self.layout != "fused":
+                raise ValueError("count(mismatches=1) requires the fused layout")
+            wave = wave or max(1, self.WAVE // (3 * queries.shape[1] + 1))
+            return self._stream(queries, wave, lambda q: self.count_mismatch_device(q, step), ())
 
 
 def pad_cycle(arr: np.ndarray, pad: int) -> np.ndarray:
@@ -575,7 +586,13 @@ def stream_waves(items: np.ndarray, wave: int, fn, device: torch.device | None, 
     host numpy and a short last wave is padded to a whole one with its own
     items, as tpufm's ``pad_mode="cycle"`` (a sharded engine's last wave
     keeps the bucket statistics of real traffic); the pad's results are
-    dropped. A batch of at most one wave goes through as it is."""
+    dropped. A batch of at most one wave goes through as it is.
+
+    Under a profiler each wave's steps are spans: ``tpufm.wave.upload`` (the
+    copy to ``device``, whose bytes the counter ``H2D_BYTES`` adds up),
+    ``tpufm.wave.enqueue`` (``fn``), then for the wave before it
+    ``tpufm.wave.readback`` (the copy to the host, which for a CUDA result
+    first waits for the stream's queued rounds, and the uint32 store)."""
     if wave <= 0:
         raise ValueError(f"wave must be positive, got {wave}")
     B = items.shape[0]
@@ -584,12 +601,25 @@ def stream_waves(items: np.ndarray, wave: int, fn, device: torch.device | None, 
     for start in range(0, B, wave):
         chunk = items[start:start + wave]
         real = chunk.shape[0]
-        if device is None and B > wave and real < wave:
-            chunk = pad_cycle(chunk, wave - real)
-        res = fn(chunk if device is None else torch.from_numpy(chunk).to(device))
+        if device is None:
+            if B > wave and real < wave:
+                chunk = pad_cycle(chunk, wave - real)
+        else:
+            count(H2D_BYTES, chunk.nbytes)
+            with span("tpufm.wave.upload"):
+                chunk = torch.from_numpy(chunk).to(device)
+        with span("tpufm.wave.enqueue"):
+            res = fn(chunk)
         if pending is not None:
-            out[pending[0]:start] = pending[1][:start - pending[0]].cpu().numpy()
+            _read_back(out[pending[0]:start], pending[1])
         pending = (start, res)
     if pending is not None:
-        out[pending[0]:] = pending[1][:B - pending[0]].cpu().numpy()
+        _read_back(out[pending[0]:], pending[1])
     return out
+
+
+def _read_back(dst: np.ndarray, res: torch.Tensor) -> None:
+    """The first len(dst) rows of the wave result ``res`` into the host
+    rows ``dst``."""
+    with span("tpufm.wave.readback"):
+        dst[...] = res[:len(dst)].cpu().numpy()

@@ -1,13 +1,21 @@
-"""Profiling helpers: a device trace of a block, timed passes, and the
-derived rates of a search pass.
+"""Profiling helpers: a device trace of a block, the program's spans and
+counters on that trace, and timed passes.
 
 Counterpart of tpufm/utils/profiling.py: ``trace`` (:18) over
 ``torch.profiler`` in place of ``jax.profiler``, writing a Chrome trace;
 ``timed`` (:30) over ``timer.timed_device_passes``, the port's one timing
-code path; ``search_stats`` (:48) with the same fields. Its default memory
-rate is the one the port's bounds use, 3.35e12 B/s: the HBM3 of an NVIDIA
-H100 80GB (SXM), as NVIDIA's data sheet gives it, at the card's full 700 W
-power limit. tpufm's default, 8.1e11, is a TPU's.
+code path. Speed-of-light shares are the benchmark's (``fmbench``'s
+``lf_round_sol_pct``), read from the device trace.
+
+``span(name)`` marks a block of the program under ``trace``: a
+``record_function`` range, kept in the profiler's own buffer on the clock of
+its device events and written out by its exporter. With no profiler running
+it opens nothing. The engines' spans are named ``tpufm.*`` (``tpufm.search``,
+``tpufm.count``, ``tpufm.wave.upload`` / ``enqueue`` / ``readback``,
+``tpufm.search.*``, ``tpufm.count.*``, ``tpufm.locate.compact``), the CLI's
+stages ``tpufm.cli.<stage>``.
+``count(name, n)`` adds to a counter that is always on; ``counters()`` is a
+copy of them all (``H2D_BYTES``: the bytes each wave hands to its device).
 """
 
 from __future__ import annotations
@@ -15,10 +23,34 @@ from __future__ import annotations
 import contextlib
 import os
 
+import torch
+
 from tpufm_torch.timer import timed_device_passes
 
-#: bytes/s of one NVIDIA H100 80GB HBM3 (data sheet, SXM part, 700 W)
-H100_HBM_BYTES_PER_S = 3.35e12
+#: bytes ``stream_waves`` hands to the device, wave by wave
+H2D_BYTES = "tpufm.h2d_bytes"
+
+_OFF = contextlib.nullcontext()
+_COUNTERS: dict[str, int] = {}
+
+
+def span(name: str):
+    """A ``record_function(name)`` range while a profiler runs, else one
+    shared no-op context (no range is entered)."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to the counter ``name``."""
+    _COUNTERS[name] = _COUNTERS.get(name, 0) + n
+
+
+def counters() -> dict[str, int]:
+    """A copy of every counter: the difference of two copies is what the
+    program did between them."""
+    return dict(_COUNTERS)
 
 
 @contextlib.contextmanager
@@ -49,20 +81,3 @@ def timed(fn, *args, iterations: int = 5, warmup: int = 1):
 
     mean, _, _ = timed_device_passes(call, iterations, warmup)
     return mean, out[0]
-
-
-def search_stats(seconds_per_pass: float, num_reads: int, read_len: int, k: int, entry_bytes: int,
-                 hbm_bw: float = H100_HBM_BYTES_PER_S) -> dict:
-    """Derived metrics of one search pass: reads/s, k-step rounds/s, row
-    gathers/s (two ends a round), the gathered bytes/s, and their share of
-    the memory rate ``hbm_bw`` (for ``entry_bytes``-byte rows)."""
-    rounds = read_len // k
-    gathers = 2 * num_reads * rounds
-    gathered_bytes = gathers * entry_bytes
-    return {
-        "reads_per_s": num_reads / seconds_per_pass,
-        "rounds_per_s": num_reads * rounds / seconds_per_pass,
-        "gathers_per_s": gathers / seconds_per_pass,
-        "gathered_bytes_per_s": gathered_bytes / seconds_per_pass,
-        "fraction_of_hbm_sol": gathered_bytes / seconds_per_pass / hbm_bw,
-    }

@@ -1,8 +1,8 @@
 """Wall-clock timing of passes: the reference's TIME: protocol (the mean of
 ``iterations`` passes, reference common/searchQueries.c:78-118).
 
-Counterparts of ``timed_iterations`` (tpufm/utils/timer.py:31),
-``device_sync`` (:43) and ``timed_device_passes`` (:61). A pass ends at a
+Counterparts of ``device_sync`` (tpufm/utils/timer.py:43) and
+``timed_device_passes`` (:61). A pass ends at a
 device barrier: ``torch.cuda.synchronize`` on every CUDA device that holds a
 tensor of its result (torch returns before the card finishes). A result on
 the CPU, or in host memory, is complete when it is returned and needs none.
@@ -14,15 +14,6 @@ import contextlib
 import time
 
 import torch
-
-
-def timed_iterations(fn, iterations: int = 5) -> float:
-    """Mean seconds of ``iterations`` calls of ``fn``, timed as one run (fn
-    must return only when its work is done, as a host result does)."""
-    t0 = time.perf_counter()
-    for _ in range(iterations):
-        fn()
-    return (time.perf_counter() - t0) / iterations
 
 
 def _tensors(x):
@@ -60,12 +51,16 @@ def timed_device_passes(fn, iterations: int = 5, warmup: int = 1):
 
 class Stages(dict):
     """Host-clock seconds of the named stages of one run: ``with
-    stages("emit"): ...`` adds the block's time to its stage."""
+    stages("emit"): ...`` adds the block's time to its stage, and under a
+    profiler marks the block as the span ``tpufm.cli.<name>``."""
 
     @contextlib.contextmanager
     def __call__(self, name: str):
+        from tpufm_torch.profiling import span  # profiling imports this module
+
         t0 = time.perf_counter()
         try:
-            yield
+            with span(f"tpufm.cli.{name}"):
+                yield
         finally:
             self[name] = self.get(name, 0.0) + time.perf_counter() - t0
