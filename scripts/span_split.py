@@ -2,30 +2,35 @@
 
     python3 scripts/span_split.py --workload <cell> --seed <n> --seconds <s> [--out FILE]
 
-from the root of a checkout, on a CUDA device. Runs the cell as
-``fmbench/run.py --trace 1`` does, through ``fmbench.harness.run`` unchanged,
-and keeps two things the harness lets go: the profiler's raw events, taken
-where the harness hands its profiler to ``fmbench.trace.from_profiler``, and
-the program's counters (``tpufm_torch.profiling.counters()``) across the
-measured window. From them, on the window's thread and clipped to the window:
+from the root of a checkout, on a CUDA device. Temporary: its reduction
+belongs in ``fmbench/trace.py`` (``Trace.span_s`` / ``span_device_s``) with
+readers under ``fmbench/metrics/``, which a change to the benchmark itself
+brings; this script goes then. Until then it runs the cell as
+``fmbench/run.py --trace 1`` does, through ``fmbench.harness.run``
+unchanged, and keeps the profiler's raw events, taken where the harness
+hands its profiler to ``fmbench.trace.from_profiler``. From them, on the
+window's thread and clipped to the window:
 
 - ``span_s``: host seconds of each ``tpufm.*`` and ``fmbench.*`` span;
 - ``span_n``: how many instances of each;
 - ``span_device_s``: device seconds of the kernels, copies and memsets whose
   launching runtime call (the same correlation id) starts inside an instance
   of the span, at any depth;
-- ``readback_wait_s``: host seconds of the blocking runtime calls
-  (``BLOCKING``) inside ``tpufm.wave.readback``, less the device seconds of
-  the copies launched there: the time the host waited for the stream's
-  queued rounds, which the pageable copy to the host waits for (the program
-  adds no synchronize of its own). Durations only, each on its own clock;
-- ``counters``: what each counter added over the window;
+- the read-back's blocking runtime calls (``BLOCKING``) inside
+  ``tpufm.wave.readback``, on the profiler's one clock for host and device:
+  ``readback_blocked_s``, their host seconds; ``readback_wait_s``, from each
+  call's start to the device start of the copy it launched (a call with no
+  copy waits throughout): the time the host waited for the stream's queued
+  rounds, which the pageable copy to the host waits for (the program adds
+  no synchronize of its own); ``readback_staging_s``, from the copy's device
+  end to the call's end: the host's copy out of the driver's staging;
 - ``readings``: figures per million reads of the window (the batch still in
   flight at its close included, as the harness counts them): host
   milliseconds in each wave step (the read-back split into its wait and
-  the rest, the copy and the store), the upload's GB/s, the device
-  milliseconds launched under ``tpufm.count.variants``, and the shares the
-  spans cover of their parents.
+  the rest, and the staging apart), the upload's GB/s (the reads' bytes,
+  as the cell's traffic gives them, over the upload's host seconds), the
+  device milliseconds launched under ``tpufm.count.variants``, and the
+  shares the spans cover of their parents.
 
 The last line of standard output is the harness's result line with these
 added under ``spans``; ``--out`` writes it to a file as well.
@@ -89,8 +94,9 @@ def events(prof) -> list[Ev]:
 
 
 def split(evs: list[Ev], window: str = "fmbench.window") -> dict:
-    """``span_s``, ``span_n``, ``span_device_s`` and ``readback_wait_s``
-    (see the module docstring) inside the longest ``window`` span."""
+    """``span_s``, ``span_n``, ``span_device_s`` and the read-back's
+    blocked, wait and staging seconds (see the module docstring) inside the
+    longest ``window`` span."""
     win = max((e for e in evs if e.kind == "span" and e.name == window), key=lambda e: e.end - e.start)
     w0, w1 = win.start, win.end
     spans = sorted((e for e in evs if e.kind == "span" and e.thread == win.thread
@@ -120,32 +126,42 @@ def split(evs: list[Ev], window: str = "fmbench.window") -> dict:
             span_device_s[name] = span_device_s.get(name, 0.0) + device_s[corr]
     # read-backs do not nest: the one that started last before a call holds it, if it is still open
     backs = [(s.start, s.end) for s in spans if s.name == READBACK]
-    blocked = 0
+    copies = {}  # launching call's id -> (first device start, last device end) of its copies
+    for e in evs:
+        if e.kind == "copy" and e.corr:
+            c0, c1 = copies.get(e.corr, (e.start, e.end))
+            copies[e.corr] = (min(c0, e.start), max(c1, e.end))
+    blocked = wait = staging = 0
     for e in evs:
         if e.kind == "host" and e.name in BLOCKING and e.thread == win.thread and e.end > w0 and e.start < w1:
             j = bisect.bisect_right(backs, (e.start, float("inf"))) - 1
-            if j >= 0 and e.end <= backs[j][1]:
-                blocked += min(e.end, w1) - max(e.start, w0)
-    wait = max(0.0, blocked / 1e9 - span_device_s.get(READBACK, 0.0))
-    return {"span_s": span_s, "span_n": span_n, "span_device_s": span_device_s, "readback_wait_s": wait}
+            if j < 0 or e.end > backs[j][1]:
+                continue
+            a, b = max(e.start, w0), min(e.end, w1)
+            blocked += b - a
+            c0, c1 = copies.get(e.corr, (b, b))
+            wait += min(max(c0, a), b) - a
+            staging += b - max(min(c1, b), a)
+    return {"span_s": span_s, "span_n": span_n, "span_device_s": span_device_s,
+            "readback_blocked_s": blocked / 1e9, "readback_wait_s": wait / 1e9,
+            "readback_staging_s": staging / 1e9}
 
 
-def readings(spans: dict, counters: dict, reads: int) -> dict:
-    """Figures per million ``reads`` from ``split``'s maps and the window's
-    ``counters``; a figure whose span or counter is missing is left out."""
-    from tpufm_torch.profiling import H2D_BYTES
-
+def readings(spans: dict, reads: int, read_len: int) -> dict:
+    """Figures per million ``reads`` of ``read_len`` bases from ``split``'s
+    maps; a figure whose span is missing is left out."""
     span_s, dev_s = spans["span_s"], spans["span_device_s"]
     mreads = reads / 1e6
     out = {}
     for step in WAVE_STEPS:
         if f"tpufm.wave.{step}" in span_s:
             out[f"{step}_ms_per_mread"] = span_s[f"tpufm.wave.{step}"] * 1e3 / mreads
-    if spans.get("readback_wait_s") and READBACK in span_s:
+    if READBACK in span_s and spans.get("readback_blocked_s"):
         out["wait_ms_per_mread"] = spans["readback_wait_s"] * 1e3 / mreads
         out["readback_ms_per_mread"] = (span_s[READBACK] - spans["readback_wait_s"]) * 1e3 / mreads
-    if span_s.get("tpufm.wave.upload") and counters.get(H2D_BYTES):
-        out["upload_gbps"] = counters[H2D_BYTES] / span_s["tpufm.wave.upload"] / 1e9
+        out["staging_ms_per_mread"] = spans["readback_staging_s"] * 1e3 / mreads
+    if span_s.get("tpufm.wave.upload"):
+        out["upload_gbps"] = reads * read_len / span_s["tpufm.wave.upload"] / 1e9
     if "tpufm.count.variants" in dev_s:
         out["variants_device_ms_per_mread"] = dev_s["tpufm.count.variants"] * 1e3 / mreads
     top = span_s.get("tpufm.count") or span_s.get("tpufm.search")
@@ -159,34 +175,25 @@ def readings(spans: dict, counters: dict, reads: int) -> dict:
 def traced_run(config: dict, traffic: dict, metrics: list, readers: dict, entry, seed: int,
                seconds: float, device, t_start: float) -> dict:
     """``fmbench.harness.run`` with ``--trace 1``'s arguments; its result
-    line with ``spans`` added. The harness's own steps are wrapped only to
-    keep the profiler's events and the counters around the window."""
+    line with ``spans`` added. The harness's reduction is wrapped only to
+    keep the profiler's events."""
     from fmbench import harness, trace
-    from tpufm_torch import profiling
 
     kept = {}
-    from_profiler, measure = trace.from_profiler, harness.measure
+    from_profiler = trace.from_profiler
 
     def keep_events(prof):
         kept["events"] = events(prof)
         return from_profiler(prof)
 
-    def measure_counting(*a, **kw):
-        before = profiling.counters()
-        try:
-            return measure(*a, **kw)
-        finally:
-            after = profiling.counters()
-            kept["counters"] = {k: v - before.get(k, 0) for k, v in after.items()}
-
-    trace.from_profiler, harness.measure = keep_events, measure_counting
+    trace.from_profiler = keep_events
     try:
         result = harness.run(config, traffic, metrics, readers, entry, seed, seconds, True, device, t_start)
     finally:
-        trace.from_profiler, harness.measure = from_profiler, measure
+        trace.from_profiler = from_profiler
     spans = split(kept.pop("events"))
     reads = result["batches"]["sent"] * traffic["batch_reads"]
-    spans.update(counters=kept["counters"], reads=reads, readings=readings(spans, kept["counters"], reads))
+    spans.update(reads=reads, readings=readings(spans, reads, traffic["read_len"]))
     result["spans"] = spans
     return result
 

@@ -423,6 +423,7 @@ def test_bench_parser_equals_tpufm(monkeypatch, argv):
     want = _bench_args(jax_cli.main, monkeypatch, jax_cli, argv)
     got = _bench_args(torch_cli.main, monkeypatch, torch_cli, argv)
     assert got.pop("device") == "cuda"
+    assert got.pop("trace") is None  # the port's own --trace DIR, before any command
     assert got == want
 
 

@@ -1,16 +1,17 @@
-"""The program's spans and counter (``tpufm_torch.profiling.span``,
-``count``, ``counters``) and ``scripts/span_split.py``, which splits a
-traced benchmark window by them.
+"""The program's spans (``tpufm_torch.profiling.span``), the CLI's
+``--trace DIR`` that writes them, and ``scripts/span_split.py``, which
+splits a traced benchmark window by them.
 
 Without a profiler no ``record_function`` is entered. Under
 ``profiling.trace()`` a CPU ``SearchEngine`` gives each wave one upload,
-one enqueue and one read-back span inside the call's span, which they cover;
-the counter adds up the reads' bytes. The script's reduction is checked on
-synthetic events (host seconds, device seconds by correlation id, a span's
+one enqueue and one read-back span inside the call's span, which they cover.
+The script's reduction is checked on synthetic events (host seconds, device
+seconds by correlation id, the read-back's wait and staging, a span's
 device mirror never a kernel) and on a whole traced CPU run of the
 harness. The ``gpu`` case checks on the card that each read-back's
-device-to-host copy is launched inside ``tpufm.wave.readback`` and starts
-on the device only after its call began (the wait the script reads)."""
+device-to-host copy is launched inside ``tpufm.wave.readback`` and runs on
+the device within its call, after the newest wave's kernels (the wait the
+script reads)."""
 
 import importlib.util
 import json
@@ -24,9 +25,10 @@ import numpy as np
 import pytest
 import torch
 
-from tpufm_torch import SearchEngine, profiling, timer
+from tpufm_torch import SearchEngine, cli, profiling, timer
 from tpufm_torch.engine.locate import locate_compacted
 from tpufm_torch.host.index import IndexConfig, build_index
+from tpufm_torch.host.seqio import decode_bases, write_reference
 
 ROOT = Path(__file__).resolve().parents[1]
 _spec = importlib.util.spec_from_file_location("span_split", ROOT / "scripts" / "span_split.py")
@@ -95,21 +97,10 @@ def test_span_under_the_profiler_is_a_range_of_its_name():
     assert (inner, outer) == ("tpufm.inner", "tpufm.outer") and o0 <= i0 <= i1 <= o1
 
 
-def test_counters_add_and_are_copies():
-    before = profiling.counters()
-    profiling.count("tpufm.test_counter", 5)
-    profiling.count("tpufm.test_counter", 7)
-    after = profiling.counters()
-    assert after["tpufm.test_counter"] - before.get("tpufm.test_counter", 0) == 12
-    after["tpufm.test_counter"] = -1
-    assert profiling.counters()["tpufm.test_counter"] != -1
-
-
 def _traced(call):
-    before = profiling.counters().get(profiling.H2D_BYTES, 0)
     with profiling.trace() as prof:
         out = call()
-    return out, _spans(prof), profiling.counters()[profiling.H2D_BYTES] - before
+    return out, _spans(prof)
 
 
 @pytest.mark.parametrize("path", ["search", "count_mismatches1", "paired_search", "count_exact"])
@@ -117,7 +108,7 @@ def test_engine_spans_over_several_waves(path, monkeypatch):
     """Each wave one upload, one enqueue and one read-back (a CPU result
     has no wait), the paired layout's repair waves too; the fixed-length
     search's steps in each of its waves; the wave steps cover at least 95%
-    of the call's span; the counter adds the reads' bytes."""
+    of the call's span."""
     paired = path == "paired_search"
     codes, index = _index(k=2, d=64, repeat=paired)
     L, B = 24, 600
@@ -126,15 +117,15 @@ def test_engine_spans_over_several_waves(path, monkeypatch):
     monkeypatch.setattr(SearchEngine, "REPAIR_WAVE", 64)
     if path == "count_mismatches1":
         wave, top = 40, "tpufm.count"
-        out, spans, h2d = _traced(lambda: engine.count(q, mismatches=1, wave=wave))
+        out, spans = _traced(lambda: engine.count(q, mismatches=1, wave=wave))
         np.testing.assert_array_equal(out, engine.count(q, mismatches=1, wave=wave))
     elif path == "count_exact":
         wave, top = 128, "tpufm.count"
-        out, spans, h2d = _traced(lambda: engine.count(q, wave=wave))
+        out, spans = _traced(lambda: engine.count(q, wave=wave))
         assert _names(spans, "tpufm.search") == 1
     else:
         wave, top = 128, "tpufm.search"
-        out, spans, h2d = _traced(lambda: engine.search(q, wave=wave))
+        out, spans = _traced(lambda: engine.search(q, wave=wave))
         np.testing.assert_array_equal(out, engine.search(q, wave=wave))
     waves = math.ceil(B / wave)
     repaired = 0
@@ -144,7 +135,6 @@ def test_engine_spans_over_several_waves(path, monkeypatch):
         waves += math.ceil(repaired / 64)
     assert [_names(spans, n) for n in WAVE_STEPS] == [waves] * 3
     assert _names(spans, top) == 1
-    assert h2d == (B + repaired) * L
     # the paired round is K1's paired entry; only its repair waves take the fixed search
     fixed = waves - math.ceil(B / wave) if paired else waves
     assert [_names(spans, f"tpufm.search.{n}") for n in ("start", "codes", "rounds", "tail")] == [fixed] * 3 + [0]
@@ -161,7 +151,7 @@ def test_tail_rounds_have_their_span_only_where_there_are_any():
     _, tail = _index(k=1, d=64)
     engine = SearchEngine(index, "cpu", lut_m=3, tail_index=tail)
     for L, tails in [(21, 0), (23, 2)]:
-        _, spans, _ = _traced(lambda: engine.search(_reads(codes, L, 50), wave=25))
+        _, spans = _traced(lambda: engine.search(_reads(codes, L, 50), wave=25))
         assert _names(spans, "tpufm.search.tail") == tails
 
 
@@ -186,6 +176,31 @@ def test_stages_add_seconds_and_a_span_of_each_stage():
     spans = _spans(prof)
     assert [n for n, _, _ in spans].count("tpufm.cli.tables") == 2 and _names(spans, "tpufm.cli.emit") == 1
     assert _seconds(spans, "tpufm.cli.tables") <= stages["tables"]
+
+
+@pytest.mark.parametrize("command", ["count_mismatches1_tail", "locate_fused"])
+def test_cli_trace_writes_the_program_spans(command, tmp_path):
+    """``--trace DIR`` writes the command's Chrome trace with the spans an
+    operator reads there: Hamming counting's variants, sum and k=1 tail
+    rounds; the fused locate's compaction and the CLI's stages."""
+    codes = np.random.default_rng(11).integers(0, 4, size=3000, dtype=np.uint8)
+    ref = tmp_path / "ref.fa"
+    write_reference(ref, decode_bases(codes))
+    L = 25 if command == "count_mismatches1_tail" else 24
+    qry = str(tmp_path / "reads.qry")
+    cli.main(["genreads", str(ref), "3000", str(L), "40", "--output", qry])
+    out = tmp_path / "trace"
+    if command == "count_mismatches1_tail":
+        index = str(tmp_path / "ref.npz")
+        cli.main(["build", str(ref), "3000", "--k", "2", "--d", "64", "--tail", "--output", index, "--device", "cpu"])
+        cli.main(["--trace", str(out), "count", index, qry, str(L), "40", "--mismatches", "1", "--device", "cpu"])
+        want = {"tpufm.count", "tpufm.count.variants", "tpufm.count.sum", "tpufm.search.tail", "tpufm.wave.readback"}
+    else:
+        cli.main(["--trace", str(out), "locate", str(ref), "3000", qry, str(L), "40", "--k", "2", "--d", "64",
+                  "--fused", "--output", str(tmp_path / "reads.pos"), "--device", "cpu"])
+        want = {"tpufm.cli.tables", "tpufm.cli.reads", "tpufm.locate.compact"}
+    names = {e.get("name") for e in json.loads((out / "trace.json").read_text())["traceEvents"]}
+    assert want <= names
 
 
 class _Raw:
@@ -263,8 +278,9 @@ def test_benchmark_trace_reads_the_same_with_spans_where_annotations_are_flagged
 def test_split_of_a_synthetic_window(flag):
     """Host seconds a span, device seconds by the launching call's
     correlation id at any depth (an operator sharing the id does not
-    launch), the read-back's wait (its blocking runtime calls less its
-    copy's device time), the mirrors of spans never kernels, also where the
+    launch), the read-back's wait (a blocking call's start to its copy's
+    device start; a call with no copy, throughout) and staging (the copy's
+    end to the call's end), the mirrors of spans never kernels, also where the
     profiler flags no annotation."""
     evs = span_split.events(_Prof(_raw_window(True, flag)))
     assert sorted(e.name for e in evs if e.kind == "kernel") == ["elementwise_kernel", "lf_round_pairs_kernel"]
@@ -279,7 +295,9 @@ def test_split_of_a_synthetic_window(flag):
         "fmbench.window": 380e-9, "fmbench.batch": 380e-9, "tpufm.search": 380e-9,
         "tpufm.wave.enqueue": 220e-9, "tpufm.search.rounds": 160e-9, "tpufm.count.variants": 60e-9,
         "tpufm.wave.readback": 160e-9}, abs=1e-15)
-    assert got["readback_wait_s"] == pytest.approx(310e-9 - 160e-9, abs=1e-15)
+    assert got["readback_blocked_s"] == pytest.approx(310e-9, abs=1e-15)
+    assert got["readback_wait_s"] == pytest.approx((620 - 510 + 20) * 1e-9, abs=1e-15)
+    assert got["readback_staging_s"] == pytest.approx((800 - 780) * 1e-9, abs=1e-15)
 
 
 def test_split_clips_to_the_window():
@@ -291,13 +309,14 @@ def test_split_clips_to_the_window():
                                            "tpufm.wave.upload": 10e-9}, abs=1e-15)
     assert got["span_n"]["tpufm.wave.upload"] == 1
     assert got["span_device_s"] == {"tpufm.wave.enqueue": pytest.approx(60e-9, abs=1e-15)}
-    assert got["readback_wait_s"] == 0
+    assert got["readback_blocked_s"] == got["readback_wait_s"] == got["readback_staging_s"] == 0
 
 
 def test_readback_wait_counts_only_blocking_calls_inside_readbacks():
-    """The wait: blocking runtime calls inside a read-back, less the device
-    time of the copies launched there; an upload's copy and a synchronize
-    outside any read-back do not count."""
+    """The wait: from a blocking runtime call's start inside a read-back to
+    the device start of the copy it launched, clipped to the call; the
+    staging from the copy's end to the call's end; an upload's copy and a
+    synchronize outside any read-back do not count."""
     evs = [Ev("span", "fmbench.window", 0, 1000), Ev("span", "tpufm.wave.readback", 100, 300),
            Ev("host", "cudaMemcpyAsync", 110, 290, corr=1), Ev("copy", "Memcpy DtoH", 200, 280, corr=1),
            Ev("span", "tpufm.wave.upload", 400, 500),
@@ -305,19 +324,27 @@ def test_readback_wait_counts_only_blocking_calls_inside_readbacks():
            Ev("host", "cudaStreamSynchronize", 600, 650, corr=3)]
     got = span_split.split(evs)
     assert got["span_device_s"]["tpufm.wave.readback"] == pytest.approx(80e-9, abs=1e-15)
-    assert got["readback_wait_s"] == pytest.approx(180e-9 - 80e-9, abs=1e-15)
+    assert got["readback_blocked_s"] == pytest.approx(180e-9, abs=1e-15)
+    assert got["readback_wait_s"] == pytest.approx((200 - 110) * 1e-9, abs=1e-15)
+    assert got["readback_staging_s"] == pytest.approx((290 - 280) * 1e-9, abs=1e-15)
+    # a copy the device ran before its call began (clocks apart) waits for nothing
+    evs[2:4] = [Ev("host", "cudaMemcpyAsync", 110, 290, corr=1), Ev("copy", "Memcpy DtoH", 90, 300, corr=1)]
+    got = span_split.split(evs)
+    assert (got["readback_wait_s"], got["readback_staging_s"]) == (0, 0)
 
 
 def test_readings_per_million_reads():
     spans = {"span_s": {"fmbench.batch": 2.0, "tpufm.search": 1.9, "tpufm.wave.upload": 0.5,
                         "tpufm.wave.enqueue": 0.4, "tpufm.wave.readback": 0.9},
-             "span_device_s": {"tpufm.count.variants": 0.25}, "readback_wait_s": 0.6}
-    got = span_split.readings(spans, {profiling.H2D_BYTES: 3_000_000_000}, 2_000_000)
+             "span_device_s": {"tpufm.count.variants": 0.25},
+             "readback_blocked_s": 0.7, "readback_wait_s": 0.6, "readback_staging_s": 0.04}
+    got = span_split.readings(spans, 2_000_000, 1500)
     assert got == pytest.approx({
         "upload_ms_per_mread": 250.0, "enqueue_ms_per_mread": 200.0, "wait_ms_per_mread": 300.0,
-        "readback_ms_per_mread": 150.0, "upload_gbps": 6.0, "variants_device_ms_per_mread": 125.0,
-        "wave_steps_share_of_call": 1.8 / 1.9, "call_share_of_batch": 0.95})
-    assert span_split.readings({"span_s": {}, "span_device_s": {}}, {}, 10) == {}
+        "readback_ms_per_mread": 150.0, "staging_ms_per_mread": 20.0, "upload_gbps": 6.0,
+        "variants_device_ms_per_mread": 125.0, "wave_steps_share_of_call": 1.8 / 1.9,
+        "call_share_of_batch": 0.95})
+    assert span_split.readings({"span_s": {}, "span_device_s": {}}, 10, 120) == {}
 
 
 #: a traced run of a tiny exact cell through the script, in an interpreter
@@ -341,8 +368,8 @@ print(json.dumps(r))
 
 def test_traced_cpu_run_of_a_cell_splits_its_window():
     """The script over the harness on the CPU at a tiny size: the run is
-    correct, the calls cover the batches, the counter holds every read the
-    window sent."""
+    correct, the calls cover the batches, the wave steps cover the calls,
+    the upload's rate is read from the reads the window sent."""
     out = subprocess.run([sys.executable, "-c", _CPU_RUN, str(ROOT / "scripts" / "span_split.py")],
                          capture_output=True, text=True, cwd=ROOT, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
@@ -350,7 +377,8 @@ def test_traced_cpu_run_of_a_cell_splits_its_window():
     assert r["correct"] is True
     sp = r["spans"]
     assert sp["reads"] == r["batches"]["sent"] * 256
-    assert sp["counters"][profiling.H2D_BYTES] == sp["reads"] * 120
+    assert sp["readings"]["upload_gbps"] == pytest.approx(
+        sp["reads"] * 120 / sp["span_s"]["tpufm.wave.upload"] / 1e9)
     assert sp["span_n"]["tpufm.search"] >= r["batches"]["completed"]
     assert sp["readings"]["call_share_of_batch"] >= 0.95
     assert sp["readings"]["wave_steps_share_of_call"] >= 0.95
@@ -359,9 +387,11 @@ def test_traced_cpu_run_of_a_cell_splits_its_window():
 @pytest.mark.gpu
 def test_readback_waits_for_the_newest_wave_on_card():
     """One traced ``SearchEngine.search`` of three waves on the card: each
-    read-back span launches one device-to-host copy, which the stream runs
-    after every kernel launched before it (the newest wave's rounds too),
-    and the script reads the host's wait for them; no span is a kernel."""
+    read-back span launches one device-to-host copy, which the device runs
+    inside its call, on the profiler's one clock, after every kernel
+    launched before it (the newest wave's rounds too); the script reads the
+    host's wait for them, and wait, copy and staging add up to the call;
+    no span is a kernel."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: the port's kernels have no CPU mode")
     codes, index = _index(k=3, d=192, n=20000)
@@ -381,7 +411,11 @@ def test_readback_waits_for_the_newest_wave_on_card():
     for back, copy in zip(backs, dtoh):
         call = calls[copy.corr]
         assert back.start <= call.start <= call.end <= back.end
+        assert call.start <= copy.start <= copy.end <= call.end
         before = [k for k in kernels if calls[k.corr].start < call.start]
         assert before and copy.start >= max(k.end for k in before)
-    assert span_split.split(evs)["readback_wait_s"] > 0
+    got = span_split.split(evs)
+    assert got["readback_wait_s"] > 0
+    parts = got["readback_wait_s"] + got["span_device_s"]["tpufm.wave.readback"] + got["readback_staging_s"]
+    assert parts == pytest.approx(got["readback_blocked_s"], rel=1e-6)
     assert not any(e.name.startswith("tpufm.") for e in evs if e.kind == "kernel")

@@ -42,6 +42,7 @@ mesh of devices.
     python -m tpufm_torch.cli dumpentry INDEX ENTRY [--num N]
     python -m tpufm_torch.cli diff A.res B.res
     python -m tpufm_torch.cli dumpbwt REF REFSIZE [--k K]
+    python -m tpufm_torch.cli --trace DIR <command> ...
 
 Counterparts of ``tpufm build`` (``cmd_build``, tpufm/cli.py:54, on the
 host or with --on-device on the card: one suffix sort serves the index and
@@ -90,6 +91,10 @@ tpufm's. ``transform`` (:158) writes the interleaved and alternate-counters
 images of a baseline .fmi; ``dumpentry`` (:707), ``diff`` (:1871) and
 ``dumpbwt`` (:1888) print as tpufm's do. ``--device`` defaults to cuda and
 never falls back to the CPU; the host-only commands take no --device.
+``--trace DIR`` before any command (the port's own) profiles it and writes
+``DIR/trace.json`` (tpufm_torch.profiling.trace): its kernels and copies,
+and the program's spans, the engines' ``tpufm.*`` and the stages'
+``tpufm.cli.<stage>``, on one clock.
 """
 
 from __future__ import annotations
@@ -103,7 +108,7 @@ import time
 
 import numpy as np
 
-from tpufm_torch import bench, sweep, tools
+from tpufm_torch import bench, profiling, sweep, tools
 from tpufm_torch.config import recommend_config
 from tpufm_torch.device import resolve_device
 from tpufm_torch.engine.edit import EditExtendEngine
@@ -1282,6 +1287,9 @@ def _add_device(p) -> None:
 
 def main(argv=None):
     p = argparse.ArgumentParser(prog="python -m tpufm_torch.cli")
+    p.add_argument("--trace", default=None, metavar="DIR",
+                   help="profile the command (torch.profiler) and write DIR/trace.json: its "
+                        "device work and the program's tpufm.* spans on one clock")
     sub = p.add_subparsers(dest="cmd", required=True)
     b = sub.add_parser("build", help="build a k-step FM-index from FASTA (on the host, or on the card)")
     b.add_argument("reference")
@@ -1542,7 +1550,10 @@ def main(argv=None):
     db.add_argument("--k", type=int, default=2)
     db.set_defaults(fn=cmd_dumpbwt)
     args = p.parse_args(argv)
-    return args.fn(args)
+    if args.trace is None:
+        return args.fn(args)
+    with profiling.trace(args.trace):
+        return args.fn(args)
 
 
 if __name__ == "__main__":

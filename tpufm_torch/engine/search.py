@@ -70,7 +70,7 @@ from tpufm_torch.engine.tables import (
 )
 from tpufm_torch.host.index import AltCountersIndex, KStepFMIndex
 from tpufm_torch.host.seqio import VARLEN_PAD
-from tpufm_torch.profiling import H2D_BYTES, count, span
+from tpufm_torch.profiling import span
 
 
 def _words(a: np.ndarray | torch.Tensor | None, device: torch.device) -> torch.Tensor | None:
@@ -589,10 +589,10 @@ def stream_waves(items: np.ndarray, wave: int, fn, device: torch.device | None, 
     dropped. A batch of at most one wave goes through as it is.
 
     Under a profiler each wave's steps are spans: ``tpufm.wave.upload`` (the
-    copy to ``device``, whose bytes the counter ``H2D_BYTES`` adds up),
-    ``tpufm.wave.enqueue`` (``fn``), then for the wave before it
-    ``tpufm.wave.readback`` (the copy to the host, which for a CUDA result
-    first waits for the stream's queued rounds, and the uint32 store)."""
+    copy to ``device``), ``tpufm.wave.enqueue`` (``fn``), then for the wave
+    before it ``tpufm.wave.readback`` (the copy to the host, which for a CUDA
+    result first waits for the stream's queued rounds, and the uint32
+    store)."""
     if wave <= 0:
         raise ValueError(f"wave must be positive, got {wave}")
     B = items.shape[0]
@@ -601,11 +601,9 @@ def stream_waves(items: np.ndarray, wave: int, fn, device: torch.device | None, 
     for start in range(0, B, wave):
         chunk = items[start:start + wave]
         real = chunk.shape[0]
-        if device is None:
-            if B > wave and real < wave:
-                chunk = pad_cycle(chunk, wave - real)
-        else:
-            count(H2D_BYTES, chunk.nbytes)
+        if device is None and B > wave and real < wave:
+            chunk = pad_cycle(chunk, wave - real)
+        if device is not None:
             with span("tpufm.wave.upload"):
                 chunk = torch.from_numpy(chunk).to(device)
         with span("tpufm.wave.enqueue"):

@@ -1,5 +1,5 @@
-"""Profiling helpers: a device trace of a block, the program's spans and
-counters on that trace, and timed passes.
+"""Profiling helpers: a device trace of a block, the program's spans on that
+trace, and timed passes.
 
 Counterpart of tpufm/utils/profiling.py: ``trace`` (:18) over
 ``torch.profiler`` in place of ``jax.profiler``, writing a Chrome trace;
@@ -13,9 +13,9 @@ its device events and written out by its exporter. With no profiler running
 it opens nothing. The engines' spans are named ``tpufm.*`` (``tpufm.search``,
 ``tpufm.count``, ``tpufm.wave.upload`` / ``enqueue`` / ``readback``,
 ``tpufm.search.*``, ``tpufm.count.*``, ``tpufm.locate.compact``), the CLI's
-stages ``tpufm.cli.<stage>``.
-``count(name, n)`` adds to a counter that is always on; ``counters()`` is a
-copy of them all (``H2D_BYTES``: the bytes each wave hands to its device).
+stages ``tpufm.cli.<stage>``; ``python -m tpufm_torch.cli --trace DIR
+<command> ...`` writes them with the command's device work to
+``DIR/trace.json``.
 """
 
 from __future__ import annotations
@@ -27,11 +27,7 @@ import torch
 
 from tpufm_torch.timer import timed_device_passes
 
-#: bytes ``stream_waves`` hands to the device, wave by wave
-H2D_BYTES = "tpufm.h2d_bytes"
-
 _OFF = contextlib.nullcontext()
-_COUNTERS: dict[str, int] = {}
 
 
 def span(name: str):
@@ -40,17 +36,6 @@ def span(name: str):
     if torch.autograd._profiler_enabled():
         return torch.profiler.record_function(name)
     return _OFF
-
-
-def count(name: str, n: int) -> None:
-    """Add ``n`` to the counter ``name``."""
-    _COUNTERS[name] = _COUNTERS.get(name, 0) + n
-
-
-def counters() -> dict[str, int]:
-    """A copy of every counter: the difference of two copies is what the
-    program did between them."""
-    return dict(_COUNTERS)
 
 
 @contextlib.contextmanager
