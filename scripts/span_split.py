@@ -14,8 +14,8 @@ window's thread and clipped to the window:
 - ``span_s``: host seconds of each ``tpufm.*`` and ``fmbench.*`` span;
 - ``span_n``: how many instances of each;
 - ``span_device_s``: device seconds of the kernels, copies and memsets whose
-  launching runtime call (the same correlation id) starts inside an instance
-  of the span, at any depth;
+  launching runtime call (the same correlation id, on the window's thread)
+  starts inside an instance of the span, at any depth;
 - the read-back's blocking runtime calls (``BLOCKING``) inside
   ``tpufm.wave.readback``, on the profiler's one clock for host and device:
   ``readback_blocked_s``, their host seconds; ``readback_wait_s``, from each
@@ -110,8 +110,9 @@ def split(evs: list[Ev], window: str = "fmbench.window") -> dict:
     for e in evs:
         if e.kind not in ("span", "host") and e.corr and e.end > w0 and e.start < w1:
             device_s[e.corr] = device_s.get(e.corr, 0.0) + (min(e.end, w1) - max(e.start, w0)) / 1e9
-    # the launching call: the runtime call of the id
-    launch_at = {e.corr: e.start for e in evs if e.kind == "host" and e.corr in device_s}
+    # the launching call: the runtime call of the id, on the spans' thread
+    launch_at = {e.corr: e.start for e in evs
+                 if e.kind == "host" and e.corr in device_s and e.thread == win.thread}
     # spans on one thread nest: a stack of the open ones, innermost on top
     span_device_s, stack, i = {}, [], 0
     for t, corr in sorted((t, c) for c, t in launch_at.items()):

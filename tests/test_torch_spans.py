@@ -303,7 +303,9 @@ def test_split_of_a_synthetic_window(flag):
 def test_split_clips_to_the_window():
     evs = [Ev("span", "fmbench.window", 100, 200), Ev("span", "tpufm.wave.enqueue", 50, 150),
            Ev("span", "tpufm.wave.upload", 190, 260), Ev("span", "tpufm.wave.upload", 300, 400),
-           Ev("host", "cudaLaunchKernel", 60, 70, corr=5), Ev("kernel", "k", 80, 160, corr=5)]
+           Ev("host", "cudaLaunchKernel", 60, 70, corr=5), Ev("kernel", "k", 80, 160, corr=5),
+           # a launch from another thread, at a time inside the window's spans, is none of theirs
+           Ev("host", "cudaLaunchKernel", 120, 125, thread=9, corr=6), Ev("kernel", "k", 130, 140, corr=6)]
     got = span_split.split(evs)
     assert got["span_s"] == pytest.approx({"fmbench.window": 100e-9, "tpufm.wave.enqueue": 50e-9,
                                            "tpufm.wave.upload": 10e-9}, abs=1e-15)
